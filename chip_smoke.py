@@ -1,0 +1,397 @@
+"""Drive the PyTorch port on one NVIDIA GPU: build its CUDA kernels, hold
+each against its plain PyTorch version at the main path's shapes, load
+TPC-H lineitem through `SnappySession.insert_arrays` and answer Q1 and Q6
+through `SnappySession.sql` with both kernel lanes on.
+
+    python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3]
+
+Phases, in order; any failure exits non-zero before the result lines:
+
+1. the card's name and power limit (nvidia-smi);
+2. build every kernel with nvcc for sm_90a, one process per source;
+3. generate lineitem at scale factor --sf (6M rows per unit) and load it;
+4. the main path: launch counters set to 0, Q1 and Q6 through
+   `session.sql` with `pallas_group_reduce` and `pallas_reduce` on, the
+   counters read back — each kernel must have launched; the inputs each
+   kernel received are kept for phase 5;
+5. each kernel against its plain version on those inputs (tolerance: the
+   compensated sums within 1e-6 * sum(|v|), counts and min/max exact),
+   timed beside its bound and one PyTorch library call;
+6. the answers: Q1 and Q6 against a float64 numpy oracle computed from the
+   generated arrays, and against the same queries with the knobs off
+   (counts exact, same-sign sums within rel 1e-6);
+7. the kernels' JSON line, then `{"ok": true, "device": ...}` last.
+
+The bound of a kernel is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its float32 operations over
+67 TFLOP/s (H100 SXM data sheet).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+ROWS_PER_SF = 6_000_000
+KERNELS = ("kahan_reduce", "group_reduce")
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of `fn` over `reps` calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Recorder:
+    """Wraps a kernel wrapper to keep the arguments of its calls."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.fn(*args)
+
+
+def run_queries(session, tpch):
+    """Q1 and Q6 through the user entry point; (rows, seconds) each."""
+    import torch
+
+    out = {}
+    for name, q in (("q1", tpch.Q1), ("q6", tpch.Q6)):
+        t0 = time.perf_counter()
+        rows = session.sql(q).rows()
+        torch.cuda.synchronize()
+        out[name] = (rows, time.perf_counter() - t0)
+    return out
+
+
+def oracle(li, tpch):
+    """Q1 / Q6 in float64 numpy straight from the generated arrays."""
+    import numpy as np
+
+    flag = li["l_returnflag"]
+    status = li["l_linestatus"]
+    fcode = (flag == "N").astype(np.int64) + 2 * (flag == "R")
+    scode = (status == "O").astype(np.int64)
+    qty, price = li["l_quantity"], li["l_extendedprice"]
+    disc, tax, ship = li["l_discount"], li["l_tax"], li["l_shipdate"]
+    m = ship <= tpch._days("1998-12-01") - 90
+    g = (fcode * 2 + scode)[m]
+
+    def per(w):
+        return np.bincount(g, weights=w[m], minlength=6)
+
+    cnt = np.bincount(g, minlength=6)
+    sums = [per(qty), per(price), per(price * (1 - disc)),
+            per(price * (1 - disc) * (1 + tax))]
+    avgs = [per(qty), per(price), per(disc)]
+    q1 = []
+    for code in range(6):
+        if cnt[code] == 0:
+            continue
+        key = ("ANR"[code // 2], "FO"[code % 2])
+        q1.append(key + tuple(s[code] for s in sums)
+                  + tuple(a[code] / cnt[code] for a in avgs)
+                  + (int(cnt[code]),))
+    q1.sort(key=lambda r: r[:2])
+    m6 = (ship >= tpch._days("1994-01-01")) \
+        & (ship < tpch._days("1995-01-01")) \
+        & (disc >= 0.05) & (disc <= 0.07) & (qty < 24)
+    q6 = [(float((price[m6] * disc[m6]).sum()),)]
+    return {"q1": q1, "q6": q6}
+
+
+def check_rows(what, got, want, rel=1e-6):
+    import math
+
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} rows, expected {len(want)}")
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            fail(f"{what}: row width {len(g)}, expected {len(w)}")
+        for a, b in zip(g, w):
+            if isinstance(b, str) or isinstance(b, int):
+                if a != b:
+                    fail(f"{what}: {g} != {w}")
+            elif not (math.isfinite(a) and abs(a - b) <= rel * abs(b)):
+                fail(f"{what}: {a!r} vs {b!r} (rel {rel})")
+
+
+def profile_query(session, sql, top=8):
+    """One warm query under torch.profiler: wall ms, the summed device
+    time of its kernels, the device's idle share of the wall time, and
+    the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session.sql(sql).rows()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "idle_share": 1 - dev_ms / wall_ms if dev_ms else None,
+            "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                    for e in dev[:top]]}
+
+
+def kahan_phase(calls, reps):
+    import torch
+
+    from snappydata_tpu_torch.ops.kahan_reduce import (
+        masked_kahan_sum, masked_kahan_sum_plain)
+
+    if not calls:
+        fail("masked_kahan_sum saw no call on the main path")
+    v, w = calls[0]
+    n = v.numel()
+    got = masked_kahan_sum(v, w)
+    plain = masked_kahan_sum_plain(v, w)
+    torch.cuda.synchronize()
+    err = abs(float(got) - float(plain))
+    scale = float(torch.where(w, v.double().abs(), 0).sum())
+    if not err <= 1e-6 * scale:
+        fail(f"masked_kahan_sum: |kernel - plain| = {err} > 1e-6 * {scale}")
+    b_ms, b_by = bound(n * 4 + n * 1 + 8, 4 * n)
+    return {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: masked_kahan_sum(v, w), reps * 10),
+        "plain_ms": cuda_ms(lambda: masked_kahan_sum_plain(v, w), reps),
+        "library_ms": cuda_ms(
+            lambda: torch.where(w, v, 0).double().sum(), reps * 10),
+        "bound_ms": b_ms, "bound_by": b_by, "rows": n}
+
+
+def grouped_phase(calls, reps):
+    import torch
+
+    from snappydata_tpu_torch.ops.group_reduce import (
+        grouped_reduce, grouped_reduce_plain)
+
+    if not calls:
+        fail("grouped_reduce saw no call on the main path")
+    ops, gidx, G = calls[0]
+    n = gidx.numel()
+    got = grouped_reduce(ops, gidx, G)
+    plain = grouped_reduce_plain(ops, gidx, G)
+    torch.cuda.synchronize()
+    err = 0.0
+    for (kind, v, w), k, p in zip(ops, got, plain):
+        if kind in ("count", "min", "max"):
+            same = (k == p) | (torch.isinf(k) & torch.isinf(p) & (k == p))
+            if not bool(same.all()):
+                fail(f"grouped_reduce {kind}: kernel {k.tolist()} != "
+                     f"plain {p.tolist()}")
+            continue
+        diff = (k - p).abs()
+        scale = torch.zeros(G, dtype=torch.float64, device=gidx.device)
+        scale.index_add_(0, gidx.long(), torch.where(w, v.double().abs(), 0))
+        if not bool((diff <= 1e-6 * scale + 1e-9).all()):
+            fail(f"grouped_reduce sum: |kernel - plain| {diff.tolist()} "
+                 f"beyond 1e-6 * sum(|v|) {scale.tolist()}")
+        err = max(err, float(diff.max()))
+    values = {id(v) for _k, v, _w in ops if v is not None}
+    masks = {id(w) for _k, _v, w in ops}
+    nbytes = n * 4 + 4 * n * len(values) + n * len(masks) + 8 * G * len(ops)
+    nops = n * sum(4 if k == "sum" else 1 for k, _v, _w in ops)
+    b_ms, b_by = bound(nbytes, nops)
+    # the library yardstick: one index_add_ of the same sums and counts,
+    # packed as [n, ops] float64 columns beforehand (packing not timed)
+    idx = gidx.long()
+    packed = torch.stack(
+        [torch.where(w, v, 0).double() if v is not None else w.double()
+         for _k, v, w in ops if _k in ("sum", "count")], dim=1)
+    return {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: grouped_reduce(ops, gidx, G), reps * 10),
+        "plain_ms": cuda_ms(lambda: grouped_reduce_plain(ops, gidx, G),
+                            reps),
+        "library_ms": cuda_ms(
+            lambda: torch.zeros(G, packed.shape[1], dtype=torch.float64,
+                                device=idx.device).index_add_(0, idx, packed),
+            reps * 10),
+        "bound_ms": b_ms, "bound_by": b_by, "rows": n, "ops": len(ops),
+        "groups": G}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sf", type=float, default=16.0,
+                    help="TPC-H scale factor of lineitem (6M rows each)")
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one warm Q1 and Q6 with torch.profiler")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        from snappydata_tpu_torch import SnappySession, config
+        from snappydata_tpu_torch.catalog import Catalog
+        from snappydata_tpu_torch.engine import executor
+        from snappydata_tpu_torch.ops import cuda_build
+        from snappydata_tpu_torch.ops import group_reduce as gr
+        from snappydata_tpu_torch.ops import kahan_reduce as kr
+        from snappydata_tpu_torch.utils import tpch
+    except ImportError as e:
+        fail(f"the snappydata_tpu_torch package is not beside this script "
+             f"({e})")
+    if "jax" in sys.modules or any(m.startswith("snappydata_tpu.")
+                                   for m in sys.modules):
+        fail("the port imported JAX or the JAX package")
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    kind = torch.cuda.get_device_name(0)
+
+    # 2. build
+    t0 = time.perf_counter()
+    try:
+        cuda_build.build(KERNELS, force=True)
+    except RuntimeError as e:
+        fail(str(e))
+    log(f"build_s {time.perf_counter() - t0:.3f} ({', '.join(KERNELS)})")
+
+    # 3. data
+    n_rows = int(args.sf * ROWS_PER_SF)
+    t0 = time.perf_counter()
+    li = tpch.gen_lineitem(n_rows, args.seed)
+    log(f"gen_s {time.perf_counter() - t0:.3f} rows {n_rows}")
+    props = config.global_properties()
+    session = SnappySession(catalog=Catalog())   # device: cuda
+    session.sql(tpch.LINEITEM_DDL)
+    t0 = time.perf_counter()
+    session.insert_arrays("lineitem", list(li.values()))
+    load_s = time.perf_counter() - t0
+    log(f"load_s {load_s:.3f} rows_per_s {n_rows / load_s:.0f}")
+
+    # 4. the main path, kernel lanes on
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    # the executor's references to the two wrappers record the inputs
+    # the main path hands each kernel; the wrappers count their launches
+    rec_k = Recorder(executor.masked_kahan_sum)
+    rec_g = Recorder(executor.grouped_reduce)
+    executor.masked_kahan_sum = rec_k
+    executor.grouped_reduce = rec_g
+    kr.masked_kahan_sum.launches = 0
+    gr.grouped_reduce.launches = 0
+    try:
+        first = run_queries(session, tpch)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"main path: {type(e).__name__}: {e}")
+    launches = {"masked_kahan_sum": kr.masked_kahan_sum.launches,
+                "grouped_reduce": gr.grouped_reduce.launches}
+    executor.masked_kahan_sum = rec_k.fn
+    executor.grouped_reduce = rec_g.fn
+    log(f"main_path_launches {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"{name} did not launch on the main path")
+    for q, (rows, s) in first.items():
+        log(f"{q}_first_s {s:.3f}")
+    warm = {}
+    for q in ("q1", "q6"):
+        times = []
+        for _ in range(args.reps):
+            times.append(run_queries(session, tpch)[q][1])
+        warm[q] = sorted(times)[len(times) // 2]
+        log(f"{q}_warm_s {warm[q]:.4f} rows_per_s {n_rows / warm[q]:.0f}")
+    if args.profile:
+        for q in ("q1", "q6"):
+            log(f"profile {q} " + json.dumps(
+                profile_query(session, getattr(tpch, q.upper()))))
+
+    # 5. kernels against their plain versions, on the main path's inputs
+    kres = {"masked_kahan_sum": kahan_phase(rec_k.calls, args.reps),
+            "grouped_reduce": grouped_phase(rec_g.calls, args.reps)}
+    for name, r in kres.items():
+        log(f"kernel {name} " + json.dumps(r))
+
+    # 6. the answers
+    want = oracle(li, tpch)
+    for q in ("q1", "q6"):
+        check_rows(f"{q} vs numpy oracle", first[q][0], want[q])
+    props.pallas_reduce = False
+    props.pallas_group_reduce = False
+    off = run_queries(session, tpch)
+    for q in ("q1", "q6"):
+        check_rows(f"{q} vs knobs off", first[q][0], off[q][0])
+        log(f"{q}_knobs_off_s {off[q][1]:.4f}")
+    log("answers ok: Q1 (%d groups) and Q6 match the oracle and the "
+        "knobs-off lanes" % len(first["q1"][0]))
+
+    # 7. result lines
+    src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
+                                "snappydata_tpu/ops/pallas_reduce.py:48"),
+           "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",
+                              "snappydata_tpu/ops/pallas_group.py:103")}
+    kernels = []
+    for name, r in kres.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": src[name][0],
+            "replaces": src[name][1], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

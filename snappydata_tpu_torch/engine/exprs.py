@@ -1,0 +1,496 @@
+"""Expression -> tensor lowering with three-valued (SQL NULL) logic.
+
+Port of snappydata_tpu/engine/exprs.py, cut to the subset the analytic
+scan needs (TPC-H Q1/Q6 and the README Quick start): column refs,
+tokenized literals as runtime scalars, + - * / %, comparisons, BETWEEN,
+AND/OR/NOT with Kleene logic, IS NULL, casts between numeric types,
+numeric IN lists, string = / < / IN through host-built dictionary lookup
+tables, and the code-domain compare lane (`_compressed_cmp`).  Anything
+else raises CompileError, which the executor turns into the reference's
+host fallback (engine/hosteval.py).
+
+Design, as in the reference:
+- Values are (value, null) pairs; null masks exist only where a source
+  is nullable.
+- Strings never reach the device: a string column is int32 dictionary
+  codes, and a predicate `str_col OP literal` evaluates ONCE over the host
+  dictionary into a bool lookup table applied as one gather.
+- Tokenized literals arrive as 0-dim tensors, so a changed literal reuses
+  the compiled plan.
+
+Emission is two-phase: `ExprBuilder.emit` runs structurally (no tensors),
+registering aux-input builders and returning a closure; the closure runs
+at execution time over the bound plates.  PyTorch runs eagerly, so
+"compiling" a plan only builds these closures.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from snappydata_tpu_torch import config
+from snappydata_tpu_torch import types as T
+from snappydata_tpu_torch.sql import ast
+from snappydata_tpu_torch.storage.device_decode import (code_cmp_mask,
+                                                        code_values,
+                                                        promote)
+
+
+class CompileError(Exception):
+    pass
+
+
+class DVal:
+    """A runtime value: device tensor + optional null mask + static type.
+
+    `cplate` marks a base-table column resident in the code domain
+    (storage/device_decode.CodePlate): its value decodes lazily, on the
+    first read of `.value`, and comparisons against scalars take the
+    code lane instead of touching values."""
+
+    __slots__ = ("_value", "null", "dtype", "dictionary", "cplate")
+
+    def __init__(self, value, null=None, dtype: T.DataType = None,
+                 dictionary=None, cplate=None):
+        self._value = value
+        self.null = null
+        self.dtype = dtype
+        self.dictionary = dictionary
+        self.cplate = cplate
+
+    @property
+    def value(self) -> torch.Tensor:
+        if self._value is None and self.cplate is not None:
+            self._value = code_values(self.cplate)
+        return self._value
+
+
+def _or_null(a, b):
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a | b
+
+
+_FLIP_CMP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=",
+             "=": "=", "!=": "!="}
+
+_CMP = {"=": torch.eq, "!=": torch.ne, "<": torch.lt, "<=": torch.le,
+        ">": torch.gt, ">=": torch.ge}
+
+_ARITH = {"+": torch.add, "-": torch.sub, "*": torch.mul,
+          "%": torch.remainder}
+
+
+def _compressed_cmp(op: str, col: DVal, lit: DVal) -> Optional[DVal]:
+    """Code-domain lowering of `col OP scalar-literal` when the column is
+    resident as a code plate.  Value-domain equivalence is exact: code
+    thresholds translate through the sorted dictionary in the promoted
+    compare dtype.  None when the shape doesn't qualify — the generic
+    value compare runs."""
+    if col.cplate is None or lit.cplate is not None:
+        return None
+    if lit.dtype is not None and lit.dtype.name == "string":
+        return None
+    if lit.null is not None or lit.value.dim() != 0:
+        return None
+    m = code_cmp_mask(op, col.cplate, lit.value)
+    return DVal(m, _or_null(col.null, lit.null), T.BOOLEAN)
+
+
+def _is_exact_decimal(dt: Optional[T.DataType]) -> bool:
+    return dt is not None and dt.name == "decimal" \
+        and getattr(dt, "is_exact", False)
+
+
+def float_dtype() -> torch.dtype:
+    return torch.float64 if config.use_float64() else torch.float32
+
+
+class Runtime:
+    """Runtime tensors handed to emitted closures."""
+
+    def __init__(self, cols: Dict[int, DVal], params: Sequence,
+                 aux: Sequence, device: torch.device):
+        self.cols = cols
+        self.params = params  # 0-dim tensors, one per tokenized literal
+        self.aux = aux        # aux tensors, in registration order
+        self.device = device
+
+
+class ExprBuilder:
+    """Structural compiler for one scope.
+
+    col_types[i] — dtype of input ordinal i
+    col_nullable[i] — whether ordinal i can produce nulls
+    dict_getters[i] — bind-time callable returning the CURRENT host
+        dictionary for string ordinal i (dictionaries grow with ingest)
+    """
+
+    def __init__(self, col_types: Dict[int, T.DataType],
+                 col_nullable: Dict[int, bool],
+                 dict_getters: Dict[int, Callable[[], np.ndarray]]):
+        self.col_types = col_types
+        self.col_nullable = col_nullable
+        self.dict_getters = dict_getters
+        # aux builders: fn(params: tuple) -> np.ndarray, run at bind time
+        self.aux_builders: List[Callable] = []
+
+    # -- aux registration --------------------------------------------------
+
+    def _register_aux(self, builder: Callable) -> int:
+        self.aux_builders.append(builder)
+        return len(self.aux_builders) - 1
+
+    def _string_pred_lut(self, col_idx: int,
+                         fn: Callable[[np.ndarray, tuple], np.ndarray]) -> int:
+        """Register a bool LUT over the column's dictionary, padded to a
+        power of two so dictionary growth rarely changes its shape."""
+        if col_idx not in self.dict_getters:
+            raise CompileError("string column without a dictionary")
+        getter = self.dict_getters[col_idx]
+
+        def build(params):
+            d = getter()
+            lut = fn(d, params).astype(np.bool_)
+            n = max(1, len(lut))
+            padded = 1 << (n - 1).bit_length()
+            if padded > len(lut):
+                lut = np.concatenate([lut, np.zeros(padded - len(lut),
+                                                    dtype=np.bool_)])
+            return lut
+
+        return self._register_aux(build)
+
+    # -- literals ----------------------------------------------------------
+
+    def _param_value(self, e, params):
+        if isinstance(e, (ast.ParamLiteral, ast.Param)):
+            return params[e.pos]
+        if isinstance(e, ast.Lit):
+            return e.value
+        raise CompileError("expected literal")
+
+    @staticmethod
+    def _is_literalish(e) -> bool:
+        return isinstance(e, (ast.Lit, ast.ParamLiteral, ast.Param))
+
+    # -- main emit ---------------------------------------------------------
+
+    def emit(self, e: ast.Expr) -> Callable[[Runtime], DVal]:
+        if isinstance(e, ast.Alias):
+            return self.emit(e.child)
+
+        if isinstance(e, ast.Col):
+            if _is_exact_decimal(e.dtype
+                                 or self.col_types.get(e.index)):
+                raise CompileError("exact-decimal columns are not ported "
+                                   "to the device path")
+            idx = e.index
+
+            def run_col(rt: Runtime) -> DVal:
+                return rt.cols[idx]
+
+            return run_col
+
+        if isinstance(e, ast.Lit):
+            return self._emit_literal(e.value, e.dtype)
+
+        if isinstance(e, (ast.ParamLiteral, ast.Param)):
+            pos, dtype = e.pos, e.dtype
+            if dtype is not None and dtype.name == "string":
+                raise CompileError(
+                    "string literal outside a dictionary predicate")
+            if _is_exact_decimal(dtype):
+                raise CompileError("exact-decimal literal: host path")
+
+            def run_param(rt: Runtime) -> DVal:
+                return DVal(rt.params[pos], None, dtype or T.DOUBLE)
+
+            return run_param
+
+        if isinstance(e, ast.BinOp):
+            return self._emit_binop(e)
+
+        if isinstance(e, ast.UnaryOp):
+            child = self.emit(e.child)
+            if e.op == "not":
+                def run_not(rt: Runtime) -> DVal:
+                    c = child(rt)
+                    return DVal(~c.value, c.null, T.BOOLEAN)
+
+                return run_not
+
+            def run_neg(rt: Runtime) -> DVal:
+                c = child(rt)
+                return DVal(-c.value, c.null, c.dtype)
+
+            return run_neg
+
+        if isinstance(e, ast.IsNull):
+            child = self.emit(e.child)
+            negated = e.negated
+
+            def run_isnull(rt: Runtime) -> DVal:
+                c = child(rt)
+                null = c.null if c.null is not None else torch.zeros(
+                    c.value.shape, dtype=torch.bool, device=rt.device)
+                return DVal(~null if negated else null, None, T.BOOLEAN)
+
+            return run_isnull
+
+        if isinstance(e, ast.Between):
+            both = ast.BinOp("and", ast.BinOp(">=", e.child, e.lo),
+                             ast.BinOp("<=", e.child, e.hi))
+            if e.negated:
+                both = ast.UnaryOp("not", both)
+            return self.emit(both)
+
+        if isinstance(e, ast.InList):
+            return self._emit_in(e)
+
+        if isinstance(e, ast.Cast):
+            return self._emit_cast(e)
+
+        if isinstance(e, ast.Func) and e.name in ast.AGG_FUNCS:
+            raise CompileError(
+                f"aggregate {e.name} outside aggregation context")
+
+        raise CompileError(f"{type(e).__name__} "
+                           f"{getattr(e, 'name', '')} is not ported to the "
+                           f"device path")
+
+    # -- pieces ------------------------------------------------------------
+
+    def _emit_literal(self, value, dtype) -> Callable[[Runtime], DVal]:
+        if value is None:
+            def run_null(rt: Runtime) -> DVal:
+                z = torch.zeros((), dtype=torch.float32, device=rt.device)
+                return DVal(z, torch.ones((), dtype=torch.bool,
+                                          device=rt.device),
+                            dtype or T.DOUBLE)
+
+            return run_null
+        if dtype is not None and dtype.name == "string":
+            raise CompileError(
+                "string literal outside a dictionary predicate")
+        eff = dtype or (T.DOUBLE if isinstance(value, float) else T.LONG)
+        if _is_exact_decimal(eff):
+            raise CompileError("exact-decimal literal: host path")
+        const = np.asarray(value, dtype=eff.device_dtype())
+
+        def run_lit(rt: Runtime) -> DVal:
+            return DVal(torch.from_numpy(const).to(rt.device), None, eff)
+
+        return run_lit
+
+    def _string_operand_info(self, e: ast.Expr) -> Optional[int]:
+        """If e is (an alias of) a raw string column, return its ordinal."""
+        if isinstance(e, ast.Alias):
+            return self._string_operand_info(e.child)
+        if isinstance(e, ast.Col):
+            dt = e.dtype if e.dtype is not None \
+                else self.col_types.get(e.index)
+            if dt is not None and dt.name == "string":
+                return e.index
+        return None
+
+    def _emit_binop(self, e: ast.BinOp) -> Callable[[Runtime], DVal]:
+        op = e.op
+        # --- string predicate vs literal -> dictionary LUT ---
+        if op in _CMP:
+            lcol = self._string_operand_info(e.left)
+            rcol = self._string_operand_info(e.right)
+            if lcol is not None and self._is_literalish(e.right):
+                return self._emit_string_cmp(lcol, op, e.right)
+            if rcol is not None and self._is_literalish(e.left):
+                return self._emit_string_cmp(rcol, _FLIP_CMP[op], e.left)
+            if lcol is not None and rcol is not None:
+                return self._emit_string_colcmp(lcol, rcol, op)
+            if lcol is not None or rcol is not None:
+                raise CompileError("string comparison shape: host path")
+
+        left = self.emit(e.left)
+        right = self.emit(e.right)
+
+        if op in ("and", "or"):
+            is_and = op == "and"
+
+            def run_logic(rt: Runtime) -> DVal:
+                a, b = left(rt), right(rt)
+                v = (a.value & b.value) if is_and else (a.value | b.value)
+                null = None
+                if a.null is not None or b.null is not None:
+                    an = a.null if a.null is not None else False
+                    bn = b.null if b.null is not None else False
+                    if is_and:  # Kleene: false and null = false
+                        null = (an & bn) | (an & b.value) | (bn & a.value)
+                        v = v & ~null
+                    else:       # true or null = true
+                        null = (an & bn) | (an & ~b.value) | (bn & ~a.value)
+                return DVal(v, null, T.BOOLEAN)
+
+            return run_logic
+
+        if op == "/":
+            def run_div(rt: Runtime) -> DVal:
+                a, b = left(rt), right(rt)
+                av, bv = a.value, b.value
+                if not av.is_floating_point():
+                    av = av.to(float_dtype())
+                if not bv.is_floating_point():
+                    bv = bv.to(float_dtype())
+                dt = promote(av.dtype, bv.dtype)
+                zero = b.value == 0
+                null = _or_null(_or_null(a.null, b.null), zero)
+                safe = torch.where(zero, torch.ones((), dtype=dt,
+                                                    device=rt.device),
+                                   bv.to(dt))
+                return DVal(av.to(dt) / safe, null, T.DOUBLE)
+
+            return run_div
+
+        is_cmp = op in _CMP
+        if not is_cmp and op not in _ARITH:
+            raise CompileError(f"operator {op} is not ported")
+        fn = _CMP[op] if is_cmp else _ARITH[op]
+
+        def run_bin(rt: Runtime) -> DVal:
+            a, b = left(rt), right(rt)
+            if is_cmp:
+                # compressed-domain lane: a code-resident column vs a
+                # scalar literal compares on codes, never on values
+                cm = _compressed_cmp(op, a, b)
+                if cm is None:
+                    cm = _compressed_cmp(_FLIP_CMP[op], b, a)
+                if cm is not None:
+                    return cm
+            av, bv = a.value, b.value
+            dt = promote(av.dtype, bv.dtype)
+            v = fn(av.to(dt), bv.to(dt))
+            out_t = T.BOOLEAN if is_cmp else _promote(a.dtype, b.dtype)
+            return DVal(v, _or_null(a.null, b.null), out_t)
+
+        return run_bin
+
+    def _emit_string_cmp(self, col_idx: int, op: str, lit_expr
+                         ) -> Callable[[Runtime], DVal]:
+        get_lit = (lambda params: self._param_value(lit_expr, params))
+        ops = {"=": np.equal, "!=": np.not_equal,
+               "<": np.less, "<=": np.less_equal,
+               ">": np.greater, ">=": np.greater_equal}
+        cmp = ops[op]
+
+        def one(v, params):
+            return v is not None and bool(cmp(v, get_lit(params)))
+
+        aux_i = self._string_pred_lut(
+            col_idx, lambda d, params: np.array(
+                [one(v, params) for v in d],
+                dtype=np.bool_) if len(d) else np.zeros(0, np.bool_))
+        return self._lut_runner(col_idx, aux_i)
+
+    def _emit_string_colcmp(self, li: int, ri: int, op: str
+                            ) -> Callable[[Runtime], DVal]:
+        """string col vs string col — same-dictionary equality only."""
+        if op not in ("=", "!="):
+            raise CompileError("ordering between two string columns "
+                               "is not supported on device")
+        neg = op == "!="
+
+        def run(rt: Runtime) -> DVal:
+            a, b = rt.cols[li], rt.cols[ri]
+            da = a.dictionary() if callable(a.dictionary) else a.dictionary
+            db = b.dictionary() if callable(b.dictionary) else b.dictionary
+            if da is not None and db is not None and da is not db and \
+                    list(da) != list(db):
+                raise CompileError("cross-dictionary string comparison "
+                                   "not supported on device")
+            v = (a.value != b.value) if neg else (a.value == b.value)
+            return DVal(v, _or_null(a.null, b.null), T.BOOLEAN)
+
+        return run
+
+    def _lut_runner(self, col_idx: int, aux_i: int
+                    ) -> Callable[[Runtime], DVal]:
+        def run(rt: Runtime) -> DVal:
+            c = rt.cols[col_idx]
+            lut = rt.aux[aux_i]
+            codes = c.value
+            v = torch.index_select(lut, 0, codes.reshape(-1)) \
+                .reshape(codes.shape)
+            return DVal(v, c.null, T.BOOLEAN)
+
+        return run
+
+    def _emit_in(self, e: ast.InList) -> Callable[[Runtime], DVal]:
+        negated = e.negated
+        col_idx = self._string_operand_info(e.child)
+        if col_idx is not None:
+            getters = [(lambda params, x=v: self._param_value(x, params))
+                       for v in e.values]
+            aux_i = self._string_pred_lut(
+                col_idx,
+                lambda d, params: np.isin(
+                    np.array([x if x is not None else "" for x in d]),
+                    np.array([str(g(params)) for g in getters])))
+            base = self._lut_runner(col_idx, aux_i)
+            if not negated:
+                return base
+
+            def run_negated(rt: Runtime) -> DVal:
+                r = base(rt)
+                return DVal(~r.value, r.null, T.BOOLEAN)
+
+            return run_negated
+
+        if len(e.values) > 8:
+            raise CompileError("large IN list: host path")
+        child = self.emit(e.child)
+        values = [self.emit(v) for v in e.values]
+
+        def run_in(rt: Runtime) -> DVal:
+            c = child(rt)
+            acc = None
+            null = c.null
+            for v in values:
+                dv = v(rt)
+                dt = promote(c.value.dtype, dv.value.dtype)
+                hit = c.value.to(dt) == dv.value.to(dt)
+                null = _or_null(null, dv.null)
+                acc = hit if acc is None else (acc | hit)
+            if negated:
+                acc = ~acc
+            return DVal(acc, null, T.BOOLEAN)
+
+        return run_in
+
+    def _emit_cast(self, e: ast.Cast) -> Callable[[Runtime], DVal]:
+        to = e.to
+        if to.name in ("string", "decimal") or not (
+                T.is_numeric(to) or to.name == "boolean"):
+            raise CompileError(f"CAST to {to} is not ported to the device "
+                               f"path")
+        child = self.emit(e.child)
+        tdt = T.torch_dtype(to.device_dtype())
+
+        def run_cast(rt: Runtime) -> DVal:
+            c = child(rt)
+            return DVal(c.value.to(tdt), c.null, to)
+
+        return run_cast
+
+
+def _promote(a: Optional[T.DataType], b: Optional[T.DataType]) -> T.DataType:
+    if a is None:
+        return b or T.DOUBLE
+    if b is None:
+        return a
+    try:
+        return T.common_type(a, b)
+    except TypeError:
+        return a

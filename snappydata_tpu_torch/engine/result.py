@@ -1,0 +1,123 @@
+"""Query results: named host columns with null masks."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from snappydata_tpu_torch import types as T
+
+
+@dataclasses.dataclass
+class Result:
+    names: List[str]
+    columns: List[np.ndarray]          # host arrays (strings materialized)
+    nulls: List[Optional[np.ndarray]]  # bool masks or None
+    dtypes: List[T.DataType]
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.columns[0].shape[0]) if self.columns else 0
+
+    def rows(self) -> List[tuple]:
+        out = []
+        for i in range(self.num_rows):
+            row = []
+            for c, nmask in zip(self.columns, self.nulls):
+                if nmask is not None and nmask[i]:
+                    row.append(None)
+                else:
+                    v = c[i]
+                    row.append(v.item() if hasattr(v, "item") else v)
+            out.append(tuple(row))
+        return out
+
+    def column(self, name: str) -> np.ndarray:
+        return self.columns[[n.lower() for n in self.names].index(name.lower())]
+
+    def to_pandas(self):
+        import pandas as pd
+
+        data = {}
+        for name, c, nmask in zip(self.names, self.columns, self.nulls):
+            if nmask is not None and nmask.any():
+                obj = c.astype(object)
+                obj[nmask] = None
+                data[name] = obj
+            else:
+                data[name] = c
+        return pd.DataFrame(data)
+
+    def __repr__(self):
+        head = self.rows()[:20]
+        return (f"Result({self.num_rows} rows: {', '.join(self.names)})\n"
+                + "\n".join(str(r) for r in head))
+
+
+def unscale_decimal_col(c: np.ndarray, dt) -> np.ndarray:
+    """One column out of the exact-decimal scaled-int64 domain into
+    plain float64 (no-op for anything else) — the SINGLE implementation
+    every host consumer shares."""
+    if dt is not None and dt.name == "decimal" \
+            and getattr(dt, "is_exact", False) \
+            and np.issubdtype(np.asarray(c).dtype, np.integer):
+        return np.asarray(c, dtype=np.float64) / (10 ** dt.scale)
+    return c
+
+
+def to_host_domain(res: Result) -> Result:
+    """Result with exact-decimal scaled-int64 columns unscaled to the
+    plain float64 HOST domain — what ingest consumers (CTAS /
+    INSERT..SELECT coercion into host plates) and host numeric code
+    expect. Without this, a scaled column would be stored verbatim and
+    read back 10^scale too large (review finding)."""
+    cols = [unscale_decimal_col(c, dt)
+            for c, dt in zip(res.columns, res.dtypes)]
+    if all(a is b for a, b in zip(cols, res.columns)):
+        return res
+    return Result(res.names, cols, res.nulls, res.dtypes)
+
+
+def finalize_decimals(res: Result) -> Result:
+    """User-boundary decode of DECIMAL columns to decimal.Decimal
+    objects (the JDBC-BigDecimal analogue; ref readDecimal,
+    encoders/.../encoding/ColumnEncoding.scala:137-140). Inside the
+    engine decimals ride as scaled int64 (exact path) or plain floats
+    (host fallback / p>18); both decode here:
+
+    - integer column + exact DecimalType -> Decimal(v) * 10^-s, EXACT;
+    - float column + DecimalType -> Decimal quantized at the column
+      scale (exact whenever the f64 faithfully held the value).
+
+    Applied once, by the session/front-door layers — never
+    mid-pipeline, where numeric host ops still need numpy domains."""
+    changed = False
+    cols = list(res.columns)
+    for i, (c, dt) in enumerate(zip(res.columns, res.dtypes)):
+        if dt is None or dt.name != "decimal":
+            continue
+        arr = np.asarray(c)
+        if arr.dtype == object:
+            continue  # already decoded (or host objects)
+        if np.issubdtype(arr.dtype, np.integer) \
+                and getattr(dt, "is_exact", False):
+            out = np.array([T.unscaled_to_python(dt, v) for v in arr],
+                           dtype=object)
+        elif np.issubdtype(arr.dtype, np.floating):
+            out = np.array([T.float_to_python_decimal(dt, v)
+                            for v in arr], dtype=object)
+        else:
+            continue
+        cols[i] = out
+        changed = True
+    if not changed:
+        return res
+    return Result(res.names, cols, res.nulls, res.dtypes)
+
+
+def empty_result(names, dtypes) -> Result:
+    cols = [np.empty(0, dtype=dt.np_dtype if dt.name != "string" else object)
+            for dt in dtypes]
+    return Result(list(names), cols, [None] * len(names), list(dtypes))

@@ -1,0 +1,93 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` compiles with nvcc into `build/lib<name>.so` — a
+shared library with a plain C interface, loaded with ctypes — at first
+use, so a fresh checkout needs nothing but the CUDA toolkit.  Built for
+`sm_90a` (Hopper).  Never with --use_fast_math: it would let the compiler
+undo the Kahan compensation the kernels rely on.
+
+Nothing here runs at import: the CPU tests import every module on
+machines without a CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Sequence
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
+                       "build the port's kernels")
+
+
+def _paths(name: str):
+    return (os.path.join(CSRC, name + ".cu"),
+            os.path.join(BUILD, "lib" + name + ".so"))
+
+
+def _stale(name: str) -> bool:
+    src, so = _paths(name)
+    return not os.path.exists(so) or \
+        os.path.getmtime(so) < os.path.getmtime(src)
+
+
+def _command(name: str):
+    src, so = _paths(name)
+    return [nvcc_path(), *NVCC_FLAGS, "-o", so, src]
+
+
+def build(names: Sequence[str], force: bool = False) -> None:
+    """Compile every stale kernel in `names` (every one with `force`),
+    one nvcc per source, all started together; raises with nvcc's output
+    when one fails."""
+    os.makedirs(BUILD, exist_ok=True)
+    procs = [(n, subprocess.Popen(_command(n), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for n in names if force or _stale(n)]
+    errors = []
+    for n, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {n}.cu:\n{out}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if _stale(name):
+                build([name])
+            lib = ctypes.CDLL(_paths(name)[1])
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

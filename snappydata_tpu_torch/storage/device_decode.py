@@ -1,0 +1,149 @@
+"""Compressed-domain column plates and their device consumers.
+
+Port of snappydata_tpu/storage/device_decode.py cut to the VALUE_DICT
+code plate the default scan uses: under `scan_compressed_domain` a
+VALUE_DICT column stays resident on the device as uint8/uint16 codes
+plus tiny per-batch sorted dictionaries (`CodePlate`), predicates compare
+codes against literals translated through the sorted dictionary
+(`code_cmp_mask`), and values decode lazily with one gather
+(`code_values`) only where an expression consumes them.
+
+RLE and bitset columns, which the reference keeps resident as run/bit
+plates, decode on the host at bind instead; every such decode is counted
+as `compressed_fallback_not_ported` (see storage/device.py), never hidden.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from snappydata_tpu_torch.observability.metrics import global_registry
+
+# bind-transfer accounting: encoded bytes that crossed to the device vs the
+# decoded bytes they stand for, and batches that stayed code-resident
+_counters: Dict[str, int] = {"bytes_encoded": 0, "bytes_decoded_equiv": 0,
+                             "batches_code_bound": 0}
+
+
+class CodePlate(NamedTuple):
+    """VALUE_DICT column resident in the code domain.
+    codes: [B, cap] uint8/uint16 device tensor;
+    dicts: [B, D] device tensor, each row SORTED ascending and padded by
+    repeating its last value (keeps searchsorted semantics exact)."""
+
+    codes: torch.Tensor
+    dicts: torch.Tensor
+
+
+def counters() -> Dict[str, int]:
+    return dict(_counters)
+
+
+def compressed_fallback(reason: str, n: int = 1) -> None:
+    """Count a decode-first reroute (a column that did NOT bind in the
+    compressed domain), itemized by reason: compressed_fallback_<reason>
+    plus the total."""
+    reg = global_registry()
+    reg.inc("compressed_fallbacks", n)
+    reg.inc("compressed_fallback_" + reason, n)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def _valdict_code_dtype(vd_cols) -> np.dtype:
+    """Narrowest common code dtype across the stacked batches."""
+    return np.dtype(np.uint16) if any(
+        c.data.dtype.itemsize > 1 for c in vd_cols) else np.dtype(np.uint8)
+
+
+def code_plates(vd_cols, b: int, cap: int, dt, device: torch.device):
+    """VALUE_DICT views -> a resident CodePlate plus the HOST-side sorted
+    dictionary stack the bind-time batch skipper reads.
+
+    Returns (CodePlate, host_dicts [b, Dp] float64, sizes [b] int64).
+    Dictionary rows pad by REPEATING the last value so each row stays
+    sorted."""
+    d_pad = _next_pow2(max(1, max(len(c.dictionary) for c in vd_cols)))
+    codes = np.zeros((b, cap), dtype=_valdict_code_dtype(vd_cols))
+    dicts = np.zeros((b, d_pad), dtype=dt)
+    host = np.zeros((b, d_pad), dtype=np.float64)
+    sizes = np.zeros(b, dtype=np.int64)
+    for i, c in enumerate(vd_cols):
+        codes[i, :c.data.shape[0]] = c.data
+        d = np.asarray(c.dictionary, dtype=dt)
+        dicts[i, :d.shape[0]] = d
+        host[i, :d.shape[0]] = np.asarray(c.dictionary, dtype=np.float64)
+        if d.shape[0] and d.shape[0] < d_pad:
+            dicts[i, d.shape[0]:] = d[-1]
+            host[i, d.shape[0]:] = host[i, d.shape[0] - 1]
+        sizes[i] = d.shape[0]
+        _counters["bytes_encoded"] += int(c.data.nbytes + d.nbytes)
+        _counters["bytes_decoded_equiv"] += int(cap * d.dtype.itemsize)
+        _counters["batches_code_bound"] += 1
+    plate = CodePlate(torch.from_numpy(codes).to(device),
+                      torch.from_numpy(dicts).to(device))
+    return plate, host, sizes
+
+
+def code_values(plate: CodePlate) -> torch.Tensor:
+    """Lazy decode of a CodePlate: one per-batch dictionary gather."""
+    return torch.gather(plate.dicts, 1, plate.codes.long())
+
+
+def promote(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """Binary-operation dtype of two STRONGLY typed operands, the way the
+    reference's jnp operations promote: a float meets an int at the float
+    type, two floats (or two ints) at the wider one.  torch's own rule
+    lets a 0-dim operand's width lose to a dimensioned operand's, which
+    would change comparisons against wide literals."""
+    if a == b:
+        return a
+    if a == torch.bool:
+        return b
+    if b == torch.bool:
+        return a
+    af, bf = a.is_floating_point, b.is_floating_point
+    if af != bf:
+        return a if af else b
+    return torch.promote_types(a, b)
+
+
+def code_cmp_mask(op: str, plate: CodePlate, lit: torch.Tensor
+                  ) -> torch.Tensor:
+    """Code-domain lowering of `column OP literal` over a CodePlate: the
+    literal translates to per-batch code thresholds through the SORTED
+    dictionaries (one searchsorted per batch) and the comparison runs on
+    the small integer codes — the decoded plate never materializes.
+
+    The dictionary and the literal are promoted to their common compare
+    dtype first, so boundary behavior is bit-identical to comparing the
+    decoded values.  Out-of-dictionary equality literals match nothing;
+    NaN literals follow IEEE semantics."""
+    codes = plate.codes.int()
+    cd = promote(plate.dicts.dtype, lit.dtype)
+    d = plate.dicts.to(cd).contiguous()
+    v = lit.to(cd).reshape(1, 1).expand(d.shape[0], 1).contiguous()
+    if op in ("=", "!="):
+        pos = torch.searchsorted(d, v, side="left")
+        posc = pos.clamp(0, d.shape[1] - 1)
+        hit = torch.gather(d, 1, posc)[:, 0] == v[:, 0]
+        code_eq = torch.where(hit, posc[:, 0].int(),
+                              torch.full_like(posc[:, 0].int(), -1))
+        return codes == code_eq[:, None] if op == "=" \
+            else codes != code_eq[:, None]
+    # values >= lit  <=>  code >= searchsorted(dict, lit, left); the
+    # right-side variants shift the threshold past equal values
+    side = "left" if op in (">=", "<") else "right"
+    pos = torch.searchsorted(d, v, side=side)[:, 0].int()
+    m = codes >= pos[:, None] if op in (">=", ">") \
+        else codes < pos[:, None]
+    if op in ("<", "<=") and cd.is_floating_point:
+        # x < NaN is False, but NaN sorts past every dictionary entry
+        # (threshold = D -> all codes pass): guard explicitly
+        m = m & ~torch.isnan(lit.to(cd))
+    return m

@@ -1,0 +1,71 @@
+"""The PyTorch port stands alone: importing and running it loads neither
+JAX nor any module of the JAX package, and a session that did not ask for
+the CPU refuses to start without a GPU instead of moving there silently.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_QUICK_START = r"""
+import sys
+from snappydata_tpu_torch import SnappySession
+
+s = SnappySession(device="cpu")
+s.sql("CREATE TABLE sales (sym STRING, qty INT, price DOUBLE) USING column")
+s.sql("INSERT INTO sales VALUES ('AAPL', 10, 171.5), ('GOOG', 5, 2831.0)")
+rows = s.sql("SELECT sym, sum(qty * price) FROM sales GROUP BY sym "
+             "ORDER BY sym").rows()
+assert rows == [("AAPL", 1715.0), ("GOOG", 14155.0)], rows
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_quick_start_imports_no_jax():
+    out = _run(_QUICK_START)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_no_source_imports_the_reference():
+    pkg = os.path.join(REPO, "snappydata_tpu_torch")
+    bad = []
+    for root, _dirs, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                for i, line in enumerate(fh, 1):
+                    words = line.split()
+                    if len(words) >= 2 and words[0] in ("import", "from") \
+                            and words[1].split(".")[0] in (
+                                "jax", "snappydata_tpu"):
+                        bad.append(f"{path}:{i}: {line.strip()}")
+    assert not bad, bad
+
+
+def test_session_without_device_needs_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from snappydata_tpu_torch import SnappySession
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SnappySession()
+    with pytest.raises(RuntimeError):
+        SnappySession(device="cuda")

@@ -1,0 +1,195 @@
+"""The PyTorch port's kernels against the JAX package's Pallas kernels.
+
+Each test feeds the same numpy inputs, made from a seed, to the JAX
+kernel (interpret mode on the CPU, as the JAX package's own tests run it)
+and to the port's wrapper on CPU tensors — which runs the kernel's plain
+PyTorch version — and holds both to an exact float64 oracle with the
+reference's tolerances: rel 1e-7 on same-sign data, 1e-6 * sum(|v|) where
+signs mix, exact counts and min/max.
+
+The CUDA kernels themselves are held against their plain versions in
+tests/test_torch_cuda.py, on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from snappydata_tpu.ops.pallas_group import grouped_reduce as jax_grouped
+from snappydata_tpu.ops.pallas_reduce import masked_kahan_sum as jax_kahan
+from snappydata_tpu_torch.ops import group_reduce as gr
+from snappydata_tpu_torch.ops.kahan_reduce import masked_kahan_sum
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# --- masked_kahan_sum ------------------------------------------------------
+
+def test_kahan_same_sign_large():
+    # plain f32 accumulation keeps ~3 digits at this magnitude; the
+    # compensated sum keeps ~eps, and the s - c combine sign is pinned
+    rng = np.random.default_rng(1)
+    v = (rng.random(131_072) * 2e4).astype(np.float32)
+    m = np.ones(v.shape, dtype=bool)
+    exact = float(v.astype(np.float64).sum())
+    got = float(masked_kahan_sum(_t(v), _t(m)))
+    ref = float(jax_kahan(jnp.asarray(v), jnp.asarray(m)))
+    assert abs(got - exact) / exact <= 1e-7
+    assert abs(ref - exact) / exact <= 1e-7
+    plain = float(v.sum(dtype=np.float32))
+    assert abs(got - exact) <= abs(plain - exact) / 10
+
+
+@pytest.mark.parametrize("n", [1, 7, 1024, 1025, 131072, 131073])
+def test_kahan_mask_and_padding(n):
+    rng = np.random.default_rng(2 + n)
+    v = (rng.random(n) * 100 - 50).astype(np.float32)
+    m = rng.random(n) < 0.5
+    exact = float(v.astype(np.float64)[m].sum())
+    bound = 1e-6 * float(np.abs(v.astype(np.float64)[m]).sum()) + 1e-6
+    got = float(masked_kahan_sum(_t(v), _t(m)))
+    ref = float(jax_kahan(jnp.asarray(v), jnp.asarray(m)))
+    assert abs(got - exact) <= bound
+    assert abs(got - ref) <= 2 * bound
+
+
+def test_kahan_cancellation_bound():
+    """The compensated f32 sum bounds its error by sum(|v|), not by
+    |sum(v)| — the reason the lane stays opt-in."""
+    v = np.array([1.6e7] * 1000 + [-1.6e7] * 1000 + [1.0],
+                 dtype=np.float32)
+    m = np.ones(v.shape, dtype=bool)
+    abs_scale = float(np.abs(v.astype(np.float64)).sum())
+    got = float(masked_kahan_sum(_t(v), _t(m)))
+    ref = float(jax_kahan(jnp.asarray(v), jnp.asarray(m)))
+    assert abs(got - 1.0) <= 1e-7 * abs_scale
+    assert abs(ref - 1.0) <= 1e-7 * abs_scale
+
+
+def test_kahan_result_is_float64_scalar():
+    out = masked_kahan_sum(torch.ones(5), torch.ones(5, dtype=torch.bool))
+    assert out.dtype == torch.float64 and out.dim() == 0
+    assert float(out) == 5.0
+
+
+# --- grouped_reduce --------------------------------------------------------
+
+def _jax_grouped(ops, gidx, G):
+    return jax_grouped(
+        [(k, None if v is None else jnp.asarray(v), jnp.asarray(m))
+         for k, v, m in ops], jnp.asarray(gidx), G)
+
+
+def _port_grouped(ops, gidx, G):
+    return gr.grouped_reduce(
+        [(k, None if v is None else _t(v), _t(m)) for k, v, m in ops],
+        _t(gidx.astype(np.int32)), G)
+
+
+def test_grouped_all_kinds_vs_oracle():
+    rng = np.random.default_rng(0)
+    n = 131_072
+    G = 7
+    gidx = rng.integers(0, G, n)
+    v1 = (rng.random(n) * 2e4).astype(np.float32)  # same-sign
+    v2 = (rng.random(n) * 100 - 50).astype(np.float32)
+    m1 = rng.random(n) < 0.9
+    m2 = rng.random(n) < 0.7
+    ops = [("sum", v1, m1), ("count", None, m1), ("min", v2, m2),
+           ("max", v2, m2), ("sum", v2, m2)]
+    got = _port_grouped(ops, gidx, G)
+    ref = _jax_grouped(ops, gidx, G)
+    assert got[0].dtype == torch.float64 and got[1].dtype == torch.int64
+    assert got[2].dtype == torch.float32
+    for g in range(G):
+        s1 = (gidx == g) & m1
+        s2 = (gidx == g) & m2
+        exact = v1.astype(np.float64)[s1].sum()
+        for out in (got, ref):
+            assert float(out[0][g]) == pytest.approx(exact, rel=1e-7)
+            assert int(out[1][g]) == int(s1.sum())
+            assert float(out[2][g]) == v2[s2].min()
+            assert float(out[3][g]) == v2[s2].max()
+            exact2 = v2.astype(np.float64)[s2].sum()
+            assert abs(float(out[4][g]) - exact2) \
+                <= 1e-6 * np.abs(v2[s2].astype(np.float64)).sum()
+
+
+@pytest.mark.parametrize("n", [1, 7, 1024, 131073])
+def test_grouped_padding_and_empty_groups(n):
+    rng = np.random.default_rng(1 + n)
+    G = 5
+    # group 4 stays empty: min/max keep the +/-inf fillers
+    gidx = rng.integers(0, 4, n)
+    v = (rng.random(n) * 10).astype(np.float32)
+    m = np.ones(n, dtype=bool)
+    ops = [("sum", v, m), ("count", None, m), ("min", v, m),
+           ("max", v, m)]
+    got = _port_grouped(ops, gidx, G)
+    ref = _jax_grouped(ops, gidx, G)
+    for out in (got, ref):
+        assert float(out[0][4]) == 0.0
+        assert int(out[1][4]) == 0
+        assert float(out[2][4]) == np.inf
+        assert float(out[3][4]) == -np.inf
+    for g in range(4):
+        sel = gidx == g
+        if not sel.any():
+            continue
+        exact = v.astype(np.float64)[sel].sum()
+        assert float(got[0][g]) == pytest.approx(exact, rel=1e-7, abs=1e-6)
+        assert float(got[0][g]) == pytest.approx(float(ref[0][g]),
+                                                 rel=1e-6, abs=1e-6)
+        assert int(got[1][g]) == int(ref[1][g]) == int(sel.sum())
+        assert float(got[2][g]) == float(ref[2][g]) == v[sel].min()
+        assert float(got[3][g]) == float(ref[3][g]) == v[sel].max()
+
+
+def test_grouped_overflow_segment_is_isolated():
+    """The executor points invalid rows at segment G-1 (its +1 overflow
+    segment); those rows must not leak into the real groups."""
+    rng = np.random.default_rng(5)
+    n = 4096
+    G = 4
+    gidx = rng.integers(0, G, n)
+    v = (rng.random(n) * 10).astype(np.float32)
+    m = rng.random(n) < 0.8
+    got = _port_grouped([("sum", v, m), ("count", None, m)], gidx, G)
+    for g in range(G - 1):
+        sel = (gidx == g) & m
+        assert float(got[0][g]) == pytest.approx(
+            v.astype(np.float64)[sel].sum(), rel=1e-7)
+        assert int(got[1][g]) == int(sel.sum())
+
+
+def test_smem_budget_matches_kernel_layout():
+    # two words per Kahan sum, one per count/min/max, per group and thread
+    assert gr.op_smem_bytes("sum", 9) == 2 * 9 * gr.THREADS * 4
+    assert gr.op_smem_bytes("count", 9) == 9 * gr.THREADS * 4
+    # the Q1 shape (5 sums + 5 counts, 9 segments) fits one block
+    q1 = 5 * gr.op_smem_bytes("sum", 9) + 5 * gr.op_smem_bytes("count", 9)
+    assert q1 <= gr.SMEM_BUDGET
+    # 64 segments of 8 sums do not: the executor stops fusing before that
+    assert 8 * gr.op_smem_bytes("sum", 64) > gr.SMEM_BUDGET
+
+
+def test_grouped_rejects_bad_shapes():
+    g = torch.zeros(4, dtype=torch.int32)
+    m = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        gr.grouped_reduce([("sum", torch.ones(4), m)], g, gr.MAX_GROUPS + 1)
+    with pytest.raises(ValueError):
+        gr.grouped_reduce([("median", torch.ones(4), m)], g, 2)
+
+
+def test_wrappers_refuse_other_devices():
+    v = torch.ones(4, device="meta")
+    m = torch.ones(4, dtype=torch.bool, device="meta")
+    with pytest.raises(RuntimeError):
+        masked_kahan_sum(v, m)
+    with pytest.raises(RuntimeError):
+        gr.grouped_reduce([("count", None, m)],
+                          torch.zeros(4, dtype=torch.int32, device="meta"), 2)
