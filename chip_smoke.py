@@ -1,9 +1,11 @@
 """Drive the PyTorch port on one NVIDIA GPU: build its CUDA kernels, hold
 each against its plain PyTorch version at the main path's shapes, load
-TPC-H lineitem through `SnappySession.insert_arrays` and answer Q1 and Q6
-through `SnappySession.sql` with both kernel lanes on.
+TPC-H lineitem through `SnappySession.insert_arrays`, answer Q1 and Q6
+through `SnappySession.sql` with both kernel lanes on, then again through
+the compressed-domain entry points (`utils/tpch_code_domain`), and run the
+run-space RLE probe.
 
-    python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3]
+    python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -20,7 +22,18 @@ Phases, in order; any failure exits non-zero before the result lines:
 6. the answers: Q1 and Q6 against a float64 numpy oracle computed from the
    generated arrays, and against the same queries with the knobs off
    (counts exact, same-sign sums within rel 1e-6);
-7. the kernels' JSON line, then `{"ok": true, "device": ...}` last.
+7. the compressed-domain path: launch counters set to 0, `code_domain_q6`
+   and `code_domain_q1` over the loaded table, the counters read back —
+   both code kernels must have launched; counts equal the session's own,
+   sums within rel 5e-5 of the session's Q6 / Q1 and of the oracle;
+8. each code kernel against its plain version on the inputs phase 7
+   handed it (counts exact, sums within 1e-6 * sum(|v|)), timed beside its
+   bound and one PyTorch library call;
+9. the run-space RLE probe: a sorted DOUBLE column of 5 distinct values
+   (min(max(rows, 65536), 4194304) rows) and `SELECT sum(r), count(r)
+   ... WHERE r < 9.0` against numpy; `agg_rle_runs` must move and
+   `compressed_fallback_not_ported` stay 0;
+10. the kernels' JSON line, then `{"ok": true, "device": ...}` last.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -39,7 +52,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 ROWS_PER_SF = 6_000_000
-KERNELS = ("kahan_reduce", "group_reduce")
+KERNELS = ("kahan_reduce", "group_reduce", "code_filter_sum",
+           "group_code_reduce")
+RLE_PROBE_ROWS = (1 << 16, 1 << 22)
 
 
 def fail(msg: str) -> None:
@@ -150,10 +165,10 @@ def check_rows(what, got, want, rel=1e-6):
                 fail(f"{what}: {a!r} vs {b!r} (rel {rel})")
 
 
-def profile_query(session, sql, top=8):
-    """One warm query under torch.profiler: wall ms, the summed device
-    time of its kernels, the device's idle share of the wall time, and
-    the kernels with the most device time."""
+def profile_run(fn, top=8):
+    """One warm call of `fn` under torch.profiler: wall ms, the summed
+    device time of its kernels, the device's idle share of the wall time,
+    and the kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -161,7 +176,7 @@ def profile_query(session, sql, top=8):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        session.sql(sql).rows()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages()
@@ -253,6 +268,168 @@ def grouped_phase(calls, reps):
         "groups": G}
 
 
+def code_filter_phase(calls, reps):
+    import torch
+
+    from snappydata_tpu_torch.ops.kahan_reduce import (
+        code_filter_mask, decode_rows, fused_code_filter_sum,
+        fused_code_filter_sum_plain)
+
+    if not calls:
+        fail("fused_code_filter_sum saw no call on the compressed path")
+    args = calls[0]
+    q, d, ship, price, valid, dicts, qhi, dlo, dhi, slo, shi = args
+    got_s, got_n = fused_code_filter_sum(*args)
+    plain_s, plain_n = fused_code_filter_sum_plain(*args)
+    torch.cuda.synchronize()
+    if int(got_n) != int(plain_n):
+        fail(f"fused_code_filter_sum count: kernel {int(got_n)} != plain "
+             f"{int(plain_n)}")
+    ok = code_filter_mask(q, d, ship, valid, qhi, dlo, dhi, slo, shi)
+    prod = price.double() * decode_rows(d, dicts).double()
+    scale = float(torch.where(ok, prod.abs(), 0).sum())
+    err = abs(float(got_s) - float(plain_s))
+    if not err <= 1e-6 * scale:
+        fail(f"fused_code_filter_sum: |kernel - plain| = {err} > 1e-6 * "
+             f"{scale}")
+    n = price.numel()
+    B = price.shape[0]
+    nbytes = n * (q.element_size() + d.element_size() + 4 + 4 + 1) \
+        + dicts.numel() * 4 + 3 * B * 4 + 16
+    b_ms, b_by = bound(nbytes, 5 * n)   # a product and four Kahan adds
+
+    def library():
+        keep = (valid & (q.int() < qhi[:, None]) & (d.int() >= dlo[:, None])
+                & (d.int() <= dhi[:, None]) & (ship >= slo) & (ship < shi))
+        dv = torch.gather(dicts, 1, d.long())
+        return torch.where(keep, price * dv, 0).double().sum(), keep.sum()
+
+    return {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: fused_code_filter_sum(*args), reps * 10),
+        "plain_ms": cuda_ms(lambda: fused_code_filter_sum_plain(*args),
+                            reps),
+        "library_ms": cuda_ms(library, reps * 10),
+        "bound_ms": b_ms, "bound_by": b_by, "rows": n, "batches": B,
+        "count": int(got_n)}
+
+
+def code_grouped_phase(calls, reps):
+    import torch
+
+    from snappydata_tpu_torch.ops.group_reduce import (
+        grouped_code_reduce, grouped_code_reduce_plain, slot_values)
+
+    if not calls:
+        fail("grouped_code_reduce saw no call on the compressed path")
+    gidx, mask, slots, G = calls[0]
+    got = grouped_code_reduce(gidx, mask, slots, G)
+    plain = grouped_code_reduce_plain(gidx, mask, slots, G)
+    torch.cuda.synchronize()
+    idx = gidx.reshape(-1).long()
+    m = mask.reshape(-1)
+    err = 0.0
+    values = []
+    for slot, k, p in zip(slots, got, plain):
+        if slot[0] == "count":
+            if not bool((k == p).all()):
+                fail(f"grouped_code_reduce count: kernel {k.tolist()} != "
+                     f"plain {p.tolist()}")
+            values.append(m.double())
+            continue
+        v = slot_values(slot, gidx.shape, gidx.device).reshape(-1)
+        values.append(torch.where(m, v, 0).double())
+        scale = torch.zeros(G, dtype=torch.float64, device=gidx.device)
+        scale.index_add_(0, idx, values[-1].abs())
+        diff = (k - p).abs()
+        if not bool((diff <= 1e-6 * scale + 1e-9).all()):
+            fail(f"grouped_code_reduce sum: |kernel - plain| "
+                 f"{diff.tolist()} beyond 1e-6 * sum(|v|) {scale.tolist()}")
+        err = max(err, float(diff.max()))
+    n = gidx.numel()
+    plains = {id(s[1]): s[1] for s in slots if s[0] == "sum"
+              and s[1] is not None}
+    codes = {id(c): c for s in slots if s[0] == "sum" for c, _ in s[2]}
+    dicts = {id(dc): dc for s in slots if s[0] == "sum" for _, dc in s[2]}
+    nbytes = n * (4 + 1 + 4 * len(plains)
+                  + sum(c.element_size() for c in codes.values())) \
+        + sum(dc.numel() * 4 for dc in dicts.values()) + 8 * G * len(slots)
+    nops = n * sum(1 if s[0] == "count" else 4 + len(s[2])
+                   + (s[1] is not None) for s in slots)
+    b_ms, b_by = bound(nbytes, nops)
+    # the library yardstick: one index_add_ of the slots' decoded products
+    # and the count, packed as [n, slots] float64 beforehand (not timed)
+    packed = torch.stack(values, dim=1)
+    return {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: grouped_code_reduce(gidx, mask, slots, G),
+                      reps * 10),
+        "plain_ms": cuda_ms(
+            lambda: grouped_code_reduce_plain(gidx, mask, slots, G), reps),
+        "library_ms": cuda_ms(
+            lambda: torch.zeros(G, packed.shape[1], dtype=torch.float64,
+                                device=idx.device).index_add_(0, idx, packed),
+            reps * 10),
+        "bound_ms": b_ms, "bound_by": b_by, "rows": n, "slots": len(slots),
+        "groups": G}
+
+
+def code_domain_checks(session, tpch, first, want, q6_out, q1_out):
+    """Phase 7's answers against the session's own and the oracle."""
+    rel = 5e-5
+    exp_cnt = session.sql(
+        "SELECT count(*) FROM lineitem "
+        "WHERE l_shipdate >= DATE '1994-01-01' "
+        "AND l_shipdate < DATE '1995-01-01' "
+        "AND l_discount BETWEEN 0.05 AND 0.07 "
+        "AND l_quantity < 24").rows()[0][0]
+    revenue, count = q6_out
+    if count != exp_cnt:
+        fail(f"code_domain_q6 count {count} != session {exp_cnt}")
+    check_rows("code_domain_q6 vs session", [(revenue,)], first["q6"][0],
+               rel)
+    check_rows("code_domain_q6 vs numpy oracle", [(revenue,)], want["q6"],
+               rel)
+    live = [r for r in q1_out if r[2] > 0]
+    for what, rows in (("session", first["q1"][0]),
+                       ("numpy oracle", want["q1"])):
+        check_rows(f"code_domain_q1 vs {what}",
+                   [r[:2] + r[3:] + (r[2],) for r in live],
+                   [r[:6] + (r[9],) for r in rows], rel)
+
+
+def rle_probe(session, n_rows, reps):
+    """Phase 9: the reference bench's run-space probe through
+    `session.sql`; (rows, seconds of the first and the best warm run)."""
+    import numpy as np
+
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    n = int(min(max(n_rows, RLE_PROBE_ROWS[0]), RLE_PROBE_ROWS[1]))
+    rng = np.random.default_rng(7)
+    rvals = np.sort(rng.choice(np.array([1.0, 2.0, 5.0, 9.0, 12.0]), n))
+    session.sql("CREATE TABLE code_agg_rle (r DOUBLE) USING column")
+    session.insert_arrays("code_agg_rle", [rvals])
+    session.catalog.describe("code_agg_rle").data.force_rollover()
+    q = "SELECT sum(r), count(r) FROM code_agg_rle WHERE r < 9.0"
+    reg = global_registry()
+    before = reg.counter("agg_rle_runs")
+    times = []
+    for _ in range(1 + reps):
+        t0 = time.perf_counter()
+        rows = session.sql(q).rows()
+        times.append(time.perf_counter() - t0)
+    if reg.counter("agg_rle_runs") - before != 1 + reps:
+        fail("the RLE probe did not take the run-space lane "
+             f"(agg_rle_runs moved {reg.counter('agg_rle_runs') - before})")
+    if reg.counter("compressed_fallback_not_ported"):
+        fail("a column was rerouted as compressed_fallback_not_ported")
+    keep = rvals < 9.0
+    check_rows("rle probe vs numpy", rows,
+               [(float(rvals[keep].sum()), int(keep.sum()))], 1e-12)
+    return n, rows, times[0], min(times[1:])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=16.0,
@@ -260,7 +437,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm Q1 and Q6 with torch.profiler")
+                    help="also trace one warm Q1 and Q6, and one warm "
+                         "code_domain_q6 / q1, with torch.profiler")
     args = ap.parse_args()
 
     import torch
@@ -277,6 +455,7 @@ def main() -> int:
         from snappydata_tpu_torch.ops import group_reduce as gr
         from snappydata_tpu_torch.ops import kahan_reduce as kr
         from snappydata_tpu_torch.utils import tpch
+        from snappydata_tpu_torch.utils import tpch_code_domain as tcd
     except ImportError as e:
         fail(f"the snappydata_tpu_torch package is not beside this script "
              f"({e})")
@@ -350,8 +529,8 @@ def main() -> int:
         log(f"{q}_warm_s {warm[q]:.4f} rows_per_s {n_rows / warm[q]:.0f}")
     if args.profile:
         for q in ("q1", "q6"):
-            log(f"profile {q} " + json.dumps(
-                profile_query(session, getattr(tpch, q.upper()))))
+            log(f"profile {q} " + json.dumps(profile_run(
+                lambda q=q: session.sql(getattr(tpch, q.upper())).rows())))
 
     # 5. kernels against their plain versions, on the main path's inputs
     kres = {"masked_kahan_sum": kahan_phase(rec_k.calls, args.reps),
@@ -372,11 +551,82 @@ def main() -> int:
     log("answers ok: Q1 (%d groups) and Q6 match the oracle and the "
         "knobs-off lanes" % len(first["q1"][0]))
 
-    # 7. result lines
+    # 7. the compressed-domain path: Q6 / Q1 over code plates
+    data = session.catalog.lookup_table("lineitem").data
+    if data.snapshot().row_count:
+        data.force_rollover()   # row-buffer rows would bind decoded
+    rec_f = Recorder(tcd.fused_code_filter_sum)
+    rec_c = Recorder(tcd.grouped_code_reduce)
+    tcd.fused_code_filter_sum = rec_f
+    tcd.grouped_code_reduce = rec_c
+    kr.fused_code_filter_sum.launches = 0
+    gr.grouped_code_reduce.launches = 0
+    try:
+        t0 = time.perf_counter()
+        q6_out = tcd.code_domain_q6(session)
+        t6 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        q1_out = tcd.code_domain_q1(session)
+        t1 = time.perf_counter() - t0
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"compressed-domain path: {type(e).__name__}: {e}")
+    code_launches = {
+        "fused_code_filter_sum": kr.fused_code_filter_sum.launches,
+        "grouped_code_reduce": gr.grouped_code_reduce.launches}
+    tcd.fused_code_filter_sum = rec_f.fn
+    tcd.grouped_code_reduce = rec_c.fn
+    log(f"code_domain_launches {json.dumps(code_launches)}")
+    for name, count in code_launches.items():
+        if count < 1:
+            fail(f"{name} did not launch on the compressed-domain path")
+    launches.update(code_launches)
+    log(f"code_domain_q6 {json.dumps(q6_out)}")
+    log(f"code_domain_q1 {json.dumps(q1_out)}")
+    for name, fn, t_first in (("code_domain_q6", tcd.code_domain_q6, t6),
+                              ("code_domain_q1", tcd.code_domain_q1, t1)):
+        times = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            fn(session)
+            times.append(time.perf_counter() - t0)
+        log(f"{name}_first_s {t_first:.4f} warm_s "
+            f"{sorted(times)[len(times) // 2]:.4f}")
+    if args.profile:
+        for name, fn in (("code_domain_q6", tcd.code_domain_q6),
+                         ("code_domain_q1", tcd.code_domain_q1)):
+            log(f"profile {name} " + json.dumps(
+                profile_run(lambda fn=fn: fn(session))))
+    code_domain_checks(session, tpch, first, want, q6_out, q1_out)
+    log("answers ok: code_domain_q6 / code_domain_q1 match the session and "
+        "the oracle")
+
+    # 8. the code kernels against their plain versions, on phase 7's inputs
+    kres["fused_code_filter_sum"] = code_filter_phase(rec_f.calls,
+                                                      args.reps)
+    kres["grouped_code_reduce"] = code_grouped_phase(rec_c.calls, args.reps)
+    for name in ("fused_code_filter_sum", "grouped_code_reduce"):
+        log(f"kernel {name} " + json.dumps(kres[name]))
+
+    # 9. the run-space RLE probe
+    try:
+        n_rle, rle_rows, rle_first, rle_warm = rle_probe(session, n_rows,
+                                                         args.reps)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"RLE probe: {type(e).__name__}: {e}")
+    log(f"rle_probe rows {n_rle} answer {json.dumps(rle_rows)} first_s "
+        f"{rle_first:.4f} warm_s {rle_warm:.4f}")
+
+    # 10. result lines
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",
-                              "snappydata_tpu/ops/pallas_group.py:103")}
+                              "snappydata_tpu/ops/pallas_group.py:103"),
+           "fused_code_filter_sum": (
+               "snappydata_tpu_torch/csrc/code_filter_sum.cu",
+               "snappydata_tpu/ops/pallas_reduce.py:169"),
+           "grouped_code_reduce": (
+               "snappydata_tpu_torch/csrc/group_code_reduce.cu",
+               "snappydata_tpu/ops/pallas_group.py:321")}
     kernels = []
     for name, r in kres.items():
         kernels.append({

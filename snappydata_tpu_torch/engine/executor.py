@@ -12,8 +12,8 @@ core/.../columnar/ColumnTableScan.scala:186, SnappyHashAggregateExec):
   Aggregate -> dictionary / vdict fast-path group index, then the slot
                loop: the fused grouped kernel (ops/group_reduce.py), the
                Kahan kernel (ops/kahan_reduce.py), the dictionary-space
-               SUM (ops/code_agg.py) and the packed reduction families
-               (ops/reduction.py)
+               SUM and the run-space SUM/COUNT (ops/code_agg.py) and the
+               packed reduction families (ops/reduction.py)
 
 Everything above the aggregate (ORDER BY / LIMIT / DISTINCT / outer
 projects) runs on the host over the small reduced result.  Joins, window
@@ -54,7 +54,10 @@ from snappydata_tpu_torch.sql.analyzer import _expr_name, expr_type
 from snappydata_tpu_torch.storage.device import (batch_bucket,
                                                  build_device_table,
                                                  numeric_key_domain)
-from snappydata_tpu_torch.storage.device_decode import CodePlate
+from snappydata_tpu_torch.storage.device_decode import (BitPlate, CodePlate,
+                                                        RlePlate, bit_values,
+                                                        compressed_fallback,
+                                                        rle_values)
 
 
 @dataclasses.dataclass
@@ -66,10 +69,16 @@ class OutCol:
 
 @dataclasses.dataclass
 class RelOut:
-    """Output of a relational node: ordinal -> DVal + validity mask."""
+    """Output of a relational node: ordinal -> DVal + validity mask.
+
+    `runf` is the run-space state of the filters applied so far, the
+    alignment proof of the RLE aggregate lane: "pure" (no filter yet),
+    (rends, run_mask) when every filter reduced in run space over the one
+    run partition `rends`, None once a filter left run space."""
 
     cols: Dict[int, DVal]
     valid: torch.Tensor
+    runf: object = None
 
 
 class _RelationInput:
@@ -211,8 +220,11 @@ class CompiledPlan:
             cols = {}
             for ci in r.used:
                 col = dt.columns[ci]
-                col = CodePlate(take(col.codes), take(col.dicts)) \
-                    if isinstance(col, CodePlate) else take(col)
+                if isinstance(col, (CodePlate, RlePlate, BitPlate)):
+                    # encoded plates are [B, ...]-leading field-wise
+                    col = type(col)(*(take(f) for f in col))
+                else:
+                    col = take(col)
                 cols[ci] = (col, take(dt.nulls.get(ci)))
             valid = dt.valid if take_idx is None \
                 else take(dt.valid) & pad_mask
@@ -233,6 +245,11 @@ class CompiledPlan:
         return outs
 
     def _count_agg_notes(self, static) -> None:
+        """Per-execution metrics from the aggregate's notes: reduction
+        passes + strategies, the compressed-domain lanes it engaged
+        (agg_code_domain / agg_dict_space / agg_rle_runs), and counted
+        run-misalignment fallbacks — an RLE plate that was eligible but
+        whose filter left run space never degrades silently."""
         note = self.agg_notes.get(static) if self.agg_notes else None
         if note is None:
             return
@@ -242,6 +259,8 @@ class CompiledPlan:
             reg.inc("agg_strategy_" + s)
         for lane in note["lanes"]:
             reg.inc("agg_" + lane)
+        if note["rle_fallbacks"]:
+            compressed_fallback("rle_agg", note["rle_fallbacks"])
 
     def execute(self, params: Tuple, device: torch.device) -> Result:
         mask, pairs = self.run(params, device)
@@ -309,6 +328,19 @@ def _kernel_token() -> int:
     props = config.global_properties()
     return int(bool(props.pallas_reduce)) \
         | (int(bool(props.pallas_group_reduce)) << 1)
+
+
+def _rle_run_mask(runf, rpl):
+    """Per-run survivor mask of `rpl` under the relation's run-space
+    filter state, or None when the alignment proof does not cover this
+    plate (a filter over another run partition, or one that left run
+    space)."""
+    if runf == "pure":
+        return torch.ones(rpl.ends.shape, dtype=torch.bool,
+                          device=rpl.ends.device)
+    if isinstance(runf, tuple) and runf[0] is rpl.ends:
+        return runf[1]
+    return None
 
 
 def _vdict_card(dom, max_groups: int) -> int:
@@ -434,7 +466,7 @@ class Compiler:
 
             def run_scan(ctx) -> RelOut:
                 cols, valid = ctx.rels[rel_idx]
-                return RelOut(dict(cols), valid)
+                return RelOut(dict(cols), valid, runf="pure")
 
             return run_scan, scope
 
@@ -458,7 +490,18 @@ class Compiler:
                 keep = p.value
                 if p.null is not None:
                     keep = keep & ~p.null
-                return RelOut(out.cols, out.valid & keep)
+                # run-space bookkeeping for the RLE aggregate lane: the
+                # filter stays run-aligned only if THIS predicate reduced
+                # in run space over the same run partition as every one
+                # before it
+                runf = None
+                if p.rmask is not None and p.null is None:
+                    if out.runf == "pure":
+                        runf = (p.rends, p.rmask)
+                    elif (isinstance(out.runf, tuple)
+                          and out.runf[0] is p.rends):
+                        runf = (p.rends, out.runf[1] & p.rmask)
+                return RelOut(out.cols, out.valid & keep, runf=runf)
 
             return run_filter, scope
 
@@ -475,7 +518,7 @@ class Compiler:
                 out = child(ctx)
                 rt = ctx.runtime(out.cols)
                 return RelOut({i: r(rt) for i, r in enumerate(runs)},
-                              out.valid)
+                              out.valid, runf=out.runf)
 
             return run_project, out_scope
 
@@ -687,11 +730,17 @@ class Compiler:
             nseg = num_groups + 1
             req = reduction.STRATEGIES[ctx.static[strategy_si]]
             fsum_strat = reduction.resolve_strategy(req, num_groups)
-            note = {"passes": 0, "strategies": set(), "lanes": set()}
+            note = {"passes": 0, "strategies": set(), "lanes": set(),
+                    "rle_fallbacks": 0}
             tok = ctx.static[code_agg_si]
             # dictionary-space SUM is a scatter-heavy lane: auto keeps it
-            # off the CPU; "on" forces it everywhere, "off" kills it
+            # off the CPU; "on" forces it everywhere, "off" kills it.  The
+            # run-space lane is cheap arithmetic: only "off" disables it.
+            # (The reference also gates it on the snapshot holding no
+            # delete mask; the port has no DELETE, so runs are whole.)
             code_agg_on = tok == 2 or (tok == 1 and dev.type != "cpu")
+            rle_ok = tok != 0 and base_info is not None \
+                and out.valid.dim() == 2
             if groups:
                 note["lanes"].add("code_domain")
             kbits = ctx.static[kernel_si]
@@ -699,35 +748,55 @@ class Compiler:
             # --- slots ---
             # Evaluate slot inputs once, dedup by argument expression:
             # slots over the SAME argument (avg's sum + count beside an
-            # explicit sum) share tensor OBJECTS, so the grouped kernel's
-            # id()-keyed input dedup fires
-            evaluated: List[tuple] = []
-            arg_vw: Dict[object, tuple] = {}
+            # explicit sum) share one _SlotInput, so its row values are
+            # one tensor OBJECT and the grouped kernel's id()-keyed input
+            # dedup fires
+            evaluated: List[Tuple[str, _SlotInput]] = []
+            arg_vw: Dict[object, _SlotInput] = {}
             for (kind, arg), run in zip(slots, slot_arg_runs):
                 if run is None:  # count(*)
-                    evaluated.append(("count", None, valid, None, None))
+                    evaluated.append(("count", _SlotInput(None, out.valid,
+                                                          valid, False)))
                     continue
                 hit = arg_vw.get(arg)
                 if hit is None:
                     dv = run(rt)
-                    v = _broadcast_to_mask(dv.value, out.valid).reshape(-1)
                     w = valid
                     if dv.null is not None:
                         w = w & ~_broadcast_to_mask(
                             dv.null, out.valid).reshape(-1)
-                    # only bare columns carry their code plate: an
+                    # only bare columns carry their code / run plates: an
                     # expression over a plate is row-space math
-                    raw = isinstance(arg, ast.Col)
-                    hit = arg_vw[arg] = (v, w, dv.dtype,
-                                         dv.cplate if raw else None)
-                evaluated.append((kind,) + hit)
+                    hit = arg_vw[arg] = _SlotInput(
+                        dv, out.valid, w, isinstance(arg, ast.Col))
+                evaluated.append((kind, hit))
 
-            def dict_space_ok(kind, v, sdt, cpl) -> bool:
+            def dict_space_ok(kind, si) -> bool:
+                cpl = si.cpl
                 return (kind == "sum" and cpl is not None and code_agg_on
-                        and _acc_dtype(sdt, v.dtype) != torch.int64
+                        and _acc_dtype(si.sdt, si.vdtype) != torch.int64
                         and code_agg.dict_space_cells(
                             nseg, cpl.codes.shape, cpl.dicts.shape)
                         <= code_agg.DICT_SPACE_MAX_CELLS)
+
+            def run_space(kind, si):
+                """The per-run survivor mask when the run-space lane takes
+                this global COUNT/SUM over a bare RLE column, else None;
+                an eligible plate whose filter left run space is a
+                COUNTED fallback, never silent."""
+                if not (rle_ok and si.rpl is not None and not groups
+                        and si.w is valid):
+                    return None
+                if kind == "sum" and _acc_dtype(si.sdt, si.vdtype) \
+                        == torch.int64:
+                    return None   # exact int64 sums stay row-space
+                rm = _rle_run_mask(out.runf, si.rpl)
+                if rm is None:
+                    note["rle_fallbacks"] += 1
+                    return None
+                # batch-skip pad batches duplicate a real plate under an
+                # all-False validity row: mask whole dead batches out
+                return rm & out.valid.any(dim=1)[:, None]
 
             # Fused grouped kernel (the Q1 shape): dictionary/vdict fast
             # path group index, nseg <= 64, f32 value plates — eligible
@@ -741,11 +810,11 @@ class Compiler:
             gk_bytes = _gr.op_smem_bytes("count", nseg)  # the gvalid count
             fused = []  # (slot_idx, kind, values|None, mask)
             if use_gk:
-                for i, (kind, v, w, sdt, cpl) in enumerate(evaluated):
+                for i, (kind, si) in enumerate(evaluated):
                     eligible = kind == "count" or (
-                        kind in ("sum", "min", "max") and v is not None
-                        and v.dtype == torch.float32)
-                    if not eligible or dict_space_ok(kind, v, sdt, cpl):
+                        kind in ("sum", "min", "max")
+                        and si.vdtype == torch.float32)
+                    if not eligible or dict_space_ok(kind, si):
                         # the dictionary-space lane below takes a sum
                         # whose column is code-resident
                         continue
@@ -754,8 +823,8 @@ class Compiler:
                             or len(fused) + 1 >= _gr.MAX_OPS:
                         continue
                     gk_bytes += cost
-                    fused.append((i, kind, None if kind == "count" else v,
-                                  w))
+                    fused.append((i, kind,
+                                  None if kind == "count" else si.v, si.w))
             fused_idx = {f[0] for f in fused}
 
             # Packed accumulator families: every remaining slot joins one
@@ -776,24 +845,40 @@ class Compiler:
                     count_of[id(w)] = c
                 return c
 
-            for i, (kind, v, w, sdt, cpl) in enumerate(evaluated):
+            for i, (kind, si) in enumerate(evaluated):
                 if i in fused_idx:
                     continue
+                w = si.w
+                if kind in ("count", "sum"):
+                    rm = run_space(kind, si)
+                    if rm is not None:
+                        # run-space COUNT / SUM: sum of run lengths (and
+                        # of value * length) over the surviving runs —
+                        # O(runs), the row-space plate never expands
+                        total, cnt = code_agg.run_space_sum_count(
+                            si.rpl.values, si.rpl.ends, rm)
+                        r = cnt if kind == "count" else total
+                        slot_arrays[i] = torch.stack([r, torch.zeros_like(r)])
+                        note["passes"] += 1
+                        note["strategies"].add("rle_runs")
+                        note["lanes"].add("rle_runs")
+                        continue
                 if kind == "count":
                     count_users.append((i, count_col(w)))
                 elif kind == "sum":
-                    acc_dt = _acc_dtype(sdt, v.dtype)
-                    if dict_space_ok(kind, v, sdt, cpl):
+                    acc_dt = _acc_dtype(si.sdt, si.vdtype)
+                    if dict_space_ok(kind, si):
                         # dictionary-space SUM: count codes into the
                         # (group, batch, code) space and contract with
                         # the dictionary stack — the value plate is never
                         # gathered (ops/code_agg.py)
                         slot_arrays[i] = code_agg.dict_space_sum(
-                            cpl.codes, cpl.dicts, gidx, w, nseg)
+                            si.cpl.codes, si.cpl.dicts, gidx, w, nseg)
                         note["passes"] += 1
                         note["strategies"].add("dict_space")
                         note["lanes"].add("dict_space")
                         continue
+                    v = si.v
                     if (not groups and v.dtype == torch.float32
                             and kbits & 1):
                         # global f32 sum through the Kahan kernel: one
@@ -812,10 +897,11 @@ class Compiler:
                         fsum_cols.append(
                             (i, torch.where(w, acc, torch.zeros_like(acc))))
                 elif kind == "sumsq":
-                    acc = v.to(torch.float64)
+                    acc = si.v.to(torch.float64)
                     fsum_cols.append((i, torch.where(
                         w, acc * acc, torch.zeros_like(acc))))
                 elif kind in ("min", "max"):
+                    v = si.v
                     fill = reduction.extreme_of(v.dtype, kind == "min", dev)
                     minmax.setdefault((kind, v.dtype), []).append(
                         (i, torch.where(w, v, fill)))
@@ -921,10 +1007,44 @@ class Compiler:
             notes[ctx.static] = {
                 "passes": note["passes"],
                 "strategies": frozenset(note["strategies"]),
-                "lanes": frozenset(note["lanes"])}
+                "lanes": frozenset(note["lanes"]),
+                "rle_fallbacks": note["rle_fallbacks"]}
             return gvalid, pairs
 
         return run_agg, out_cols
+
+
+class _SlotInput:
+    """One aggregate argument, evaluated once per execution.  Its row
+    values `v` materialize lazily, so a slot that the dictionary-space or
+    run-space lane takes never decodes its plate; `vdtype` is their dtype
+    without decoding."""
+
+    __slots__ = ("dv", "mask", "w", "sdt", "cpl", "rpl", "vdtype", "_v")
+
+    def __init__(self, dv: Optional[DVal], mask, w, raw: bool):
+        self.dv = dv
+        self.mask = mask           # the relation's [B, C] validity
+        self.w = w                 # flat row weights: valid & not null
+        self.sdt = dv.dtype if dv is not None else None
+        self.cpl = dv.cplate if raw and dv is not None else None
+        self.rpl = dv.rplate if raw and dv is not None else None
+        if dv is None:
+            self.vdtype = None
+        elif self.cpl is not None:
+            self.vdtype = self.cpl.dicts.dtype
+        elif self.rpl is not None:
+            self.vdtype = self.rpl.values.dtype
+        else:
+            self.vdtype = dv.value.dtype
+        self._v = None
+
+    @property
+    def v(self) -> Optional[torch.Tensor]:
+        if self._v is None and self.dv is not None:
+            self._v = _broadcast_to_mask(self.dv.value,
+                                         self.mask).reshape(-1)
+        return self._v
 
 
 @dataclasses.dataclass
@@ -969,14 +1089,23 @@ class _RunCtx:
         self.rels = []
         for r, (cols, valid) in zip(relations, rels):
             dvals = {}
+            cap = valid.shape[1]
             for ci, (col, null) in cols.items():
                 f = r.info.schema.fields[ci]
                 prov = _dict_provider(r.info, ci)
+                # compressed-domain columns decode lazily, only where an
+                # expression reads their values; comparisons take the
+                # code / run lanes
                 if isinstance(col, CodePlate):
-                    # compressed-domain column: the value decodes lazily
-                    # (one gather) only where an expression reads it;
-                    # comparisons take the code lane
                     dvals[ci] = DVal(None, null, f.dtype, prov, cplate=col)
+                elif isinstance(col, RlePlate):
+                    dvals[ci] = DVal(
+                        None, null, f.dtype, prov, rplate=col, cap=cap,
+                        decode=lambda p=col, c=cap: rle_values(p, c))
+                elif isinstance(col, BitPlate):
+                    dvals[ci] = DVal(
+                        None, null, f.dtype, prov,
+                        decode=lambda p=col, c=cap: bit_values(p, c))
                 else:
                     dvals[ci] = DVal(col, null, f.dtype, prov)
             self.rels.append((dvals, valid))

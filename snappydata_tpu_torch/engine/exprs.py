@@ -5,7 +5,7 @@ scan needs (TPC-H Q1/Q6 and the README Quick start): column refs,
 tokenized literals as runtime scalars, + - * / %, comparisons, BETWEEN,
 AND/OR/NOT with Kleene logic, IS NULL, casts between numeric types,
 numeric IN lists, string = / < / IN through host-built dictionary lookup
-tables, and the code-domain compare lane (`_compressed_cmp`).  Anything
+tables, and the code/run-domain compare lane (`_compressed_cmp`).  Anything
 else raises CompileError, which the executor turns into the reference's
 host fallback (engine/hosteval.py).
 
@@ -36,7 +36,8 @@ from snappydata_tpu_torch import types as T
 from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.storage.device_decode import (code_cmp_mask,
                                                         code_values,
-                                                        promote)
+                                                        promote,
+                                                        rle_expand_runs)
 
 
 class CompileError(Exception):
@@ -46,25 +47,42 @@ class CompileError(Exception):
 class DVal:
     """A runtime value: device tensor + optional null mask + static type.
 
-    `cplate` marks a base-table column resident in the code domain
-    (storage/device_decode.CodePlate): its value decodes lazily, on the
-    first read of `.value`, and comparisons against scalars take the
-    code lane instead of touching values."""
+    A base-table column resident encoded decodes lazily, on the first read
+    of `.value` (`decode`; a code plate's own gather when `cplate` is
+    set), and comparisons against scalars take the code lane (`cplate`,
+    a storage/device_decode.CodePlate) or the run lane (`rplate`, an
+    RlePlate) instead of touching values.
 
-    __slots__ = ("_value", "null", "dtype", "dictionary", "cplate")
+    `rmask` / `rends` give a BOOLEAN value's run-space form: the per-run
+    [B, R] mask whose expansion over the cumulative run ends `rends`
+    equals `value` — identity on `rends` proves two masks talk about the
+    same run partition.  Set only when `null` is None (a row-level null
+    mask breaks run purity); the run-space aggregate lane consumes it."""
+
+    __slots__ = ("_value", "null", "dtype", "dictionary", "cplate",
+                 "rplate", "cap", "rmask", "rends", "_decode")
 
     def __init__(self, value, null=None, dtype: T.DataType = None,
-                 dictionary=None, cplate=None):
+                 dictionary=None, cplate=None, rplate=None, cap=None,
+                 decode=None):
         self._value = value
         self.null = null
         self.dtype = dtype
         self.dictionary = dictionary
         self.cplate = cplate
+        self.rplate = rplate
+        self.cap = cap            # row capacity of a resident run plate
+        self.rmask = None
+        self.rends = None
+        self._decode = decode
 
     @property
     def value(self) -> torch.Tensor:
-        if self._value is None and self.cplate is not None:
-            self._value = code_values(self.cplate)
+        if self._value is None:
+            if self._decode is not None:
+                self._value = self._decode()
+            elif self.cplate is not None:
+                self._value = code_values(self.cplate)
         return self._value
 
 
@@ -87,19 +105,34 @@ _ARITH = {"+": torch.add, "-": torch.sub, "*": torch.mul,
 
 
 def _compressed_cmp(op: str, col: DVal, lit: DVal) -> Optional[DVal]:
-    """Code-domain lowering of `col OP scalar-literal` when the column is
-    resident as a code plate.  Value-domain equivalence is exact: code
-    thresholds translate through the sorted dictionary in the promoted
-    compare dtype.  None when the shape doesn't qualify — the generic
-    value compare runs."""
-    if col.cplate is None or lit.cplate is not None:
+    """Code/run-domain lowering of `col OP scalar-literal` when the column
+    is resident as a code or run plate.  Value-domain equivalence is
+    exact: code thresholds translate through the sorted dictionary in the
+    promoted compare dtype, and run predicates compare the very values
+    the expansion would yield.  None when the shape doesn't qualify — the
+    generic value compare runs."""
+    if col.cplate is None and col.rplate is None:
+        return None
+    if lit.cplate is not None or lit.rplate is not None:
         return None
     if lit.dtype is not None and lit.dtype.name == "string":
         return None
     if lit.null is not None or lit.value.dim() != 0:
         return None
-    m = code_cmp_mask(op, col.cplate, lit.value)
-    return DVal(m, _or_null(col.null, lit.null), T.BOOLEAN)
+    if col.cplate is not None:
+        m = code_cmp_mask(op, col.cplate, lit.value)
+        return DVal(m, _or_null(col.null, lit.null), T.BOOLEAN)
+    vals = col.rplate.values
+    dt = promote(vals.dtype, lit.value.dtype)
+    run_mask = _CMP[op](vals.to(dt), lit.value.to(dt))
+    out = DVal(rle_expand_runs(run_mask, col.rplate.ends, col.cap),
+               _or_null(col.null, lit.null), T.BOOLEAN)
+    if out.null is None:
+        # the expanded mask is PROVABLY the expansion of run_mask over
+        # this run partition: carry the run form for the aggregate lane
+        out.rmask = run_mask
+        out.rends = col.rplate.ends
+    return out
 
 
 def _is_exact_decimal(dt: Optional[T.DataType]) -> bool:
@@ -332,7 +365,16 @@ class ExprBuilder:
                         v = v & ~null
                     else:       # true or null = true
                         null = (an & bn) | (an & ~b.value) | (bn & ~a.value)
-                return DVal(v, null, T.BOOLEAN)
+                out = DVal(v, null, T.BOOLEAN)
+                # run-space conjunction: both sides run-resident over the
+                # SAME run partition (identity on ends) combine in O(R)
+                # run space, so the alignment proof survives the tree
+                if (null is None and a.rmask is not None
+                        and b.rmask is not None and a.rends is b.rends):
+                    out.rmask = (a.rmask & b.rmask) if is_and \
+                        else (a.rmask | b.rmask)
+                    out.rends = a.rends
+                return out
 
             return run_logic
 

@@ -1,12 +1,15 @@
-"""Compressed-domain aggregate primitive: SUM in DICTIONARY space.
+"""Compressed-domain aggregate primitives: SUM in DICTIONARY space and
+SUM/COUNT in RUN space.
 
-Port of snappydata_tpu/ops/code_agg.py (`dict_space_sum`; the run-space
-RLE lane is not ported).  A SUM over a dictionary-encoded column equals
-sum_c count[c] * dict[c], so the O(N) work touches only the small
-integer codes (one `index_add_` of 0/1 weights into (group, batch, code)
-cells) and an O(G * B * D) contraction with the per-batch dictionary
-stack replaces N value gathers.  Accumulation is float64 throughout, like
-the packed fsum family; exact int64 accumulators must not use this.
+Port of snappydata_tpu/ops/code_agg.py.  A SUM over a dictionary-encoded
+column equals sum_c count[c] * dict[c], so the O(N) work touches only the
+small integer codes (one `index_add_` of 0/1 weights into (group, batch,
+code) cells) and an O(G * B * D) contraction with the per-batch
+dictionary stack replaces N value gathers.  RLE goes further: with a
+per-run boolean mask the filter and the reduction are both O(runs)
+arithmetic over (value, length) pairs.  Accumulation is float64
+throughout, like the packed fsum family; exact int64 accumulators must
+not use these.
 """
 
 from __future__ import annotations
@@ -42,3 +45,19 @@ def dict_space_sum(codes: torch.Tensor, dicts: torch.Tensor,
     counts.index_add_(0, joint, w.to(torch.float64))
     return torch.einsum("gbd,bd->g", counts.view(nseg, b, dp),
                         dicts.to(torch.float64))
+
+
+def run_space_sum_count(values: torch.Tensor, ends: torch.Tensor,
+                        run_mask: torch.Tensor):
+    """Global SUM + COUNT over an RLE plate in run space.
+
+    values / ends: [B, R] run values and cumulative end offsets;
+    run_mask: [B, R] bool per-run survivors (the whole filter conjunction
+    reduced in run space — the caller's alignment proof).  Returns (total
+    float64 0-dim, count int64 0-dim): count = sum(len * mask), total =
+    sum(value * len * mask).  Padded runs repeat the last end, so their
+    length is exactly 0 whatever their mask bit."""
+    from snappydata_tpu_torch.storage.device_decode import (
+        RlePlate, rle_masked_sum_count)
+
+    return rle_masked_sum_count(RlePlate(values, ends), run_mask)

@@ -87,6 +87,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(source: str, name: str, argtypes: Sequence):
+    """The C function `name` of `csrc/<source>.cu`, built and loaded on
+    first use, typed with `argtypes` and returning its CUDA error code."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+    return fn
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if rc != 0:

@@ -1,4 +1,5 @@
-"""Masked compensated (Kahan) sum of float32 values -> float64 scalar.
+"""Compensated (Kahan) sums of float32 values -> float64: the masked
+global sum, and the fused code-domain filter + sum of the Q6 shape.
 
 Replaces the TPU kernel snappydata_tpu/ops/pallas_reduce.py
 masked_kahan_sum (`_kahan_kernel`, launched by `_kahan_call`): one pass
@@ -15,9 +16,21 @@ registers, in place of the TPU's per-lane chains down a [rows, 128]
 layout; each thread writes its (s, c) pair to a small partials tensor
 and the f64 combine runs here.
 
-`masked_kahan_sum` launches the kernel for a CUDA tensor (and counts the
-launch in `masked_kahan_sum.launches`) and runs the plain version below
-for a CPU tensor; any other device raises.
+`fused_code_filter_sum` replaces the TPU kernel
+snappydata_tpu/ops/pallas_reduce.py fused_code_filter_sum
+(`_fused_q6_kernel`, launched by `_fused_q6_call`): TPC-H Q6 over encoded
+batches, where the quantity and discount columns stay uint8/uint16 code
+plates compared against per-batch code thresholds the host translated
+through each batch's sorted dictionary, the shipdate range is int32, and
+the discount decodes inside the kernel from its batch's dictionary row.
+On Hopper (csrc/code_filter_sum.cu) it is bound by bytes too — 11 B per
+row with uint8 codes — and runs one block row per batch, so a block reads
+its batch's thresholds and dictionary once (the dictionary into shared
+memory), with one Kahan chain and an exact integer count per thread.
+
+Each wrapper launches its kernel for CUDA tensors (and counts the launch
+in `<wrapper>.launches`) and runs the plain version for CPU tensors; any
+other device raises.
 """
 
 from __future__ import annotations
@@ -82,8 +95,7 @@ def masked_kahan_sum(values: torch.Tensor,
     part_s = torch.empty(blocks * _THREADS, dtype=torch.float32,
                          device=flat.device)
     part_c = torch.empty_like(part_s)
-    lib = _lib()
-    rc = lib.kahan_sum_f32(
+    rc = cuda_build.entry(*_KAHAN)(
         flat.data_ptr(), m.data_ptr(), n, part_s.data_ptr(),
         part_c.data_ptr(), blocks, _THREADS,
         torch.cuda.current_stream(flat.device).cuda_stream)
@@ -95,12 +107,136 @@ def masked_kahan_sum(values: torch.Tensor,
 masked_kahan_sum.launches = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("kahan_reduce")
-    fn = lib.kahan_sum_f32
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-    return lib
+def decode_rows(codes: torch.Tensor, dicts: torch.Tensor) -> torch.Tensor:
+    """dicts[b, codes[b, i]] as float32, 0 where a code lies past the
+    dictionary row (as the TPU kernel's select chain leaves it)."""
+    c = codes.long()
+    d = dicts.to(torch.float32)
+    width = d.shape[1]
+    if width == 0:
+        return torch.zeros(c.shape, dtype=torch.float32, device=c.device)
+    got = torch.gather(d, 1, c.clamp(max=width - 1))
+    return torch.where(c < width, got, torch.zeros((), dtype=torch.float32,
+                                                   device=c.device))
+
+
+def code_filter_mask(qty_codes, disc_codes, ship, valid, qty_hi_codes,
+                     disc_lo_codes, disc_hi_codes, ship_lo, ship_hi):
+    """The rows `fused_code_filter_sum` keeps, as a bool [B, cap] mask."""
+    q = qty_codes.long()
+    d = disc_codes.long()
+    sh = ship.long()
+    qhi = qty_hi_codes.reshape(-1, 1).long()
+    dlo = disc_lo_codes.reshape(-1, 1).long()
+    dhi = disc_hi_codes.reshape(-1, 1).long()
+    return (valid.bool() & (q < qhi) & (d >= dlo) & (d <= dhi)
+            & (sh >= int(ship_lo)) & (sh < int(ship_hi)))
+
+
+def fused_code_filter_sum_plain(qty_codes, disc_codes, ship, price, valid,
+                                disc_dicts, qty_hi_codes, disc_lo_codes,
+                                disc_hi_codes, ship_lo, ship_hi):
+    """Plain PyTorch version of the kernel's arithmetic: the same code and
+    shipdate compares, the discount decoded from its batch's row, the f32
+    product price * disc, then compensated f32 chains combined in float64
+    as sum(s) - sum(c) (masked_kahan_sum_plain) and an int64 count."""
+    ok = code_filter_mask(qty_codes, disc_codes, ship, valid, qty_hi_codes,
+                          disc_lo_codes, disc_hi_codes, ship_lo, ship_hi)
+    prod = price.to(torch.float32) * decode_rows(disc_codes, disc_dicts)
+    return masked_kahan_sum_plain(prod, ok), ok.sum().to(torch.int64)
+
+
+def fused_code_filter_sum(qty_codes, disc_codes, ship, price, valid,
+                          disc_dicts, qty_hi_codes, disc_lo_codes,
+                          disc_hi_codes, ship_lo, ship_hi):
+    """Fused decode + filter + SUM over encoded batches (the Q6 shape):
+
+        sum(price * disc), count(*)
+        WHERE valid
+          AND qty_code < qty_hi_codes[b]            (code domain)
+          AND disc_lo_codes[b] <= disc_code <= disc_hi_codes[b]
+          AND ship_lo <= ship < ship_hi              (int32 value domain)
+
+    qty_codes / disc_codes: [B, cap] uint8/uint16 code plates; ship:
+    [B, cap] int32; price: [B, cap] float32; valid: [B, cap] bool;
+    disc_dicts: [B, D] float32 per-batch dictionaries (decode target);
+    the three thresholds: [B] int32, translated on the host through each
+    batch's sorted dictionary (a miss yields a threshold that matches
+    nothing).  Returns (float64 0-dim sum, int64 0-dim count)."""
+    if price.device.type == "cpu":
+        return fused_code_filter_sum_plain(
+            qty_codes, disc_codes, ship, price, valid, disc_dicts,
+            qty_hi_codes, disc_lo_codes, disc_hi_codes, ship_lo, ship_hi)
+    if price.device.type != "cuda":
+        raise RuntimeError(f"fused_code_filter_sum: no kernel for "
+                           f"{price.device.type} tensors")
+    dev = price.device
+    if price.dim() != 2:
+        raise ValueError("fused_code_filter_sum: [B, cap] plates expected")
+    B, cap = price.shape
+    code_types = (torch.uint8, torch.uint16)
+    want = ((qty_codes, code_types), (disc_codes, code_types),
+            (ship, (torch.int32,)), (price, (torch.float32,)),
+            (valid, (torch.bool,)))
+    for a, types in want:
+        if a.dtype not in types or tuple(a.shape) != (B, cap) \
+                or a.device != dev:
+            raise TypeError(
+                f"fused_code_filter_sum: a [{B}, {cap}] input on {dev} of "
+                f"{a.dtype} (expected one of {types})")
+    if disc_dicts.dtype != torch.float32 or disc_dicts.dim() != 2 \
+            or disc_dicts.shape[0] != B or disc_dicts.device != dev:
+        raise TypeError("fused_code_filter_sum: disc_dicts must be "
+                        f"[{B}, D] float32 on {dev}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"fused_code_filter_sum: {B} batches (1..65535)")
+
+    def thresholds(a):
+        t = torch.as_tensor(a, dtype=torch.int32).reshape(-1).to(dev)
+        if t.numel() != B:
+            raise ValueError(f"fused_code_filter_sum: [{B}] thresholds, "
+                             f"got {t.numel()}")
+        return t.contiguous()
+
+    qhi, dlo, dhi = (thresholds(a) for a in
+                     (qty_hi_codes, disc_lo_codes, disc_hi_codes))
+    ins = [a.contiguous() for a in (qty_codes, disc_codes, ship, price,
+                                    valid)]
+    q, d, sh, pz, vd = ins
+    dicts = disc_dicts.contiguous()
+    # four-row loads need rows of 4 and aligned bases (16 B for int/float,
+    # 4 B per code byte, 4 B for the validity bytes)
+    vec = cap % 4 == 0 and all(
+        a.data_ptr() % (4 * a.element_size()) == 0 for a in ins)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks_x = max(1, min(-(-cap // (_THREADS * 4)), -(-sms * 4 // B)))
+    total = B * blocks_x * _THREADS
+    part_s = torch.empty(total, dtype=torch.float32, device=dev)
+    part_c = torch.empty_like(part_s)
+    part_n = torch.empty(total, dtype=torch.int64, device=dev)
+    rc = cuda_build.entry(*_CODE_FILTER)(
+        q.data_ptr(), q.element_size(), d.data_ptr(), d.element_size(),
+        sh.data_ptr(), pz.data_ptr(), vd.data_ptr(), dicts.data_ptr(),
+        dicts.shape[1], qhi.data_ptr(), dlo.data_ptr(), dhi.data_ptr(),
+        int(ship_lo), int(ship_hi), B, cap, int(vec), part_s.data_ptr(),
+        part_c.data_ptr(), part_n.data_ptr(), blocks_x, _THREADS,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "code_filter_sum launch")
+    fused_code_filter_sum.launches += 1
+    return (part_s.double().sum() - part_c.double().sum(),
+            part_n.sum())
+
+
+fused_code_filter_sum.launches = 0
+
+# the C entry points: (source under csrc/, function, argument types)
+_KAHAN = ("kahan_reduce", "kahan_sum_f32", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_CODE_FILTER = ("code_filter_sum", "code_filter_sum", [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])

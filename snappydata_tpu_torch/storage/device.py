@@ -7,12 +7,11 @@ plate (row count and delete masks already applied).  The batch count is
 padded on the {2^k, 1.5*2^k} ladder, as in the reference, so plate shapes
 stay stable as a table grows.
 
-VALUE_DICT columns whose batches all encode that way stay resident as
-code plates (storage/device_decode.CodePlate) under
-`scan_compressed_domain`; every other column binds decoded.  Where the
-reference would keep an RLE or bitset column resident as run/bit plates,
-the port decodes on the host at bind and counts the column as
-`compressed_fallback_not_ported`.
+Under `scan_compressed_domain` a column whose batches all share one
+compressible encoding stays resident in it (storage/device_decode):
+VALUE_DICT as a `CodePlate`, RUN_LENGTH as an `RlePlate`, BOOLEAN_BITSET
+as a `BitPlate`; every other column binds decoded, and each reroute of a
+compressible column is counted as `compressed_fallback_<reason>`.
 
 Per-batch min/max stats ride along host-side for predicate batch
 skipping (ref: stats-row filter codegen, columnBatchesSkipped metric,
@@ -30,6 +29,7 @@ import torch
 
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch import types as T
+from snappydata_tpu_torch.storage import bitmask
 from snappydata_tpu_torch.storage import device_decode as _dd
 from snappydata_tpu_torch.storage.encoding import Encoding
 from snappydata_tpu_torch.storage.table_store import ColumnTableData
@@ -49,8 +49,9 @@ class DeviceTable:
     num_batches: int           # padded
     capacity: int
     valid: torch.Tensor        # bool [B, C]
-    # col_idx -> [B, C] decoded plate, OR a CodePlate when the column
-    # stays resident in the code domain — consumers branch structurally
+    # col_idx -> [B, C] decoded plate, OR a CodePlate / RlePlate /
+    # BitPlate when the column stays resident encoded — consumers branch
+    # structurally
     columns: Dict[int, object]
     dictionaries: Dict[int, np.ndarray]      # string col -> host values
     stats_min: Dict[int, np.ndarray]         # numeric col -> host [B]
@@ -70,11 +71,10 @@ _COMPRESSIBLE = {Encoding.VALUE_DICT: "dict", Encoding.RUN_LENGTH: "rle",
 
 def _compressed_mode(is_str: bool, cols_enc, has_row_chunks: bool,
                      count: bool = False) -> Optional[str]:
-    """Per-column compressed-domain decision: 'dict' when the column stays
-    resident as a code plate, None for a decoded bind.  With count=True
-    (the cache-miss build) every decode-first reroute of a compressible
-    column is counted by reason, as in the reference; RLE and bitset
-    columns the reference would keep resident count as not_ported."""
+    """Per-column compressed-domain decision: 'dict' | 'rle' | 'bitset'
+    when the column can stay resident encoded, None for a decoded bind.
+    With count=True (the cache-miss build) every decode-first reroute of
+    a compressible column is counted by reason, as in the reference."""
     knob = str(config.global_properties().get(
         "scan_compressed_domain", "auto") or "auto").lower()
     encs = {c.encoding for c in cols_enc}
@@ -95,13 +95,8 @@ def _compressed_mode(is_str: bool, cols_enc, has_row_chunks: bool,
     if has_row_chunks:
         reject("row_buffer")
         return None
-    if len(encs) == 1:
-        mode = _COMPRESSIBLE.get(next(iter(encs)))
-        if mode == "dict":
-            return mode
-        if mode is not None:
-            reject("not_ported")
-            return None
+    if len(encs) == 1 and next(iter(encs)) in _COMPRESSIBLE:
+        return _COMPRESSIBLE[next(iter(encs))]
     if count and (compressible or knob == "on"):
         _dd.compressed_fallback(
             "mixed_encoding" if compressible else "not_encoded")
@@ -170,8 +165,8 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
         key = ("ccol", ci) if cd_mode else ("col", ci)
         if key not in cache:
             _compressed_mode(is_str, cols_enc, bool(row_chunks), count=True)
-            cache[key] = _build_code_column(views, cols_enc, ci, b, cap, dt,
-                                            device, place, cache) \
+            cache[key] = _build_code_column(cd_mode, views, cols_enc, ci, b,
+                                            cap, dt, device, place, cache) \
                 if cd_mode else \
                 _build_decoded_column(data, manifest, views, row_chunks, ci,
                                       f, b, cap, dt, place, cache)
@@ -195,9 +190,11 @@ def _null_plate(views, ci, b, cap):
     return null_mask, any_null
 
 
-def _build_code_column(views, cols_enc, ci, b, cap, dt, device, place,
+def _build_code_column(mode, views, cols_enc, ci, b, cap, dt, device, place,
                        cache):
-    """Compressed-domain bind of an all-VALUE_DICT column."""
+    """Compressed-domain bind of a column whose batches all encode as
+    VALUE_DICT ('dict'), RUN_LENGTH ('rle') or BOOLEAN_BITSET
+    ('bitset'): the column stays resident encoded."""
     null_mask, any_null = _null_plate(views, ci, b, cap)
     smin = np.full(b, np.nan)
     smax = np.full(b, np.nan)
@@ -205,20 +202,33 @@ def _build_code_column(views, cols_enc, ci, b, cap, dt, device, place,
         st = col.stats
         if st is not None and st.min is not None:
             smin[i], smax[i] = float(st.min), float(st.max)
-        elif len(col.dictionary):
+        elif mode == "dict" and len(col.dictionary):
             smin[i] = float(np.min(col.dictionary))
             smax[i] = float(np.max(col.dictionary))
-    plate, host_dicts, sizes = _dd.code_plates(cols_enc, b, cap, dt, device)
-    cache[("dictdom", ci)] = (host_dicts, sizes)
+        elif mode == "rle" and len(col.data):
+            smin[i] = float(np.min(col.data))
+            smax[i] = float(np.max(col.data))
+        elif mode == "bitset" and col.num_rows:
+            bits = bitmask.unpack(col.data, col.num_rows)
+            smin[i] = float(bits.min())
+            smax[i] = float(bits.max())
+    if mode == "dict":
+        plate, host_dicts, sizes = _dd.code_plates(cols_enc, b, cap, dt,
+                                                   device)
+        cache[("dictdom", ci)] = (host_dicts, sizes)
+    elif mode == "rle":
+        plate = _dd.rle_plates(cols_enc, b, cap, dt, device)
+    else:
+        plate = _dd.bit_plates(cols_enc, b, cap, device)
     return plate, smin, smax, place(null_mask) if any_null else None
 
 
 def _build_decoded_column(data, manifest, views, row_chunks, ci, f, b, cap,
                           dt, place, cache):
     """Decoded [b, cap] plate: every batch decodes on the host (the
-    reference decodes RLE/bitset/VALUE_DICT batches in-trace instead;
-    the values are identical) and row-buffer chunks append after the
-    batches."""
+    reference decodes the encoded batches of a mixed column in-trace
+    instead; the values are identical) and row-buffer chunks append after
+    the batches."""
     is_str = f.dtype.name == "string"
     stacked = np.zeros((b, cap), dtype=dt)
     null_mask, any_null = _null_plate(views, ci, b, cap)

@@ -1,16 +1,24 @@
 """Compressed-domain column plates and their device consumers.
 
-Port of snappydata_tpu/storage/device_decode.py cut to the VALUE_DICT
-code plate the default scan uses: under `scan_compressed_domain` a
-VALUE_DICT column stays resident on the device as uint8/uint16 codes
-plus tiny per-batch sorted dictionaries (`CodePlate`), predicates compare
-codes against literals translated through the sorted dictionary
-(`code_cmp_mask`), and values decode lazily with one gather
-(`code_values`) only where an expression consumes them.
+Port of snappydata_tpu/storage/device_decode.py: under
+`scan_compressed_domain` an encoded column stays resident on the device
+in its encoded form, and values decode lazily only where an expression
+consumes them:
 
-RLE and bitset columns, which the reference keeps resident as run/bit
-plates, decode on the host at bind instead; every such decode is counted
-as `compressed_fallback_not_ported` (see storage/device.py), never hidden.
+- VALUE_DICT -> `CodePlate`: uint8/uint16 codes plus tiny per-batch
+  sorted dictionaries; predicates compare codes against literals
+  translated through the sorted dictionary (`code_cmp_mask`), values
+  decode with one gather (`code_values`).
+- RUN_LENGTH -> `RlePlate`: run values plus cumulative run end offsets,
+  O(runs) bytes; predicates run per run and expand the boolean run mask
+  (`rle_cmp_mask`), values expand with a batched searchsorted-gather
+  (`rle_values`), and a run-aligned filter + SUM/COUNT is O(runs)
+  arithmetic (`rle_masked_sum_count`, ops/code_agg.run_space_sum_count).
+- BOOLEAN_BITSET -> `BitPlate`: the packed bits, 8x fewer bytes,
+  unpacked with shifts (`bit_values`).
+
+Lanes past a batch's last run expand to the final run's value; every
+consumer masks by the validity plate, so padding content is unobservable.
 """
 
 from __future__ import annotations
@@ -36,6 +44,22 @@ class CodePlate(NamedTuple):
 
     codes: torch.Tensor
     dicts: torch.Tensor
+
+
+class RlePlate(NamedTuple):
+    """RUN_LENGTH column resident as runs.
+    values: [B, R] run values; ends: [B, R] int64 cumulative run end
+    offsets (padded runs repeat the last end, so their length is 0)."""
+
+    values: torch.Tensor
+    ends: torch.Tensor
+
+
+class BitPlate(NamedTuple):
+    """BOOLEAN_BITSET column resident as packed bits [B, ceil(cap/8)]
+    uint8 (LSB first, numpy packbits bitorder='little')."""
+
+    packed: torch.Tensor
 
 
 def counters() -> Dict[str, int]:
@@ -88,6 +112,94 @@ def code_plates(vd_cols, b: int, cap: int, dt, device: torch.device):
     plate = CodePlate(torch.from_numpy(codes).to(device),
                       torch.from_numpy(dicts).to(device))
     return plate, host, sizes
+
+
+def rle_plates(rle_cols, b: int, cap: int, dt,
+               device: torch.device) -> RlePlate:
+    """RUN_LENGTH views -> a resident RlePlate (run values + cumulative
+    end offsets, O(runs) bytes on the device instead of O(cap))."""
+    r_pad = _next_pow2(max(1, max(len(c.data) for c in rle_cols)))
+    vals = np.zeros((b, r_pad), dtype=dt)
+    ends = np.zeros((b, r_pad), dtype=np.int64)
+    for i, c in enumerate(rle_cols):
+        r = len(c.data)
+        vals[i, :r] = c.data
+        e = np.cumsum(c.runs, dtype=np.int64)
+        ends[i, :r] = e
+        if r and r < r_pad:
+            vals[i, r:] = vals[i, r - 1]
+            ends[i, r:] = e[-1]
+        _counters["bytes_encoded"] += int(
+            c.data.nbytes + np.asarray(c.runs).nbytes)
+        _counters["bytes_decoded_equiv"] += int(cap * vals.dtype.itemsize)
+        _counters["batches_code_bound"] += 1
+    return RlePlate(torch.from_numpy(vals).to(device),
+                    torch.from_numpy(ends).to(device))
+
+
+def bit_plates(bit_cols, b: int, cap: int, device: torch.device) -> BitPlate:
+    """BOOLEAN_BITSET views -> a resident BitPlate (8x fewer bytes)."""
+    nbytes = (cap + 7) // 8
+    packed = np.zeros((b, nbytes), dtype=np.uint8)
+    for i, c in enumerate(bit_cols):
+        raw = np.asarray(c.data, dtype=np.uint8)
+        packed[i, :raw.shape[0]] = raw
+        _counters["bytes_encoded"] += int(raw.nbytes)
+        _counters["bytes_decoded_equiv"] += int(cap)
+        _counters["batches_code_bound"] += 1
+    return BitPlate(torch.from_numpy(packed).to(device))
+
+
+def rle_expand_runs(run_array: torch.Tensor, ends: torch.Tensor,
+                    cap: int) -> torch.Tensor:
+    """Expand any per-run [B, R] array (values, boolean run masks) to row
+    space [B, cap]: lane j takes the run whose half-open [prev_end, end)
+    interval holds j (a batched searchsorted-gather)."""
+    pos = torch.arange(cap, dtype=ends.dtype, device=ends.device)
+    seg = torch.searchsorted(ends.contiguous(),
+                             pos.expand(ends.shape[0], cap).contiguous(),
+                             right=True)
+    seg = seg.clamp(max=run_array.shape[1] - 1)
+    return torch.gather(run_array, 1, seg)
+
+
+def rle_values(plate: RlePlate, cap: int) -> torch.Tensor:
+    """Lazy expansion of an RlePlate to [B, cap] values."""
+    return rle_expand_runs(plate.values, plate.ends, cap)
+
+
+def bit_values(plate: BitPlate, cap: int) -> torch.Tensor:
+    """Lazy unpack of a BitPlate to [B, cap] bools."""
+    idx = torch.arange(cap, device=plate.packed.device)
+    byte = plate.packed[:, idx // 8]
+    shift = (idx % 8).to(torch.uint8)
+    return torch.bitwise_and(torch.bitwise_right_shift(byte, shift),
+                             1).bool()
+
+
+def rle_cmp_mask(fn, plate: RlePlate, lit, cap: int) -> torch.Tensor:
+    """Run-arithmetic filter over an RlePlate: the predicate runs per RUN
+    (O(runs) compares) and the boolean run mask expands — the full-width
+    value plate is never produced."""
+    return rle_expand_runs(fn(plate.values, lit), plate.ends, cap)
+
+
+def rle_run_lengths(ends: torch.Tensor) -> torch.Tensor:
+    """Per-run lengths from cumulative end offsets (padded runs repeat
+    the last end, so their length is exactly 0)."""
+    prev = torch.cat([torch.zeros_like(ends[:, :1]), ends[:, :-1]], dim=1)
+    return ends - prev
+
+
+def rle_masked_sum_count(plate: RlePlate, run_mask: torch.Tensor):
+    """O(runs) filter + aggregate arithmetic: with a per-run boolean
+    mask, count = sum(len * mask) and sum = sum(value * len * mask) in
+    float64.  Valid only when the surviving row set is run-aligned (no
+    row-level holes inside runs)."""
+    lens = rle_run_lengths(plate.ends)
+    lm = torch.where(run_mask, lens, torch.zeros_like(lens))
+    return (plate.values.to(torch.float64) * lm).sum(), \
+        lm.sum().to(torch.int64)
 
 
 def code_values(plate: CodePlate) -> torch.Tensor:

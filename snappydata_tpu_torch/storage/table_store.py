@@ -312,7 +312,14 @@ class ColumnTableData:
             pos += take
         return out
 
-
+    def force_rollover(self) -> None:
+        """Cut every row-buffer row into column batches now, whatever the
+        buffer's size (the tail of a bulk load stays in the row buffer
+        otherwise, and row-buffer rows bind decoded)."""
+        with self._lock:
+            views = list(self._manifest.views)
+            views.extend(self._rollover_locked())
+            self._publish(tuple(views))
 
     def append_batches(self, batches: Sequence[ColumnBatch],
                        string_dicts: Dict[int, np.ndarray]) -> None:

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from snappydata_tpu_torch.ops import group_reduce as gr
+from snappydata_tpu_torch.ops import kahan_reduce as kr
 from snappydata_tpu_torch.ops.kahan_reduce import (masked_kahan_sum,
                                                    masked_kahan_sum_plain)
 
@@ -78,3 +79,82 @@ def test_cuda_grouped_matches_plain(cuda_device, offset):
         assert int(got[1][g]) == int(plain[1][g]) == int(sel.sum())
         assert float(got[2][g]) == float(plain[2][g]) == v[sel].min()
         assert float(got[3][g]) == float(plain[3][g]) == v[sel].max()
+
+
+def _code_inputs(rng, B, cap, code_dtype, D):
+    codes_q = rng.integers(0, D, (B, cap)).astype(code_dtype)
+    codes_d = rng.integers(0, D, (B, cap)).astype(code_dtype)
+    ship = rng.integers(8000, 9500, (B, cap)).astype(np.int32)
+    price = (rng.random((B, cap)) * 1e4).astype(np.float32)
+    valid = rng.random((B, cap)) < 0.9
+    valid[-1] = False                       # a padded batch
+    dicts = np.sort(rng.random((B, D)), axis=1).astype(np.float32)
+    dicts[-1] = 0.0
+    qhi = rng.integers(0, D + 1, B).astype(np.int32)
+    dlo = rng.integers(0, D // 2, B).astype(np.int32)
+    dhi = (dlo + rng.integers(0, D // 2, B)).astype(np.int32)
+    qhi[-1] = dlo[-1] = dhi[-1] = 0
+    return codes_q, codes_d, ship, price, valid, dicts, qhi, dlo, dhi
+
+
+# cap 1000 is not a multiple of 128 (nor of the TPU block); cap 1001 is
+# not a multiple of 4, so the kernels' four-row loads are off
+@pytest.mark.cuda
+@pytest.mark.parametrize("code_dtype,D,cap", [(np.uint8, 16, 4096),
+                                              (np.uint8, 200, 1001),
+                                              (np.uint16, 3000, 1000)])
+def test_cuda_code_filter_sum_matches_plain(cuda_device, code_dtype, D,
+                                            cap):
+    rng = np.random.default_rng(9)
+    host = _code_inputs(rng, 5, cap, code_dtype, D)
+    cq, cd, ship, price, valid, dicts, qhi, dlo, dhi = [_t(a) for a in host]
+    args = (cq, cd, ship, price, valid, dicts, qhi, dlo, dhi, 8500, 9200)
+    dev_args = tuple(a.to(cuda_device) if isinstance(a, torch.Tensor)
+                     else a for a in args)
+    before = kr.fused_code_filter_sum.launches
+    got_s, got_n = kr.fused_code_filter_sum(*dev_args)
+    assert kr.fused_code_filter_sum.launches == before + 1
+    plain_s, plain_n = kr.fused_code_filter_sum_plain(*args)
+    assert int(got_n) == int(plain_n) > 0
+    prod = (price.double() * kr.decode_rows(cd, dicts).double()).abs()
+    ok = kr.code_filter_mask(cq, cd, ship, valid, qhi, dlo, dhi, 8500, 9200)
+    bound = 1e-6 * float(prod[ok].sum())
+    assert abs(float(got_s) - float(plain_s)) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,cap", [(1, 4096), (6, 1000), (64, 1001)])
+def test_cuda_grouped_code_reduce_matches_plain(cuda_device, G, cap):
+    rng = np.random.default_rng(10)
+    B, D = 4, 16
+    gidx = rng.integers(0, G, (B, cap)).astype(np.int32)
+    mask = rng.random((B, cap)) < 0.8
+    plain = (rng.random((B, cap)) * 1e4).astype(np.float32)
+    c8 = rng.integers(0, D, (B, cap)).astype(np.uint8)
+    c16 = rng.integers(0, 300, (B, cap)).astype(np.uint16)
+    d8 = rng.random((B, D)).astype(np.float32)
+    d16 = rng.random((B, 256)).astype(np.float32)   # codes past 255 -> 0
+
+    def slots(t):
+        return [("count",),
+                ("sum", t(plain), []),
+                ("sum", None, [(t(c8), t(d8))]),
+                ("sum", t(plain), [(t(c8), t(d8)), (t(c16), t(d16))])]
+
+    hosts = {}
+
+    def keep(a):                 # one tensor per array, so dedup fires
+        return hosts.setdefault(id(a), _t(a).to(cuda_device))
+
+    before = gr.grouped_code_reduce.launches
+    got = gr.grouped_code_reduce(keep(gidx), keep(mask), slots(keep), G)
+    assert gr.grouped_code_reduce.launches == before + 1
+    want = gr.grouped_code_reduce_plain(_t(gidx), _t(mask), slots(_t), G)
+    assert torch.equal(got[0].cpu(), want[0])
+    for k in range(1, 4):
+        v = gr.slot_values(slots(_t)[k], gidx.shape, "cpu").double().abs()
+        scale = torch.zeros(G, dtype=torch.float64).index_add_(
+            0, _t(gidx).reshape(-1).long(),
+            torch.where(_t(mask).reshape(-1), v.reshape(-1), 0.0))
+        diff = (got[k].cpu() - want[k]).abs()
+        assert bool((diff <= 1e-6 * scale + 1e-9).all()), (k, diff, scale)
