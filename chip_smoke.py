@@ -6,11 +6,14 @@ the compressed-domain entry points (`utils/tpch_code_domain`), and run the
 run-space RLE probe.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
+                          [--ptxas]
 
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel with nvcc for sm_90a, one process per source;
+2. build every kernel with nvcc for sm_90a, one process per source
+   (with --ptxas, also print ptxas's registers, shared memory and spills
+   of every kernel);
 3. generate lineitem at scale factor --sf (6M rows per unit) and load it;
 4. the main path: launch counters set to 0, Q1 and Q6 through
    `session.sql` with `pallas_group_reduce` and `pallas_reduce` on, the
@@ -18,7 +21,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    kernel received are kept for phase 5;
 5. each kernel against its plain version on those inputs (tolerance: the
    compensated sums within 1e-6 * sum(|v|), counts and min/max exact),
-   timed beside its bound and one PyTorch library call;
+   timed beside its bound and one PyTorch library call; the grouped
+   kernel's launch configuration (threads, blocks, resident blocks per
+   SM, words per group and thread) and its op count before and after
+   dedup;
 6. the answers: Q1 and Q6 against a float64 numpy oracle computed from the
    generated arrays, and against the same queries with the knobs off
    (counts exact, same-sign sums within rel 1e-6);
@@ -28,7 +34,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    sums within rel 5e-5 of the session's Q6 / Q1 and of the oracle;
 8. each code kernel against its plain version on the inputs phase 7
    handed it (counts exact, sums within 1e-6 * sum(|v|)), timed beside its
-   bound and one PyTorch library call;
+   bound and one PyTorch library call, with the launch configuration and
+   slot count before and after dedup as in phase 5;
 9. the run-space RLE probe: a sorted DOUBLE column of 5 distinct values
    (min(max(rows, 65536), 4194304) rows) and `SELECT sum(r), count(r)
    ... WHERE r < 9.0` against numpy; `agg_rle_runs` must move and
@@ -227,6 +234,7 @@ def grouped_phase(calls, reps):
     ops, gidx, G = calls[0]
     n = gidx.numel()
     got = grouped_reduce(ops, gidx, G)
+    config = dict(grouped_reduce.config)
     plain = grouped_reduce_plain(ops, gidx, G)
     torch.cuda.synchronize()
     err = 0.0
@@ -265,7 +273,7 @@ def grouped_phase(calls, reps):
                                 device=idx.device).index_add_(0, idx, packed),
             reps * 10),
         "bound_ms": b_ms, "bound_by": b_by, "rows": n, "ops": len(ops),
-        "groups": G}
+        "groups": G, "config": config}
 
 
 def code_filter_phase(calls, reps):
@@ -324,6 +332,7 @@ def code_grouped_phase(calls, reps):
         fail("grouped_code_reduce saw no call on the compressed path")
     gidx, mask, slots, G = calls[0]
     got = grouped_code_reduce(gidx, mask, slots, G)
+    config = dict(grouped_code_reduce.config)
     plain = grouped_code_reduce_plain(gidx, mask, slots, G)
     torch.cuda.synchronize()
     idx = gidx.reshape(-1).long()
@@ -371,7 +380,7 @@ def code_grouped_phase(calls, reps):
                                 device=idx.device).index_add_(0, idx, packed),
             reps * 10),
         "bound_ms": b_ms, "bound_by": b_by, "rows": n, "slots": len(slots),
-        "groups": G}
+        "groups": G, "config": config}
 
 
 def code_domain_checks(session, tpch, first, want, q6_out, q1_out):
@@ -439,6 +448,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm Q1 and Q6, and one warm "
                          "code_domain_q6 / q1, with torch.profiler")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="build with -Xptxas -v and print each kernel's "
+                         "registers, shared memory and spills")
     args = ap.parse_args()
 
     import torch
@@ -477,10 +489,17 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     try:
-        cuda_build.build(KERNELS, force=True)
+        built = cuda_build.build(
+            KERNELS, force=True,
+            extra_flags=("-Xptxas", "-v") if args.ptxas else ())
     except RuntimeError as e:
         fail(str(e))
     log(f"build_s {time.perf_counter() - t0:.3f} ({', '.join(KERNELS)})")
+    if args.ptxas:
+        for name in KERNELS:
+            for line in built[name].splitlines():
+                if "ptxas" in line or "spill" in line:
+                    log(f"ptxas {name}: {line.strip()}")
 
     # 3. data
     n_rows = int(args.sf * ROWS_PER_SF)

@@ -804,10 +804,12 @@ class Compiler:
             # partials in shared memory (ops/group_reduce.py).  The
             # shared-memory budget stops fusing before a block would need
             # more than an SM offers; overflow slots take the packed
-            # families below.
+            # families below.  Identical slots share one kernel chain, so
+            # only distinct ones are charged.
             use_gk = bool(groups) and nseg <= _gr.MAX_GROUPS \
                 and bool(kbits & 2)
             gk_bytes = _gr.op_smem_bytes("count", nseg)  # the gvalid count
+            gk_keys = {_gr.op_key(("count", None, valid))}
             fused = []  # (slot_idx, kind, values|None, mask)
             if use_gk:
                 for i, (kind, si) in enumerate(evaluated):
@@ -818,13 +820,16 @@ class Compiler:
                         # the dictionary-space lane below takes a sum
                         # whose column is code-resident
                         continue
-                    cost = _gr.op_smem_bytes(kind, nseg)
-                    if gk_bytes + cost > _gr.SMEM_BUDGET \
-                            or len(fused) + 1 >= _gr.MAX_OPS:
-                        continue
-                    gk_bytes += cost
-                    fused.append((i, kind,
-                                  None if kind == "count" else si.v, si.w))
+                    op = (kind, None if kind == "count" else si.v, si.w)
+                    key = _gr.op_key(op)
+                    if key not in gk_keys:
+                        cost = _gr.op_smem_bytes(kind, nseg)
+                        if gk_bytes + cost > _gr.SMEM_BUDGET \
+                                or len(gk_keys) >= _gr.MAX_OPS:
+                            continue
+                        gk_bytes += cost
+                        gk_keys.add(key)
+                    fused.append((i,) + op)
             fused_idx = {f[0] for f in fused}
 
             # Packed accumulator families: every remaining slot joins one

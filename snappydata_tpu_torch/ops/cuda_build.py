@@ -13,6 +13,7 @@ machines without a CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -48,31 +49,42 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header under csrc/."""
     src, so = _paths(name)
-    return not os.path.exists(so) or \
-        os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    deps = [src] + glob.glob(os.path.join(CSRC, "*.cuh"))
+    return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
 
 
-def _command(name: str):
+def _command(name: str, extra: Sequence[str] = ()):
     src, so = _paths(name)
-    return [nvcc_path(), *NVCC_FLAGS, "-o", so, src]
+    return [nvcc_path(), *NVCC_FLAGS, *extra, "-o", so, src]
 
 
-def build(names: Sequence[str], force: bool = False) -> None:
+def build(names: Sequence[str], force: bool = False,
+          extra_flags: Sequence[str] = ()) -> Dict[str, str]:
     """Compile every stale kernel in `names` (every one with `force`),
-    one nvcc per source, all started together; raises with nvcc's output
-    when one fails."""
+    one nvcc per source, all started together, with `extra_flags` after
+    the usual ones (e.g. ("-Xptxas", "-v") for register and spill counts);
+    returns nvcc's output per compiled source and raises with it when one
+    fails."""
     os.makedirs(BUILD, exist_ok=True)
-    procs = [(n, subprocess.Popen(_command(n), stdout=subprocess.PIPE,
+    procs = [(n, subprocess.Popen(_command(n, extra_flags),
+                                  stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True))
              for n in names if force or _stale(n)]
     errors = []
+    outputs = {}
     for n, p in procs:
         out, _ = p.communicate()
+        outputs[n] = out
         if p.returncode != 0:
             errors.append(f"nvcc failed for {n}.cu:\n{out}")
     if errors:
         raise RuntimeError("\n".join(errors))
+    return outputs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,6 +12,8 @@ The CUDA kernels themselves are held against their plain versions in
 tests/test_torch_cuda.py, on the card.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -198,13 +200,123 @@ def test_grouped_code_reduce_rows_outside_groups_count_nowhere():
 
 
 def test_code_kernel_threads_follow_the_smem_budget():
-    # Q1: one count and four Kahan sums (9 words) over 6 groups
+    # Q1: one count and four Kahan sums, all distinct: 5 words of primary
+    # partials + 4 compensations = 9 per group and thread, over 6 groups
+    rng = np.random.default_rng(11)
+    gidx, mask, plain, c8, c16, d8, d16 = (
+        _t(a) for a in _gcr_case(rng, 2, 64, 6))
+    q1 = [("count",), ("sum", None, [(c8, d8)]), ("sum", plain, []),
+          ("sum", plain, [(c8, d8)]), ("sum", plain, [(c8, d8), (c16, d16)])]
+    assert gr.code_words(q1) == 9
+    spec, words, dict_bytes, _, _ = gr.pack_code_spec(gidx, mask, q1, 6)
+    assert words == 9 and dict_bytes == 4 * (256 + 300)
     assert gr.code_threads(9, 6) == 128
+    assert gr.code_smem_bytes(9, 6, 128) == 9 * 6 * 128 * 4
     # the same slots over 64 groups need 295 KB at 128 threads
     assert gr.code_smem_bytes(9, 64, 128) > gr.SMEM_BUDGET
     assert gr.code_threads(9, 64) == 64
     # one warp is the floor: 25 sums over 64 groups exceed it
     assert gr.code_threads(50, 64) is None
+
+
+def test_code_slot_dedup_in_caller_order():
+    rng = np.random.default_rng(12)
+    gidx, mask, plain, c8, c16, d8, d16 = (
+        _t(a) for a in _gcr_case(rng, 3, 1000, 6))
+    slots = [("sum", plain, [(c8, d8)]), ("count",),
+             ("sum", plain, [(c8, d8)]), ("sum", None, [(c16, d16)]),
+             ("count",), ("sum", plain, [(c8, d8), (c16, d16)]),
+             ("sum", plain, [(c16, d16), (c8, d8)])]
+    firsts, where = gr.chain_plan([gr.slot_key(s) for s in slots],
+                                  [s[0] == "sum" for s in slots])
+    # factor order is part of a slot's identity (the products round in it)
+    assert firsts == [0, 3, 5, 6, 1]
+    assert where == [0, 4, 0, 1, 4, 2, 3]
+    got = gr.grouped_code_reduce(gidx, mask, slots, 6)
+    want = gr.grouped_code_reduce_plain(gidx, mask, slots, 6)
+    assert len(got) == len(slots)
+    for slot, a, b in zip(slots, got, want):
+        assert a.dtype == b.dtype
+        if slot[0] == "count":
+            assert torch.equal(a, b)
+        else:
+            assert torch.allclose(a, b, rtol=1e-7, atol=0)
+
+
+def test_code_spec_packing():
+    # the ctypes mirror of csrc/group_code_reduce.cu CodeSpec, passed by
+    # value: gp::Chains (144 with padding), two pointers, cap, B, n_dicts,
+    # per slot a plain pointer, a factor count, an extra-factor start and
+    # CODE_HOIST 32-byte factors, MAX_CODE_EXTRA extra factors, then the
+    # distinct dictionaries for the shared-memory reload
+    assert ctypes.sizeof(gr._Factor) == 32
+    assert gr._CodeSpec.gidx.offset == 144
+    assert gr._CodeSpec.plain.offset == 176
+    assert gr._CodeSpec.factor.offset == 176 + 16 * gr.MAX_CODE_SLOTS
+    assert gr._CodeSpec.extra.offset == gr._CodeSpec.factor.offset \
+        + 32 * gr.CODE_HOIST * gr.MAX_CODE_SLOTS
+    assert ctypes.sizeof(gr._CodeSpec) == 2096 < 4096
+    rng = np.random.default_rng(13)
+    gidx, mask, plain, c8, c16, d8, d16 = (
+        _t(a) for a in _gcr_case(rng, 2, 64, 6))
+    chains = [("sum", plain, [(c8, d8), (c16, d16)]),
+              ("sum", None, [(c8, d8)]), ("count",)]
+    spec, words, dict_bytes, vec, keep = gr.pack_code_spec(
+        gidx, mask, chains, 6)
+    assert (spec.ch.n, spec.ch.n_sums, spec.ch.G, words) == (3, 2, 6, 5)
+    assert list(spec.ch.kind[:3]) == [0, 0, 1]
+    assert (spec.B, spec.cap, spec.n_dicts) == (2, 64, 2)
+    assert spec.plain[0] == plain.data_ptr() and spec.plain[1] is None
+    assert list(spec.n_factors[:2]) == [2, 1]
+    f00, f01, f10 = spec.factor[0][0], spec.factor[0][1], spec.factor[1][0]
+    assert (f00.codes, f00.dict, f00.code_bytes) == (
+        c8.data_ptr(), d8.data_ptr(), 1)
+    # rows padded to 256 entries in shared memory
+    assert (f01.code_bytes, f01.dict_w, f01.dict_off) == (2, 300, 256)
+    assert (f10.codes, f10.dict_w, f10.dict_off) == (c8.data_ptr(), 16, 0)
+    assert list(spec.dict_w[:2]) == [16, 300]
+    assert dict_bytes == 4 * (256 + 300) and vec
+    # the limits: distinct slots, distinct dictionaries, extra factors
+    many = [("sum", _t(rng.random((2, 64)).astype(np.float32)), [])
+            for _ in range(gr.MAX_CODE_SLOTS + 1)]
+    with pytest.raises(ValueError):
+        gr.pack_code_spec(gidx, mask, many, 6)
+    own = [("sum", None, [(c8, _t(rng.random((2, 16)).astype(np.float32)))])
+           for _ in range(gr.MAX_CODE_DICTS + 1)]
+    gr.pack_code_spec(gidx, mask, own[:-1], 6)
+    with pytest.raises(ValueError):
+        gr.pack_code_spec(gidx, mask, own, 6)
+    long = [("sum", None, [(c8, d8)] * 9) for _ in range(3)]
+    gr.pack_code_spec(gidx, mask, long[:2], 6)      # 14 extra factors
+    with pytest.raises(ValueError):
+        gr.pack_code_spec(gidx, mask, long, 6)      # 21
+    with pytest.raises(TypeError):
+        gr.pack_code_spec(gidx, mask, [("sum", plain.double(), [])], 6)
+
+
+@pytest.mark.parametrize("B,cap,threads,blocks", [
+    (768, 131072, 128, 924),   # the main path: 196,608 tiles
+    (5000, 64, 128, 924),      # many small batches: B > grid
+    (3, 1001, 32, 924),        # fewer tiles than blocks would allow
+    (1, 4096, 64, 7)])
+def test_code_tile_walk_covers_every_tile_once(B, cap, threads, blocks):
+    chunks = gr.code_chunks(cap, threads)
+    total = B * chunks
+    blocks = min(blocks, total)   # the wrapper's grid
+    seen = []
+    for blk in range(blocks):
+        lo, hi = gr.tile_range(blk, blocks, total)
+        assert hi - lo in (total // blocks, -(-total // blocks))
+        walked = list(range(lo, hi))
+        seen.extend(walked)
+        # a block reloads the dictionaries once per batch it enters
+        batches = {t // chunks for t in walked}
+        assert len(batches) <= -(-(hi - lo) // chunks) + 1
+    assert seen == list(range(total))
+    # every (batch, chunk) pair is one tile, rows 4 * threads each
+    assert {(t // chunks, t % chunks) for t in seen} == {
+        (b, c) for b in range(B) for c in range(chunks)}
+    assert chunks * 4 * threads >= cap > (chunks - 1) * 4 * threads
 
 
 def test_grouped_code_reduce_rejects_bad_slots():

@@ -158,3 +158,229 @@ def test_cuda_grouped_code_reduce_matches_plain(cuda_device, G, cap):
             torch.where(_t(mask).reshape(-1), v.reshape(-1), 0.0))
         diff = (got[k].cpu() - want[k]).abs()
         assert bool((diff <= 1e-6 * scale + 1e-9).all()), (k, diff, scale)
+
+
+def _same(a, b):
+    """Equal, with NaN equal to NaN (min/max propagate it)."""
+    a, b = a.cpu(), b.cpu()
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _check_grouped(got, ops_host, gidx, G):
+    """The kernel's results against the plain version run on every op
+    (no dedup): counts and min/max exact, sums within 1e-6 * sum(|v|)."""
+    want = gr.grouped_reduce_plain(ops_host, _t(gidx), G)
+    assert len(got) == len(want)
+    for (k, v, m), a, b in zip(ops_host, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if k != "sum":
+            assert _same(a, b), (k, a, b)
+            continue
+        scale = torch.zeros(G, dtype=torch.float64).index_add_(
+            0, _t(gidx).long(), torch.where(m, v.double().abs(), 0.0))
+        assert bool(((a.cpu() - b).abs() <= 1e-6 * scale + 1e-9).all())
+
+
+# duplicated ops share one chain; every caller's slot gets its own
+# result.  Offset 1 misaligns every input, n is ragged
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_grouped_duplicate_ops(cuda_device, offset):
+    rng = np.random.default_rng(11)
+    n, G = 2_000_003, 9
+    gidx = rng.integers(0, G, n + offset).astype(np.int32)
+    v1 = (rng.random(n + offset) * 2e4).astype(np.float32)
+    v2 = (rng.random(n + offset) * 100 - 50).astype(np.float32)
+    m1 = rng.random(n + offset) < 0.9
+    m2 = rng.random(n + offset) < 0.5
+    dev = {}
+    host = {}
+    for name, a in (("g", gidx), ("v1", v1), ("v2", v2), ("m1", m1),
+                    ("m2", m2)):
+        dev[name] = _t(a).to(cuda_device)[offset:]
+        host[name] = _t(a[offset:])
+
+    def ops(t):
+        return [("sum", t["v1"], t["m1"]), ("count", None, t["m1"]),
+                ("sum", t["v2"], t["m2"]), ("sum", t["v1"], t["m1"]),
+                ("max", t["v2"], t["m1"]), ("count", None, t["m1"]),
+                ("min", t["v2"], t["m2"]), ("max", t["v2"], t["m1"]),
+                ("sum", t["v1"], t["m2"]), ("count", None, t["m2"])]
+
+    before = gr.grouped_reduce.launches
+    got = gr.grouped_reduce(ops(dev), dev["g"], G)
+    assert gr.grouped_reduce.launches == before + 1
+    assert gr.grouped_reduce.config["ops"] == 10
+    assert gr.grouped_reduce.config["chains"] == 7
+    _check_grouped(got, ops(host), gidx[offset:], G)
+
+
+# every row in one group: the four rows of each step all hit the same
+# words, so the rows of a step must update in order
+@pytest.mark.cuda
+def test_cuda_grouped_every_row_in_one_group(cuda_device):
+    rng = np.random.default_rng(12)
+    n, G = 1_000_000, 9
+    gidx = np.full(n, 4, dtype=np.int32)
+    v = (rng.random(n) * 1e3).astype(np.float32)
+    m = rng.random(n) < 0.8
+    dg, dv, dm = (_t(a).to(cuda_device) for a in (gidx, v, m))
+    got = gr.grouped_reduce([("sum", dv, dm), ("count", None, dm),
+                             ("min", dv, dm), ("max", dv, dm)], dg, G)
+    hv, hm = _t(v), _t(m)
+    _check_grouped(got, [("sum", hv, hm), ("count", None, hm),
+                         ("min", hv, hm), ("max", hv, hm)], gidx, G)
+    assert int(got[1][4]) == int(m.sum())
+    exact = float(v.astype(np.float64)[m].sum())
+    assert abs(float(got[0][4]) - exact) <= 1e-7 * exact
+
+
+# G = 64 with 3 sums and a count: 7 words * 64 groups * 128 threads *
+# 4 B = 229,376 B, the largest layout under the 232,448-byte budget
+@pytest.mark.cuda
+def test_cuda_grouped_g64_at_the_smem_edge(cuda_device):
+    rng = np.random.default_rng(13)
+    n, G = 1_500_001, 64
+    gidx = rng.integers(-1, G + 1, n).astype(np.int32)   # some outside
+    vs = [(rng.random(n) * 10 - 5).astype(np.float32) for _ in range(3)]
+    m = rng.random(n) < 0.7
+    dg, dm = _t(gidx).to(cuda_device), _t(m).to(cuda_device)
+    dvs = [_t(a).to(cuda_device) for a in vs]
+    ops = [("sum", a, dm) for a in dvs] + [("count", None, dm)]
+    got = gr.grouped_reduce(ops, dg, G)
+    cfg = gr.grouped_reduce.config
+    assert cfg["words"] == 7 and cfg["smem"] == 229_376
+    assert cfg["smem"] <= gr.SMEM_BUDGET and cfg["blocks_per_sm"] >= 1
+    hm = _t(m)
+    inside = (gidx >= 0) & (gidx < G)
+    # rows outside [0, G) count nowhere; the plain version never sees them
+    host_ops = [("sum", _t(a), hm & _t(inside)) for a in vs] \
+        + [("count", None, hm & _t(inside))]
+    _check_grouped(got, host_ops, np.where(inside, gidx, 0), G)
+    with pytest.raises(ValueError):
+        gr.grouped_reduce(ops + [("sum", dm.float(), dm)], dg, G)
+
+
+# NaN in a group's values: min and max propagate it, as torch does
+@pytest.mark.cuda
+def test_cuda_grouped_nan_minmax(cuda_device):
+    rng = np.random.default_rng(14)
+    n, G = 400_003, 5
+    gidx = rng.integers(0, G, n).astype(np.int32)
+    v = (rng.random(n) * 10).astype(np.float32)
+    m = np.ones(n, dtype=bool)
+    v[np.flatnonzero(gidx == 2)[::1000]] = np.nan
+    v[np.flatnonzero(gidx == 3)[:1]] = np.nan
+    dg, dv, dm = (_t(a).to(cuda_device) for a in (gidx, v, m))
+    got = gr.grouped_reduce([("min", dv, dm), ("max", dv, dm),
+                             ("count", None, dm)], dg, G)
+    assert bool(torch.isnan(got[0][2])) and bool(torch.isnan(got[1][3]))
+    assert not bool(torch.isnan(got[0][0]))
+    hv, hm = _t(v), _t(m)
+    _check_grouped(got, [("min", hv, hm), ("max", hv, hm),
+                         ("count", None, hm)], gidx, G)
+
+
+def _check_code(got, gidx, mask, slots_host, G):
+    want = gr.grouped_code_reduce_plain(_t(gidx), _t(mask), slots_host, G)
+    assert len(got) == len(want)
+    for slot, a, b in zip(slots_host, got, want):
+        assert a.dtype == b.dtype
+        if slot[0] == "count":
+            assert torch.equal(a.cpu(), b)
+            continue
+        v = gr.slot_values(slot, gidx.shape, "cpu").double().abs()
+        g = _t(gidx).reshape(-1).long()
+        keep = _t(mask).reshape(-1) & (g >= 0) & (g < G)
+        scale = torch.zeros(G, dtype=torch.float64).index_add_(
+            0, g.clamp(0, G - 1), torch.where(keep, v.reshape(-1), 0.0))
+        assert bool(((a.cpu() - b).abs() <= 1e-6 * scale + 1e-9).all())
+
+
+def _code_case(rng, B, cap, G, D=16):
+    gidx = rng.integers(0, G, (B, cap)).astype(np.int32)
+    mask = rng.random((B, cap)) < 0.8
+    plain = (rng.random((B, cap)) * 1e4).astype(np.float32)
+    c8 = rng.integers(0, D, (B, cap)).astype(np.uint8)
+    c16 = rng.integers(0, 300, (B, cap)).astype(np.uint16)
+    d8 = rng.random((B, D)).astype(np.float32)
+    d16 = rng.random((B, 256)).astype(np.float32)   # codes past 255 -> 0
+    return gidx, mask, plain, c8, c16, d8, d16
+
+
+def _code_slots(t, plain, c8, c16, d8, d16):
+    return [("sum", t(plain), [(t(c8), t(d8))]), ("count",),
+            ("sum", t(plain), [(t(c8), t(d8))]),
+            ("sum", None, [(t(c16), t(d16))]), ("count",),
+            ("sum", t(plain), [(t(c8), t(d8)), (t(c16), t(d16))])]
+
+
+# duplicated slots, and B >> grid: 5000 batches of 64 (or 63, ragged)
+# rows, so each block walks several batches and reloads dictionaries
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,cap,G", [(5000, 64, 6), (5000, 63, 9),
+                                     (3, 4096, 6)])
+def test_cuda_code_duplicate_slots_and_many_batches(cuda_device, B, cap, G):
+    rng = np.random.default_rng(15)
+    gidx, mask, plain, c8, c16, d8, d16 = _code_case(rng, B, cap, G)
+    hosts = {}
+
+    def keep(a):                 # one tensor per array, so dedup fires
+        return hosts.setdefault(id(a), _t(a).to(cuda_device))
+
+    before = gr.grouped_code_reduce.launches
+    got = gr.grouped_code_reduce(
+        keep(gidx), keep(mask), _code_slots(keep, plain, c8, c16, d8, d16),
+        G)
+    assert gr.grouped_code_reduce.launches == before + 1
+    cfg = gr.grouped_code_reduce.config
+    assert (cfg["slots"], cfg["chains"]) == (6, 4)
+    if B == 5000:
+        assert cfg["tiles"] == B > cfg["blocks"]
+    _check_code(got, gidx, mask, _code_slots(_t, plain, c8, c16, d8, d16),
+                G)
+
+
+# every row in one group; a few rows outside [0, G) count nowhere
+@pytest.mark.cuda
+def test_cuda_code_every_row_in_one_group(cuda_device):
+    rng = np.random.default_rng(16)
+    B, cap, G = 8, 65536, 6
+    gidx, mask, plain, c8, c16, d8, d16 = _code_case(rng, B, cap, G)
+    gidx[:] = 5
+    gidx[0, :100] = 6
+    gidx[1, :100] = -1
+    hosts = {}
+
+    def keep(a):
+        return hosts.setdefault(id(a), _t(a).to(cuda_device))
+
+    got = gr.grouped_code_reduce(
+        keep(gidx), keep(mask), _code_slots(keep, plain, c8, c16, d8, d16),
+        G)
+    inside = mask & (gidx >= 0) & (gidx < G)
+    assert int(got[1][5]) == int(inside.sum())
+    _check_code(got, np.where(inside, gidx, 0), inside,
+                _code_slots(_t, plain, c8, c16, d8, d16), G)
+
+
+# Q1's slot order (a count, qty, price, price * (1 - disc), price *
+# (1 - disc) * (1 + tax)), on the four-row path (cap 4096) and the row
+# path (63)
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [4096, 63])
+def test_cuda_code_q1_slot_order(cuda_device, cap):
+    rng = np.random.default_rng(17)
+    gidx, mask, plain, c8, c16, d8, d16 = _code_case(rng, 6, cap, 6)
+    hosts = {}
+
+    def keep(a):
+        return hosts.setdefault(id(a), _t(a).to(cuda_device))
+
+    def slots(t):
+        return [("count",), ("sum", None, [(t(c8), t(d8))]),
+                ("sum", t(plain), []), ("sum", t(plain), [(t(c8), t(d8))]),
+                ("sum", t(plain), [(t(c8), t(d8)), (t(c16), t(d16))])]
+
+    got = gr.grouped_code_reduce(keep(gidx), keep(mask), slots(keep), 6)
+    _check_code(got, gidx, mask, slots(_t), 6)

@@ -11,6 +11,8 @@ The CUDA kernels themselves are held against their plain versions in
 tests/test_torch_cuda.py, on the card.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,15 +167,99 @@ def test_grouped_overflow_segment_is_isolated():
         assert int(got[1][g]) == int(sel.sum())
 
 
+def _q1_ops():
+    """Q1's op list as the executor hands it to the kernel on the card:
+    4 sums over 3 distinct value columns and 4 counts over one mask, plus
+    the gvalid count over the same mask."""
+    rng = np.random.default_rng(3)
+    n = 4096
+    m = torch.from_numpy(rng.random(n) < 0.9)
+    qty, price, disc = (torch.from_numpy(rng.random(n).astype(np.float32))
+                        for _ in range(3))
+    ops = [("sum", qty, m), ("sum", price, m), ("sum", disc, m),
+           ("sum", price, m), ("count", None, m), ("count", None, m),
+           ("count", None, m), ("count", None, m), ("count", None, m)]
+    gidx = torch.from_numpy(rng.integers(0, 9, n).astype(np.int32))
+    return ops, gidx
+
+
 def test_smem_budget_matches_kernel_layout():
-    # two words per Kahan sum, one per count/min/max, per group and thread
+    # one word per chain plus a Kahan compensation per sum, per group and
+    # thread, at the kernel's compile-time 128 threads
     assert gr.op_smem_bytes("sum", 9) == 2 * 9 * gr.THREADS * 4
     assert gr.op_smem_bytes("count", 9) == 9 * gr.THREADS * 4
-    # the Q1 shape (5 sums + 5 counts, 9 segments) fits one block
-    q1 = 5 * gr.op_smem_bytes("sum", 9) + 5 * gr.op_smem_bytes("count", 9)
-    assert q1 <= gr.SMEM_BUDGET
-    # 64 segments of 8 sums do not: the executor stops fusing before that
+    # Q1's 9 ops are 4 chains after dedup (3 sums, 1 count): 7 words, not
+    # the 12 + 1 of one chain per op
+    ops, gidx = _q1_ops()
+    firsts, _ = gr.chain_plan([gr.op_key(o) for o in ops],
+                              [o[0] == "sum" for o in ops])
+    chains = [ops[i] for i in firsts]
+    spec, words, aligned = gr.pack_group_spec(chains, gidx.numel(), 9,
+                                              gidx.device)
+    assert (spec.ch.n, spec.ch.n_sums, words) == (4, 3, 7)
+    assert words * 9 * gr.THREADS * 4 == sum(
+        gr.op_smem_bytes(k, 9) for k, _v, _m in chains) <= gr.SMEM_BUDGET
+    # 64 segments of 8 sums do not fit: the executor stops fusing before
     assert 8 * gr.op_smem_bytes("sum", 64) > gr.SMEM_BUDGET
+
+
+def test_chain_plan_dedups_in_caller_order():
+    ops, gidx = _q1_ops()
+    firsts, where = gr.chain_plan([gr.op_key(o) for o in ops],
+                                  [o[0] == "sum" for o in ops])
+    # sums first, then the one count; duplicates point at the first copy
+    assert [ops[i][0] for i in firsts] == ["sum", "sum", "sum", "count"]
+    assert where == [0, 1, 2, 1, 3, 3, 3, 3, 3]
+    # the wrapper's results, one per caller position, equal the plain
+    # version run on every op without dedup
+    got = gr.grouped_reduce(ops, gidx, 9)
+    want = gr.grouped_reduce_plain(ops, gidx, 9)
+    assert len(got) == len(ops)
+    for (k, _v, _m), a, b in zip(ops, got, want):
+        assert a.dtype == b.dtype
+        if k == "sum":
+            assert torch.allclose(a, b, rtol=1e-7, atol=0)
+        else:
+            assert torch.equal(a, b)
+
+
+def test_chain_plan_keeps_distinct_kinds_apart():
+    # the same column and mask under sum, min and max are three chains;
+    # a count ignores its values
+    v = torch.ones(8)
+    m = torch.ones(8, dtype=torch.bool)
+    ops = [("max", v, m), ("sum", v, m), ("min", v, m), ("count", v, m),
+           ("count", None, m), ("sum", v, m)]
+    firsts, where = gr.chain_plan([gr.op_key(o) for o in ops],
+                                  [o[0] == "sum" for o in ops])
+    assert [ops[i][0] for i in firsts] == ["sum", "max", "min", "count"]
+    assert where == [1, 0, 2, 3, 3, 0]
+
+
+def test_group_spec_packing():
+    # the ctypes mirror of csrc/group_reduce.cu GroupSpec: gp::Chains (3
+    # ints + 32 kinds = 140 bytes, padded to 144), then 32 value and 32
+    # mask pointers; passed by value, far under the 4 KB parameter limit
+    assert ctypes.sizeof(gr._Chains) == 140
+    assert gr._GroupSpec.values.offset == 144
+    assert gr._GroupSpec.masks.offset == 144 + 8 * gr.MAX_OPS
+    assert ctypes.sizeof(gr._GroupSpec) == 144 + 16 * gr.MAX_OPS < 4096
+    m = torch.ones(16, dtype=torch.bool)
+    vals = [torch.ones(16) for _ in range(gr.MAX_OPS + 1)]
+    spec, words, _ = gr.pack_group_spec(
+        [("sum", vals[0], m), ("min", vals[1], m), ("count", None, m)], 16,
+        5, m.device)
+    assert (spec.ch.n, spec.ch.n_sums, spec.ch.G, words) == (3, 1, 5, 4)
+    assert list(spec.ch.kind[:3]) == [0, 2, 1]
+    assert spec.values[0] == vals[0].data_ptr() and spec.values[2] is None
+    assert spec.masks[2] == m.data_ptr()
+    with pytest.raises(ValueError):
+        gr.pack_group_spec([("sum", v, m) for v in vals], 16, 5, m.device)
+    with pytest.raises(TypeError):
+        gr.pack_group_spec([("sum", torch.ones(15), m)], 16, 5, m.device)
+    with pytest.raises(TypeError):
+        gr.pack_group_spec([("sum", torch.ones(16, dtype=torch.float64),
+                             m)], 16, 5, m.device)
 
 
 def test_grouped_rejects_bad_shapes():
@@ -193,3 +279,29 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(RuntimeError):
         gr.grouped_reduce([("count", None, m)],
                           torch.zeros(4, dtype=torch.int32, device="meta"), 2)
+
+
+def test_kernel_library_is_stale_after_a_shared_header_changes(
+        tmp_path, monkeypatch):
+    """A library rebuilds when its source or any csrc/*.cuh is newer."""
+    import os
+
+    from snappydata_tpu_torch.ops import cuda_build
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
+    monkeypatch.setattr(cuda_build, "BUILD", str(build))
+    (csrc / "k.cu").write_text("// kernel")
+    header = csrc / "shared.cuh"
+    header.write_text("// header")
+    assert cuda_build._stale("k")          # never built
+    lib = build / "libk.so"
+    lib.write_text("")
+    os.utime(csrc / "k.cu", (100, 100))
+    os.utime(header, (100, 100))
+    os.utime(lib, (200, 200))
+    assert not cuda_build._stale("k")
+    os.utime(header, (300, 300))            # the header moved on
+    assert cuda_build._stale("k")
