@@ -2,8 +2,9 @@
 each against its plain PyTorch version at the main path's shapes, load
 TPC-H lineitem through `SnappySession.insert_arrays`, answer Q1 and Q6
 through `SnappySession.sql` with both kernel lanes on, then again through
-the compressed-domain entry points (`utils/tpch_code_domain`), and run the
-run-space RLE probe.
+the compressed-domain entry points (`utils/tpch_code_domain`), run the
+run-space RLE probe, then load orders and answer TPC-H Q3C (orders LEFT
+JOIN lineitem) and a generic-key join through the device join engine.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
@@ -40,7 +41,20 @@ Phases, in order; any failure exits non-zero before the result lines:
    (min(max(rows, 65536), 4194304) rows) and `SELECT sum(r), count(r)
    ... WHERE r < 9.0` against numpy; `agg_rle_runs` must move and
    `compressed_fallback_not_ported` stay 0;
-10. the kernels' JSON line, then `{"ok": true, "device": ...}` last.
+10. the join path: generate orders (--sf x 1.5M rows, seed + 1) and load
+   it; with `join_expand_max_bytes` and `join_build_cache_bytes` at 8 GiB
+   and `pallas_group_reduce` on, launch counters and join counters set to
+   0, TPC-H Q3C through `session.sql` once and --reps times warm, the
+   counters read back: no host fallback, at least one device join, ONE
+   build sort over all runs, and the grouped kernel launched on the
+   joined rows.  Q3C against a float64 numpy oracle (per-order priority
+   and date lookup, then `np.bincount` over lineitem: counts exact,
+   revenue within rel 5e-5); the grouped kernel against its plain
+   version on the inputs Q3C handed it (phase 5's tolerance), timed
+   beside its bound; the build sort timed alone; the peak device memory;
+   then the generic-key join (`GROUP BY o_orderdate`, about 2,400 groups)
+   against numpy with `host_fallbacks` unchanged;
+11. the kernels' JSON line, then `{"ok": true, "device": ...}` last.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -59,6 +73,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 ROWS_PER_SF = 6_000_000
+ORDERS_PER_SF = 1_500_000
 KERNELS = ("kahan_reduce", "group_reduce", "code_filter_sum",
            "group_code_reduce")
 RLE_PROBE_ROWS = (1 << 16, 1 << 22)
@@ -96,14 +111,17 @@ def bound(nbytes: float, ops: float):
 
 
 class Recorder:
-    """Wraps a kernel wrapper to keep the arguments of its calls."""
+    """Wraps a kernel wrapper to keep the arguments of its first `keep`
+    calls (all of them when `keep` is None)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, keep=None):
         self.fn = fn
+        self.keep = keep
         self.calls = []
 
     def __call__(self, *args):
-        self.calls.append(args)
+        if self.keep is None or len(self.calls) < self.keep:
+            self.calls.append(args)
         return self.fn(*args)
 
 
@@ -439,6 +457,101 @@ def rle_probe(session, n_rows, reps):
     return n, rows, times[0], min(times[1:])
 
 
+GENERIC_JOIN_QUERY = (
+    "SELECT o_orderdate, count(*), sum(l_extendedprice) FROM orders "
+    "JOIN lineitem ON o_orderkey = l_orderkey GROUP BY o_orderdate "
+    "ORDER BY o_orderdate")
+JOIN_COUNTERS = ("join_host_fallbacks", "host_fallbacks",
+                 "join_device_joins", "join_build_sorts",
+                 "join_build_cache_hits", "join_expand_out_rows",
+                 "join_expand_probe_rows")
+
+
+def join_oracle(li, orders, tpch):
+    """Q3C and the generic-key join in float64 numpy: every l_orderkey is
+    an orders row (keys 1..n consecutive), so a per-order lookup of
+    priority, date and date filter, then `np.bincount` over lineitem."""
+    import numpy as np
+
+    names = sorted(set(orders["o_orderpriority"][:1000].tolist()))
+    code = np.zeros(len(orders["o_orderkey"]), dtype=np.int64)
+    for i, name in enumerate(names):
+        code[orders["o_orderpriority"] == name] = i
+    if int(np.bincount(code, minlength=len(names)).sum()) != len(code):
+        fail("join oracle: an order priority outside the first 1000 rows")
+    date = orders["o_orderdate"].astype(np.int64)
+    passes = date < tpch._days("1995-03-15")
+    row = li["l_orderkey"] - 1
+    m = passes[row]
+    g = code[row][m]
+    rev = (li["l_extendedprice"] * (1 - li["l_discount"]))[m]
+    cnt = np.bincount(g, minlength=len(names))
+    q3c = [(names[i], int(cnt[i]),
+            float(np.bincount(g, weights=rev, minlength=len(names))[i]))
+           for i in range(len(names))
+           if passes[code == i].any()]
+    d = date[row]
+    lo = int(d.min())
+    dc = np.bincount(d - lo)
+    ds = np.bincount(d - lo, weights=li["l_extendedprice"])
+    generic = [(lo + int(i), int(dc[i]), float(ds[i]))
+               for i in np.flatnonzero(dc)]
+    return q3c, generic
+
+
+def join_path(session, tpch, reps, profile):
+    """Phase 10's runs: Q3C through `session.sql` with the counters at 0;
+    (rows, first seconds, warm seconds, counter deltas, launches, peak
+    device bytes, resident bytes before, profile or None)."""
+    import torch
+
+    from snappydata_tpu_torch.engine import executor
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.ops import group_reduce as gr
+
+    reg = global_registry()
+    before = {k: reg.counter(k) for k in JOIN_COUNTERS}
+    rec = Recorder(executor.grouped_reduce, keep=1)
+    executor.grouped_reduce = rec
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gr.grouped_reduce.launches = 0
+    times = []
+    try:
+        for _ in range(1 + reps):
+            t0 = time.perf_counter()
+            rows = session.sql(tpch.Q3C).rows()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        executor.grouped_reduce = rec.fn
+    launches = gr.grouped_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    moved = {k: reg.counter(k) - before[k] for k in JOIN_COUNTERS}
+    prof = profile_run(lambda: session.sql(tpch.Q3C).rows()) \
+        if profile else None
+    warm = sorted(times[1:])[len(times[1:]) // 2] if reps else times[0]
+    return (rows, times[0], warm, moved, launches, rec.calls, peak,
+            resident, prof)
+
+
+def build_sort_ms(session, reps):
+    """The build side's sort alone: lineitem's l_orderkey plate encoded
+    as the join encodes it, sorted stably, CUDA-event mean."""
+    import torch
+
+    from snappydata_tpu_torch.ops import join as dj
+    from snappydata_tpu_torch.storage.device import build_device_table
+
+    data = session.catalog.lookup_table("lineitem").data
+    dt = build_device_table(data, [0], session.device, code_ok=False)
+    keys = dj.encode_build_keys([(dt.columns[0].reshape(-1), None)],
+                                dt.valid.reshape(-1), None)
+    return cuda_ms(lambda: torch.sort(keys, stable=True), reps), \
+        int(keys.numel())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=16.0,
@@ -463,6 +576,8 @@ def main() -> int:
         from snappydata_tpu_torch import SnappySession, config
         from snappydata_tpu_torch.catalog import Catalog
         from snappydata_tpu_torch.engine import executor
+        from snappydata_tpu_torch.observability.metrics import \
+            global_registry
         from snappydata_tpu_torch.ops import cuda_build
         from snappydata_tpu_torch.ops import group_reduce as gr
         from snappydata_tpu_torch.ops import kahan_reduce as kr
@@ -635,7 +750,72 @@ def main() -> int:
     log(f"rle_probe rows {n_rle} answer {json.dumps(rle_rows)} first_s "
         f"{rle_first:.4f} warm_s {rle_warm:.4f}")
 
-    # 10. result lines
+    # 10. the join path: orders LEFT JOIN lineitem (Q3C), then a
+    # generic-key join, through the device join engine
+    n_orders = int(args.sf * ORDERS_PER_SF)
+    t0 = time.perf_counter()
+    orders = tpch.gen_orders(n_orders, n_orders // 10, args.seed + 1)
+    log(f"orders_gen_s {time.perf_counter() - t0:.3f} rows {n_orders}")
+    session.sql(tpch.ORDERS_DDL)
+    t0 = time.perf_counter()
+    session.insert_arrays("orders", list(orders.values()))
+    o_load_s = time.perf_counter() - t0
+    log(f"orders_load_s {o_load_s:.3f} rows_per_s {n_orders / o_load_s:.0f}")
+    # the expanded output is ~39 B per slot over 134M slots at SF 16 and
+    # the build artifact 1.6 GB: the default caps (2 GiB, 1 GiB) would
+    # send Q3C to the host join and re-sort every run
+    props.join_expand_max_bytes = 8 << 30
+    props.join_build_cache_bytes = 8 << 30
+    props.pallas_group_reduce = True
+    try:
+        (q3c_rows, q3c_first, q3c_warm, jmoved, jlaunch, jcalls, peak,
+         resident, jprof) = join_path(session, tpch, args.reps, args.profile)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"join path: {type(e).__name__}: {e}")
+    log(f"join_path_counters {json.dumps(jmoved)}")
+    log(f"join_path_launches {json.dumps({'grouped_reduce': jlaunch})}")
+    if jmoved["join_host_fallbacks"] or jmoved["host_fallbacks"]:
+        fail(f"Q3C left the device: {jmoved}")
+    if jmoved["join_device_joins"] < 1:
+        fail("Q3C ran no device join")
+    if jmoved["join_build_sorts"] != 1:
+        fail(f"Q3C sorted its build {jmoved['join_build_sorts']} times "
+             f"over {1 + args.reps} runs, expected once")
+    if jlaunch < 1:
+        fail("grouped_reduce did not launch on the join path")
+    log(f"q3c_first_s {q3c_first:.4f} warm_s {q3c_warm:.4f} "
+        f"lineitem_rows_per_s {n_rows / q3c_warm:.0f} "
+        f"expand_bucket {jmoved['join_expand_out_rows'] // (1 + args.reps)}"
+        f" peak_device_bytes {peak} resident_before_bytes {resident}")
+    if jprof is not None:
+        log(f"profile q3c {json.dumps(jprof)}")
+    t0 = time.perf_counter()
+    want_q3c, want_generic = join_oracle(li, orders, tpch)
+    log(f"join_oracle_s {time.perf_counter() - t0:.3f}")
+    check_rows("Q3C vs numpy oracle", q3c_rows, want_q3c, 5e-5)
+    log(f"q3c {json.dumps(q3c_rows)}")
+    # the grouped kernel at the join path's inputs: its own line, so the
+    # kernels' line keeps phase 5's main-path numbers
+    log(f"kernel grouped_reduce on Q3C "
+        f"{json.dumps(grouped_phase(jcalls, args.reps))}")
+    del jcalls
+    sort_ms, sort_rows = build_sort_ms(session, args.reps)
+    log(f"build_sort_ms {sort_ms:.3f} rows {sort_rows}")
+    reg = global_registry()
+    fb0 = reg.counter("host_fallbacks")
+    try:
+        t0 = time.perf_counter()
+        gen_rows = session.sql(GENERIC_JOIN_QUERY).rows()
+        gen_s = time.perf_counter() - t0
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"generic-key join: {type(e).__name__}: {e}")
+    if reg.counter("host_fallbacks") != fb0:
+        fail("the generic-key join left the device")
+    check_rows("generic-key join vs numpy", gen_rows, want_generic, 5e-5)
+    log(f"generic_join groups {len(gen_rows)} first_s {gen_s:.4f}")
+    log("answers ok: Q3C and the generic-key join match numpy")
+
+    # 11. result lines
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",

@@ -1,26 +1,36 @@
 """Plan compiler + executor.
 
-Port of snappydata_tpu/engine/executor.py, cut to the analytic scan: one
-resolved logical plan (Scan / Filter / Project, with an optional Aggregate
-root) lowers to ONE Python callable over stacked column-batch tensors —
-the whole-stage-codegen analogue (ref: ColumnTableScan.doProduce
-core/.../columnar/ColumnTableScan.scala:186, SnappyHashAggregateExec):
+Port of snappydata_tpu/engine/executor.py, cut to the analytic scan and
+the device join: one resolved logical plan (Scan / Filter / Project /
+Join, with an optional Aggregate root) lowers to ONE Python callable over
+stacked column-batch tensors — the whole-stage-codegen analogue (ref:
+ColumnTableScan.doProduce core/.../columnar/ColumnTableScan.scala:186,
+SnappyHashAggregateExec):
 
   Relation  -> stacked [B, C] device plates (storage/device.py)
   Filter    -> valid &= predicate
   Project   -> expression re-map
-  Aggregate -> dictionary / vdict fast-path group index, then the slot
-               loop: the fused grouped kernel (ops/group_reduce.py), the
-               Kahan kernel (ops/kahan_reduce.py), the dictionary-space
-               SUM and the run-space SUM/COUNT (ops/code_agg.py) and the
-               packed reduction families (ops/reduction.py)
+  Join      -> sorted build artifact + searchsorted match ranges: unique
+               builds gather on the probe shape, others expand one-to-many
+               into a bucketed flat axis, left/right/full NULL-extend
+               (ops/join.py)
+  Aggregate -> dictionary / vdict fast-path group index, or the generic
+               hash-key lane (combined int64 keys, sorted unique,
+               searchsorted), then the slot loop: the fused grouped
+               kernel (ops/group_reduce.py), the Kahan kernel
+               (ops/kahan_reduce.py), the dictionary-space SUM and the
+               run-space SUM/COUNT (ops/code_agg.py) and the packed
+               reduction families (ops/reduction.py)
 
 Everything above the aggregate (ORDER BY / LIMIT / DISTINCT / outer
-projects) runs on the host over the small reduced result.  Joins, window
-functions, generic (hash) group keys, exact decimals and the functions the
-port's expression lowering lacks raise CompileError, and the executor
-answers those plans with the host evaluator (engine/hosteval.py), as the
-reference does for constructs it cannot lower.
+projects) runs on the host over the small reduced result.  Window
+functions, exact decimals, count(DISTINCT) and the functions the port's
+expression lowering lacks raise CompileError, and the executor answers
+those plans with the host evaluator (engine/hosteval.py), as the
+reference does for constructs it cannot lower.  Data-dependent limits (a
+join expansion past its bucket, generic keys past max_groups) raise the
+plan's overflow flag, read once per execution, which reroutes the same
+way.
 
 PyTorch runs eagerly, so "compiling" a plan builds the closures once; the
 closures read their static inputs (knob tokens, padded dictionary sizes)
@@ -33,6 +43,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import sys
+import threading
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -42,11 +55,13 @@ from snappydata_tpu_torch import config
 from snappydata_tpu_torch import types as T
 from snappydata_tpu_torch.engine import hosteval
 from snappydata_tpu_torch.engine.exprs import (CompileError, DVal,
-                                               ExprBuilder, Runtime)
+                                               ExprBuilder, Runtime,
+                                               _or_null)
 from snappydata_tpu_torch.engine.result import Result
 from snappydata_tpu_torch.observability.metrics import global_registry
 from snappydata_tpu_torch.ops import code_agg, reduction
 from snappydata_tpu_torch.ops import group_reduce as _gr
+from snappydata_tpu_torch.ops import join as _dj
 from snappydata_tpu_torch.ops.group_reduce import grouped_reduce
 from snappydata_tpu_torch.ops.kahan_reduce import masked_kahan_sum
 from snappydata_tpu_torch.sql import ast
@@ -89,20 +104,38 @@ class _RelationInput:
     binder evaluates against per-batch min/max stats to skip whole batches
     (ref: stats-row batch skipping + columnBatchesSkipped metric,
     ColumnTableScan.scala:115-130); `str_sargs` holds string equalities
-    whose literal, absent from the table dictionary, matches no batch."""
+    whose literal, absent from the table dictionary, matches no batch.
+
+    Join relations set two flags: `allow_code = False` binds decoded
+    plates (cached build artifacts and probe-key encodes read flat
+    [B*cap] value layouts), and `no_skip = True` on an artifact-backed
+    build turns off batch skipping (the artifact's sort order indexes
+    the FULL flat layout; a skipped batch would point it at the wrong
+    rows — the in-plan pass mask applies the filter instead)."""
 
     def __init__(self, info, used: List[int]):
         self.info = info
         self.used = used
         self.sargs: List[Tuple[int, str, Callable]] = []
         self.str_sargs: List[Tuple[int, Callable]] = []
+        self.no_skip = False
+        self.allow_code = True
+        self._tls = threading.local()
 
     def bind(self, device: torch.device):
-        return build_device_table(self.info.data, self.used, device)
+        dt = build_device_table(self.info.data, self.used, device,
+                                code_ok=self.allow_code)
+        self._tls.dt = dt
+        return dt
+
+    def bound(self):
+        """The full DeviceTable of this thread's current bind — what the
+        join's artifact and expansion bound read, before batch skipping."""
+        return self._tls.dt
 
     def keep_mask(self, dt, params) -> Optional[np.ndarray]:
         """bool [B] of batches that can contain matches; None = keep all."""
-        if not self.sargs and not self.str_sargs:
+        if (not self.sargs and not self.str_sargs) or self.no_skip:
             return None
         keep = None
         for ci, op, get_lit in self.sargs:
@@ -180,7 +213,8 @@ class CompiledPlan:
                  emitter: Callable,
                  out_scope: List["_ScopeCol"],
                  is_aggregate: bool,
-                 agg_notes: Optional[Dict] = None):
+                 agg_notes: Optional[Dict] = None,
+                 bind_checks: Optional[List[Callable]] = None):
         self.relations = relations
         self.aux_builders = aux_builders
         self.static_providers = static_providers
@@ -190,9 +224,14 @@ class CompiledPlan:
         # per static key: the reduction strategies + lanes the aggregate
         # took, surfaced as per-execution metrics
         self.agg_notes = agg_notes
+        # data-dependent validity run at EVERY bind (the device_join knob,
+        # 2^53 key checks): raising CompileError reroutes to the host path
+        self.bind_checks = bind_checks or []
 
     def _bind(self, params: Tuple, device: torch.device):
         reg = global_registry()
+        for check in self.bind_checks:
+            check()
         tables = [r.bind(device) for r in self.relations]
         rels = []
         for r, dt in zip(self.relations, tables):
@@ -229,20 +268,23 @@ class CompiledPlan:
             valid = dt.valid if take_idx is None \
                 else take(dt.valid) & pad_mask
             rels.append((cols, valid))
-        aux = [torch.from_numpy(np.ascontiguousarray(b(params))).to(device)
-               for b in self.aux_builders]
+        # aux builders return host arrays (LUTs) or, for join build
+        # artifacts, tensors already on the device; statics run AFTER
+        # them, so a join's mode provider reuses the artifact its aux
+        # builder just fetched
+        aux = [_upload(b(params), device) for b in self.aux_builders]
         static = tuple(p() for p in self.static_providers)
         pvals = tuple(_param_scalar(v, device) for v in params)
         return rels, aux, static, pvals
 
     def run(self, params: Tuple, device: torch.device):
-        """Bind + run; returns (mask, [(value, null), ...]) still on the
-        device."""
+        """Bind + run; returns ((mask, [(value, null), ...]), overflow)
+        still on the device — `overflow` is None or a bool tensor."""
         rels, aux, static, pvals = self._bind(params, device)
         ctx = _RunCtx(self.relations, rels, aux, pvals, static, device)
         outs = self.emitter(ctx)
         self._count_agg_notes(static)
-        return outs
+        return outs, ctx.overflow
 
     def _count_agg_notes(self, static) -> None:
         """Per-execution metrics from the aggregate's notes: reduction
@@ -263,7 +305,12 @@ class CompiledPlan:
             compressed_fallback("rle_agg", note["rle_fallbacks"])
 
     def execute(self, params: Tuple, device: torch.device) -> Result:
-        mask, pairs = self.run(params, device)
+        (mask, pairs), overflow = self.run(params, device)
+        # the overflow flag is read once per execution
+        if overflow is not None and bool(overflow):
+            raise CompileError(
+                "device overflow (group-by cardinality beyond max_groups, "
+                "or a join expansion past its bound): host path")
         # one host transfer per output array, after the whole region ran
         host = [(v.cpu().numpy(), nl.cpu().numpy() if nl is not None
                  else None) for v, nl in pairs]
@@ -363,6 +410,14 @@ def _vdict_lut(dom) -> np.ndarray:
     return out
 
 
+def _upload(x, device: torch.device):
+    """One aux input on `device`: tensors (and tuples of them) pass
+    through, host arrays upload."""
+    if isinstance(x, (torch.Tensor, tuple)):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
 def _param_scalar(v, device: torch.device) -> torch.Tensor:
     """One tokenized literal as a 0-dim tensor on `device`."""
     if isinstance(v, (bool, np.bool_)):
@@ -381,8 +436,8 @@ def _param_scalar(v, device: torch.device) -> torch.Tensor:
 # ==========================================================================
 
 class Compiler:
-    """Compiles one device region (Relation/Filter/Project[/Aggregate
-    root]) into a CompiledPlan."""
+    """Compiles one device region (Relation/Filter/Project/Join
+    [/Aggregate root]) into a CompiledPlan."""
 
     def __init__(self, catalog, props):
         self.catalog = catalog
@@ -390,6 +445,7 @@ class Compiler:
         self.relations: List[_RelationInput] = []
         self.aux_builders: List[Callable] = []
         self.static_providers: List[Callable] = []
+        self.bind_checks: List[Callable] = []
         self._agg_notes: Optional[Dict] = None
 
     def _add_static(self, provider: Callable[[], int]) -> int:
@@ -429,7 +485,7 @@ class Compiler:
                      for oc in out_cols]
         return CompiledPlan(self.relations, self.aux_builders,
                             self.static_providers, emitter, out_scope,
-                            is_agg, self._agg_notes)
+                            is_agg, self._agg_notes, self.bind_checks)
 
     # -- node emitters -----------------------------------------------------
 
@@ -522,8 +578,539 @@ class Compiler:
 
             return run_project, out_scope
 
+        if isinstance(plan, ast.Join):
+            return self._emit_join(plan)
+
         raise CompileError(
             f"node {type(plan).__name__} is not ported to the device path")
+
+    # -- join --------------------------------------------------------------
+
+    def _emit_join(self, plan: ast.Join):
+        """General device join: sorted build + searchsorted match RANGES.
+
+        Unique builds (the dimension/PK case) gather their single passing
+        match directly on the probe shape; non-unique builds prefix-sum
+        the range widths into a bind-time-bucketed expanded output
+        (ops/join.expand) — one-to-many/many-to-many inner, left, right
+        and full outer all stay on the device.  The sorted build keys +
+        stable sort order are a cached artifact keyed on the build's bind
+        identity (ops/join.build_artifact), so repeated executions skip
+        the sort; query filters on the build side apply through a pass
+        mask over the sorted order instead of re-sorting.  Shapes with no
+        device lowering reroute to the exact host join via reasoned
+        `join_fallback_*` counters.  The reference's mesh pieces (shuffle
+        binds, per-shard bounds, distribution metadata) have no
+        counterpart on one device."""
+        props = self.props
+        rel_lo = len(self.relations)
+        left, lscope = self._emit_rel(plan.left)
+        rel_mid = len(self.relations)
+        right, rscope = self._emit_rel(plan.right)
+        rel_hi = len(self.relations)
+        nleft = len(lscope)
+        how = plan.how
+        # join relations bind DECODED plates: build artifacts and probe
+        # key encodes read flat [B*cap] value layouts (counted
+        # compressed_fallback_join_key when a compressible column decodes
+        # because of this)
+        for r in self.relations[rel_lo:rel_hi]:
+            r.allow_code = False
+
+        equi, residual = _split_equi(plan.condition, nleft)
+        if not equi:
+            _join_reject("non_equi",
+                         "non-equi/cross join not supported on device")
+        if residual is not None and how != "inner":
+            # an ON-clause residual on an outer join NULL-extends failing
+            # pairs — the device's post-join filter would DROP them; and
+            # semi/anti drop the right columns before the residual could
+            # run.  The host path evaluates residuals per candidate pair.
+            _join_reject("residual_outer",
+                         f"{how} join with residual: host path")
+        self.bind_checks.append(
+            lambda _p=props: _check_device_join_enabled(_p))
+
+        # -- per-pair key domain: how both sides encode into int64 --------
+        enc_spec: List[str] = []
+        for li, ri in equi:
+            ldt = lscope[li].dtype
+            rdt = rscope[ri - nleft].dtype
+            if ldt is None or rdt is None:
+                _join_reject("untyped_key",
+                             "join key without a static type: host path")
+            if ldt.name == "string" or rdt.name == "string":
+                if ldt.name != rdt.name:
+                    _join_reject("string_nonstring_key",
+                                 "string vs non-string join key: host path")
+                enc_spec.append("raw")
+                continue
+            l_ex = ldt.name == "decimal" \
+                and np.dtype(ldt.device_dtype()).kind == "i"
+            r_ex = rdt.name == "decimal" \
+                and np.dtype(rdt.device_dtype()).kind == "i"
+            if l_ex or r_ex:
+                # exact decimals carry SCALED int64 plates — comparable
+                # only against the same scale's scaled domain
+                if not (l_ex and r_ex and ldt.scale == rdt.scale):
+                    _join_reject("decimal_key_mix",
+                                 "exact-decimal join key against a "
+                                 "different value domain: host path")
+                enc_spec.append("raw")
+                continue
+            lk = np.dtype(ldt.device_dtype())
+            rk = np.dtype(rdt.device_dtype())
+            if (lk.kind == "f" or rk.kind == "f") and lk != rk:
+                # mixed int/float (or f32/f64): compare in float64 —
+                # exact for the float side; int sides are bind-checked
+                # below to stay under 2^53
+                enc_spec.append("f64")
+            else:
+                enc_spec.append("raw")
+
+        # -- base-source resolution (build AND probe sides) ---------------
+        bsources = [self._resolve_join_source(plan.right, ri - nleft,
+                                              rel_mid, rel_hi)
+                    for _, ri in equi]
+        psources = [self._resolve_join_source(plan.left, li,
+                                              rel_lo, rel_mid)
+                    for li, _ in equi]
+        build_rel = build_ords = None
+        if all(s is not None for s in bsources) \
+                and len({id(s[0]) for s in bsources}) == 1:
+            build_rel = bsources[0][0]
+            build_ords = tuple(s[2] for s in bsources)
+        probe_rel = None
+        if all(s is not None for s in psources) \
+                and len({id(s[0]) for s in psources}) == 1:
+            probe_rel = psources[0][0]
+
+        # mixed int/float exactness: bind-check every INT side's values —
+        # a derived int key can't be proven under 2^53
+        for pi, (li, ri) in enumerate(equi):
+            if enc_spec[pi] != "f64":
+                continue
+            for side_dt, src in ((lscope[li].dtype, psources[pi]),
+                                 (rscope[ri - nleft].dtype, bsources[pi])):
+                if np.dtype(side_dt.device_dtype()).kind not in ("i", "u"):
+                    continue
+                if src is None:
+                    _join_reject("mixed_key_unprovable",
+                                 "mixed int/float join key on a derived "
+                                 "column (2^53 exactness unprovable): "
+                                 "host path")
+                self.bind_checks.append(
+                    lambda _i=src[1], _o=src[2]:
+                    _require_f64_exact_int_key(_i, _o))
+
+        # string join keys: each table has its OWN dictionary, so codes
+        # are not comparable across tables — translate left codes into
+        # the right table's code space via a vectorized LUT (unmatched
+        # values -> -1, which equals no real code), cached per dictionary
+        # version when both are base-table dictionaries
+        str_trans: Dict[int, int] = {}
+        trans_getters: Dict[int, Callable] = {}
+        for pi, (li, ri) in enumerate(equi):
+            lprov = lscope[li].dict_provider
+            rprov = rscope[ri - nleft].dict_provider
+            if lprov is None or rprov is None:
+                continue
+            ck = owners = None
+            if psources[pi] is not None and bsources[pi] is not None:
+                ck = ("trans", id(psources[pi][1].data), psources[pi][2],
+                      id(bsources[pi][1].data), bsources[pi][2])
+                owners = (psources[pi][1].data, bsources[pi][1].data)
+
+            def trans_of(_lp=lprov, _rp=rprov, _ck=ck, _ow=owners):
+                return _dj.translate_codes(_lp(), _rp(), cache_key=_ck,
+                                           owners=_ow)
+
+            self.aux_builders.append(lambda params, _t=trans_of: _t())
+            str_trans[pi] = len(self.aux_builders) - 1
+            trans_getters[pi] = trans_of
+
+        artifact_mode = build_rel is not None
+        if not artifact_mode and how not in ("semi", "anti"):
+            # semi/anti only need membership (any build works, sorted per
+            # execution); everything else needs the artifact's uniqueness
+            # verdict / expansion bound, both of which read base columns
+            _join_reject("derived_build",
+                         "join build side is a derived relation: "
+                         "host path")
+
+        # a build side with NO query filter keeps every row of a real
+        # key's sorted run live (dead/NULL rows are key-sentineled to the
+        # end) — the dense range math skips the pass prefix-sum and its
+        # per-execution searchsorteds (the hot Q3-class shape)
+        def _has_filter(p: ast.Plan) -> bool:
+            return isinstance(p, ast.Filter) \
+                or any(_has_filter(k) for k in p.children())
+
+        build_filtered = _has_filter(plan.right)
+
+        art_aux = None
+        artifact_of = None
+        if artifact_mode:
+            build_rel.no_skip = True  # order indexes the FULL flat layout
+            enc_sig = tuple(enc_spec)
+
+            def artifact_of(_rel=build_rel, _ords=build_ords,
+                            _sig=enc_sig):
+                dt = _rel.bound()
+
+                def compute():
+                    pairs = []
+                    anynull = None
+                    for ci, spec in zip(_ords, _sig):
+                        v = dt.columns[ci].reshape(-1)
+                        nl = dt.nulls.get(ci)
+                        nl = nl.reshape(-1) if nl is not None else None
+                        if spec == "f64":
+                            v = v.to(torch.float64)
+                        pairs.append((v, nl))
+                        anynull = _or_null(anynull, nl)
+                    return _dj.encode_build_keys(
+                        pairs, dt.valid.reshape(-1), anynull)
+
+                return _dj.build_artifact(dt.valid, (_ords, _sig), compute)
+
+            # _bind evaluates aux builders BEFORE static providers, so
+            # stashing the artifact here lets mode_provider reuse it —
+            # otherwise a cache-disabled (or over-budget) bind pays the
+            # build sort + uniqueness read TWICE per execution
+            art_tls = threading.local()
+
+            def _aux_artifact(params):
+                art = artifact_of()
+                if how not in ("semi", "anti"):
+                    # mode_provider is the stash's only consumer
+                    art_tls.art = art
+                return art["skeys"], art["order"]
+
+            self.aux_builders.append(_aux_artifact)
+            art_aux = len(self.aux_builders) - 1
+
+        mode_si = bucket_si = None
+        if artifact_mode and how not in ("semi", "anti"):
+            tls = threading.local()
+            null_extend = how in ("left", "full")
+
+            def _row_width() -> int:
+                """Approximate bytes per expanded output row (value +
+                null byte per used column of both sides + the mask)."""
+                w = 1
+                for r in (probe_rel, build_rel):
+                    if r is None:
+                        continue
+                    for ci in r.used:
+                        f = r.info.schema.fields[ci]
+                        w += np.dtype(f.dtype.device_dtype()).itemsize + 1
+                return w
+
+            def _check_expand_cap(slots: int) -> None:
+                cap = int(props.get("join_expand_max_bytes", 0) or 0)
+                est = slots * _row_width()
+                if cap and est > cap:
+                    _warn_expand_cap(est, cap)
+                    _join_reject(
+                        "expand_bytes",
+                        f"join expansion needs ~{est:,} bytes > "
+                        f"join_expand_max_bytes={cap:,}: host path")
+
+            def mode_provider() -> int:
+                reg = global_registry()
+                art = getattr(art_tls, "art", None)
+                art_tls.art = None  # consume: never reuse across binds
+                if art is None:
+                    art = artifact_of()
+                # right/full outer appends F build-extension slots (one
+                # per build flat row) to every output column — they count
+                # against the byte cap exactly like expansion slots
+                fext = int(art["skeys"].shape[0]) \
+                    if how in ("right", "full") else 0
+                # join_device_joins counts only once the bind can no
+                # longer reject: a reroute below must not ALSO count as
+                # a device join
+                if art["unique"]:
+                    if fext:
+                        probe_slots = probe_rel.bound().valid.numel() \
+                            if probe_rel is not None else 0
+                        _check_expand_cap(probe_slots + fext)
+                    tls.bucket = 0
+                    reg.inc("join_device_joins")
+                    return 0
+                if probe_rel is None:
+                    _join_reject(
+                        "derived_probe_nonunique",
+                        "one-to-many join with a derived probe side "
+                        "(expansion bound unprovable): host path")
+                dtp = probe_rel.bound()
+
+                def compute_pkeys():
+                    pairs = []
+                    anynull = None
+                    for pi2, (s, spec) in enumerate(
+                            zip(psources, enc_spec)):
+                        v = dtp.columns[s[2]].reshape(-1)
+                        nl = dtp.nulls.get(s[2])
+                        nl = nl.reshape(-1) if nl is not None else None
+                        getter = trans_getters.get(pi2)
+                        if getter is not None:
+                            trans = torch.from_numpy(getter()).to(v.device)
+                            v = trans[v.long().clamp(0, trans.shape[0] - 1)]
+                        if spec == "f64":
+                            v = v.to(torch.float64)
+                        pairs.append((v, nl))
+                        anynull = _or_null(anynull, nl)
+                    return (_dj.encode_probe_keys(pairs, anynull),
+                            dtp.valid.reshape(-1))
+
+                bound = _dj.probe_expand_bound(
+                    art, dtp.valid, tuple(s[2] for s in psources),
+                    null_extend, compute_pkeys)
+                bucket = _dj.expand_bucket(max(1, bound))
+                _check_expand_cap(bucket + fext)
+                reg.inc("join_device_joins")
+                reg.inc("join_expand_out_rows", bucket)
+                reg.inc("join_expand_probe_rows",
+                        max(1, int(dtp.total_rows)))
+                tls.bucket = bucket
+                return 1
+
+            mode_si = self._add_static(mode_provider)
+            # registered AFTER mode_provider: _bind evaluates statics in
+            # order, so the thread-local bucket is always fresh
+            bucket_si = self._add_static(
+                lambda: int(getattr(tls, "bucket", 0)))
+        else:
+            self.bind_checks.append(_count_device_join)
+
+        if how in ("semi", "anti"):
+            out_scope = [_ScopeCol(s.name, s.dtype, s.dict_provider,
+                                   s.nullable) for s in lscope]
+        else:
+            lnul = how in ("right", "full")
+            rnul = how in ("left", "full")
+            out_scope = [_ScopeCol(s.name, s.dtype, s.dict_provider,
+                                   True if lnul else s.nullable)
+                         for s in lscope] + \
+                        [_ScopeCol(s.name, s.dtype, s.dict_provider,
+                                   True if rnul else s.nullable)
+                         for s in rscope]
+        residual_run = self._builder_for(lscope + rscope).emit(residual) \
+            if residual is not None else None
+
+        def run_join(ctx) -> RelOut:
+            lo = left(ctx)
+            ro = right(ctx)
+            dev = ctx.device
+            lpairs = [lo.cols[k] for k, _ in equi]
+            rpairs = [ro.cols[k - nleft] for _, k in equi]
+            # translate left string codes into right code space first
+            for pi, aux_i in str_trans.items():
+                trans = ctx.aux[aux_i]
+                lv = lpairs[pi]
+                codes = lv.value.long().clamp(0, trans.shape[0] - 1)
+                lpairs[pi] = DVal(trans[codes], lv.null, lv.dtype)
+            # mixed-domain pairs compare in float64 (bind-checked exact)
+            for pi, spec in enumerate(enc_spec):
+                if spec == "f64":
+                    a, b = lpairs[pi], rpairs[pi]
+                    lpairs[pi] = DVal(a.value.to(torch.float64), a.null,
+                                      a.dtype)
+                    rpairs[pi] = DVal(b.value.to(torch.float64), b.null,
+                                      b.dtype)
+            # probe keys on the probe row shape; NULL keys get a sentinel
+            # absent from the build (NULL never matches — SQL semantics)
+            lpairs = [DVal(_broadcast_to_mask(d.value, lo.valid),
+                           _broadcast_to_mask(d.null, lo.valid)
+                           if d.null is not None else None, d.dtype)
+                      for d in lpairs]
+            pnull = None
+            for d in lpairs:
+                pnull = _or_null(pnull, d.null)
+            pkeys = _combine_keys(lpairs)
+            if pnull is not None:
+                pkeys = torch.where(pnull, _dj.PROBE_NULL_SENTINEL, pkeys)
+
+            pass_flat = ro.valid.reshape(-1)
+            if artifact_mode:
+                skeys, order = ctx.aux[art_aux]
+                if build_filtered:
+                    # the artifact sorts the FULL snapshot; query filters
+                    # on the build side apply through this pass mask
+                    # instead of a re-sort
+                    counts, basec, cum = _dj.match_ranges(
+                        skeys, order, pass_flat, pkeys)
+
+                    def locate(b, r):
+                        return _dj.nth_match(b, r, cum, order)
+                else:
+                    counts, basec = _dj.match_ranges_dense(skeys, pkeys)
+
+                    def locate(b, r):
+                        return _dj.nth_match_dense(b, r, order)
+            else:
+                # derived build (semi/anti): sort per execution — the key
+                # sentinel already excludes filtered/NULL/dead rows
+                # (ro.valid carries the build filter), so the dense range
+                # math applies
+                rflat = [(_broadcast_to_mask(d.value, ro.valid).reshape(-1),
+                          _broadcast_to_mask(d.null, ro.valid).reshape(-1)
+                          if d.null is not None else None) for d in rpairs]
+                bnull = None
+                for _v, nl in rflat:
+                    bnull = _or_null(bnull, nl)
+                bkeys = _dj.encode_build_keys(rflat, pass_flat, bnull)
+                skeys, order = torch.sort(bkeys, stable=True)
+                counts, basec = _dj.match_ranges_dense(skeys, pkeys)
+
+                def locate(b, r):
+                    return _dj.nth_match_dense(b, r, order)
+            found = counts > 0
+            if how == "semi":
+                return RelOut(dict(lo.cols), lo.valid & found)
+            if how == "anti":
+                return RelOut(dict(lo.cols), lo.valid & ~found)
+
+            if ctx.static[mode_si] == 0 and how in ("inner", "left"):
+                # unique build: at most ONE passing match per probe row —
+                # direct gather on the probe shape, no expansion
+                bpos = locate(basec, 0)
+                cols: Dict[int, DVal] = dict(lo.cols)
+                for i in sorted(ro.cols):
+                    src = ro.cols[i]
+                    gv = _broadcast_to_mask(src.value, ro.valid) \
+                        .reshape(-1)[bpos]
+                    gnull = None
+                    if src.null is not None:
+                        gnull = _broadcast_to_mask(src.null, ro.valid) \
+                            .reshape(-1)[bpos]
+                    if how == "left":
+                        gnull = _or_null(gnull, ~found)
+                    cols[nleft + i] = DVal(gv, gnull, src.dtype,
+                                           src.dictionary)
+                valid = lo.valid & found if how == "inner" else lo.valid
+                out = RelOut(cols, valid)
+            else:
+                # one-to-many expansion (and right/full NULL-extension of
+                # unmatched build rows): FLAT bucketed output
+                pvalid_flat = lo.valid.reshape(-1)
+                counts_f = torch.where(pvalid_flat, counts.reshape(-1), 0)
+                base_f = basec.reshape(-1)
+                bucket = ctx.static[bucket_si] \
+                    if ctx.static[mode_si] == 1 \
+                    else int(pvalid_flat.shape[0])
+                if how in ("left", "full"):
+                    # unmatched (or NULL-key) probe rows keep one slot
+                    counts_eff = torch.where(pvalid_flat,
+                                             counts_f.clamp(min=1), 0)
+                else:
+                    counts_eff = counts_f
+                probe_of, rank, matched, slot_valid, total = _dj.expand(
+                    counts_f, counts_eff, bucket)
+                bpos = locate(base_f[probe_of], rank)
+                del rank, counts_eff, base_f
+                # filters only shrink the bound, so this can fire only on
+                # a probe/build mutation racing the bind — reroute to the
+                # exact host path rather than drop rows silently
+                ctx.note_overflow(total > bucket)
+                ext = how in ("right", "full")
+                F = int(order.shape[0])
+
+                def flat_pair(dv, mask2d):
+                    v = _broadcast_to_mask(dv.value, mask2d).reshape(-1)
+                    nl = _broadcast_to_mask(dv.null, mask2d).reshape(-1) \
+                        if dv.null is not None else None
+                    return v, nl
+
+                def falses(k):
+                    return torch.zeros(k, dtype=torch.bool, device=dev)
+
+                cols = {}
+                for i in sorted(lo.cols):
+                    dv = lo.cols[i]
+                    v, nl = flat_pair(dv, lo.valid)
+                    gv = v[probe_of]
+                    gnull = nl[probe_of] if nl is not None else None
+                    if ext:  # build-extension slots: left side is NULL
+                        gv = torch.cat([gv, torch.zeros(F, dtype=gv.dtype,
+                                                        device=dev)])
+                        gnull = torch.cat(
+                            [gnull if gnull is not None else falses(bucket),
+                             torch.ones(F, dtype=torch.bool, device=dev)])
+                    cols[i] = DVal(gv, gnull, dv.dtype, dv.dictionary)
+                ext_valid = None
+                if ext:
+                    # mark build rows consumed by a matched slot; the
+                    # rest NULL-extend (right/full outer).  Unmatched
+                    # slots scatter into the extra slot F, sliced off.
+                    consumed = falses(F + 1)
+                    consumed[torch.where(matched, bpos, F)] = True
+                    ext_valid = pass_flat & ~consumed[:F]
+                for i in sorted(ro.cols):
+                    src = ro.cols[i]
+                    v, nl = flat_pair(src, ro.valid)
+                    gv = v[bpos]
+                    gnull = nl[bpos] if nl is not None else None
+                    if how in ("left", "full"):
+                        gnull = _or_null(gnull, ~matched)
+                    if ext:
+                        gv = torch.cat([gv, v])
+                        gnull = torch.cat(
+                            [gnull if gnull is not None else falses(bucket),
+                             nl if nl is not None else falses(F)])
+                    cols[nleft + i] = DVal(gv, gnull, src.dtype,
+                                           src.dictionary)
+                valid = slot_valid
+                if ext:
+                    valid = torch.cat([valid, ext_valid])
+                out = RelOut(cols, valid)
+            if residual_run is not None:
+                p = residual_run(ctx.runtime(out.cols))
+                keep = p.value
+                if p.null is not None:
+                    keep = keep & ~p.null
+                out = RelOut(out.cols, out.valid & keep)
+            return out
+
+        return run_join, out_scope
+
+    def _resolve_join_source(self, plan: ast.Plan, ordinal: int,
+                             rel_lo: int, rel_hi: int):
+        """Resolve a join-side scope ordinal to (_RelationInput, TableInfo,
+        base ordinal) — the leaf whose device plates the build artifact /
+        expansion bound read.  None when the column is derived, spans a
+        nested join, or the side references the same base table more
+        than once (ambiguous)."""
+        got = self._resolve_build_source(plan, ordinal)
+        if got is None:
+            return None
+        info, ci = got
+        rels = [r for r in self.relations[rel_lo:rel_hi] if r.info is info]
+        if len(rels) != 1:
+            return None
+        return rels[0], info, ci
+
+    def _resolve_build_source(self, plan: ast.Plan, ordinal: int
+                              ) -> Optional[Tuple[object, int]]:
+        """Map a join-side scope ordinal to its base (TableInfo, schema
+        ordinal), following filters/aliases/plain-column projections.
+        Filters only REMOVE rows, so uniqueness of the base column implies
+        uniqueness of the filtered build side.  None = unprovable."""
+        if isinstance(plan, (ast.SubqueryAlias, ast.Filter)):
+            return self._resolve_build_source(plan.child, ordinal)
+        if isinstance(plan, ast.Relation):
+            info = self.catalog.lookup_table(plan.name)
+            return None if info is None else (info, ordinal)
+        if isinstance(plan, ast.Project):
+            e = plan.exprs[ordinal]
+            if isinstance(e, ast.Alias):
+                e = e.child
+            if isinstance(e, ast.Col) and e.index is not None:
+                return self._resolve_build_source(plan.child, e.index)
+            return None
+        return None
 
     def _emit_aggregate(self, plan: ast.Aggregate):
         child, scope = self._emit_rel(plan.child)
@@ -621,7 +1208,9 @@ class Compiler:
                   and base_g.index is not None and gt.name != "decimal"
                   and T.is_numeric(gt)):
                 # vdict: a direct numeric key of a base column table
-                # groups through its table-global sorted value domain
+                # groups through its table-global sorted value domain.
+                # The domain declines per bind (cardinality / NaN), which
+                # pushes the static card past max_groups -> generic lane
                 data, ci, mg = base_info.data, base_g.index, \
                     props.max_groups
                 vd = (lambda d=data, c=ci, m=mg:
@@ -631,8 +1220,8 @@ class Compiler:
                 self.aux_builders.append(lambda params, p=vd: _vdict_lut(p()))
                 key_infos.append(("vdict", si, (vd, aux_ix)))
             else:
-                raise CompileError(
-                    "generic (hash) group keys are not ported: host path")
+                # generic hash-key lane: derived keys, keys above a join
+                key_infos.append(("generic", None, None))
 
         max_groups = props.max_groups
         strategy_si = self._add_static(lambda p=props: _strategy_token(p))
@@ -661,21 +1250,53 @@ class Compiler:
             out_cols.append(OutCol(_expr_name(e_out), dt, provider))
 
         def shape_info(ctx, kdvals):
-            """(cards, eff_cards, num_groups) of the fast-path group
-            space; raises CompileError past max_groups (the generic
-            group-by is not ported)."""
+            """(fast, cards, eff_cards, num_groups): the mixed-radix fast
+            path when every key is dict/bool/vdict and their product fits
+            max_groups; otherwise the generic lane, whose group count is
+            the data's (num_groups None until group_index finds it)."""
             cards = []
+            fast = True
             for (kind, si, _) in key_infos:
-                cards.append(2 if kind == "bool" else ctx.static[si])
+                if kind in ("dict", "vdict"):
+                    cards.append(ctx.static[si])
+                elif kind == "bool":
+                    cards.append(2)
+                else:
+                    fast = False
+                    cards.append(None)
             # NULL group keys form their own group: a nullable key gets
             # one extra code slot = card
-            eff_cards = [c + 1 if kd.null is not None else c
-                         for c, kd in zip(cards, kdvals)]
-            num_groups = int(np.prod(eff_cards))
-            if num_groups > max_groups:
-                raise CompileError(
-                    f"{num_groups} groups exceed max_groups: host path")
-            return cards, eff_cards, num_groups
+            eff_cards = [c + 1 if c is not None and kd.null is not None
+                         else c for c, kd in zip(cards, kdvals)]
+            if fast and int(np.prod(eff_cards)) <= max_groups:
+                return True, cards, eff_cards, int(np.prod(eff_cards))
+            return False, cards, eff_cards, None
+
+        def generic_index(ctx, kdvals, out, valid):
+            """Generic hash-key lane: (gidx, num_groups).  Keys combine
+            into one int64 (ops/join.combine_key_arrays), invalid rows
+            take the sentinel, the sorted unique keys number the groups
+            and a searchsorted assigns each row its group.  Past
+            max_groups the overflow flag rises (the executor reruns the
+            plan on the exact host path) and the group space truncates
+            to max_groups, bounding the wasted work."""
+            combined = _combine_keys(
+                [DVal(_broadcast_to_mask(k.value, out.valid).reshape(-1),
+                      _broadcast_to_mask(k.null, out.valid).reshape(-1)
+                      if k.null is not None else None, k.dtype)
+                 for k in kdvals])
+            combined = torch.where(valid, combined, _dj.I64_MAX)
+            uniq = torch.unique(combined, sorted=True)
+            # the sentinel sorts last; what precedes it are the real keys
+            n_real = uniq.shape[0] - int(uniq[-1] == _dj.I64_MAX)
+            if n_real > max_groups:
+                ctx.note_overflow(True)
+                n_real = max_groups
+            uniq = uniq[:n_real]
+            num_groups = max(1, n_real)
+            gidx = torch.searchsorted(uniq, combined)
+            return torch.where(valid, gidx, num_groups) \
+                .to(torch.int32), num_groups
 
         def group_index(ctx, kdvals, out, valid, cards, eff_cards,
                         num_groups):
@@ -722,11 +1343,14 @@ class Compiler:
             dev = ctx.device
             kdvals = [kr(rt) for kr in key_runs]
             if groups:
-                cards, eff_cards, num_groups = shape_info(ctx, kdvals)
+                fast, cards, eff_cards, num_groups = shape_info(ctx, kdvals)
             else:
-                cards, eff_cards, num_groups = [], [], 1
-            gidx = group_index(ctx, kdvals, out, valid, cards, eff_cards,
-                               num_groups)
+                fast, cards, eff_cards, num_groups = True, [], [], 1
+            if fast:
+                gidx = group_index(ctx, kdvals, out, valid, cards,
+                                   eff_cards, num_groups)
+            else:
+                gidx, num_groups = generic_index(ctx, kdvals, out, valid)
             nseg = num_groups + 1
             req = reduction.STRATEGIES[ctx.static[strategy_si]]
             fsum_strat = reduction.resolve_strategy(req, num_groups)
@@ -741,7 +1365,8 @@ class Compiler:
             code_agg_on = tok == 2 or (tok == 1 and dev.type != "cpu")
             rle_ok = tok != 0 and base_info is not None \
                 and out.valid.dim() == 2
-            if groups:
+            if groups and fast and any(ki[0] in ("dict", "vdict")
+                                       for ki in key_infos):
                 note["lanes"].add("code_domain")
             kbits = ctx.static[kernel_si]
 
@@ -806,7 +1431,7 @@ class Compiler:
             # more than an SM offers; overflow slots take the packed
             # families below.  Identical slots share one kernel chain, so
             # only distinct ones are charged.
-            use_gk = bool(groups) and nseg <= _gr.MAX_GROUPS \
+            use_gk = bool(groups) and fast and nseg <= _gr.MAX_GROUPS \
                 and bool(kbits & 2)
             gk_bytes = _gr.op_smem_bytes("count", nseg)  # the gvalid count
             gk_keys = {_gr.op_key(("count", None, valid))}
@@ -974,9 +1599,23 @@ class Compiler:
                 gvalid = torch.ones(1, dtype=torch.bool, device=dev)
 
             # --- group key values per segment: decode the mixed-radix
-            # group index back to key codes (+ per-key NULL masks) ---
+            # group index back to key codes (+ per-key NULL masks), or,
+            # on the generic lane, take each group's key value and NULL
+            # flag by a segmented max over its rows ---
             post_cols: Dict[int, DVal] = {}
-            if groups:
+            if groups and not fast:
+                for gi, kd in enumerate(kdvals):
+                    kv = _broadcast_to_mask(kd.value, out.valid).reshape(-1)
+                    knull = None
+                    if kd.null is not None:
+                        nb = _broadcast_to_mask(kd.null, out.valid) \
+                            .reshape(-1)
+                        knull = _segment_max(
+                            (nb & valid).to(torch.int32), gidx,
+                            num_groups).to(torch.bool)
+                    post_cols[gi] = DVal(_segment_max(kv, gidx, num_groups),
+                                         knull, post_scope_types[gi])
+            elif groups:
                 ar = torch.arange(num_groups, dtype=torch.int64, device=dev)
                 strides = []
                 acc = 1
@@ -1084,13 +1723,17 @@ def _slots_to_cols(e: ast.Expr, n_groups: int) -> ast.Expr:
 class _RunCtx:
     """Per-execution inputs of the emitted closures: per relation the
     bound (plate, null) pairs wrapped as DVals, the aux tensors, the
-    literal scalars, the static key and the device."""
+    literal scalars, the static key and the device.  `overflow` gathers
+    the data-dependent overflow flags of nested nodes (a join expansion
+    past its bucket, generic group keys past max_groups); the executor
+    reads it once and reroutes to the exact host path."""
 
     def __init__(self, relations, rels, aux, params, static, device):
         self.aux = aux
         self.params = params
         self.static = static
         self.device = device
+        self.overflow = None
         self.rels = []
         for r, (cols, valid) in zip(relations, rels):
             dvals = {}
@@ -1118,6 +1761,12 @@ class _RunCtx:
     def runtime(self, cols: Dict[int, DVal]) -> Runtime:
         return Runtime(cols, self.params, self.aux, self.device)
 
+    def note_overflow(self, flag) -> None:
+        """OR a bool tensor (or a host bool) into the overflow flag."""
+        flag = torch.as_tensor(flag, device=self.device)
+        self.overflow = flag if self.overflow is None \
+            else (self.overflow | flag)
+
 
 def _dict_provider(info, ci):
     if info.schema.fields[ci].dtype.name != "string":
@@ -1139,6 +1788,21 @@ def _padded_size(n: int) -> int:
     return 1 << max(0, (max(1, n) - 1).bit_length())
 
 
+def _segment_max(v: torch.Tensor, gidx: torch.Tensor,
+                 num_groups: int) -> torch.Tensor:
+    """Per-group max of `v` over the rows of each group ([num_groups];
+    rows in the overflow segment num_groups are dropped)."""
+    is_bool = v.dtype == torch.bool
+    if is_bool:
+        v = v.to(torch.int32)
+    out = torch.full((num_groups + 1,),
+                     reduction.extreme_of(v.dtype, False).item(),
+                     dtype=v.dtype, device=v.device)
+    out.scatter_reduce_(0, gidx.long(), v, "amax", include_self=True)
+    out = out[:num_groups]
+    return out.to(torch.bool) if is_bool else out
+
+
 def _acc_dtype(dt: Optional[T.DataType], value_dtype) -> torch.dtype:
     """Aggregate accumulator dtype: float64 for floating outputs — the
     plates stay float32 on the card but the reductions widen (summing
@@ -1155,6 +1819,113 @@ def _broadcast_to_mask(v, mask):
     if v.shape == mask.shape:
         return v
     return torch.broadcast_to(v, mask.shape)
+
+
+def _combine_keys(dvals: List[DVal]) -> torch.Tensor:
+    """Combine N key DVals into one int64 key.  Single key: exact (NULL
+    maps to a reserved sentinel).  Multiple: a 64-bit hash with the null
+    flag folded in exactly (collision risk ~ n^2 * 2^-64).  NULL keys
+    hash to their own group per SQL GROUP BY semantics.  One
+    implementation, in ops/join.py: the cached build artifact and the
+    bind-time expansion bound encode keys outside the plan, and the
+    group and join key domains must never drift."""
+    return _dj.combine_key_arrays([(d.value, d.null) for d in dvals])
+
+
+# --- join helpers ---------------------------------------------------------
+
+def _join_reject(reason: str, msg: str) -> None:
+    """Reasoned device-join fallback: count the rejection (total + per
+    reason, so operators can see WHY joins leave the device) and reroute
+    to the exact host join via CompileError."""
+    reg = global_registry()
+    reg.inc("join_host_fallbacks")
+    reg.inc("join_fallback_" + reason)
+    raise CompileError(msg)
+
+
+def _check_device_join_enabled(props) -> None:
+    """Per-execution master switch (a bind check, so flipping the knob
+    needs no plan-cache flush)."""
+    if not props.get("device_join", True) \
+            or not config.global_properties().get("device_join", True):
+        _join_reject("disabled", "device_join=off: host path")
+
+
+def _count_device_join() -> None:
+    global_registry().inc("join_device_joins")
+
+
+_expand_cap_warned: set = set()
+
+
+def _warn_expand_cap(est: int, cap: int) -> None:
+    """The expansion-cap fallback is loud: a query silently dropping to
+    the single-threaded host join reads as a hang.  Once per (estimate
+    bucket, cap)."""
+    key = (est.bit_length(), cap)
+    if key in _expand_cap_warned:
+        return
+    _expand_cap_warned.add(key)
+    print(f"warning: device join expansion (~{est:,} bytes) exceeds "
+          f"join_expand_max_bytes ({cap:,}) — query runs on the HOST "
+          f"join path (single-threaded); raise the knob to keep it on "
+          f"device", file=sys.stderr)
+
+
+_absmax_cache: Dict[Tuple[int, int, int], tuple] = {}
+
+
+def _require_f64_exact_int_key(info, ordinal: int) -> None:
+    """Mixed int/float equi keys compare in the float64 domain; an int64
+    key with |v| >= 2^53 would falsely match/miss after the cast.
+    Verified per bind (cached per mutation version) — values at risk
+    reroute to the exact host join."""
+    data = info.data
+    key = (id(data), data.snapshot().version, ordinal)
+    ok = None
+    entry = _absmax_cache.get(key)
+    if entry is not None:
+        ref, cached_ok = entry
+        if ref() is data:
+            ok = cached_ok
+    if ok is None:
+        col = _host_key_columns(info, (ordinal,))[0]
+        if col.size == 0:
+            ok = True
+        else:
+            vals = np.abs(np.asarray(
+                [0 if v is None else v for v in col], dtype=np.int64)) \
+                if col.dtype == object else np.abs(col.astype(np.int64))
+            ok = int(vals.max()) < (1 << 53)
+        if len(_absmax_cache) > 4096:
+            _absmax_cache.clear()
+        _absmax_cache[key] = (weakref.ref(data), ok)
+    if not ok:
+        _join_reject(
+            "int_float_key_2p53",
+            f"join key {info.name}.{info.schema.fields[ordinal].name} "
+            f"holds int values at |v| >= 2^53 — the float64 key domain "
+            f"would be inexact; host path")
+
+
+def _host_key_columns(info, ordinals: Tuple[int, ...]) -> List[np.ndarray]:
+    """Live host values of a column table's key columns at the current
+    snapshot: decoded batches, then the row buffer."""
+    data = info.data
+    m = data.snapshot()
+    out = []
+    for i in ordinals:
+        name = info.schema.fields[i].name
+        parts = []
+        for view in m.views:
+            live = view.live_mask()
+            parts.append(np.asarray(data._decode_all(view)[name])[live])
+        if m.row_count:
+            parts.append(np.asarray(m.row_arrays[i])[:m.row_count])
+        out.append(np.concatenate(parts) if parts
+                   else np.empty(0, dtype=object))
+    return out
 
 
 def _collect_sargs(cond: ast.Expr, rel: _RelationInput) -> None:
@@ -1210,6 +1981,10 @@ def _plan_width(plan: ast.Plan) -> int:
         return len(plan.exprs)
     if isinstance(plan, ast.Aggregate):
         return len(plan.agg_exprs)
+    if isinstance(plan, ast.Join):
+        if plan.how in ("semi", "anti"):
+            return _plan_width(plan.left)
+        return _plan_width(plan.left) + _plan_width(plan.right)
     raise CompileError(f"width of {type(plan).__name__}")
 
 
@@ -1242,8 +2017,52 @@ def _collect_used(plan: ast.Plan, needed: Optional[set],
             need |= _expr_cols(e)
         _collect_used(plan.child, need, out)
         return
+    if isinstance(plan, ast.Join):
+        wl = _plan_width(plan.left)
+        wr = _plan_width(plan.right)
+        if needed is None:
+            top = wl if plan.how in ("semi", "anti") else wl + wr
+            needed = set(range(top))
+        needed = set(needed) | _expr_cols(plan.condition)
+        _collect_used(plan.left, {i for i in needed if i < wl}, out)
+        _collect_used(plan.right, {i - wl for i in needed if i >= wl}, out)
+        return
     raise CompileError(f"{type(plan).__name__} is not ported to the device "
                        f"path")
+
+
+def _split_equi(cond: Optional[ast.Expr], nleft: int):
+    """Split a join condition into equi pairs (left_idx, right_idx) and a
+    residual expression."""
+    if cond is None:
+        return [], None
+    conjuncts = []
+
+    def flatten(e):
+        if isinstance(e, ast.BinOp) and e.op == "and":
+            flatten(e.left)
+            flatten(e.right)
+        else:
+            conjuncts.append(e)
+
+    flatten(cond)
+    equi, rest = [], []
+    for c in conjuncts:
+        if isinstance(c, ast.BinOp) and c.op == "=" \
+                and isinstance(c.left, ast.Col) \
+                and isinstance(c.right, ast.Col):
+            li, ri = c.left.index, c.right.index
+            if li < nleft <= ri:
+                equi.append((li, ri))
+                continue
+            if ri < nleft <= li:
+                equi.append((ri, li))
+                continue
+        rest.append(c)
+    residual = None
+    for c in rest:
+        residual = c if residual is None else ast.BinOp("and", residual, c)
+    return equi, residual
 
 
 # ==========================================================================

@@ -1,11 +1,12 @@
 """Expression -> tensor lowering with three-valued (SQL NULL) logic.
 
 Port of snappydata_tpu/engine/exprs.py, cut to the subset the analytic
-scan needs (TPC-H Q1/Q6 and the README Quick start): column refs,
-tokenized literals as runtime scalars, + - * / %, comparisons, BETWEEN,
-AND/OR/NOT with Kleene logic, IS NULL, casts between numeric types,
-numeric IN lists, string = / < / IN through host-built dictionary lookup
-tables, and the code/run-domain compare lane (`_compressed_cmp`).  Anything
+scan and the join slice need (TPC-H Q1/Q3/Q5/Q6/Q10/Q12/Q14 and the
+README Quick start): column refs, tokenized literals as runtime scalars,
++ - * / %, comparisons, BETWEEN, AND/OR/NOT with Kleene logic, IS NULL,
+CASE WHEN, casts between numeric types, numeric IN lists, string = / < /
+IN / LIKE through host-built dictionary lookup tables, and the
+code/run-domain compare lane (`_compressed_cmp`).  Anything
 else raises CompileError, which the executor turns into the reference's
 host fallback (engine/hosteval.py).
 
@@ -26,6 +27,7 @@ at execution time over the bound plates.  PyTorch runs eagerly, so
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -289,6 +291,12 @@ class ExprBuilder:
         if isinstance(e, ast.Cast):
             return self._emit_cast(e)
 
+        if isinstance(e, ast.Like):
+            return self._emit_like(e)
+
+        if isinstance(e, ast.Case):
+            return self._emit_case(e)
+
         if isinstance(e, ast.Func) and e.name in ast.AGG_FUNCS:
             raise CompileError(
                 f"aggregate {e.name} outside aggregation context")
@@ -510,6 +518,68 @@ class ExprBuilder:
             return DVal(acc, null, T.BOOLEAN)
 
         return run_in
+
+    def _emit_like(self, e: ast.Like) -> Callable[[Runtime], DVal]:
+        """`str_col [NOT] LIKE pattern`: one bool LUT over the column's
+        dictionary, like every string predicate."""
+        col_idx = self._string_operand_info(e.child)
+        if col_idx is None:
+            raise CompileError("LIKE requires a string column")
+        # SQL LIKE: % = any run, _ = any single char
+        regex = re.compile(
+            "^" + re.escape(e.pattern).replace("%", ".*").replace("_", ".")
+            + "$", re.DOTALL)
+        negated = e.negated
+
+        def one(v):
+            return v is not None and regex.match(v) is not None
+
+        aux_i = self._string_pred_lut(
+            col_idx, lambda d, params: np.array([one(v) for v in d],
+                                                dtype=np.bool_))
+        base = self._lut_runner(col_idx, aux_i)
+        if not negated:
+            return base
+
+        def run_neg(rt: Runtime) -> DVal:
+            r = base(rt)
+            return DVal(~r.value, r.null, T.BOOLEAN)
+
+        return run_neg
+
+    def _emit_case(self, e: ast.Case) -> Callable[[Runtime], DVal]:
+        whens = [(self.emit(c), self.emit(v)) for c, v in e.whens]
+        other = self.emit(e.otherwise) if e.otherwise is not None else None
+
+        def run_case(rt: Runtime) -> DVal:
+            branches = [(c(rt), v(rt)) for c, v in whens]
+            # the result type promotes across ALL branches (ELSE 0 must
+            # not demote a double CASE to an integer one)
+            dt = None
+            for _, v_dv in branches:
+                dt = _promote(dt, v_dv.dtype)
+            if other is not None:
+                out = other(rt)
+                dt = _promote(dt, out.dtype)
+                acc_v, acc_n = out.value, out.null
+            else:
+                acc_v = torch.zeros_like(branches[0][1].value)
+                # no branch matched -> NULL
+                acc_n = torch.ones((), dtype=torch.bool, device=rt.device)
+            no = torch.zeros((), dtype=torch.bool, device=rt.device)
+            for cond, val in reversed(branches):
+                cv = cond.value
+                if cond.null is not None:
+                    cv = cv & ~cond.null
+                vdt = promote(acc_v.dtype, val.value.dtype)
+                acc_v = torch.where(cv, val.value.to(vdt), acc_v.to(vdt))
+                if acc_n is None and val.null is None:
+                    continue
+                acc_n = torch.where(cv, no if val.null is None else val.null,
+                                    no if acc_n is None else acc_n)
+            return DVal(acc_v, acc_n, dt)
+
+        return run_case
 
     def _emit_cast(self, e: ast.Cast) -> Callable[[Runtime], DVal]:
         to = e.to

@@ -70,9 +70,11 @@ _COMPRESSIBLE = {Encoding.VALUE_DICT: "dict", Encoding.RUN_LENGTH: "rle",
 
 
 def _compressed_mode(is_str: bool, cols_enc, has_row_chunks: bool,
+                     code_ok: bool = True,
                      count: bool = False) -> Optional[str]:
     """Per-column compressed-domain decision: 'dict' | 'rle' | 'bitset'
     when the column can stay resident encoded, None for a decoded bind.
+    `code_ok=False` (a device-join relation) forces a decoded bind.
     With count=True (the cache-miss build) every decode-first reroute of
     a compressible column is counted by reason, as in the reference."""
     knob = str(config.global_properties().get(
@@ -91,6 +93,9 @@ def _compressed_mode(is_str: bool, cols_enc, has_row_chunks: bool,
         return None
     if not config.global_properties().device_decode:
         reject("device_decode_off")
+        return None
+    if not code_ok:
+        reject("join_key")
         return None
     if has_row_chunks:
         reject("row_buffer")
@@ -118,10 +123,13 @@ def _scan_units(data: ColumnTableData):
 
 
 def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
-                       device: torch.device) -> DeviceTable:
+                       device: torch.device,
+                       code_ok: bool = True) -> DeviceTable:
     """Materialize `col_indices` of the current snapshot on `device`, with
     caching keyed on (manifest version, device) so repeated queries over
-    an unchanged table upload nothing."""
+    an unchanged table upload nothing.  `code_ok=False` (device-join
+    relations, whose cached build artifacts and probe-key encodes read
+    flat decoded layouts) forces decoded plates."""
     manifest, views, row_chunks = _scan_units(data)
     cache_key = (manifest.version, str(device))
     cache = data._device_cache.setdefault(cache_key, {})
@@ -161,10 +169,12 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
             dicts[ci] = data.dictionary(ci)
         dt = f.dtype.device_dtype()
         cols_enc = [v.batch.columns[ci] for v in views]
-        cd_mode = _compressed_mode(is_str, cols_enc, bool(row_chunks))
+        cd_mode = _compressed_mode(is_str, cols_enc, bool(row_chunks),
+                                   code_ok)
         key = ("ccol", ci) if cd_mode else ("col", ci)
         if key not in cache:
-            _compressed_mode(is_str, cols_enc, bool(row_chunks), count=True)
+            _compressed_mode(is_str, cols_enc, bool(row_chunks), code_ok,
+                             count=True)
             cache[key] = _build_code_column(cd_mode, views, cols_enc, ci, b,
                                             cap, dt, device, place, cache) \
                 if cd_mode else \

@@ -384,3 +384,48 @@ def test_cuda_code_q1_slot_order(cuda_device, cap):
 
     got = gr.grouped_code_reduce(keep(gidx), keep(mask), slots(keep), 6)
     _check_code(got, gidx, mask, slots(_t), 6)
+
+
+# --- the device join engine on the card ------------------------------------
+
+JOIN_QUERIES = [
+    "Q3C",
+    "SELECT o_orderdate, count(*), sum(l_extendedprice) FROM orders "
+    "JOIN lineitem ON o_orderkey = l_orderkey GROUP BY o_orderdate "
+    "ORDER BY o_orderdate",
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", JOIN_QUERIES, ids=["q3c", "orderdate"])
+def test_cuda_join_matches_cpu_session(cuda_device, query):
+    """TPC-H Q3C (a one-to-many LEFT JOIN) and a generic-key join on the
+    card, with the grouped kernel on, against the same query in a CPU
+    session over the same rows: group keys and counts exact, float32-plate
+    sums within rel 5e-5, and no host fallback on the card."""
+    from snappydata_tpu_torch import SnappySession, config
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.utils import tpch
+
+    sql = tpch.Q3C if query == "Q3C" else query
+    props = config.global_properties()
+    saved = props.pallas_group_reduce
+    props.pallas_group_reduce = True
+    try:
+        rows = {}
+        for dev in ("cpu", cuda_device):
+            s = SnappySession(catalog=Catalog(), device=dev)
+            tpch.load_tpch(s, sf=0.05, seed=4)
+            fb = global_registry().counter("host_fallbacks")
+            jfb = global_registry().counter("join_host_fallbacks")
+            rows[str(dev)] = s.sql(sql).rows()
+            assert global_registry().counter("host_fallbacks") == fb
+            assert global_registry().counter("join_host_fallbacks") == jfb
+    finally:
+        props.pallas_group_reduce = saved
+    got, want = rows[str(cuda_device)], rows["cpu"]
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2]
+        assert g[2] == pytest.approx(w[2], rel=5e-5)

@@ -41,7 +41,16 @@ QUERIES = [
      "HAVING count(*) > 10 ORDER BY spread DESC LIMIT 3", True),
     ("SELECT x, y FROM t WHERE g = 2 AND x > 1.5 ORDER BY x LIMIT 20", True),
     ("SELECT count(*) FROM t WHERE x IS NULL", True),
-    ("SELECT g % 2 AS p, count(*) FROM t GROUP BY g % 2 ORDER BY p", False),
+    # a derived key: the generic hash-key lane
+    ("SELECT g % 2 AS p, count(*) FROM t GROUP BY g % 2 ORDER BY p", True),
+    # count(DISTINCT) is not ported: the host evaluator answers
+    ("SELECT k, count(DISTINCT g) FROM t GROUP BY k ORDER BY k", False),
+    # CASE WHEN with and without ELSE, over a nullable operand
+    ("SELECT k, sum(CASE WHEN x > 0 THEN x ELSE 0 END), "
+     "count(CASE WHEN g = 2 THEN 1 END), sum(CASE WHEN y > 0 THEN x END) "
+     "FROM t GROUP BY k ORDER BY k", True),
+    ("SELECT count(*), sum(y) FROM t WHERE k LIKE '%c' OR k NOT LIKE 'b'",
+     True),
 ]
 
 _KNOBS = ("decimal_as_float64", "pallas_reduce", "pallas_group_reduce")
