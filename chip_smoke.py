@@ -4,7 +4,10 @@ TPC-H lineitem through `SnappySession.insert_arrays`, answer Q1 and Q6
 through `SnappySession.sql` with both kernel lanes on, then again through
 the compressed-domain entry points (`utils/tpch_code_domain`), run the
 run-space RLE probe, then load orders and answer TPC-H Q3C (orders LEFT
-JOIN lineitem) and a generic-key join through the device join engine.
+JOIN lineitem) and a generic-key join through the device join engine,
+then stream Q1 and Q6 through the tiled out-of-core lane, answer Q1 and
+Q6 over exact DECIMAL(15,2) columns, and run count(DISTINCT) and the
+matmul reduction strategy.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
@@ -54,7 +57,34 @@ Phases, in order; any failure exits non-zero before the result lines:
    beside its bound; the build sort timed alone; the peak device memory;
    then the generic-key join (`GROUP BY o_orderdate`, about 2,400 groups)
    against numpy with `host_fallbacks` unchanged;
-11. the kernels' JSON line, then `{"ok": true, "device": ...}` last.
+11. the tiled lane: `scan_tile_bytes` at a tenth of Q1's decoded bind of
+   lineitem (the reference bench keeps its budget under 10% of the
+   table), the table's device cache dropped, launch and tile counters set
+   to 0, Q1 and Q6 through `session.sql` once and --reps times warm, the
+   counters read back: `scan_tiles` = tiles x runs, device merges moved
+   and host merges did not, `grouped_reduce` launched once per Q1 tile and
+   `masked_kahan_sum` once per Q6 tile, look-ahead windows warmed with no
+   prefetch worker death and no host fallback.  The answers equal phase
+   4's and the oracle (counts exact, sums rel 1e-6); the peak device
+   memory above the resident set stays under (tier_prefetch_depth + 2) x
+   scan_tile_bytes + 64 MiB; each kernel against its plain version on the
+   last tile's inputs (phase 5's tolerance); seconds, rows/s, bytes
+   uploaded per pass and the pinned host-to-device rate;
+12. exact decimals: lineitem_dec (the --sf x 6M generated rows with
+   l_quantity, l_extendedprice, l_discount and l_tax as DECIMAL(15,2))
+   loaded, Q1 and Q6 through `session.sql`: the exact slots are
+   `Decimal`s equal, digit for digit, to an int64-cents numpy oracle, the
+   float slots within rel 1e-6, no host fallback; Q1 tiled at phase 11's
+   budget once and --reps times warm, merged on the device only, with its
+   exact slots equal to the untiled run's at the column scale (with
+   --profile, one more tiled run traced); a 5-row DECIMAL(18,0) probe whose max|v| x count passes 2^62
+   reroutes to the host path (counted) and answers exactly;
+13. `count(DISTINCT l_suppkey)` per (returnflag, linestatus) over lineitem
+   against `np.unique` of the (group, key) pairs, with no host fallback;
+   the `matmul` and `scatter` strategies on one Q1 tile's float sums
+   (integer-valued, so the answers must be identical), timed;
+14. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+   kernel's `launches` counts its main-path runs of phases 4 and 11.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -112,15 +142,19 @@ def bound(nbytes: float, ops: float):
 
 class Recorder:
     """Wraps a kernel wrapper to keep the arguments of its first `keep`
-    calls (all of them when `keep` is None)."""
+    calls (all of them when `keep` is None), or with `ends` only of its
+    first and its most recent call."""
 
-    def __init__(self, fn, keep=None):
+    def __init__(self, fn, keep=None, ends=False):
         self.fn = fn
         self.keep = keep
+        self.ends = ends
         self.calls = []
 
     def __call__(self, *args):
-        if self.keep is None or len(self.calls) < self.keep:
+        if self.ends:
+            self.calls = self.calls[:1] + [args]
+        elif self.keep is None or len(self.calls) < self.keep:
             self.calls.append(args)
         return self.fn(*args)
 
@@ -552,6 +586,310 @@ def build_sort_ms(session, reps):
         int(keys.numel())
 
 
+Q1_COLS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+           "l_returnflag", "l_linestatus", "l_shipdate")
+Q6_COLS = ("l_quantity", "l_extendedprice", "l_discount", "l_shipdate")
+DEC_COLS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+MIB = 1 << 20
+DISTINCT_QUERY = (
+    "SELECT l_returnflag, l_linestatus, count(DISTINCT l_suppkey) "
+    "FROM lineitem GROUP BY 1, 2 ORDER BY 1, 2")
+
+
+def tile_plan(session, table, cols, budget):
+    """(units, bytes per unit, units per tile, tiles) of `table`'s scan
+    over `cols` under `budget`, by the session's own unit math."""
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.storage.device import scan_unit_count
+
+    info = session.catalog.describe(table)
+    with config.device_scope(session.device):
+        per = 1 + sum(session._decoded_col_width(info.schema.field(c))
+                      for c in cols)
+    units = scan_unit_count(info.data)
+    unit_bytes = info.data.capacity * per
+    tile_units = max(1, budget // unit_bytes)
+    if tile_units > 1:
+        tile_units = 1 << (tile_units.bit_length() - 1)
+    return units, unit_bytes, tile_units, -(-units // tile_units)
+
+
+def pinned_h2d_gb_per_s(nbytes, reps):
+    """Host-to-device copy rate from pinned memory, CUDA-event timed."""
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), reps)
+    return nbytes / ms / 1e6
+
+
+def tiled_path(session, tpch, reps, budget, profile):
+    """Phase 11's runs: both kernel lanes on, lineitem's device cache
+    dropped, the counters at 0, Q1 and Q6 through the tiled lane once and
+    `reps` times warm.  The
+    last run keeps the kernel inputs of its first and last tiles, so the
+    peak device memory is read before it."""
+    import torch
+
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.engine import executor
+    from snappydata_tpu_torch.observability.metrics import (TILE_COUNTERS,
+                                                            global_registry)
+    from snappydata_tpu_torch.ops import group_reduce as gr
+    from snappydata_tpu_torch.ops import kahan_reduce as kr
+
+    props = config.global_properties()
+    data = session.catalog.lookup_table("lineitem").data
+    reg = global_registry()
+    names = TILE_COUNTERS + ("host_fallbacks",)
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    props.scan_tile_bytes = budget
+    data._device_cache.clear()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = reg.counters(names)
+    kr.masked_kahan_sum.launches = 0
+    gr.grouped_reduce.launches = 0
+    rec_k = Recorder(executor.masked_kahan_sum, ends=True)
+    rec_g = Recorder(executor.grouped_reduce, ends=True)
+    times = {"q1": [], "q6": []}
+    uploads = {"q1": [], "q6": []}
+    rows = {}
+    peak = None
+    try:
+        for run in range(1 + reps):
+            if run == reps and reps:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - resident
+                executor.masked_kahan_sum = rec_k
+                executor.grouped_reduce = rec_g
+            for q, sql in (("q1", tpch.Q1), ("q6", tpch.Q6)):
+                u0 = reg.counter("device_upload_bytes")
+                t0 = time.perf_counter()
+                rows[q] = session.sql(sql).rows()
+                torch.cuda.synchronize()
+                times[q].append(time.perf_counter() - t0)
+                uploads[q].append(reg.counter("device_upload_bytes") - u0)
+    finally:
+        executor.masked_kahan_sum = rec_k.fn
+        executor.grouped_reduce = rec_g.fn
+    if peak is None:
+        peak = torch.cuda.max_memory_allocated() - resident
+    launches = {"masked_kahan_sum": kr.masked_kahan_sum.launches,
+                "grouped_reduce": gr.grouped_reduce.launches}
+    after = reg.counters(names)
+    moved = {k: after[k] - before[k] for k in names}
+    prof = profile_run(lambda: session.sql(tpch.Q1).rows()) \
+        if profile else None
+    props.scan_tile_bytes = 0
+    return (rows, times, uploads, moved, launches, peak, resident,
+            rec_k.calls, rec_g.calls, prof)
+
+
+def dec_oracle(li, tpch):
+    """Q1's exact slots over DECIMAL(15,2) columns from int64 cents: per
+    (returnflag, linestatus) the cent sums of l_quantity and
+    l_extendedprice, with the counts."""
+    from decimal import Decimal
+
+    import numpy as np
+
+    flag, status = li["l_returnflag"], li["l_linestatus"]
+    code = (flag == "N").astype(np.int64) + 2 * (flag == "R")
+    code = code * 2 + (status == "O")
+    m = li["l_shipdate"] <= tpch._days("1998-12-01") - 90
+    qty = np.round(li["l_quantity"] * 100).astype(np.int64)
+    price = np.round(li["l_extendedprice"] * 100).astype(np.int64)
+    out = []
+    for c in range(6):
+        sel = m & (code == c)
+        n = int(sel.sum())
+        if n:
+            out.append(("ANR"[c // 2], "FO"[c % 2],
+                        Decimal(int(qty[sel].sum())).scaleb(-2),
+                        Decimal(int(price[sel].sum())).scaleb(-2), n))
+    return out
+
+
+def check_dec_q1(what, got, exact, floats):
+    """Exact slots digit for digit, float slots within rel 1e-6."""
+    from decimal import Decimal
+
+    if len(got) != len(exact):
+        fail(f"{what}: {len(got)} rows, expected {len(exact)}")
+    for g, e, f in zip(got, exact, floats):
+        if g[:2] != e[:2] or g[9] != e[4]:
+            fail(f"{what}: keys/count {g[:2] + (g[9],)} != "
+                 f"{e[:2] + (e[4],)}")
+        for i, want in ((2, e[2]), (3, e[3])):
+            if not isinstance(g[i], Decimal) or str(g[i]) != str(want):
+                fail(f"{what}: exact slot {i} {g[i]!r} != {want!r}")
+        check_rows(f"{what} float slots", [g[4:9]], [f[4:9]])
+
+
+def decimal_path(session, tpch, li, reps, budget, profile):
+    """Phase 12: lineitem_dec loaded from the generated rows; Q1 / Q6
+    untiled, Q1 tiled at `budget` once and `reps` times warm, the
+    overflow probe."""
+    from decimal import Decimal
+
+    import numpy as np
+    import torch
+
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.observability.metrics import (TILE_COUNTERS,
+                                                            global_registry)
+
+    props = config.global_properties()
+    reg = global_registry()
+    ddl = tpch.LINEITEM_DDL.replace("TABLE lineitem", "TABLE lineitem_dec")
+    for c in DEC_COLS:
+        ddl = ddl.replace(f"{c} DOUBLE", f"{c} DECIMAL(15,2)")
+    session.sql(ddl)
+    t0 = time.perf_counter()
+    session.insert_arrays("lineitem_dec", list(li.values()))
+    load_s = time.perf_counter() - t0
+    q1 = tpch.Q1.replace("FROM lineitem", "FROM lineitem_dec")
+    q6 = tpch.Q6.replace("FROM lineitem", "FROM lineitem_dec")
+    fb = reg.counter("host_fallbacks")
+    out = {"load_s": load_s}
+    for name, q in (("q1", q1), ("q6", q6)):
+        times = []
+        for _ in range(1 + reps):
+            t0 = time.perf_counter()
+            rows = session.sql(q).rows()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = rows
+        out[name + "_first_s"] = times[0]
+        out[name + "_warm_s"] = sorted(times[1:])[len(times[1:]) // 2] \
+            if reps else times[0]
+    if reg.counter("host_fallbacks") != fb:
+        fail("decimal Q1/Q6 left the device")
+    want = oracle(li, tpch)
+    check_dec_q1("decimal Q1", out["q1"], dec_oracle(li, tpch),
+                 want["q1"])
+    check_rows("decimal Q6 vs numpy oracle", [(float(out["q6"][0][0]),)],
+               want["q6"])
+    # Q1 tiled at phase 11's budget: the per-tile int64 partials merge on
+    # the device; the merge hands them back through float64 partial
+    # columns, so the exact slots compare at the column scale
+    props.scan_tile_bytes = budget
+    before = reg.counters(TILE_COUNTERS)
+    times = []
+    for _ in range(1 + reps):
+        t0 = time.perf_counter()
+        tiled = session.sql(q1).rows()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    after = reg.counters(TILE_COUNTERS)
+    out["q1_tiled_counters"] = {k: after[k] - before[k]
+                                for k in TILE_COUNTERS}
+    out["q1_tiled_prof"] = profile_run(lambda: session.sql(q1).rows()) \
+        if profile else None
+    props.scan_tile_bytes = 0
+    out["q1_tiled_first_s"] = times[0]
+    out["q1_tiled_warm_s"] = sorted(times[1:])[len(times[1:]) // 2] \
+        if reps else times[0]
+    out["q1_tiles"] = out["q1_tiled_counters"]["scan_tiles"] // len(times)
+    if out["q1_tiles"] < 2 \
+            or not out["q1_tiled_counters"]["scan_tile_device_merges"] \
+            or out["q1_tiled_counters"]["scan_tile_host_merges"]:
+        fail(f"decimal Q1 did not run the tiled device merge "
+             f"({out['q1_tiled_counters']})")
+    if reg.counter("host_fallbacks") != fb:
+        fail("tiled decimal Q1 left the device")
+    cents = Decimal("0.01")
+    for t, u in zip(tiled, out["q1"]):
+        for i in (2, 3):
+            if Decimal(repr(t[i])).quantize(cents) != u[i]:
+                fail(f"tiled decimal Q1 slot {i}: {t[i]!r} != untiled "
+                     f"{u[i]!r}")
+        if (t[:2], t[9]) != (u[:2], u[9]):
+            fail(f"tiled decimal Q1 keys/count {t} != {u}")
+    # the overflow probe: 5 x 9.9e17 at scale 0, max|v| * count = 4.95e18
+    # >= 2^62, so the int64 guard must reroute to the host path
+    session.sql("CREATE TABLE dec_probe (v DECIMAL(18,0)) USING column")
+    session.insert_arrays("dec_probe", [np.full(5, 9.9e17)])
+    fb = reg.counter("host_fallbacks")
+    got = session.sql("SELECT sum(v) FROM dec_probe").rows()[0][0]
+    if reg.counter("host_fallbacks") != fb + 1:
+        fail("the decimal overflow probe did not reroute to the host path")
+    if got != Decimal(495) * Decimal(10) ** 16:
+        fail(f"the decimal overflow probe answered {got!r}")
+    out["probe"] = str(got)
+    return out
+
+
+def distinct_path(session, li, reps):
+    """Phase 13's count(DISTINCT) over lineitem against np.unique."""
+    import numpy as np
+    import torch
+
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    reg = global_registry()
+    fb = reg.counter("host_fallbacks")
+    times = []
+    for _ in range(1 + reps):
+        t0 = time.perf_counter()
+        rows = session.sql(DISTINCT_QUERY).rows()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if reg.counter("host_fallbacks") != fb:
+        fail("count(DISTINCT) left the device")
+    flag, status = li["l_returnflag"], li["l_linestatus"]
+    code = ((flag == "N").astype(np.int64) + 2 * (flag == "R")) * 2 \
+        + (status == "O")
+    pairs = np.unique(code * (1 << 32) + li["l_suppkey"])
+    per = np.bincount(pairs >> 32, minlength=6)
+    want = [("ANR"[c // 2], "FO"[c % 2], int(per[c]))
+            for c in range(6) if per[c]]
+    if rows != want:
+        fail(f"count(DISTINCT) {rows} != numpy {want}")
+    warm = sorted(times[1:])[len(times[1:]) // 2] if reps else times[0]
+    return rows, times[0], warm
+
+
+def strategy_timing(calls, reps):
+    """Phase 13's matmul against scatter on one Q1 tile's float sums: the
+    grouped kernel's inputs of the first (full) tile, rounded to integers
+    so that both strategies must agree bit for bit."""
+    import torch
+
+    from snappydata_tpu_torch.ops import reduction
+
+    if not calls:
+        fail("no Q1 tile inputs for the strategy timing")
+    ops, gidx, nseg = calls[0]
+    G = nseg - 1
+    cols = [torch.where(w, v, 0).double().round() for k, v, w in ops
+            if k == "sum"] + [w.double() for k, _v, w in ops
+                              if k == "count"]
+    n = gidx.numel()
+    onehot = reduction.onehot_bytes(n, G, torch.float64)
+    if onehot > reduction.MATMUL_ONEHOT_MAX_BYTES:
+        fail(f"one Q1 tile's one-hot ({onehot} B) passes the matmul bound")
+    mm = reduction.packed_sum(cols, gidx, G, "matmul")
+    sc = reduction.packed_sum(cols, gidx, G, "scatter")
+    torch.cuda.synchronize()
+    if not torch.equal(mm, sc):
+        fail(f"matmul {mm.tolist()} != scatter {sc.tolist()}")
+    return {"rows": n, "groups": G, "columns": len(cols),
+            "onehot_bytes": onehot,
+            "auto": reduction.resolve_strategy("auto", "cuda", G, n, "fsum",
+                                               torch.float64),
+            "matmul_ms": cuda_ms(
+                lambda: reduction.packed_sum(cols, gidx, G, "matmul"),
+                reps * 3),
+            "scatter_ms": cuda_ms(
+                lambda: reduction.packed_sum(cols, gidx, G, "scatter"),
+                reps * 3)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=16.0,
@@ -815,7 +1153,107 @@ def main() -> int:
     log(f"generic_join groups {len(gen_rows)} first_s {gen_s:.4f}")
     log("answers ok: Q3C and the generic-key join match numpy")
 
-    # 11. result lines
+    # 11. the tiled lane over lineitem at a tenth of Q1's decoded bind
+    units1, ub1, tu1, tiles_q1 = tile_plan(session, "lineitem", Q1_COLS, 1)
+    budget = units1 * ub1 // 10
+    _u, _b, tu1, tiles_q1 = tile_plan(session, "lineitem", Q1_COLS, budget)
+    _u, ub6, tu6, tiles_q6 = tile_plan(session, "lineitem", Q6_COLS, budget)
+    log(f"tile_plan units {units1} q1_bind_bytes {units1 * ub1} "
+        f"scan_tile_bytes {budget} q1 tile_units {tu1} tiles {tiles_q1} "
+        f"q6 tile_units {tu6} tiles {tiles_q6}")
+    try:
+        (t_rows, t_times, t_up, tmoved, tlaunch, tpeak, tresident, tk_calls,
+         tg_calls, tprof) = tiled_path(session, tpch, args.reps, budget,
+                                       args.profile)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"tiled path: {type(e).__name__}: {e}")
+    runs = 1 + args.reps
+    log(f"tiled_path_counters {json.dumps(tmoved)}")
+    log(f"tiled_path_launches {json.dumps(tlaunch)}")
+    if tmoved["scan_tiles"] != (tiles_q1 + tiles_q6) * runs:
+        fail(f"scan_tiles moved {tmoved['scan_tiles']}, expected "
+             f"({tiles_q1} + {tiles_q6}) x {runs}")
+    if tmoved["scan_tile_device_merges"] < 1 \
+            or tmoved["scan_tile_host_merges"]:
+        fail(f"the tiled passes did not merge on the device: {tmoved}")
+    if tlaunch["grouped_reduce"] != tiles_q1 * runs:
+        fail(f"grouped_reduce launched {tlaunch['grouped_reduce']} times "
+             f"over {tiles_q1} Q1 tiles x {runs} runs")
+    if tlaunch["masked_kahan_sum"] != tiles_q6 * runs:
+        fail(f"masked_kahan_sum launched {tlaunch['masked_kahan_sum']} "
+             f"times over {tiles_q6} Q6 tiles x {runs} runs")
+    if tmoved["prefetch_windows_warmed"] < 1 \
+            or tmoved["prefetch_worker_deaths"]:
+        fail(f"the tile prefetcher did not warm windows cleanly: {tmoved}")
+    if tmoved["host_fallbacks"]:
+        fail("a tiled pass left the device")
+    for q in ("q1", "q6"):
+        check_rows(f"tiled {q} vs phase 4", t_rows[q], first[q][0])
+        check_rows(f"tiled {q} vs numpy oracle", t_rows[q], want[q])
+    depth = int(props.tier_prefetch_depth)
+    mem_bound = (depth + 2) * budget + 64 * MIB
+    log(f"tiled_peak_device_bytes {tpeak} resident_before_bytes "
+        f"{tresident} bound {mem_bound}")
+    if tpeak > mem_bound:
+        fail(f"the tiled pass allocated {tpeak} B above the resident set, "
+             f"over the bound {mem_bound}")
+    h2d = pinned_h2d_gb_per_s(budget, args.reps)
+    for q in ("q1", "q6"):
+        ts = t_times[q]
+        tw = sorted(ts[1:])[len(ts[1:]) // 2] if args.reps else ts[0]
+        up = t_up[q][-1]
+        log(f"tiled_{q} first_s {ts[0]:.4f} warm_s {tw:.4f} rows_per_s "
+            f"{n_rows / tw:.0f} in_hbm_rows_per_s {n_rows / warm[q]:.0f} "
+            f"upload_bytes_per_pass {up} effective_upload_gb_per_s "
+            f"{up / tw / 1e9:.3f}")
+    log(f"pinned_h2d_gb_per_s {h2d:.3f} ({budget} B copies)")
+    log(f"prefetch_overlap_ms {tmoved['prefetch_overlap_ms']} "
+        f"window_waits {tmoved['prefetch_window_waits']} "
+        f"tile_launch_overlaps {tmoved['scan_tile_prefetch_overlap']}")
+    if tprof is not None:
+        log(f"profile tiled_q1 {json.dumps(tprof)}")
+    for name, fn, calls in (("masked_kahan_sum", kahan_phase, tk_calls),
+                            ("grouped_reduce", grouped_phase, tg_calls)):
+        log(f"kernel {name} on the last tile "
+            f"{json.dumps(fn(calls[-1:], args.reps))}")
+        launches[name] += tlaunch[name]
+    del tk_calls
+    log("answers ok: tiled Q1 and Q6 match phase 4 and the oracle")
+
+    # 12. exact decimals on the card
+    try:
+        dec = decimal_path(session, tpch, li, args.reps, budget,
+                           args.profile)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"decimal path: {type(e).__name__}: {e}")
+    log(f"decimal_load_s {dec['load_s']:.3f} rows {n_rows}")
+    for q in ("q1", "q6"):
+        log(f"decimal_{q} first_s {dec[q + '_first_s']:.4f} warm_s "
+            f"{dec[q + '_warm_s']:.4f} rows_per_s "
+            f"{n_rows / dec[q + '_warm_s']:.0f}")
+    log(f"decimal_q1_tiled tiles {dec['q1_tiles']} first_s "
+        f"{dec['q1_tiled_first_s']:.4f} warm_s {dec['q1_tiled_warm_s']:.4f} "
+        f"counters {json.dumps(dec['q1_tiled_counters'])}")
+    if dec["q1_tiled_prof"] is not None:
+        log(f"profile decimal_q1_tiled {json.dumps(dec['q1_tiled_prof'])}")
+    log(f"decimal_q1 {json.dumps([[str(x) for x in r] for r in dec['q1']])}")
+    log(f"decimal_overflow_probe {dec['probe']} (host path, counted)")
+    log("answers ok: exact-decimal Q1/Q6 match the cents oracle, tiled and "
+        "untiled")
+
+    # 13. count(DISTINCT) and the matmul strategy
+    try:
+        d_rows, d_first, d_warm = distinct_path(session, li, args.reps)
+        strat = strategy_timing(tg_calls, args.reps)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"count(DISTINCT) / strategy: {type(e).__name__}: {e}")
+    del tg_calls
+    log(f"count_distinct first_s {d_first:.4f} warm_s {d_warm:.4f} "
+        f"rows_per_s {n_rows / d_warm:.0f} {json.dumps(d_rows)}")
+    log(f"strategy_timing {json.dumps(strat)}")
+    log("answers ok: count(DISTINCT) matches numpy; matmul equals scatter")
+
+    # 14. result lines
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",

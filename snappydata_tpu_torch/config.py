@@ -460,13 +460,32 @@ def device_scope(device):
         _device.reset(tok)
 
 
+# float64 plates whatever the device and policy: the tiled scan's scratch
+# merge tables hold accumulator-width partials (float64 sums of up to a
+# whole table), which float32 plates would round before the final merge
+_float64_plates: contextvars.ContextVar = contextvars.ContextVar(
+    "snappy_torch_float64_plates", default=False)
+
+
+@contextlib.contextmanager
+def float64_plates():
+    """Store and compute DOUBLE at float64 inside the enclosed work."""
+    tok = _float64_plates.set(True)
+    try:
+        yield
+    finally:
+        _float64_plates.reset(tok)
+
+
 def use_float64() -> bool:
     """Decimal/compute dtype policy, keyed on the session's torch device:
     float64 on the CPU (the exact oracle the parity tests compare against
     the reference's CPU answers), float32 on CUDA (the accelerator
     contract: f32 plates, wider accumulators).  Integer width is not
     policy — LONG/TIMESTAMP are always int64.  Outside any session scope
-    the CPU policy holds."""
+    the CPU policy holds; inside `float64_plates` float64 holds."""
+    if _float64_plates.get():
+        return True
     if _global.decimal_as_float64 is not None:
         return _global.decimal_as_float64
     dev = _device.get()

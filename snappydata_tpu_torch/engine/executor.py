@@ -24,13 +24,18 @@ SnappyHashAggregateExec):
 
 Everything above the aggregate (ORDER BY / LIMIT / DISTINCT / outer
 projects) runs on the host over the small reduced result.  Window
-functions, exact decimals, count(DISTINCT) and the functions the port's
-expression lowering lacks raise CompileError, and the executor answers
-those plans with the host evaluator (engine/hosteval.py), as the
-reference does for constructs it cannot lower.  Data-dependent limits (a
-join expansion past its bucket, generic keys past max_groups) raise the
-plan's overflow flag, read once per execution, which reroutes the same
-way.
+functions and the functions the port's expression lowering lacks raise
+CompileError, and the executor answers those plans with the host
+evaluator (engine/hosteval.py), as the reference does for constructs it
+cannot lower.  Data-dependent limits (a join expansion past its bucket,
+generic keys past max_groups, an exact-decimal sum at int64 risk) raise
+the plan's overflow flag, read once per execution, which reroutes the
+same way.
+
+Partial-raw compiles (`Compiler(partial_raw=True)`, the tiled scan's
+partial program) force data-independent group cards and tag each output
+with its merge op, so `CompiledPlan.execute_raw` outputs of successive
+tiles fold elementwise on the device (`merge_tile_outs`).
 
 PyTorch runs eagerly, so "compiling" a plan builds the closures once; the
 closures read their static inputs (knob tokens, padded dictionary sizes)
@@ -56,7 +61,7 @@ from snappydata_tpu_torch import types as T
 from snappydata_tpu_torch.engine import hosteval
 from snappydata_tpu_torch.engine.exprs import (CompileError, DVal,
                                                ExprBuilder, Runtime,
-                                               _or_null)
+                                               _is_exact_decimal, _or_null)
 from snappydata_tpu_torch.engine.result import Result
 from snappydata_tpu_torch.observability.metrics import global_registry
 from snappydata_tpu_torch.ops import code_agg, reduction
@@ -68,11 +73,17 @@ from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.sql.analyzer import _expr_name, expr_type
 from snappydata_tpu_torch.storage.device import (batch_bucket,
                                                  build_device_table,
+                                                 current_scan_scale,
                                                  numeric_key_domain)
 from snappydata_tpu_torch.storage.device_decode import (BitPlate, CodePlate,
                                                         RlePlate, bit_values,
                                                         compressed_fallback,
                                                         rle_values)
+
+
+# aggregates whose argument may be a string (dictionary codes count and
+# compare exactly; sums and extremes over codes would not)
+_COUNT_AGGS = ("count", "count_distinct", "approx_count_distinct")
 
 
 @dataclasses.dataclass
@@ -214,7 +225,8 @@ class CompiledPlan:
                  out_scope: List["_ScopeCol"],
                  is_aggregate: bool,
                  agg_notes: Optional[Dict] = None,
-                 bind_checks: Optional[List[Callable]] = None):
+                 bind_checks: Optional[List[Callable]] = None,
+                 tile_merge: Optional[Dict] = None):
         self.relations = relations
         self.aux_builders = aux_builders
         self.static_providers = static_providers
@@ -227,6 +239,9 @@ class CompiledPlan:
         # data-dependent validity run at EVERY bind (the device_join knob,
         # 2^53 key checks): raising CompileError reroutes to the host path
         self.bind_checks = bind_checks or []
+        # partial-raw merge metadata: per-output merge ops + the group-card
+        # check of the tiled scan's on-device partial merge
+        self.tile_merge = tile_merge
 
     def _bind(self, params: Tuple, device: torch.device):
         reg = global_registry()
@@ -310,8 +325,31 @@ class CompiledPlan:
         if overflow is not None and bool(overflow):
             raise CompileError(
                 "device overflow (group-by cardinality beyond max_groups, "
-                "or a join expansion past its bound): host path")
-        # one host transfer per output array, after the whole region ran
+                "an exact-decimal sum at int64 risk, or a join expansion "
+                "past its bound): host path")
+        return self.assemble_device(mask, pairs)
+
+    def execute_raw(self, params: Tuple, device: torch.device):
+        """Run the compiled region and return (mask, pairs, overflow)
+        still on the device, with no host copy: CUDA's asynchronous
+        launch lets the tiled scan bind the next tile while this one
+        reduces, and the tile partials merge on the device."""
+        (mask, pairs), overflow = self.run(params, device)
+        return mask, pairs, overflow
+
+    def tile_merge_ok(self) -> bool:
+        """Bind-time check that a partial-raw compile's group-index space
+        is data-independent and small enough for aligned [G] merging."""
+        if not self.tile_merge:
+            return False
+        try:
+            return self.tile_merge["cards"]() <= self.tile_merge["max_groups"]
+        except CompileError:
+            return False
+
+    def assemble_device(self, mask, pairs) -> Result:
+        """Device outputs -> host Result: one host transfer per output
+        array, after the whole region ran."""
         host = [(v.cpu().numpy(), nl.cpu().numpy() if nl is not None
                  else None) for v, nl in pairs]
         return self._assemble(mask.cpu().numpy(), host)
@@ -439,9 +477,15 @@ class Compiler:
     """Compiles one device region (Relation/Filter/Project/Join
     [/Aggregate root]) into a CompiledPlan."""
 
-    def __init__(self, catalog, props):
+    def __init__(self, catalog, props, partial_raw: bool = False):
         self.catalog = catalog
         self.props = props
+        # partial-raw mode (tiled scans): compile a partial-aggregate plan
+        # whose outputs stay mergeable [G] tensors — group cards are
+        # forced data-independent (nullable keys always get their NULL
+        # code slot) so every tile shares one aligned group-index space
+        self.partial_raw = partial_raw
+        self._tile_merge: Optional[Dict] = None
         self.relations: List[_RelationInput] = []
         self.aux_builders: List[Callable] = []
         self.static_providers: List[Callable] = []
@@ -485,7 +529,8 @@ class Compiler:
                      for oc in out_cols]
         return CompiledPlan(self.relations, self.aux_builders,
                             self.static_providers, emitter, out_scope,
-                            is_agg, self._agg_notes, self.bind_checks)
+                            is_agg, self._agg_notes, self.bind_checks,
+                            self._tile_merge)
 
     # -- node emitters -----------------------------------------------------
 
@@ -1142,22 +1187,36 @@ class Compiler:
         def rewrite(e: ast.Expr) -> ast.Expr:
             if isinstance(e, ast.Func) and e.name in ast.AGG_FUNCS:
                 arg = e.args[0] if e.args else None
-                if arg is not None and e.name != "count" \
+                if arg is not None and e.name not in _COUNT_AGGS \
                         and expr_type(arg).name == "string":
                     raise CompileError(
                         f"{e.name} over a string: host path")
                 if e.name == "count":
                     return _SlotRef(slot_of("count", arg), T.LONG)
+                if e.name in ("count_distinct", "approx_count_distinct"):
+                    return _SlotRef(slot_of("count_distinct", arg), T.LONG)
                 if e.name == "sum":
                     return _SlotRef(slot_of("sum", arg), expr_type(e))
                 if e.name in ("min", "max", "first", "last"):
                     kind = {"first": "min", "last": "max"}.get(e.name, e.name)
                     return _SlotRef(slot_of(kind, arg), expr_type(arg))
                 if e.name == "avg":
-                    s = _SlotRef(slot_of("sum", arg), T.DOUBLE)
+                    # the sum slot may be shared with an explicit sum(x):
+                    # for exact decimals it holds scaled int64, so the
+                    # slot ref carries the decimal type and the division
+                    # unscales (avg = exact sum / count)
+                    at = expr_type(arg) if arg is not None else T.DOUBLE
+                    st = T.decimal_sum_type(at) if at.name == "decimal" \
+                        else T.DOUBLE
+                    s = _SlotRef(slot_of("sum", arg), st)
                     c = _SlotRef(slot_of("count", arg), T.LONG)
                     return ast.BinOp("/", s, c)
                 if e.name in ("stddev", "variance"):
+                    if arg is not None \
+                            and expr_type(arg).name == "decimal":
+                        # sumsq would square the SCALED representation:
+                        # run these moments in the plain float domain
+                        arg = ast.Cast(arg, T.DOUBLE)
                     s = _SlotRef(slot_of("sum", arg), T.DOUBLE)
                     s2 = _SlotRef(slot_of("sumsq", arg), T.DOUBLE)
                     c = _SlotRef(slot_of("count", arg), T.LONG)
@@ -1181,11 +1240,18 @@ class Compiler:
                          for _, arg in slots]
 
         def _slot_dtype(kind: str, arg) -> T.DataType:
-            if kind == "count":
+            """Static type of a slot's [G] tensor: the post-agg scope
+            needs it so exact-decimal slot values (scaled int64) meet the
+            decimal-aware expression lowering."""
+            if kind in ("count", "count_distinct"):
                 return T.LONG
             if kind == "sumsq":
                 return T.DOUBLE
-            return expr_type(arg) if arg is not None else T.DOUBLE
+            at = expr_type(arg) if arg is not None else T.DOUBLE
+            if kind == "sum":
+                return T.decimal_sum_type(at) if at.name == "decimal" \
+                    else at
+            return at  # min / max
 
         slot_dtypes = [_slot_dtype(k, a) for k, a in slots]
 
@@ -1224,6 +1290,22 @@ class Compiler:
                 key_infos.append(("generic", None, None))
 
         max_groups = props.max_groups
+        partial_raw = self.partial_raw
+
+        # direct-column keys + forced NULL extension: in partial-raw mode
+        # a nullable base-column key claims its extra NULL code slot even
+        # when the bound plate carries no null mask — whether a window of
+        # the table holds NULLs is data-dependent, and the tiled merge
+        # needs every tile to agree on the group-index space
+        key_direct: List[bool] = []
+        key_force_null: List[bool] = []
+        for g in groups:
+            base = g.child if isinstance(g, ast.Alias) else g
+            direct = isinstance(base, ast.Col) and base.index is not None
+            key_direct.append(direct)
+            key_force_null.append(bool(partial_raw and direct
+                                       and scope[base.index].nullable))
+
         strategy_si = self._add_static(lambda p=props: _strategy_token(p))
         code_agg_si = self._add_static(lambda p=props: _code_agg_token(p))
         kernel_si = self._add_static(_kernel_token)
@@ -1249,6 +1331,66 @@ class Compiler:
                 provider = key_infos[e_rw.key][2]
             out_cols.append(OutCol(_expr_name(e_out), dt, provider))
 
+        # scan-tile scale: under scan_tile_bytes tiling each execution
+        # sees one window of the table, and the exact-decimal sum
+        # overflow guard must bound the MERGED total across all tiles —
+        # per-tile bounds can each pass while the int64 partial-merge
+        # total wraps.  1.0 outside a tile pass.  Registered only where
+        # a slot can take the exact int64 sum lane.
+        tile_scale_aux = None
+        if any(k == "sum" and a is not None
+               and _is_exact_decimal(expr_type(a)) for k, a in slots):
+            tile_scale_aux = len(self.aux_builders)
+            rel_inputs = list(self.relations)
+
+            def _tile_scale(params, _rels=rel_inputs):
+                scale = 1.0
+                for r in _rels:
+                    scale = max(scale, current_scan_scale(r.info.data))
+                return np.array(scale, dtype=np.float64)
+
+            self.aux_builders.append(_tile_scale)
+
+        # partial-raw merge metadata: one merge op per output column so
+        # the tiled scan can fold per-tile [G] partials on the device.
+        # Only sound when every output is a bare key/slot ref and every
+        # key is a direct dict/bool/vdict column — data-independent cards
+        # mean every tile shares one aligned group-index space.
+        if partial_raw:
+            tags: List[tuple] = []
+            merge_ok = True
+            for e_rw in select_rewritten:
+                if isinstance(e_rw, _KeyRef):
+                    tags.append(("key", e_rw.key))
+                elif isinstance(e_rw, _SlotRef):
+                    op = {"count": "sum", "sum": "sum", "sumsq": "sum",
+                          "min": "min", "max": "max"}.get(
+                              slots[e_rw.slot][0])
+                    if op is None:
+                        merge_ok = False
+                    tags.append(("slot", op))
+                else:
+                    merge_ok = False
+            for ki, (kind, _si, _prov) in enumerate(key_infos):
+                if kind == "generic" or not key_direct[ki]:
+                    merge_ok = False
+            if merge_ok:
+                def _cards_total(_infos=list(key_infos),
+                                 _force=list(key_force_null)) -> int:
+                    total = 1
+                    for (kind, _si, prov), force in zip(_infos, _force):
+                        if kind == "bool":
+                            card = 2
+                        elif kind == "vdict":
+                            card = _vdict_card(prov[0](), max_groups)
+                        else:
+                            card = _padded_size(len(prov()))
+                        total *= card + (1 if force else 0)
+                    return total
+
+                self._tile_merge = {"tags": tags, "cards": _cards_total,
+                                    "max_groups": max_groups}
+
         def shape_info(ctx, kdvals):
             """(fast, cards, eff_cards, num_groups): the mixed-radix fast
             path when every key is dict/bool/vdict and their product fits
@@ -1265,9 +1407,12 @@ class Compiler:
                     fast = False
                     cards.append(None)
             # NULL group keys form their own group: a nullable key gets
-            # one extra code slot = card
-            eff_cards = [c + 1 if c is not None and kd.null is not None
-                         else c for c, kd in zip(cards, kdvals)]
+            # one extra code slot = card (partial-raw forces the slot for
+            # nullable base columns, see key_force_null)
+            eff_cards = [c + 1 if c is not None
+                         and (kd.null is not None or force) else c
+                         for c, kd, force in zip(cards, kdvals,
+                                                 key_force_null)]
             if fast and int(np.prod(eff_cards)) <= max_groups:
                 return True, cards, eff_cards, int(np.prod(eff_cards))
             return False, cards, eff_cards, None
@@ -1353,7 +1498,9 @@ class Compiler:
                 gidx, num_groups = generic_index(ctx, kdvals, out, valid)
             nseg = num_groups + 1
             req = reduction.STRATEGIES[ctx.static[strategy_si]]
-            fsum_strat = reduction.resolve_strategy(req, num_groups)
+            backend = dev.type
+            fsum_strat = reduction.resolve_strategy(
+                req, backend, num_groups, n, "fsum", torch.float64)
             note = {"passes": 0, "strategies": set(), "lanes": set(),
                     "rle_fallbacks": 0}
             tok = ctx.static[code_agg_si]
@@ -1391,7 +1538,10 @@ class Compiler:
                         w = w & ~_broadcast_to_mask(
                             dv.null, out.valid).reshape(-1)
                     # only bare columns carry their code / run plates: an
-                    # expression over a plate is row-space math
+                    # expression over a plate is row-space math.  Bare
+                    # stored columns are also finite on excluded and
+                    # padded rows (zero-initialized plates), which lets
+                    # the matmul lane skip their pre-mask
                     hit = arg_vw[arg] = _SlotInput(
                         dv, out.valid, w, isinstance(arg, ast.Col))
                 evaluated.append((kind, hit))
@@ -1466,6 +1616,7 @@ class Compiler:
             count_users: List[tuple] = []   # (slot idx, column)
             isum_cols: List[tuple] = []     # (slot idx, int64 contrib)
             minmax: Dict[tuple, list] = {}  # (kind, dtype) -> entries
+            guards: List[dict] = []         # decimal int64 bound checks
 
             def count_col(w) -> int:
                 c = count_of.get(id(w))
@@ -1495,6 +1646,24 @@ class Compiler:
                         continue
                 if kind == "count":
                     count_users.append((i, count_col(w)))
+                elif kind == "count_distinct":
+                    # exact and sort-based, as in the reference (no hash
+                    # table): order the (group, value-bits) pairs by two
+                    # stable sorts — torch has no lexsort — and count the
+                    # boundaries where the group or the value changes
+                    vb = _dj.key_bits(si.v)
+                    gw = torch.where(w, gidx.long(), num_groups)
+                    o1 = torch.sort(vb, stable=True).indices
+                    o2 = torch.sort(gw[o1], stable=True).indices
+                    order = o1[o2]
+                    g_s = gw[order]
+                    v_s = vb[order]
+                    new = torch.ones_like(g_s, dtype=torch.bool)
+                    new[1:] = (g_s[1:] != g_s[:-1]) | (v_s[1:] != v_s[:-1])
+                    cd = torch.zeros(nseg, dtype=torch.int64, device=dev)
+                    cd.index_add_(0, g_s, new.to(torch.int64))
+                    slot_arrays[i] = cd
+                    note["passes"] += 1
                 elif kind == "sum":
                     acc_dt = _acc_dtype(si.sdt, si.vdtype)
                     if dict_space_ok(kind, si):
@@ -1521,8 +1690,31 @@ class Compiler:
                         continue
                     acc = v.to(acc_dt)
                     if acc_dt == torch.int64:
+                        if si.sdt is not None and si.sdt.name == "decimal":
+                            # exact scaled-int decimal sum: a group total
+                            # CAN exceed int64 — bound-check max|v| *
+                            # count (scaled by the tile count, so a tile
+                            # pass bounds the MERGED total) and reroute
+                            # to the host path instead of wrapping.  The
+                            # absmax rides the minmax family with the
+                            # int64-min filler: an all-masked group has
+                            # count 0, so filler * 0 never trips it
+                            tag = ("guard", len(guards))
+                            minmax.setdefault(("max", torch.int64), []) \
+                                .append((tag, torch.where(
+                                    w, acc.abs(),
+                                    reduction.extreme_value(torch.int64,
+                                                            False))))
+                            guards.append({"absmax": tag,
+                                           "cnt": count_col(w)})
                         isum_cols.append(
                             (i, torch.where(w, acc, torch.zeros_like(acc))))
+                    elif fsum_strat == "matmul" and w is valid and si.raw:
+                        # bare non-null column: an invalid row's one-hot
+                        # row is all-zero and its plate value is finite,
+                        # so the select pass is pure overhead (packed_sum's
+                        # finite check still covers NaN data)
+                        fsum_cols.append((i, acc))
                     else:
                         fsum_cols.append(
                             (i, torch.where(w, acc, torch.zeros_like(acc))))
@@ -1532,9 +1724,9 @@ class Compiler:
                         w, acc * acc, torch.zeros_like(acc))))
                 elif kind in ("min", "max"):
                     v = si.v
-                    fill = reduction.extreme_of(v.dtype, kind == "min", dev)
+                    fill = reduction.extreme_value(v.dtype, kind == "min")
                     minmax.setdefault((kind, v.dtype), []).append(
-                        (i, torch.where(w, v, fill)))
+                        (("slot", i), torch.where(w, v, fill)))
                 else:
                     raise CompileError(kind)
 
@@ -1544,15 +1736,29 @@ class Compiler:
                 gvalid_col = count_col(valid)
 
             # --- family dispatch: one fused reduction each ---
-            if fsum_cols:
-                res = reduction.packed_sum([c for _, c in fsum_cols], gidx,
-                                           num_groups, fsum_strat)
+            count_res = None
+            join_counts = bool(count_ws) and fsum_strat == "matmul"
+            if fsum_cols or join_counts:
+                cols = [c for _, c in fsum_cols]
+                if join_counts:
+                    # counts ride the f64 matmul pack as 0/1 columns —
+                    # exact below 2**53 rows, and an invalid row's
+                    # one-hot row is all-zero, so the plain-validity count
+                    # is a ones column
+                    for w in count_ws:
+                        cols.append(
+                            torch.ones(n, dtype=torch.float64, device=dev)
+                            if w is valid else w.to(torch.float64))
+                res = reduction.packed_sum(cols, gidx, num_groups,
+                                           fsum_strat)
                 note["passes"] += 1
                 note["strategies"].add(fsum_strat)
                 for pos, (i, _) in enumerate(fsum_cols):
                     slot_arrays[i] = res[:, pos]
-            count_res = None
-            if count_ws:
+                if join_counts:
+                    count_res = torch.round(
+                        res[:, len(fsum_cols):]).to(torch.int64)
+            if count_ws and count_res is None:
                 cdt = reduction.count_pack_dtype(n)
                 count_res = reduction.packed_sum(
                     [w.to(cdt) for w in count_ws], gidx, num_groups,
@@ -1562,21 +1768,34 @@ class Compiler:
             for i, c in count_users:
                 slot_arrays[i] = count_res[:, c]
             if isum_cols:
-                istrat = reduction.resolve_strategy(req, num_groups)
+                istrat = reduction.resolve_strategy(
+                    req, backend, num_groups, n, "isum", torch.int64)
                 ires = reduction.packed_sum(
                     [c for _, c in isum_cols], gidx, num_groups, istrat)
                 note["passes"] += 1
                 note["strategies"].add(istrat)
                 for pos, (i, _) in enumerate(isum_cols):
                     slot_arrays[i] = ires[:, pos]
-            for (mkind, _dt), entries in minmax.items():
-                mstrat = reduction.resolve_strategy(req, num_groups)
+            guard_res: Dict[tuple, torch.Tensor] = {}
+            for (mkind, mdt), entries in minmax.items():
+                mstrat = reduction.resolve_strategy(
+                    req, backend, num_groups, n, "minmax", mdt)
                 mres = reduction.packed_minmax(
                     mkind, [c for _, c in entries], gidx, num_groups, mstrat)
                 note["passes"] += 1
                 note["strategies"].add(mstrat)
-                for pos, (i, _) in enumerate(entries):
-                    slot_arrays[i] = mres[:, pos]
+                for pos, (tag, _) in enumerate(entries):
+                    if tag[0] == "slot":
+                        slot_arrays[tag[1]] = mres[:, pos]
+                    else:
+                        guard_res[tag] = mres[:, pos]
+            for g in guards:
+                absmax = guard_res[g["absmax"]]
+                cnt_w = count_res[:, g["cnt"]]
+                tscale = ctx.aux[tile_scale_aux].to(torch.float64)
+                ctx.note_overflow(torch.any(
+                    absmax.to(torch.float64) * cnt_w.to(torch.float64)
+                    * tscale >= 2.0 ** 62))
 
             if fused:
                 # the gvalid count rides the same streaming pass (its
@@ -1664,12 +1883,14 @@ class _SlotInput:
     run-space lane takes never decodes its plate; `vdtype` is their dtype
     without decoding."""
 
-    __slots__ = ("dv", "mask", "w", "sdt", "cpl", "rpl", "vdtype", "_v")
+    __slots__ = ("dv", "mask", "w", "sdt", "raw", "cpl", "rpl", "vdtype",
+                 "_v")
 
     def __init__(self, dv: Optional[DVal], mask, w, raw: bool):
         self.dv = dv
         self.mask = mask           # the relation's [B, C] validity
         self.w = w                 # flat row weights: valid & not null
+        self.raw = raw             # a bare stored column
         self.sdt = dv.dtype if dv is not None else None
         self.cpl = dv.cplate if raw and dv is not None else None
         self.rpl = dv.rplate if raw and dv is not None else None
@@ -1796,19 +2017,47 @@ def _segment_max(v: torch.Tensor, gidx: torch.Tensor,
     if is_bool:
         v = v.to(torch.int32)
     out = torch.full((num_groups + 1,),
-                     reduction.extreme_of(v.dtype, False).item(),
+                     reduction.extreme_value(v.dtype, False),
                      dtype=v.dtype, device=v.device)
     out.scatter_reduce_(0, gidx.long(), v, "amax", include_self=True)
     out = out[:num_groups]
     return out.to(torch.bool) if is_bool else out
 
 
+def merge_tile_outs(a, b, tags):
+    """Elementwise on-device merge of two raw (mask, pairs, overflow)
+    partial outputs over one ALIGNED group-index space (partial-raw
+    compiles force data-independent cards, so slot i of tile A and tile
+    B describe the same group).  Keys decode from the group index —
+    identical across tiles — so either side's tensor serves; sum slots
+    add (0 identity), min/max fold through their +/-inf fillers; the
+    masks and overflow flags OR."""
+    pairs = []
+    for (va, na), (vb, _nb), tag in zip(a[1], b[1], tags):
+        if tag[0] == "key":
+            pairs.append((va, na))
+        elif tag[1] == "min":
+            pairs.append((torch.minimum(va, vb), None))
+        elif tag[1] == "max":
+            pairs.append((torch.maximum(va, vb), None))
+        else:  # sum (covers counts and sumsq)
+            pairs.append((va + vb, None))
+    ov = a[2] if b[2] is None else (b[2] if a[2] is None else a[2] | b[2])
+    return a[0] | b[0], pairs, ov
+
+
 def _acc_dtype(dt: Optional[T.DataType], value_dtype) -> torch.dtype:
     """Aggregate accumulator dtype: float64 for floating outputs — the
     plates stay float32 on the card but the reductions widen (summing
     ~1e8 values of 1e4 into 1e10 totals in f32 leaves ~3 digits) — and
-    int64 for integer sums."""
-    if dt is not None and dt.name in ("float", "double", "decimal"):
+    int64 for integer sums.  DECIMAL with scaled-int64 plates (the exact
+    path, p <= 18) accumulates in int64, EXACT; float-domain decimals
+    (p > 18) keep the f64 accumulator."""
+    if dt is not None and dt.name == "decimal":
+        if not value_dtype.is_floating_point:
+            return torch.int64
+        return torch.float64
+    if dt is not None and dt.name in ("float", "double"):
         return torch.float64
     if value_dtype.is_floating_point:
         return torch.float64
@@ -2084,7 +2333,7 @@ class Executor:
 
     def _cache_get(self, key):
         hit = self._plan_cache.get(key)
-        if hit is not None:
+        if hit is not None:  # a cached False (no lowering) counts as a hit
             self._plan_cache.move_to_end(key)
         return hit
 
@@ -2093,6 +2342,22 @@ class Executor:
             self._plan_cache.popitem(last=False)
             global_registry().inc("plan_cache_evictions")
         self._plan_cache[key] = value
+
+    def compiled_partial(self, node: ast.Plan) -> Optional[CompiledPlan]:
+        """Compile an analyzed, tokenized partial-aggregate plan in
+        partial-raw mode for the tiled scan's on-device merge.  Plan-cache
+        aware (negative results cached too); None when the device region
+        cannot lower it — the caller keeps the host-merge path."""
+        key = ("__partial_raw__", _plan_key(node), self.catalog.generation)
+        hit = self._cache_get(key)
+        if hit is None:
+            try:
+                hit = Compiler(self.catalog, self.props,
+                               partial_raw=True).compile(node)
+            except CompileError:
+                hit = False
+            self._cache_put(key, hit)
+        return hit or None
 
     def execute(self, plan: ast.Plan, params: Tuple = ()) -> Result:
         if self._depth:  # nested calls (unions, host fallback) count once

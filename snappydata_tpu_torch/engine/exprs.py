@@ -4,11 +4,12 @@ Port of snappydata_tpu/engine/exprs.py, cut to the subset the analytic
 scan and the join slice need (TPC-H Q1/Q3/Q5/Q6/Q10/Q12/Q14 and the
 README Quick start): column refs, tokenized literals as runtime scalars,
 + - * / %, comparisons, BETWEEN, AND/OR/NOT with Kleene logic, IS NULL,
-CASE WHEN, casts between numeric types, numeric IN lists, string = / < /
-IN / LIKE through host-built dictionary lookup tables, and the
-code/run-domain compare lane (`_compressed_cmp`).  Anything
-else raises CompileError, which the executor turns into the reference's
-host fallback (engine/hosteval.py).
+CASE WHEN, casts between numeric and decimal types, numeric IN lists,
+string = / < / IN / LIKE through host-built dictionary lookup tables,
+the code/run-domain compare lane (`_compressed_cmp`) and exact decimals
+as scaled int64 values (`_dec_*`).  Anything else raises CompileError,
+which the executor turns into the reference's host fallback
+(engine/hosteval.py).
 
 Design, as in the reference:
 - Values are (value, null) pairs; null masks exist only where a source
@@ -119,6 +120,11 @@ def _compressed_cmp(op: str, col: DVal, lit: DVal) -> Optional[DVal]:
         return None
     if lit.dtype is not None and lit.dtype.name == "string":
         return None
+    # an EXACT decimal literal carries its SCALED int64 value: comparing
+    # that against raw dictionary/run values would be off by 10^scale;
+    # the generic lane unscales it
+    if _dec_scale(lit) is not None:
+        return None
     if lit.null is not None or lit.value.dim() != 0:
         return None
     if col.cplate is not None:
@@ -137,9 +143,159 @@ def _compressed_cmp(op: str, col: DVal, lit: DVal) -> Optional[DVal]:
     return out
 
 
+_INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.int32,
+               torch.int64)
+
+
 def _is_exact_decimal(dt: Optional[T.DataType]) -> bool:
     return dt is not None and dt.name == "decimal" \
         and getattr(dt, "is_exact", False)
+
+
+# ---------------------------------------------------------------------------
+# Exact decimals: a DVal whose dtype is an exact DecimalType carries the
+# SCALED int64 unscaled value (types.DecimalType docstring).  The binop /
+# cast emitters keep +,-,*,%, comparisons and casts in the exact integer
+# domain when the result precision fits int64, and unscale to float64
+# otherwise.  Every other consumer (division, IN lists, CASE branches)
+# receives the PLAIN float domain via _dec_unscale: scaled ints must
+# never leak into value-blind float math.
+# ---------------------------------------------------------------------------
+
+def _dec_scale(d: DVal) -> Optional[int]:
+    """Scale when d is an exact scaled-int decimal DVal, else None."""
+    if _is_exact_decimal(d.dtype) and d.value.dtype in _INT_DTYPES:
+        return d.dtype.scale
+    return None
+
+
+def _dec_unscale(d: DVal) -> DVal:
+    """Exact decimal -> plain float64 DVal; anything else unchanged."""
+    s = _dec_scale(d)
+    if s is None:
+        return d
+    v = d.value.to(torch.float64) / (10 ** s)
+    return DVal(v, d.null, T.DOUBLE, d.dictionary)
+
+
+def _dec_wrap_unscaled(run: Callable[["Runtime"], DVal]
+                       ) -> Callable[["Runtime"], DVal]:
+    """Wrap an emitted closure so consumers see the float domain."""
+
+    def wrapped(rt: "Runtime") -> DVal:
+        return _dec_unscale(run(rt))
+
+    return wrapped
+
+
+def _dec_rescale_int(value: torch.Tensor, from_scale: int,
+                     to_scale: int) -> torch.Tensor:
+    """Scaled int64 -> scaled int64 at another scale, rounding half away
+    from zero on downscale (Spark/java BigDecimal HALF_UP).  The floor
+    division runs on |value|, so torch's flooring `//` never meets a
+    negative operand."""
+    if to_scale == from_scale:
+        return value
+    if to_scale > from_scale:
+        return value * (10 ** (to_scale - from_scale))
+    f = 10 ** (from_scale - to_scale)
+    q = torch.div(value.abs() + f // 2, f, rounding_mode="floor")
+    return torch.sign(value) * q
+
+
+def _as_dec_operand(d: DVal):
+    """(int64 values, DecimalType) for an operand that can join exact
+    integer-domain math: an exact decimal, or an integer typed as
+    decimal(digits, 0).  (None, None) for float operands."""
+    s = _dec_scale(d)
+    if s is not None:
+        return d.value.to(torch.int64), d.dtype
+    if d.value.dtype not in _INT_DTYPES:
+        return None, None
+    name = d.dtype.name if d.dtype is not None else "long"
+    digits = T._INT_DIGITS.get(name)
+    if digits is None:
+        return None, None
+    return d.value.to(torch.int64), T.DecimalType("decimal", digits, 0)
+
+
+def _dec_cmp_float_scalar(op: str, d: DVal, s: int,
+                          lit: torch.Tensor) -> DVal:
+    """Compare an exact decimal against a float SCALAR (typically a
+    tokenized literal) in the scaled-int domain: unscaling to float
+    instead would mis-bucket boundary values (an f32 literal 24.05 is
+    24.04999...).  Literals finer than the column scale (v <= 24.056 at
+    scale 2 means v <= 24.05) take op-aware floor/ceil; literals too
+    large for int64 take the float compare."""
+    f = 10 ** s
+    t = lit.to(torch.float64) * f
+    r = torch.round(t)
+    tol = 1e-6 * torch.clamp(t.abs(), min=1.0)
+    is_int = (t - r).abs() <= tol
+    safe = t.abs() <= 2.0 ** 62
+    ts = torch.where(safe, t, torch.zeros_like(t))
+    r64 = torch.round(ts).to(torch.int64)
+    fl64 = torch.floor(ts).to(torch.int64)
+    v = d.value.to(torch.int64)
+    if op == "=":
+        res_i = is_int & (v == r64)
+    elif op == "!=":
+        res_i = ~is_int | (v != r64)
+    elif op == "<":
+        res_i = v < torch.where(is_int, r64, fl64 + 1)
+    elif op == "<=":
+        res_i = v <= torch.where(is_int, r64, fl64)
+    elif op == ">":
+        res_i = v > torch.where(is_int, r64, fl64)
+    else:  # >=
+        res_i = v >= torch.where(is_int, r64, fl64 + 1)
+    vf = v.to(torch.float64) / f
+    res_f = _CMP[op](vf, lit.to(torch.float64))
+    return DVal(torch.where(safe, res_i, res_f), d.null, T.BOOLEAN)
+
+
+def _dec_binop(op: str, fn, a: DVal, b: DVal, is_cmp: bool
+               ) -> Optional[DVal]:
+    """Exact integer-domain lowering of a binop with >= 1 decimal side.
+    None -> the caller unscales both sides and runs plain float math.
+    Scale/precision rules shared with the analyzer via
+    types.decimal_binop_type, so the declared output scale always equals
+    the computed representation's."""
+    av, adt = _as_dec_operand(a)
+    bv, bdt = _as_dec_operand(b)
+    if av is None or bv is None:
+        if is_cmp:
+            # decimal vs float SCALAR (tokenized literal): exact
+            # scaled-int compare instead of a lossy float unscale
+            sa, sb = _dec_scale(a), _dec_scale(b)
+            if sa is not None and bv is None and b.value.dim() == 0:
+                out = _dec_cmp_float_scalar(op, a, sa, b.value)
+                return DVal(out.value, _or_null(a.null, b.null),
+                            T.BOOLEAN)
+            if sb is not None and av is None and a.value.dim() == 0:
+                out = _dec_cmp_float_scalar(_FLIP_CMP[op], b, sb, a.value)
+                return DVal(out.value, _or_null(a.null, b.null),
+                            T.BOOLEAN)
+        return None
+    null = _or_null(a.null, b.null)
+    if is_cmp:
+        s = max(adt.scale, bdt.scale)
+        if max(adt.precision + (s - adt.scale),
+               bdt.precision + (s - bdt.scale)) \
+                > T.DECIMAL_EXACT_MAX_PRECISION:
+            return None  # alignment could overflow int64: f64 compare
+        va = _dec_rescale_int(av, adt.scale, s)
+        vb = _dec_rescale_int(bv, bdt.scale, s)
+        return DVal(fn(va, vb), null, T.BOOLEAN)
+    out_dt = T.decimal_binop_type(op, adt, bdt)
+    if not isinstance(out_dt, T.DecimalType) or not out_dt.is_exact:
+        return None
+    if op == "*":
+        # scales add under int multiply: already at out_dt.scale
+        return DVal(av * bv, null, out_dt)
+    va = _dec_rescale_int(av, adt.scale, out_dt.scale)
+    vb = _dec_rescale_int(bv, bdt.scale, out_dt.scale)
+    return DVal(fn(va, vb), null, out_dt)
 
 
 def float_dtype() -> torch.dtype:
@@ -221,10 +377,6 @@ class ExprBuilder:
             return self.emit(e.child)
 
         if isinstance(e, ast.Col):
-            if _is_exact_decimal(e.dtype
-                                 or self.col_types.get(e.index)):
-                raise CompileError("exact-decimal columns are not ported "
-                                   "to the device path")
             idx = e.index
 
             def run_col(rt: Runtime) -> DVal:
@@ -240,8 +392,6 @@ class ExprBuilder:
             if dtype is not None and dtype.name == "string":
                 raise CompileError(
                     "string literal outside a dictionary predicate")
-            if _is_exact_decimal(dtype):
-                raise CompileError("exact-decimal literal: host path")
 
             def run_param(rt: Runtime) -> DVal:
                 return DVal(rt.params[pos], None, dtype or T.DOUBLE)
@@ -301,6 +451,19 @@ class ExprBuilder:
             raise CompileError(
                 f"aggregate {e.name} outside aggregation context")
 
+        if isinstance(e, ast.Func) and e.name == "sqrt" \
+                and len(e.args) == 1:
+            # the one scalar function lowered so far: stddev's finish step
+            # (as the reference, in the plates' float width)
+            child = _dec_wrap_unscaled(self.emit(e.args[0]))
+
+            def run_sqrt(rt: Runtime) -> DVal:
+                c = child(rt)
+                return DVal(torch.sqrt(c.value.to(float_dtype())), c.null,
+                            T.DOUBLE)
+
+            return run_sqrt
+
         raise CompileError(f"{type(e).__name__} "
                            f"{getattr(e, 'name', '')} is not ported to the "
                            f"device path")
@@ -321,8 +484,17 @@ class ExprBuilder:
                 "string literal outside a dictionary predicate")
         eff = dtype or (T.DOUBLE if isinstance(value, float) else T.LONG)
         if _is_exact_decimal(eff):
-            raise CompileError("exact-decimal literal: host path")
-        const = np.asarray(value, dtype=eff.device_dtype())
+            # exact-decimal literal: store the SCALED unscaled value, as
+            # the reference does (a plain int64 cast would truncate 24.05
+            # to 24 and then decode as 0.24)
+            import decimal as _d
+
+            q = _d.Decimal(value if isinstance(value, (_d.Decimal, int))
+                           else repr(float(value)))
+            const = np.asarray(int(q.scaleb(eff.scale).to_integral_value(
+                rounding=_d.ROUND_HALF_UP)), dtype=np.int64)
+        else:
+            const = np.asarray(value, dtype=eff.device_dtype())
 
         def run_lit(rt: Runtime) -> DVal:
             return DVal(torch.from_numpy(const).to(rt.device), None, eff)
@@ -388,7 +560,9 @@ class ExprBuilder:
 
         if op == "/":
             def run_div(rt: Runtime) -> DVal:
-                a, b = left(rt), right(rt)
+                # exact decimals leave the int domain here: decimal
+                # division is DOUBLE in this engine, as in the reference
+                a, b = _dec_unscale(left(rt)), _dec_unscale(right(rt))
                 av, bv = a.value, b.value
                 if not av.is_floating_point():
                     av = av.to(float_dtype())
@@ -419,6 +593,13 @@ class ExprBuilder:
                     cm = _compressed_cmp(_FLIP_CMP[op], b, a)
                 if cm is not None:
                     return cm
+            if _dec_scale(a) is not None or _dec_scale(b) is not None:
+                out = _dec_binop(op, fn, a, b, is_cmp)
+                if out is not None:
+                    return out
+                # the result leaves the exact domain (a float operand, or
+                # the precision outgrew int64): plain float math
+                a, b = _dec_unscale(a), _dec_unscale(b)
             av, bv = a.value, b.value
             dt = promote(av.dtype, bv.dtype)
             v = fn(av.to(dt), bv.to(dt))
@@ -500,8 +681,8 @@ class ExprBuilder:
 
         if len(e.values) > 8:
             raise CompileError("large IN list: host path")
-        child = self.emit(e.child)
-        values = [self.emit(v) for v in e.values]
+        child = _dec_wrap_unscaled(self.emit(e.child))
+        values = [_dec_wrap_unscaled(self.emit(v)) for v in e.values]
 
         def run_in(rt: Runtime) -> DVal:
             c = child(rt)
@@ -548,8 +729,13 @@ class ExprBuilder:
         return run_neg
 
     def _emit_case(self, e: ast.Case) -> Callable[[Runtime], DVal]:
-        whens = [(self.emit(c), self.emit(v)) for c, v in e.whens]
-        other = self.emit(e.otherwise) if e.otherwise is not None else None
+        # branch values unscale exact decimals: branches mix with
+        # literals and other types, and scaled ints must not meet plain
+        # values in one torch.where lattice
+        whens = [(self.emit(c), _dec_wrap_unscaled(self.emit(v)))
+                 for c, v in e.whens]
+        other = _dec_wrap_unscaled(self.emit(e.otherwise)) \
+            if e.otherwise is not None else None
 
         def run_case(rt: Runtime) -> DVal:
             branches = [(c(rt), v(rt)) for c, v in whens]
@@ -583,15 +769,41 @@ class ExprBuilder:
 
     def _emit_cast(self, e: ast.Cast) -> Callable[[Runtime], DVal]:
         to = e.to
-        if to.name in ("string", "decimal") or not (
+        if to.name == "string" or not (
                 T.is_numeric(to) or to.name == "boolean"):
             raise CompileError(f"CAST to {to} is not ported to the device "
                                f"path")
         child = self.emit(e.child)
         tdt = T.torch_dtype(to.device_dtype())
+        to_exact = _is_exact_decimal(to)
 
         def run_cast(rt: Runtime) -> DVal:
             c = child(rt)
+            s_from = _dec_scale(c)
+            if s_from is not None:
+                if to_exact:  # decimal -> decimal: integer rescale
+                    return DVal(_dec_rescale_int(
+                        c.value.to(torch.int64), s_from, to.scale),
+                        c.null, to)
+                if T.is_integral(to):
+                    # decimal -> int truncates toward zero (Spark), in
+                    # the int domain
+                    iv = c.value.to(torch.int64)
+                    tv = torch.sign(iv) * torch.div(
+                        iv.abs(), 10 ** s_from, rounding_mode="floor")
+                    return DVal(tv.to(tdt), c.null, to)
+                c = _dec_unscale(c)
+            if to_exact:
+                v = c.value
+                if v.dtype in _INT_DTYPES:
+                    return DVal(v.to(torch.int64) * (10 ** to.scale),
+                                c.null, to)
+                # HALF_UP (half away from zero), matching
+                # decimal_to_unscaled / _dec_rescale_int: torch.round
+                # would tie to even
+                vf = v.to(torch.float64) * (10 ** to.scale)
+                scaled = torch.sign(vf) * torch.floor(vf.abs() + 0.5)
+                return DVal(scaled.to(torch.int64), c.null, to)
             return DVal(c.value.to(tdt), c.null, to)
 
         return run_cast

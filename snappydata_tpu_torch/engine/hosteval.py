@@ -1113,10 +1113,17 @@ def _eval_rel(plan: ast.Plan, params, executor):
     """Returns (cols, nulls, names, dtypes, n) with host arrays."""
     if isinstance(plan, ast.Relation):
         info = executor.catalog.lookup_table(plan.name)
-        m = info.data.snapshot()
+        from snappydata_tpu_torch.storage.device import host_scan_units
+
+        # honor the active scan window (the same pinned snapshot and unit
+        # slice as build_device_table): a tile of a scan_tile_bytes pass
+        # that falls back to the host (the exact-decimal overflow guard
+        # fired) must read ITS tile only, or the merge double-counts
+        # every other tile
+        m, views, row_chunks = host_scan_units(info.data)
         chunks: List[List[np.ndarray]] = [[] for _ in info.schema.fields]
         nchunks: List[List[np.ndarray]] = [[] for _ in info.schema.fields]
-        for view in m.views:
+        for view in views:
             live = view.live_mask()
             lazy = info.data._decode_all(view)
             for i, f in enumerate(info.schema.fields):
@@ -1125,12 +1132,13 @@ def _eval_rel(plan: ast.Plan, params, executor):
                 nchunks[i].append(
                     nm[live] if nm is not None
                     else np.zeros(int(live.sum()), dtype=np.bool_))
-        if m.row_count:
+        for pos, take in row_chunks:
+            sl = slice(pos, pos + take)
             for i, f in enumerate(info.schema.fields):
-                chunks[i].append(np.asarray(m.row_arrays[i]))
-                rn = m.row_nulls[i] if m.row_nulls and \
+                chunks[i].append(np.asarray(m.row_arrays[i])[sl])
+                rn = m.row_nulls[i][sl] if m.row_nulls and \
                     m.row_nulls[i] is not None else \
-                    np.zeros(m.row_count, dtype=np.bool_)
+                    np.zeros(take, dtype=np.bool_)
                 nchunks[i].append(rn)
         cols = [np.concatenate(ch) if ch else
                 np.empty(0, dtype=f.dtype.np_dtype)

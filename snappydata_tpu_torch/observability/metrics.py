@@ -2,14 +2,32 @@
 
 The counter subset of snappydata_tpu/observability/metrics.py: the engine
 counts plan-cache verdicts, host fallbacks, batch skipping, compressed-
-domain fallbacks and the aggregate lanes a plan took, under the same names
-as the reference so the two packages' evidence lines up.
+domain fallbacks, the aggregate lanes a plan took and the tiled lane's
+passes (TILE_COUNTERS), under the same names as the reference so the two
+packages' evidence lines up.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Iterable
+
+# the tiled lane's evidence, under the reference's names:
+#   scan_tiles                  tiles executed (work, not queries)
+#   scan_tile_device_merges     tile partials folded on the device
+#   scan_tile_host_merges       passes that merged through host pieces
+#   scan_tile_prefetch_overlap  tiles launched while the previous tile's
+#                               device work was still running
+#   prefetch_windows_warmed     look-ahead windows the worker bound
+#   prefetch_window_waits       windows the consumer had to wait for
+#   prefetch_overlap_ms         build time the consumer did not wait for
+#   prefetch_worker_deaths      worker loops that died (restarts follow)
+#   device_upload_bytes         host-to-device plate bytes of every bind
+TILE_COUNTERS = ("scan_tiles", "scan_tile_device_merges",
+                 "scan_tile_host_merges", "scan_tile_prefetch_overlap",
+                 "prefetch_windows_warmed", "prefetch_window_waits",
+                 "prefetch_overlap_ms", "prefetch_worker_deaths",
+                 "device_upload_bytes")
 
 
 class Registry:
@@ -27,6 +45,11 @@ class Registry:
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self._counters)
+
+    def counters(self, names: Iterable[str]) -> Dict[str, int]:
+        """The current value of each named counter (0 if never set)."""
+        with self._lock:
+            return {n: self._counters.get(n, 0) for n in names}
 
 
 _registry = Registry()

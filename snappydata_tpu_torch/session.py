@@ -4,9 +4,14 @@ Port of snappydata_tpu/session.py, cut to the analytic scan: `sql()`
 for CREATE TABLE ... USING column, INSERT ... VALUES / SELECT, DROP,
 TRUNCATE, SHOW / DESCRIBE, SET and queries; `insert` / `insert_arrays`
 for bulk ingest.  A query runs parse -> optimize -> analyze -> tokenize
-literals -> executor (ref: SnappySession.sqlPlan:2571).  Durability,
-tiled and mesh execution, subqueries, views, samples and streams are not
-ported and raise NotImplementedError.
+literals -> executor (ref: SnappySession.sqlPlan:2571).  An aggregate
+over a column table whose used columns exceed `scan_tile_bytes` streams
+through the device in tiles (`_maybe_tiled_aggregate`, ref
+snappydata_tpu/session.py:1329): one compiled partial program per tile,
+the [G] partials merged on the device where the group space is
+tile-aligned, a double-buffered prefetcher warming the next tile's
+plates.  Durability, mesh execution, subqueries, views, samples and
+streams are not ported and raise NotImplementedError.
 
 A session runs on one torch device: `cuda` unless the caller asks for
 another (`SnappySession(device="cpu")`).  Without a GPU, a session that
@@ -15,7 +20,8 @@ did not ask for the CPU raises instead of moving there silently.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,16 +30,28 @@ from snappydata_tpu_torch import config
 from snappydata_tpu_torch import types as T
 from snappydata_tpu_torch.catalog import Catalog
 from snappydata_tpu_torch.engine import hosteval
-from snappydata_tpu_torch.engine.executor import Executor
+from snappydata_tpu_torch.engine.executor import (Executor,
+                                                  merge_tile_outs)
+from snappydata_tpu_torch.engine.exprs import CompileError
+from snappydata_tpu_torch.engine.partial_agg import (NotDecomposableError,
+                                                     decompose_aggregate,
+                                                     ddl_type)
 from snappydata_tpu_torch.engine.result import (Result, empty_result,
                                                 finalize_decimals,
                                                 to_host_domain)
+from snappydata_tpu_torch.observability.metrics import global_registry
 from snappydata_tpu_torch.sql import ast
-from snappydata_tpu_torch.sql.analyzer import (Analyzer,
+from snappydata_tpu_torch.sql.analyzer import (Analyzer, _expr_name,
                                                assign_param_positions,
                                                tokenize_plan)
 from snappydata_tpu_torch.sql.optimizer import optimize
 from snappydata_tpu_torch.sql.parser import parse
+from snappydata_tpu_torch.sql.render import (RenderError, render_expr,
+                                             render_plan)
+from snappydata_tpu_torch.storage.device import (scan_unit_count,
+                                                 scan_window)
+from snappydata_tpu_torch.storage.prefetch import TilePrefetcher
+from snappydata_tpu_torch.storage.table_store import ColumnTableData
 from snappydata_tpu_torch.utils import locks
 
 
@@ -68,6 +86,12 @@ class SnappySession:
         self.conf = conf or config.global_properties()
         self.analyzer = Analyzer(catalog)
         self.executor = Executor(catalog, self.conf, self.device)
+        # tiled scans: pooled scratch merge sessions keyed by the partial
+        # schema, and the guard that keeps a tile pass from re-entering
+        # itself (scratch merges, per-tile SQL)
+        self._tile_merge_pool: Dict[str, list] = {}
+        self._in_tile = False
+        self._device_bytes: Optional[int] = None
 
     def sql(self, sql_text: str, params: Sequence[Any] = ()) -> Result:
         # storage encodes DOUBLE at the device width and the expression
@@ -120,6 +144,9 @@ class SnappySession:
     def _run_query(self, plan: ast.Plan, user_params=()) -> Result:
         if _contains_subquery(plan):
             raise NotImplementedError("subqueries are not ported")
+        tiled = self._maybe_tiled_aggregate(plan, user_params)
+        if tiled is not None:
+            return tiled
         plan = optimize(plan, self.catalog)
         resolved, _ = self.analyzer.analyze_plan(plan)
         if self.conf.tokenize and self.conf.plan_caching:
@@ -128,6 +155,366 @@ class SnappySession:
             tokenized, lit_params = assign_param_positions(resolved, 0), ()
         return self.executor.execute(tokenized,
                                      tuple(lit_params) + tuple(user_params))
+
+    # ------------------------------------------------------------------
+    # Tiled scans: table >> device memory (ref session.py:1190-1895)
+    # ------------------------------------------------------------------
+
+    def _tile_budget(self) -> int:
+        """Effective byte budget for one scan tile.  conf.scan_tile_bytes:
+        > 0 explicit, 0 auto (half the card's memory on CUDA, off on the
+        CPU), < 0 disabled."""
+        b = int(self.conf.scan_tile_bytes)
+        if b != 0:
+            return max(0, b)
+        if self.device.type != "cuda":
+            return 0
+        if self._device_bytes is None:
+            self._device_bytes = int(torch.cuda.mem_get_info(self.device)[1])
+        return self._device_bytes // 2
+
+    def _tilable_agg_shape(self, plan: ast.Plan):
+        """Shape probe of the tile pass: ([Sort|Limit]* [Filter(having)]
+        Aggregate(column table [joined to build tables])), no subqueries
+        or windows.  Joins tile on the PROBE side only: the leftmost leaf
+        relation streams in windows while every build side binds fully
+        each tile (its cached join artifact stays resident); right/full
+        outer joins would re-emit their NULL-extended build rows per
+        tile, so they never tile.  Returns (outer, having, node, info,
+        exprs, build_infos) or None."""
+        outer: List[ast.Plan] = []
+        node = plan
+        while isinstance(node, (ast.Sort, ast.Limit)):
+            outer.append(node)
+            node = node.children()[0]
+        having = None
+        if isinstance(node, ast.Filter) and isinstance(node.child,
+                                                       ast.Aggregate):
+            having = node.condition
+            node = node.child
+        if not isinstance(node, ast.Aggregate):
+            return None
+        if node.grouping_sets:
+            return None  # expands to a union at analysis; never tile raw
+
+        rels: List[str] = []
+        exprs: List[ast.Expr] = []
+        join_hows: List[str] = []
+
+        def rec(p):
+            if isinstance(p, (ast.WindowedRelation, ast.WindowProject,
+                              ast.Values, ast.Union,
+                              ast.SetOp, ast.Distinct)):
+                rels.append("__unsupported__")
+                return
+            if isinstance(p, ast.Join):
+                join_hows.append(p.how)
+            if isinstance(p, ast.UnresolvedRelation):
+                rels.append(p.name)
+            for fld in dataclasses.fields(p):
+                v = getattr(p, fld.name)
+                items = v if isinstance(v, tuple) else (v,)
+                for x in items:
+                    if isinstance(x, ast.Expr):
+                        exprs.append(x)
+            for k in p.children():
+                rec(k)
+
+        rec(node)
+        if having is not None:
+            exprs.append(having)
+        if not rels or "__unsupported__" in rels:
+            return None
+        if any(h in ("right", "full") for h in join_hows):
+            return None
+        for e in exprs:
+            for sub in ast.walk(e):
+                if isinstance(sub, (ast.ScalarSubquery, ast.InSubquery,
+                                    ast.ExistsSubquery, ast.WindowFunc)):
+                    return None
+        # probe = leftmost leaf (children() order is (left, right), so DFS
+        # leaf order puts the probe chain's base table first)
+        probe_name = rels[0]
+        if sum(1 for r in rels if r.lower() == probe_name.lower()) > 1:
+            return None  # self-join: a window would constrain BOTH sides
+        info = self.catalog.lookup_table(probe_name)
+        if info is None or not isinstance(info.data, ColumnTableData):
+            return None
+        build_infos = []
+        for rn in rels[1:]:
+            bi = self.catalog.lookup_table(rn)
+            if bi is None or bi.data is info.data:
+                return None
+            build_infos.append(bi)
+        return outer, having, node, info, exprs, build_infos
+
+    @staticmethod
+    def _decoded_col_width(f) -> Optional[int]:
+        """Decoded device bytes per row for one column (value plate + null
+        byte), or None for complex plates, which do not tile.  One source
+        for the unit math and the build-side charge."""
+        if isinstance(f.dtype, (T.ArrayType, T.MapType, T.StructType)):
+            return None
+        per = 4 if f.dtype.name == "string" \
+            else np.dtype(f.dtype.device_dtype()).itemsize
+        return per + 1
+
+    def _join_build_side_bytes(self, exprs, build_infos) -> Optional[int]:
+        """Decoded bytes a tilable join + aggregate's build sides pin on
+        the device across EVERY tile (0 for single-relation shapes), or
+        None when a complex build plate makes the shape untilable."""
+        if not build_infos:
+            return 0
+        used = {c.name.lower() for e in exprs for c in ast.walk(e)
+                if isinstance(c, ast.Col)}
+        total = 0
+        for bi in build_infos:
+            rows = bi.data.snapshot().total_rows()
+            w = 1
+            for f in bi.schema.fields:
+                cw = self._decoded_col_width(f)
+                if cw is None:
+                    return None
+                if f.name.lower() not in used:
+                    continue
+                w += cw
+            total += rows * w
+        return total
+
+    def _maybe_tiled_aggregate(self, plan: ast.Plan,
+                               user_params) -> Optional[Result]:
+        """Execute an aggregate over ONE oversized column table as a
+        streamed tile pass: bind `scan_tile_bytes`-sized windows of the
+        scan units through the SAME compiled partial program, then merge
+        the partials (avg = sum / count etc.).  The device never holds
+        the whole table.  Returns None -> run untiled."""
+        if self._in_tile or user_params:
+            return None
+        budget = self._tile_budget()
+        if budget <= 0:
+            return None
+        shaped = self._tilable_agg_shape(plan)
+        if shaped is None:
+            return None
+        outer, having, node, info, exprs, build_infos = shaped
+        data = info.data
+        # the pass pins ONE manifest across every window
+        manifest = data.snapshot()
+        units = scan_unit_count(data, manifest)
+        if units <= 1:
+            return None
+        used = {c.name.lower() for e in exprs for c in ast.walk(e)
+                if isinstance(c, ast.Col)}
+        # join build sides stay device-resident across every tile; they
+        # must fit the budget beside one probe tile
+        build_bytes = self._join_build_side_bytes(exprs, build_infos)
+        if build_bytes is None or build_bytes >= budget:
+            return None
+        cap = data.capacity
+        unit_bytes = cap  # shared validity mask
+        for f in info.schema.fields:
+            if f.name.lower() not in used:
+                continue
+            cw = self._decoded_col_width(f)
+            if cw is None:
+                return None  # complex plates don't tile
+            unit_bytes += cap * cw
+        if unit_bytes * units <= budget - build_bytes:
+            return None
+        tile_units = max(1, int((budget - build_bytes) // unit_bytes))
+        if self.conf.batches_pow2_bucketing and tile_units > 1:
+            tile_units = 1 << (tile_units.bit_length() - 1)
+
+        try:
+            partial_plan, merged_select, _, merge_having = \
+                decompose_aggregate(node, having)
+            partial_sql = render_plan(partial_plan)
+        except (NotDecomposableError, RenderError):
+            return None
+        # outer ORDER BY must reference output columns by name/position
+        out_names = [_expr_name(e).lower() for e in node.agg_exprs]
+        for op in outer:
+            if isinstance(op, ast.Sort):
+                for o in op.orders:
+                    tgt = o[0].child if isinstance(o[0], ast.Alias) else o[0]
+                    if isinstance(tgt, ast.Col) and \
+                            tgt.name.lower() in out_names:
+                        continue
+                    if isinstance(tgt, ast.Lit) and \
+                            isinstance(tgt.value, int):
+                        continue
+                    return None
+
+        # compile the partial program ONCE: every tile shares it, and when
+        # its group-index space is provably tile-aligned (direct
+        # dict/bool/vdict keys: data-independent cards) the per-tile [G]
+        # partials merge ON THE DEVICE
+        tokenized = compiled = None
+        params: Tuple = ()
+        try:
+            pplan = optimize(parse(partial_sql).plan, self.catalog)
+            resolved_p, _ = self.analyzer.analyze_plan(pplan)
+            if self.conf.tokenize and self.conf.plan_caching:
+                tokenized, lit_params = tokenize_plan(resolved_p)
+            else:
+                tokenized, lit_params = \
+                    assign_param_positions(resolved_p, 0), ()
+            params = tuple(lit_params)
+            compiled = self.executor.compiled_partial(tokenized)
+        except Exception:  # noqa: BLE001 — any analysis hiccup: SQL path
+            tokenized = None
+
+        reg = global_registry()
+        merged: Optional[Result] = None
+        pieces: List[Result] = []
+        self._in_tile = True
+        try:
+            if compiled is not None and compiled.tile_merge is not None \
+                    and compiled.tile_merge_ok():
+                merged = self._tiled_device_pass(
+                    compiled, params, data, manifest, units, tile_units)
+            if merged is None:
+                pf = TilePrefetcher.maybe(data, manifest, units,
+                                          tile_units, self.device)
+                try:
+                    for lo in range(0, units, tile_units):
+                        if pf is not None:
+                            pf.await_window(lo)
+                        with scan_window(data, lo,
+                                         min(lo + tile_units, units),
+                                         manifest, tile_units=tile_units):
+                            if tokenized is not None:
+                                pieces.append(self.executor.execute(
+                                    tokenized, params))
+                            else:  # analysis failed: per-tile SQL path
+                                pieces.append(self.sql(partial_sql))
+                        if pf is not None:
+                            pf.advance(lo)
+                        reg.inc("scan_tiles")
+                finally:
+                    if pf is not None:
+                        pf.close()
+                reg.inc("scan_tile_host_merges")
+        finally:
+            self._in_tile = False
+        if merged is not None:
+            pieces = [merged]
+        return self._merge_partial_pieces(pieces, node, merged_select,
+                                          merge_having, outer)
+
+    def _merge_partial_pieces(self, pieces, node, merged_select,
+                              merge_having, outer) -> Result:
+        """Partial [G] results -> final aggregate (avg = sum / count,
+        HAVING over merged slots, outer sort/limit re-applied), in a
+        pooled scratch session on the caller's device, keyed by the
+        partial schema and truncated between uses, so the merge plan
+        compiles once.  The scratch table keeps float64 plates on every
+        device: its DOUBLE columns hold float64 accumulator partials
+        (and unscaled exact-decimal sums), which the float32 plates of
+        the CUDA policy would round before the final merge."""
+        first = pieces[0]
+        fields_sql = ", ".join(
+            f"{nm} {ddl_type(dt)}"
+            for nm, dt in zip(first.names, first.dtypes))
+        pool = self._tile_merge_pool.setdefault(fields_sql, [])
+        with config.float64_plates():
+            try:
+                scratch_sess = pool.pop()   # GIL-atomic claim
+            except IndexError:
+                scratch_sess = SnappySession(catalog=Catalog(),
+                                             conf=self.conf,
+                                             device=self.device)
+                # the merge select must never re-enter the tile pass:
+                # the partials of a generic-key aggregate can exceed a
+                # tiny tile budget, and a tiled merge would recurse
+                scratch_sess._in_tile = True
+                scratch_sess.sql(f"CREATE TABLE __tile_partials "
+                                 f"({fields_sql}) USING column")
+            sdata = scratch_sess.catalog.describe("__tile_partials").data
+            for piece in pieces:
+                if piece.num_rows:
+                    # executor results carry exact decimals as scaled
+                    # int64: unscale into the host float domain the
+                    # scratch DOUBLE columns expect (self.sql pieces
+                    # arrive finalized)
+                    piece = to_host_domain(piece)
+                    nmask = piece.nulls \
+                        if any(m is not None for m in piece.nulls) else None
+                    sdata.insert_arrays(piece.columns, nulls=nmask)
+            merge_items = ", ".join(render_expr(e) for e in merged_select)
+            msql = f"SELECT {merge_items} FROM __tile_partials"
+            if node.group_exprs:
+                msql += " GROUP BY " + ", ".join(
+                    f"__g{gi}" for gi in range(len(node.group_exprs)))
+            if merge_having is not None:
+                msql += f" HAVING {render_expr(merge_having)}"
+            result = scratch_sess.sql(msql)
+        result.names = [_expr_name(e) for e in node.agg_exprs]
+        # result columns are host arrays: recycle the scratch table
+        # underneath them (bounded pool)
+        sdata.truncate()
+        if len(pool) < 4:
+            pool.append(scratch_sess)
+        return _apply_outer(result, outer)
+
+    def _tiled_device_pass(self, compiled, params, data, manifest, units,
+                           tile_units) -> Optional[Result]:
+        """Stream scan tiles through ONE compiled partial program and
+        tree-merge the per-tile [G] partial slots ON THE DEVICE.
+        `execute_raw` never copies to the host, so CUDA's asynchronous
+        launch lets the host enqueue tile t+1 while the card reduces tile
+        t; a depth-2 throttle (wait on tile t-1's event after launching
+        t) keeps at most two tiles' work in flight.  Returns the merged
+        partial Result, or None to fall back to the host-merge path (a
+        bind refused the device, or the int64 decimal bound tripped —
+        the exact host merge decides)."""
+        reg = global_registry()
+        tags = compiled.tile_merge["tags"]
+        cuda = self.device.type == "cuda"
+        outs: List[tuple] = []
+        events: List = []
+        pf = TilePrefetcher.maybe(data, manifest, units, tile_units,
+                                  self.device)
+        try:
+            try:
+                for lo in range(0, units, tile_units):
+                    if pf is not None:
+                        pf.await_window(lo)
+                    with scan_window(data, lo, min(lo + tile_units, units),
+                                     manifest, tile_units=tile_units):
+                        outs.append(compiled.execute_raw(params,
+                                                         self.device))
+                    if pf is not None:
+                        pf.advance(lo)
+                    # counts WORK, not queries: when this pass aborts the
+                    # host rerun counts its tiles again
+                    reg.inc("scan_tiles")
+                    if cuda:
+                        ev = torch.cuda.Event()
+                        ev.record()
+                        events.append(ev)
+                        if len(events) >= 2 and not events[-2].query():
+                            # this tile's launches overlapped the previous
+                            # tile's device work: the pipelining evidence
+                            reg.inc("scan_tile_prefetch_overlap")
+                            events[-2].synchronize()
+            except CompileError:
+                return None
+        finally:
+            if pf is not None:
+                pf.close()
+        if len(outs) > 1:
+            reg.inc("scan_tile_device_merges", len(outs) - 1)
+        while len(outs) > 1:  # pairwise tree merge, all on the device
+            nxt = [merge_tile_outs(outs[j], outs[j + 1], tags)
+                   for j in range(0, len(outs) - 1, 2)]
+            if len(outs) % 2:
+                nxt.append(outs[-1])
+            outs = nxt
+        mask, pairs, overflow = outs[0]
+        if overflow is not None and bool(overflow):
+            return None  # overflow flagged: the exact host path decides
+        return compiled.assemble_device(mask, pairs)
 
     # ------------------------------------------------------------------
     # Programmatic API (ref SnappySession.createTable/insert)
@@ -278,6 +665,40 @@ def _coerce(col: np.ndarray, nmask, dtype: T.DataType):
         combined = obj_nulls if combined is None else (combined | obj_nulls)
     return arr.astype(dtype.np_dtype), \
         (np.asarray(combined) if combined is not None else None)
+
+
+def _apply_outer(result: Result, outer: List) -> Result:
+    """Re-apply the outer ORDER BY / LIMIT / DISTINCT of a decomposed
+    aggregate over its merged result, resolving order refs by output
+    name or position (copy of the reference's
+    snappydata_tpu/cluster/distributed.py `_apply_outer`)."""
+    for op in reversed(outer):
+        if isinstance(op, ast.Limit):
+            result = hosteval.limit(result, op.n)
+        elif isinstance(op, ast.Distinct):
+            result = hosteval.distinct(result)
+        elif isinstance(op, ast.Sort):
+            orders = []
+            lower = [n.lower() for n in result.names]
+            for e, asc, *rest in op.orders:
+                nf = rest[0] if rest else None
+                target = e.child if isinstance(e, ast.Alias) else e
+                if isinstance(target, ast.Col) and \
+                        target.name.lower() in lower:
+                    idx = lower.index(target.name.lower())
+                    orders.append((ast.Col(target.name, None, idx,
+                                           result.dtypes[idx]), asc, nf))
+                elif isinstance(target, ast.Lit) and \
+                        isinstance(target.value, int):
+                    idx = target.value - 1
+                    orders.append((ast.Col(result.names[idx], None, idx,
+                                           result.dtypes[idx]), asc, nf))
+                else:
+                    raise ValueError(
+                        "a tiled ORDER BY must reference output columns "
+                        "by name or position")
+            result = hosteval.sort(result, orders, ())
+    return result
 
 
 def _contains_subquery(plan: ast.Plan) -> bool:

@@ -13,14 +13,25 @@ VALUE_DICT as a `CodePlate`, RUN_LENGTH as an `RlePlate`, BOOLEAN_BITSET
 as a `BitPlate`; every other column binds decoded, and each reroute of a
 compressible column is counted as `compressed_fallback_<reason>`.
 
+Exact decimals (DECIMAL(p<=18)) keep float64 host plates, the SQL value
+domain, and bind as the scaled int64 unscaled value `round(v * 10^s)`
+(HALF_UP), as in the reference; they never stay code-resident.
+
 Per-batch min/max stats ride along host-side for predicate batch
 skipping (ref: stats-row filter codegen, columnBatchesSkipped metric,
 ColumnTableScan.scala:115-130).  Plates are cached per (manifest
-version, device).
+version, device, scan window).
+
+Tiled scans bind a WINDOW of the table's scan units (column batches,
+then row-buffer chunks of `capacity` rows): `scan_window` restricts
+`build_device_table` to units [lo, hi) of a pinned manifest, and the
+host fallback reads the same units through `host_scan_units`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Dict, Optional, Sequence
 
@@ -41,6 +52,61 @@ def batch_bucket(n: int) -> int:
         return 1
     p = 1 << (n - 1).bit_length()
     return p * 3 // 4 if p * 3 // 4 >= n else p
+
+
+# --- tiled scans: bind a WINDOW of the batch axis ------------------------
+# For tables whose decoded columns exceed the device budget, the session
+# streams scan units through the same compiled program tile by tile.
+
+_scan_windows: contextvars.ContextVar = contextvars.ContextVar(
+    "scan_windows", default=None)
+
+
+@contextlib.contextmanager
+def scan_window(data, lo: int, hi: int, manifest=None, tile_units=None):
+    """Restrict build_device_table (and host_scan_units) for `data` to
+    units [lo, hi).  `manifest` pins one snapshot across a multi-tile
+    pass, so a mutation between tiles cannot mix table versions.
+    `tile_units` is the pass's NOMINAL window width: the last window may
+    be truncated, and current_scan_scale needs the nominal width to
+    compute the true tile count."""
+    cur = dict(_scan_windows.get() or {})
+    cur[id(data)] = (int(lo), int(hi), manifest,
+                     int(tile_units) if tile_units else int(hi - lo))
+    tok = _scan_windows.set(cur)
+    try:
+        yield
+    finally:
+        _scan_windows.reset(tok)
+
+
+def scan_window_active() -> bool:
+    """True inside any scan_window context (a tiled pass is binding)."""
+    return bool(_scan_windows.get())
+
+
+def scan_unit_count(data, manifest=None) -> int:
+    """Number of bindable units (column batches + row-buffer chunks)."""
+    if manifest is None:
+        manifest = data.snapshot()
+    n_chunks = -(-manifest.row_count // data.capacity) \
+        if manifest.row_count > 0 else 0
+    return len(manifest.views) + n_chunks
+
+
+def current_scan_scale(data) -> float:
+    """How many windows the active tile pass splits `data`'s scan into
+    (1.0 outside a tile pass).  The exact-decimal sum overflow guard
+    multiplies its per-tile max|v|*count bound by this, so the bound
+    covers the MERGED total across tiles, not just each tile."""
+    wentry = (_scan_windows.get() or {}).get(id(data))
+    if wentry is None:
+        return 1.0
+    lo, hi, manifest, width = wentry
+    total = scan_unit_count(data, manifest)
+    # the nominal width, not this window's: a truncated last window would
+    # over-scale the guard into spurious host fallbacks
+    return float(max(1, -(-total // max(1, width))))
 
 
 @dataclasses.dataclass
@@ -69,14 +135,16 @@ _COMPRESSIBLE = {Encoding.VALUE_DICT: "dict", Encoding.RUN_LENGTH: "rle",
                  Encoding.BOOLEAN_BITSET: "bitset"}
 
 
-def _compressed_mode(is_str: bool, cols_enc, has_row_chunks: bool,
-                     code_ok: bool = True,
+def _compressed_mode(is_str: bool, dec_exact: bool, cols_enc,
+                     has_row_chunks: bool, code_ok: bool = True,
                      count: bool = False) -> Optional[str]:
     """Per-column compressed-domain decision: 'dict' | 'rle' | 'bitset'
     when the column can stay resident encoded, None for a decoded bind.
-    `code_ok=False` (a device-join relation) forces a decoded bind.
-    With count=True (the cache-miss build) every decode-first reroute of
-    a compressible column is counted by reason, as in the reference."""
+    `code_ok=False` (a device-join relation) forces a decoded bind, as
+    does an exact decimal (its device plate is the scaled int64 value,
+    the encoded forms hold host-domain floats).  With count=True (the
+    cache-miss build) every decode-first reroute of a compressible
+    column is counted by reason, as in the reference."""
     knob = str(config.global_properties().get(
         "scan_compressed_domain", "auto") or "auto").lower()
     encs = {c.encoding for c in cols_enc}
@@ -90,6 +158,9 @@ def _compressed_mode(is_str: bool, cols_enc, has_row_chunks: bool,
 
     if knob not in ("on", "auto"):
         reject("disabled")
+        return None
+    if dec_exact:
+        reject("decimal_exact")
         return None
     if not config.global_properties().device_decode:
         reject("device_decode_off")
@@ -108,38 +179,78 @@ def _compressed_mode(is_str: bool, cols_enc, has_row_chunks: bool,
     return None
 
 
-def _scan_units(data: ColumnTableData):
-    """(manifest, views, row_chunks): column batches, then row-buffer
-    chunks of `capacity` rows — the unit order the host fallback reads
-    too.  row_chunks are (start, take) row-buffer slices."""
-    manifest = data.snapshot()
+def _scan_units(data: ColumnTableData, manifest=None):
+    """THE unit-splitting contract shared by the device bind and the host
+    fallback: (manifest, views, row_chunks, window) honoring the active
+    scan window — pinned snapshot, unit order (column batches, then
+    row-buffer chunks of `capacity` rows), [lo, hi) slice.  Both sides
+    read through this one helper: if they disagreed on unit order, a
+    tile falling back to the host would read other rows than the device
+    tile it replaces.  row_chunks are (start, take) row-buffer slices."""
+    wentry = (_scan_windows.get() or {}).get(id(data))
+    window = None
+    if wentry is not None:
+        window = (wentry[0], wentry[1])
+        if wentry[2] is not None:
+            manifest = wentry[2]
+    if manifest is None:
+        manifest = data.snapshot()
+    views = list(manifest.views)
     row_chunks = []
     pos = 0
     while pos < manifest.row_count:
         take = min(data.capacity, manifest.row_count - pos)
         row_chunks.append((pos, take))
         pos += take
-    return manifest, list(manifest.views), row_chunks
+    if window is not None:
+        units = [("v", v) for v in views] + [("r", rc) for rc in row_chunks]
+        units = units[window[0]:window[1]]
+        views = [u for k, u in units if k == "v"]
+        row_chunks = [u for k, u in units if k == "r"]
+    return manifest, views, row_chunks, window
+
+
+def host_scan_units(data: ColumnTableData, manifest=None):
+    """(manifest, views, row_chunks) for a HOST-side scan of `data`: the
+    host fallback's view of the same units build_device_table binds."""
+    manifest, views, row_chunks, _window = _scan_units(data, manifest)
+    return manifest, views, row_chunks
 
 
 def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
                        device: torch.device,
                        code_ok: bool = True) -> DeviceTable:
-    """Materialize `col_indices` of the current snapshot on `device`, with
-    caching keyed on (manifest version, device) so repeated queries over
-    an unchanged table upload nothing.  `code_ok=False` (device-join
+    """Materialize `col_indices` of the current snapshot (or of the active
+    scan window's pinned snapshot) on `device`, with caching keyed on
+    (manifest version, device, window) so repeated queries over an
+    unchanged table upload nothing.  `code_ok=False` (device-join
     relations, whose cached build artifacts and probe-key encodes read
     flat decoded layouts) forces decoded plates."""
-    manifest, views, row_chunks = _scan_units(data)
-    cache_key = (manifest.version, str(device))
+    manifest, views, row_chunks, window = _scan_units(data)
+    cache_key = (manifest.version, str(device), window)
     cache = data._device_cache.setdefault(cache_key, {})
-    # stale versions of this device go: their plates are dead weight
+    # stale versions of this device go: their plates are dead weight.
+    # list() snapshots are atomic under the GIL: the tile prefetcher's
+    # worker inserts window entries concurrently
     for k in [k for k in list(data._device_cache)
-              if k != cache_key and k[1] == cache_key[1]]:
+              if k[1] == cache_key[1] and k[0] != manifest.version]:
         data._device_cache.pop(k, None)
+    if window is not None:
+        # a tile pass must not accumulate every window's plates (the
+        # table is oversized by definition): keep only this window and
+        # the windows a live prefetch pass owns (storage/prefetch) —
+        # evicting the look-ahead window the worker just uploaded would
+        # make the prefetcher a strict slowdown
+        from snappydata_tpu_torch.storage import prefetch as _prefetch
+
+        kept = _prefetch.keep_windows(data)
+        for k in [k for k in list(data._device_cache)
+                  if k != cache_key and k[1] == cache_key[1]
+                  and k[2] is not None and k[2] not in kept]:
+            data._device_cache.pop(k, None)
 
     def place(host_array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(host_array)).to(device)
+        return _dd.upload(host_array, device)
 
     schema = data.schema
     cap = data.capacity
@@ -154,6 +265,8 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
             valid[i] = v.live_mask()
         for j, (_, take) in enumerate(row_chunks):
             valid[len(views) + j, :take] = True
+        if window is not None:  # a tile's row count is not the table's
+            cache["nrows"] = int(valid.sum())
         cache["valid"] = place(valid)
 
     columns: Dict[int, object] = {}
@@ -168,13 +281,16 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
         if is_str:
             dicts[ci] = data.dictionary(ci)
         dt = f.dtype.device_dtype()
+        # exact decimals: HOST plates are float64 (the SQL value domain);
+        # the DEVICE plate is the scaled int64 unscaled value
+        dec_exact = f.dtype.name == "decimal" and dt.kind == "i"
         cols_enc = [v.batch.columns[ci] for v in views]
-        cd_mode = _compressed_mode(is_str, cols_enc, bool(row_chunks),
-                                   code_ok)
+        cd_mode = _compressed_mode(is_str, dec_exact, cols_enc,
+                                   bool(row_chunks), code_ok)
         key = ("ccol", ci) if cd_mode else ("col", ci)
         if key not in cache:
-            _compressed_mode(is_str, cols_enc, bool(row_chunks), code_ok,
-                             count=True)
+            _compressed_mode(is_str, dec_exact, cols_enc, bool(row_chunks),
+                             code_ok, count=True)
             cache[key] = _build_code_column(cd_mode, views, cols_enc, ci, b,
                                             cap, dt, device, place, cache) \
                 if cd_mode else \
@@ -185,7 +301,8 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
         if dom is not None:
             dict_domains[ci] = dom
     return DeviceTable(schema, b, cap, cache["valid"], columns, dicts,
-                       stats_min, stats_max, manifest.total_rows(), nulls,
+                       stats_min, stats_max,
+                       cache.get("nrows", manifest.total_rows()), nulls,
                        dict_domains)
 
 
@@ -238,8 +355,11 @@ def _build_decoded_column(data, manifest, views, row_chunks, ci, f, b, cap,
     """Decoded [b, cap] plate: every batch decodes on the host (the
     reference decodes the encoded batches of a mixed column in-trace
     instead; the values are identical) and row-buffer chunks append after
-    the batches."""
+    the batches.  An exact decimal converts to its scaled int64 value
+    here; its stats stay in the host (unscaled) domain, which is what
+    sargable predicate literals compare against."""
     is_str = f.dtype.name == "string"
+    dec_exact = f.dtype.name == "decimal" and np.dtype(dt).kind == "i"
     stacked = np.zeros((b, cap), dtype=dt)
     null_mask, any_null = _null_plate(views, ci, b, cap)
     smin = np.full(b, np.nan)
@@ -247,7 +367,8 @@ def _build_decoded_column(data, manifest, views, row_chunks, ci, f, b, cap,
     for i, v in enumerate(views):
         col = v.batch.columns[ci]
         decoded = v.decoded_column(ci)
-        stacked[i] = decoded
+        stacked[i] = T.decimal_to_unscaled(f.dtype, decoded) \
+            if dec_exact else decoded
         st = col.stats
         if st is not None and not is_str and st.min is not None:
             smin[i], smax[i] = float(st.min), float(st.max)
@@ -271,6 +392,8 @@ def _build_decoded_column(data, manifest, views, row_chunks, ci, f, b, cap,
                                     dtype=np.bool_, count=take)
             chunk_nulls = none_mask if chunk_nulls is None \
                 else (chunk_nulls | none_mask)
+        elif dec_exact:
+            vals = T.decimal_to_unscaled(f.dtype, src)
         else:
             vals = np.asarray(src).astype(dt)
         if chunk_nulls is not None and chunk_nulls.any():
@@ -278,8 +401,10 @@ def _build_decoded_column(data, manifest, views, row_chunks, ci, f, b, cap,
             any_null = True
         stacked[len(views) + j, :take] = vals
         if not is_str and take:
-            smin[len(views) + j] = float(vals.min())
-            smax[len(views) + j] = float(vals.max())
+            stat_src = np.asarray(src, dtype=np.float64) \
+                if dec_exact else vals
+            smin[len(views) + j] = float(stat_src.min())
+            smax[len(views) + j] = float(stat_src.max())
     if not is_str:
         dom = _dict_domain(views, ci, b)
         if dom is not None:

@@ -23,7 +23,9 @@ consumer masks by the validity plate, so padding content is unobservable.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+import contextlib
+import contextvars
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +36,43 @@ from snappydata_tpu_torch.observability.metrics import global_registry
 # decoded bytes they stand for, and batches that stayed code-resident
 _counters: Dict[str, int] = {"bytes_encoded": 0, "bytes_decoded_equiv": 0,
                              "batches_code_bound": 0}
+
+
+# the upload stream of the calling context: None (the default) uploads
+# synchronously on the current stream; the tile prefetcher's worker sets
+# its own CUDA stream, and uploads then stage through pinned host memory
+# and copy asynchronously on that stream
+_upload_stream: contextvars.ContextVar = contextvars.ContextVar(
+    "upload_stream", default=None)
+
+
+@contextlib.contextmanager
+def upload_scope(stream: Optional["torch.cuda.Stream"]):
+    """Route this context's plate uploads onto `stream` (pinned staging,
+    non_blocking copies).  The caller orders its consumers after the
+    copies (an event recorded on `stream`) and marks the plates used on
+    the consuming stream (`record_stream`)."""
+    tok = _upload_stream.set(stream)
+    try:
+        if stream is None:
+            yield
+        else:
+            with torch.cuda.stream(stream):
+                yield
+    finally:
+        _upload_stream.reset(tok)
+
+
+def upload(host_array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host array as a tensor on `device`.  Inside an upload_scope
+    with a stream, the bytes stage through a pinned buffer of torch's
+    caching host allocator (which keeps it alive until the copy has run)
+    and copy with non_blocking=True on that stream."""
+    t = torch.from_numpy(np.ascontiguousarray(host_array))
+    global_registry().inc("device_upload_bytes", t.numel() * t.element_size())
+    if device.type == "cuda" and _upload_stream.get() is not None:
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class CodePlate(NamedTuple):
@@ -109,8 +148,7 @@ def code_plates(vd_cols, b: int, cap: int, dt, device: torch.device):
         _counters["bytes_encoded"] += int(c.data.nbytes + d.nbytes)
         _counters["bytes_decoded_equiv"] += int(cap * d.dtype.itemsize)
         _counters["batches_code_bound"] += 1
-    plate = CodePlate(torch.from_numpy(codes).to(device),
-                      torch.from_numpy(dicts).to(device))
+    plate = CodePlate(upload(codes, device), upload(dicts, device))
     return plate, host, sizes
 
 
@@ -133,8 +171,7 @@ def rle_plates(rle_cols, b: int, cap: int, dt,
             c.data.nbytes + np.asarray(c.runs).nbytes)
         _counters["bytes_decoded_equiv"] += int(cap * vals.dtype.itemsize)
         _counters["batches_code_bound"] += 1
-    return RlePlate(torch.from_numpy(vals).to(device),
-                    torch.from_numpy(ends).to(device))
+    return RlePlate(upload(vals, device), upload(ends, device))
 
 
 def bit_plates(bit_cols, b: int, cap: int, device: torch.device) -> BitPlate:
@@ -147,7 +184,7 @@ def bit_plates(bit_cols, b: int, cap: int, device: torch.device) -> BitPlate:
         _counters["bytes_encoded"] += int(raw.nbytes)
         _counters["bytes_decoded_equiv"] += int(cap)
         _counters["batches_code_bound"] += 1
-    return BitPlate(torch.from_numpy(packed).to(device))
+    return BitPlate(upload(packed, device))
 
 
 def rle_expand_runs(run_array: torch.Tensor, ends: torch.Tensor,

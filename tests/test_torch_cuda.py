@@ -429,3 +429,196 @@ def test_cuda_join_matches_cpu_session(cuda_device, query):
     for g, w in zip(got, want):
         assert g[:2] == w[:2]
         assert g[2] == pytest.approx(w[2], rel=5e-5)
+
+
+# --- the tiled lane and its prefetcher on the card -------------------------
+
+def _tiled_session(dev, n, batch_rows, seed=3):
+    """A session on `dev` with one column table of `n` rows cut into
+    `batch_rows`-row batches (string key, f32/f64 value, int, date)."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+
+    rng = np.random.default_rng(seed)
+    s = SnappySession(catalog=Catalog(), device=dev)
+    s.sql("CREATE TABLE tl (k STRING, v DOUBLE, w BIGINT, d DATE) "
+          f"USING column OPTIONS (column_batch_rows '{batch_rows}')")
+    s.insert_arrays("tl", [
+        rng.choice(np.array(["a", "b", "c", "d", "e"], dtype=object), n),
+        np.round(rng.uniform(0, 1000, n), 2),
+        rng.integers(0, 1000, n, dtype=np.int64),
+        rng.integers(8000, 11000, n).astype(np.int32)])
+    data = s.catalog.describe("tl").data
+    if data.snapshot().row_count:
+        data.force_rollover()
+    return s
+
+
+TILED_Q = ("SELECT k, count(*), sum(v), min(w), max(w) FROM tl "
+           "WHERE d >= DATE '1995-01-01' GROUP BY k ORDER BY k")
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_uploads_on_its_stream_in_order(cuda_device):
+    """The worker uploads each look-ahead window on its own stream from
+    pinned memory; the consumer's stream waits on the window's event, and
+    the plates are marked used on the consumer's stream.  A window read
+    right after `await_window` equals the same window bound synchronously,
+    and the whole tiled answer equals the untiled one, with no worker
+    death."""
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.storage import device as dmod
+    from snappydata_tpu_torch.storage.prefetch import TilePrefetcher
+
+    s = _tiled_session(cuda_device, 1 << 18, 8192)
+    data = s.catalog.describe("tl").data
+    man = data.snapshot()
+    units = dmod.scan_unit_count(data, man)
+    assert units == 32
+    cols = [1, 2, 3]
+    pf = TilePrefetcher(data, man, units, 4, 1, cuda_device)
+    with config.device_scope(cuda_device):
+        try:
+            for lo in range(0, units, 4):
+                pf.await_window(lo)
+                with dmod.scan_window(data, lo, lo + 4, man, tile_units=4):
+                    # decoded plates (code_ok=False), which the worker
+                    # mirrors from window 0's cache entry
+                    dt = dmod.build_device_table(data, cols, cuda_device,
+                                                 code_ok=False)
+                    got = [float(dt.columns[c].double().sum())
+                           for c in cols]
+                pf.advance(lo)
+                # the same window's values straight from the host batches
+                with dmod.scan_window(data, lo, lo + 4, man, tile_units=4):
+                    _m, views, chunks = dmod.host_scan_units(data)
+                assert len(views) == 4 and not chunks
+                for c, g in zip(cols, got):
+                    dt = data.schema.fields[c].dtype.device_dtype()
+                    want = sum(float(v.decoded_column(c).astype(dt)
+                                     .astype(np.float64).sum())
+                               for v in views)
+                    assert g == pytest.approx(want, rel=1e-12), (lo, c)
+        finally:
+            pf.close()
+    assert not pf.dead()
+    windowed = [k for k in data._device_cache if k[2] is not None]
+    assert windowed == []
+
+    reg = global_registry()
+    props = config.global_properties()
+    saved_tile = props.scan_tile_bytes
+    try:
+        untiled = s.sql(TILED_Q).rows()
+        props.scan_tile_bytes = 3 * 8192 * 24
+        w0 = reg.counter("prefetch_windows_warmed")
+        d0 = reg.counter("prefetch_worker_deaths")
+        t0 = reg.counter("scan_tiles")
+        tiled = s.sql(TILED_Q).rows()
+    finally:
+        props.scan_tile_bytes = saved_tile
+    tiles = reg.counter("scan_tiles") - t0
+    assert tiles > 2
+    assert reg.counter("prefetch_windows_warmed") - w0 == tiles - 1
+    assert reg.counter("prefetch_worker_deaths") == d0
+    assert len(tiled) == len(untiled)
+    for a, b in zip(tiled, untiled):
+        assert (a[0], a[1], a[3], a[4]) == (b[0], b[1], b[3], b[4])
+        assert a[2] == pytest.approx(b[2], rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_tiles_stay_within_the_memory_bound(cuda_device):
+    """A tiled pass over a table ten times its tile budget allocates at
+    most (tier_prefetch_depth + 2) tiles plus 64 MiB above what was
+    resident before it, and merges on the device."""
+    import torch
+
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    s = _tiled_session(cuda_device, 1 << 22, 1 << 16)
+    data = s.catalog.describe("tl").data
+    props = config.global_properties()
+    saved = props.scan_tile_bytes
+    reg = global_registry()
+    # k, v, w, d at 5 + 5 + 9 + 5 bytes per row plus validity: 25 B/row
+    budget = (1 << 22) * 25 // 10
+    try:
+        props.scan_tile_bytes = budget
+        data._device_cache.clear()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        h0 = reg.counter("scan_tile_host_merges")
+        d0 = reg.counter("scan_tile_device_merges")
+        rows = s.sql(TILED_Q).rows()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+    finally:
+        props.scan_tile_bytes = saved
+    depth = int(props.tier_prefetch_depth)
+    assert len(rows) == 5
+    assert reg.counter("scan_tile_host_merges") == h0
+    assert reg.counter("scan_tile_device_merges") > d0
+    assert peak <= (depth + 2) * budget + (64 << 20), (peak, budget)
+
+
+TILED_SUM_Q = ("SELECT sum(v), count(*) FROM tl "
+               "WHERE d >= DATE '1995-01-01'")
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_global_sum_launches_kahan_per_tile(cuda_device):
+    """The prefetch worker binds its windows under the session's device
+    policy: float32 value plates on the card, as the consumer binds them
+    (a worker outside the session's device scope binds float64 plates,
+    and the Kahan kernel, which takes float32 only, then never runs).  A
+    tiled global SUM over a DOUBLE column launches `masked_kahan_sum`
+    once per tile, merges on the device, and equals the untiled answer."""
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.storage import device as dmod
+    from snappydata_tpu_torch.storage.prefetch import TilePrefetcher
+
+    s = _tiled_session(cuda_device, 1 << 18, 8192)
+    data = s.catalog.describe("tl").data
+    man = data.snapshot()
+    units = dmod.scan_unit_count(data, man)
+    pf = TilePrefetcher(data, man, units, 4, 1, cuda_device)
+    with config.device_scope(cuda_device):
+        try:
+            for lo in range(0, units, 4):
+                pf.await_window(lo)
+                with dmod.scan_window(data, lo, lo + 4, man, tile_units=4):
+                    dt = dmod.build_device_table(data, [1, 3], cuda_device,
+                                                 code_ok=False)
+                    assert dt.columns[1].dtype == torch.float32, lo
+                pf.advance(lo)
+        finally:
+            pf.close()
+    assert not pf.dead()
+
+    reg = global_registry()
+    props = config.global_properties()
+    saved = (props.scan_tile_bytes, props.pallas_reduce)
+    try:
+        props.pallas_reduce = True
+        untiled = s.sql(TILED_SUM_Q).rows()
+        props.scan_tile_bytes = 3 * 8192 * 24
+        t0 = reg.counter("scan_tiles")
+        d0 = reg.counter("scan_tile_device_merges")
+        h0 = reg.counter("scan_tile_host_merges")
+        kr.masked_kahan_sum.launches = 0
+        tiled = s.sql(TILED_SUM_Q).rows()
+        launches = kr.masked_kahan_sum.launches
+    finally:
+        props.scan_tile_bytes, props.pallas_reduce = saved
+    tiles = reg.counter("scan_tiles") - t0
+    assert tiles > 2
+    assert launches == tiles
+    assert reg.counter("scan_tile_device_merges") > d0
+    assert reg.counter("scan_tile_host_merges") == h0
+    assert tiled[0][1] == untiled[0][1]
+    assert tiled[0][0] == pytest.approx(untiled[0][0], rel=1e-6)

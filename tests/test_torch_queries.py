@@ -43,8 +43,8 @@ QUERIES = [
     ("SELECT count(*) FROM t WHERE x IS NULL", True),
     # a derived key: the generic hash-key lane
     ("SELECT g % 2 AS p, count(*) FROM t GROUP BY g % 2 ORDER BY p", True),
-    # count(DISTINCT) is not ported: the host evaluator answers
-    ("SELECT k, count(DISTINCT g) FROM t GROUP BY k ORDER BY k", False),
+    # count(DISTINCT): the sort-based device lane
+    ("SELECT k, count(DISTINCT g) FROM t GROUP BY k ORDER BY k", True),
     # CASE WHEN with and without ELSE, over a nullable operand
     ("SELECT k, sum(CASE WHEN x > 0 THEN x ELSE 0 END), "
      "count(CASE WHEN g = 2 THEN 1 END), sum(CASE WHEN y > 0 THEN x END) "

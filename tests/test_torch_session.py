@@ -216,7 +216,9 @@ def test_host_fallback_for_unported_shapes(lineitem):
     ref, port = _sessions(lineitem)
     reg = global_registry()
     before = reg.counter("host_fallbacks")
-    q = ("SELECT l_returnflag, count(DISTINCT l_linenumber) FROM lineitem "
+    # scalar functions are not ported yet (count(DISTINCT), the shape this
+    # test first used, now runs on the device)
+    q = ("SELECT l_returnflag, sum(abs(l_quantity - 25)) FROM lineitem "
          "GROUP BY l_returnflag ORDER BY l_returnflag")
     _assert_rows_equal(port.sql(q).rows(), ref.sql(q).rows())
     assert reg.counter("host_fallbacks") == before + 1
