@@ -28,7 +28,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    timed beside its bound and one PyTorch library call; the grouped
    kernel's launch configuration (threads, blocks, resident blocks per
    SM, words per group and thread) and its op count before and after
-   dedup;
+   dedup.  The Kahan kernel also: two calls bit-identical, `ms` over
+   back-to-back calls between two events (so host dispatch counts) and
+   its launch configuration;
 6. the answers: Q1 and Q6 against a float64 numpy oracle computed from the
    generated arrays, and against the same queries with the knobs off
    (counts exact, same-sign sums within rel 1e-6);
@@ -68,8 +70,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    4's and the oracle (counts exact, sums rel 1e-6); the peak device
    memory above the resident set stays under (tier_prefetch_depth + 2) x
    scan_tile_bytes + 64 MiB; each kernel against its plain version on the
-   last tile's inputs (phase 5's tolerance); seconds, rows/s, bytes
-   uploaded per pass and the pinned host-to-device rate;
+   last tile's inputs, and the Kahan kernel on the first (full) tile's
+   too (phase 5's checks and timings); seconds, rows/s, bytes uploaded
+   per pass and the pinned host-to-device rate;
 12. exact decimals: lineitem_dec (the --sf x 6M generated rows with
    l_quantity, l_extendedprice, l_discount and l_tax as DECIMAL(15,2))
    loaded, Q1 and Q6 through `session.sql`: the exact slots are
@@ -83,7 +86,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    against `np.unique` of the (group, key) pairs, with no host fallback;
    the `matmul` and `scatter` strategies on one Q1 tile's float sums
    (integer-valued, so the answers must be identical), timed;
-14. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+14. the Kahan kernel under torch.profiler on phase 5's and phase 11's
+   inputs, after every timed phase: every device kernel in the trace is
+   its one kernel, the host's CUDA runtime records hold exactly one
+   kernel launch per call and no copy, memset or torch op but the
+   output's allocation, at every shape, in one profiler session each;
+   its mean device time (`device_ms`);
+15. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4 and 11.
 
 The bound of a kernel is the larger of its bytes (each input read once,
@@ -249,6 +258,10 @@ def profile_run(fn, top=8):
 
 
 def kahan_phase(calls, reps):
+    """The Kahan kernel on the first recorded call's inputs: against its
+    plain version (1e-6 * sum(|v|)), bit-identical over two calls, `ms`
+    over back-to-back calls between two events (host dispatch counts),
+    its launch configuration."""
     import torch
 
     from snappydata_tpu_torch.ops.kahan_reduce import (
@@ -259,12 +272,16 @@ def kahan_phase(calls, reps):
     v, w = calls[0]
     n = v.numel()
     got = masked_kahan_sum(v, w)
+    again = masked_kahan_sum(v, w)
     plain = masked_kahan_sum_plain(v, w)
     torch.cuda.synchronize()
     err = abs(float(got) - float(plain))
     scale = float(torch.where(w, v.double().abs(), 0).sum())
     if not err <= 1e-6 * scale:
         fail(f"masked_kahan_sum: |kernel - plain| = {err} > 1e-6 * {scale}")
+    if float(got) != float(again):
+        fail(f"masked_kahan_sum: two calls differ ({float(got)!r}, "
+             f"{float(again)!r})")
     b_ms, b_by = bound(n * 4 + n * 1 + 8, 4 * n)
     return {
         "max_abs_err": err,
@@ -272,7 +289,58 @@ def kahan_phase(calls, reps):
         "plain_ms": cuda_ms(lambda: masked_kahan_sum_plain(v, w), reps),
         "library_ms": cuda_ms(
             lambda: torch.where(w, v, 0).double().sum(), reps * 10),
-        "bound_ms": b_ms, "bound_by": b_by, "rows": n}
+        "bound_ms": b_ms, "bound_by": b_by, "rows": n,
+        "config": masked_kahan_sum.config}
+
+
+def kahan_profile(v, w, reps):
+    """The Kahan kernel's calls on (v, w) in one torch.profiler session,
+    after one warm-up call.  The host's CUDA runtime records must hold one
+    kernel launch per call and no copy or memset, the only torch op must
+    be the output's allocation (`aten::empty`), every device kernel in the
+    trace must be the Kahan kernel, and the wrapper's launch count must
+    move by the calls.  The device records are not counted against the
+    calls: minutes into a process's life the profiler drops a run of the
+    first kernel records of some sessions (PERF.md §6), while the runtime
+    records stay whole.  `device_ms` is the mean device time of the kernel
+    records the trace kept, `trace_kernels` their number."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from snappydata_tpu_torch.ops.kahan_reduce import masked_kahan_sum
+
+    calls = reps * 10
+    masked_kahan_sum(v, w)
+    torch.cuda.synchronize()
+    before = masked_kahan_sum.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            masked_kahan_sum(v, w)
+        torch.cuda.synchronize()
+    launched = masked_kahan_sum.launches - before
+    host, dev = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.key] = (e.count, e.self_device_time_total / e.count / 1e3)
+        else:
+            host[e.key] = e.count
+    runtime_launches = sum(c for k, c in host.items() if "LaunchKernel" in k)
+    copies = {k: c for k, c in host.items()
+              if "Memcpy" in k or "Memset" in k}
+    torch_ops = {k: c for k, c in host.items()
+                 if k.startswith("aten::") and k != "aten::empty"}
+    kahan = [(c, ms) for k, (c, ms) in dev.items()
+             if "kahan_sum_kernel" in k]
+    if launched != calls or runtime_launches != calls or copies \
+            or torch_ops or len(dev) != 1 or not kahan \
+            or kahan[0][0] > calls:
+        fail(f"masked_kahan_sum: {launched} wrapper launches over {calls} "
+             f"calls gave {runtime_launches} runtime kernel launches, "
+             f"copies {copies}, torch ops {torch_ops}, device kernels "
+             f"{dev}; expected one kernel per call and nothing else")
+    return {"device_ms": kahan[0][1], "runtime_launches": runtime_launches,
+            "trace_kernels": kahan[0][0], "calls": calls, "rows": v.numel()}
 
 
 def grouped_phase(calls, reps):
@@ -941,15 +1009,14 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
+    ptxas = ("-Xptxas", "-v") if args.ptxas else ()
     try:
-        built = cuda_build.build(
-            KERNELS, force=True,
-            extra_flags=("-Xptxas", "-v") if args.ptxas else ())
+        built = cuda_build.build(KERNELS, force=True, extra_flags=ptxas)
     except RuntimeError as e:
         fail(str(e))
     log(f"build_s {time.perf_counter() - t0:.3f} ({', '.join(KERNELS)})")
     if args.ptxas:
-        for name in KERNELS:
+        for name in built:
             for line in built[name].splitlines():
                 if "ptxas" in line or "spill" in line:
                     log(f"ptxas {name}: {line.strip()}")
@@ -1212,10 +1279,14 @@ def main() -> int:
         f"tile_launch_overlaps {tmoved['scan_tile_prefetch_overlap']}")
     if tprof is not None:
         log(f"profile tiled_q1 {json.dumps(tprof)}")
-    for name, fn, calls in (("masked_kahan_sum", kahan_phase, tk_calls),
-                            ("grouped_reduce", grouped_phase, tg_calls)):
-        log(f"kernel {name} on the last tile "
-            f"{json.dumps(fn(calls[-1:], args.reps))}")
+    kahan_shapes = [("in-HBM Q6", rec_k.calls[0])]
+    for label, calls in (("first", tk_calls[:1]), ("last", tk_calls[-1:])):
+        log(f"kernel masked_kahan_sum on the {label} tile "
+            f"{json.dumps(kahan_phase(calls, args.reps))}")
+        kahan_shapes.append((f"{label} tile", calls[0]))
+    log(f"kernel grouped_reduce on the last tile "
+        f"{json.dumps(grouped_phase(tg_calls[-1:], args.reps))}")
+    for name in ("masked_kahan_sum", "grouped_reduce"):
         launches[name] += tlaunch[name]
     del tk_calls
     log("answers ok: tiled Q1 and Q6 match phase 4 and the oracle")
@@ -1253,7 +1324,13 @@ def main() -> int:
     log(f"strategy_timing {json.dumps(strat)}")
     log("answers ok: count(DISTINCT) matches numpy; matmul equals scatter")
 
-    # 14. result lines
+    # 14. the Kahan kernel under torch.profiler, after every timed phase
+    for label, (v, w) in kahan_shapes:
+        log(f"kernel masked_kahan_sum profile on the {label} "
+            f"{json.dumps(kahan_profile(v, w, args.reps))}")
+    del kahan_shapes, rec_k
+
+    # 15. result lines
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",

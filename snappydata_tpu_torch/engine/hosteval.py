@@ -922,15 +922,24 @@ def eval_window(plan, params, executor) -> Result:
 def _window_values(w, cols, nulls, params, n):
     import pandas as pd
 
-    # partition keys
+    # partition keys: each key's null mask is a key of its own and the
+    # value under it is blanked, so all NULLs of a key form one partition
+    # (as the reference's device lane has them)
     if w.partition_by:
-        keys = []
-        for p in w.partition_by:
-            v, _ = eval_expr(p, cols, nulls, params, n)
-            keys.append(np.broadcast_to(v, (n,)))
-        part_df = pd.DataFrame({f"k{i}": k for i, k in enumerate(keys)})
-        group_ids = part_df.groupby(list(part_df.columns), sort=False
-                                    ).ngroup().to_numpy()
+        keys = {}
+        for i, p in enumerate(w.partition_by):
+            v, nl = eval_expr(p, cols, nulls, params, n)
+            v = np.broadcast_to(v, (n,))
+            if nl is not None:
+                isnull = np.broadcast_to(nl, (n,))
+                blank = None if v.dtype == object \
+                    else np.zeros((), dtype=v.dtype)
+                v = np.where(isnull, blank, v)
+                keys[f"n{i}"] = isnull
+            keys[f"k{i}"] = v
+        part_df = pd.DataFrame(keys)
+        group_ids = part_df.groupby(list(part_df.columns), sort=False,
+                                    dropna=False).ngroup().to_numpy()
     else:
         group_ids = np.zeros(n, dtype=np.int64)
     # intra-partition order

@@ -113,3 +113,39 @@ def check(rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+_occ: Dict[tuple, int] = {}
+_sms: Dict[int, int] = {}
+
+
+def blocks_per_sm(source: str, fn: str, *args: int) -> int:
+    """Resident blocks per SM of one kernel instantiation, from the C entry
+    `fn` of `source` over cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    (cached): `args` are its int arguments, the dynamic shared-memory
+    bytes last."""
+    key = (source,) + args
+    got = _occ.get(key)
+    if got is None:
+        per_sm = ctypes.c_int(0)
+        argtypes = [ctypes.c_int] * (len(args) - 1) + [ctypes.c_longlong,
+                                                       ctypes.c_void_p]
+        rc = entry(source, fn, argtypes)(*args, ctypes.byref(per_sm))
+        check(rc, fn)
+        if per_sm.value < 1:
+            raise ValueError(f"{source}: no block with {args[-1]} bytes of "
+                             f"shared memory fits an SM")
+        got = _occ[key] = per_sm.value
+    return got
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (a torch.device with an index), read
+    once per device."""
+    got = _sms.get(device.index)
+    if got is None:
+        import torch
+
+        got = _sms[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return got

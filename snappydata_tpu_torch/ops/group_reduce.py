@@ -269,30 +269,6 @@ def pack_group_spec(chains, n: int, num_segments: int,
     return spec, words, aligned
 
 
-_occ: Dict[tuple, int] = {}
-
-
-def _blocks_per_sm(source: str, fn: str, *args: int) -> int:
-    """Resident blocks per SM of one kernel instantiation, from the C entry
-    `fn` of `source` over cudaOccupancyMaxActiveBlocksPerMultiprocessor
-    (cached): `args` are its int arguments, the dynamic shared-memory
-    bytes last."""
-    key = (source,) + args
-    got = _occ.get(key)
-    if got is None:
-        per_sm = ctypes.c_int(0)
-        argtypes = [ctypes.c_int] * (len(args) - 1) + [ctypes.c_longlong,
-                                                       ctypes.c_void_p]
-        rc = cuda_build.entry(source, fn, argtypes)(*args,
-                                                    ctypes.byref(per_sm))
-        cuda_build.check(rc, fn)
-        if per_sm.value < 1:
-            raise ValueError(f"{source}: no block with {args[-1]} bytes of "
-                             f"shared memory fits an SM")
-        got = _occ[key] = per_sm.value
-    return got
-
-
 def _typed_rows(out: torch.Tensor, kinds: Sequence[str],
                 G: int) -> List[torch.Tensor]:
     """Views of the combine kernel's [chains, G] 8-byte cells in each
@@ -350,9 +326,9 @@ def grouped_reduce(ops: Sequence[Tuple[str, Optional[torch.Tensor],
     # the four-row loads need 16-byte aligned index and values and 4-byte
     # aligned masks; otherwise the kernel reads row by row
     vec = aligned and g.data_ptr() % 16 == 0
-    per_sm = _blocks_per_sm("group_reduce", "group_reduce_occupancy", kb,
-                            smem)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = cuda_build.blocks_per_sm("group_reduce",
+                                      "group_reduce_occupancy", kb, smem)
+    sms = cuda_build.sm_count(dev)
     blocks = max(1, min(-(-n // (THREADS * 4)), per_sm * sms))
     part = torch.empty((len(chains), G, blocks), dtype=torch.float64,
                        device=dev)
@@ -660,10 +636,10 @@ def grouped_code_reduce(gidx: torch.Tensor, mask: torch.Tensor, slots,
     # dictionaries too wide for shared memory take the one general kernel
     kb = _bucket(spec.ch.n_sums, _CODE_BUCKETS) if dsmem \
         else _CODE_BUCKETS[-1]
-    per_sm = _blocks_per_sm("group_code_reduce",
-                            "group_code_reduce_occupancy", kb, threads,
-                            int(dsmem), smem)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = cuda_build.blocks_per_sm("group_code_reduce",
+                                      "group_code_reduce_occupancy", kb,
+                                      threads, int(dsmem), smem)
+    sms = cuda_build.sm_count(dev)
     B, cap = gidx.shape
     tiles = B * code_chunks(cap, threads)
     if tiles >= 2 ** 31:

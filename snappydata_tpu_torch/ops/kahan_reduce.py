@@ -4,17 +4,19 @@ global sum, and the fused code-domain filter + sum of the Q6 shape.
 Replaces the TPU kernel snappydata_tpu/ops/pallas_reduce.py
 masked_kahan_sum (`_kahan_kernel`, launched by `_kahan_call`): one pass
 over the f32 plate where every chain keeps its own Kahan compensation,
-and the chains' (sum, compensation) partials combine outside the kernel
-in float64 as sum(s) - sum(c) — compensated summation keeps the error
-near eps * sum(|v|) while the hot loop stays in native f32.
+and the chains combine in float64 — compensated summation keeps the
+error near eps * sum(|v|) while the hot loop stays in native f32.
 
 On Hopper (csrc/kahan_reduce.cu) the bound is bytes: 4 B of value and
 1 B of mask per row against a handful of f32 adds, so the 3.35 TB/s of
-HBM sets the pace.  The kernel is a grid-stride loop with 16-byte value
-loads (float4 + uchar4 of mask) and one Kahan chain per thread in
-registers, in place of the TPU's per-lane chains down a [rows, 128]
-layout; each thread writes its (s, c) pair to a small partials tensor
-and the f64 combine runs here.
+HBM sets the pace.  The kernel is one launch with one f64 output: a
+grid-stride loop issuing several 16-byte value loads (and their mask
+words) before the dependent adds, one Kahan chain per thread in place of
+the TPU's per-lane chains down a [rows, 128] layout, each chain turned
+into a float64 s - c and summed by warp, block and — in the last block to
+finish, in a fixed order — across blocks.  `kahan_launch_plan` sizes the
+grid; the wrapper keeps one block-partial buffer and ticket counter per
+(device, stream) and allocates only the output per call.
 
 `fused_code_filter_sum` replaces the TPU kernel
 snappydata_tpu/ops/pallas_reduce.py fused_code_filter_sum
@@ -36,21 +38,53 @@ other device raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 from snappydata_tpu_torch.ops import cuda_build
 
 _THREADS = 256
+# float4 steps (16 rows each) a thread streams at least before the grid
+# grows, so the block and cross-block combine stay small beside the stream
+_MIN_STEPS = 16
 # steps of the plain version's chains: chains = ceil(n / _PLAIN_STEPS)
 _PLAIN_STEPS = 256
+
+
+def kahan_launch_plan(n: int, sms: int,
+                      blocks_per_sm: int) -> Tuple[int, int, int]:
+    """(blocks, threads, steps) of the kernel over n rows: as many blocks
+    as give every thread at least _MIN_STEPS float4 steps, at most the
+    resident blocks of the card (sms x blocks_per_sm) and at least one;
+    steps is the float4 steps of the busiest thread."""
+    n4 = n // 4
+    blocks = max(1, min(sms * blocks_per_sm, n4 // (_THREADS * _MIN_STEPS)))
+    steps = -(-n4 // (blocks * _THREADS))
+    return blocks, _THREADS, steps
+
+
+def kahan_layout(n: int, values_ptr: int,
+                 mask_ptr: int) -> Tuple[bool, int, int]:
+    """(vector, head, n4): whether the kernel's float4 loop runs over the
+    f32 values at `values_ptr` and the bool mask at `mask_ptr`, the rows
+    peeled before it (until the value base is 16-byte aligned) and its
+    float4 steps.  The loop runs when the mask base is 4-byte aligned at
+    the same row, i.e. when the two offsets agree modulo 4 rows;
+    otherwise every row is read alone (head 0, n4 0)."""
+    head = (-(values_ptr // 4)) % 4
+    if values_ptr % 4 or (mask_ptr + head) % 4:
+        return False, 0, 0
+    head = min(n, head)
+    return True, head, (n - head) // 4
 
 
 def masked_kahan_sum_plain(values: torch.Tensor,
                            mask: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel's arithmetic: ceil(n / 256)
     Kahan chains advanced in lock step (Kahan: y = v - c; t = s + y;
-    c = (t - s) - y; s = t), combined in float64 as sum(s) - sum(c)."""
+    c = (t - s) - y; s = t), each turned into a float64 s - c and summed
+    in float64, as the kernel combines its chains."""
     flat = values.reshape(-1).to(torch.float32)
     m = mask.reshape(-1)
     n = flat.numel()
@@ -68,7 +102,12 @@ def masked_kahan_sum_plain(values: torch.Tensor,
         c = (t - s) - y
         s = t
     # c holds the excess already folded into s: the chain total is s - c
-    return s.double().sum() - c.double().sum()
+    return (s.double() - c.double()).sum()
+
+
+# per (device index, stream): the block partials and the ticket counter,
+# which the kernel leaves at 0 when it ends
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def masked_kahan_sum(values: torch.Tensor,
@@ -84,27 +123,43 @@ def masked_kahan_sum(values: torch.Tensor,
     if values.dtype != torch.float32 or mask.dtype != torch.bool:
         raise TypeError("masked_kahan_sum takes float32 values and a bool "
                         f"mask, got {values.dtype} / {mask.dtype}")
-    if values.shape != mask.shape or mask.device != values.device:
+    dev = values.device
+    if values.shape != mask.shape or mask.device != dev:
         raise ValueError("masked_kahan_sum: mask must match values in "
                          "shape and device")
-    flat = values.reshape(-1).contiguous()
-    m = mask.reshape(-1).contiguous()
-    n = flat.numel()
-    sms = torch.cuda.get_device_properties(flat.device).multi_processor_count
-    blocks = max(1, min(-(-n // (_THREADS * 4)), sms * 8))
-    part_s = torch.empty(blocks * _THREADS, dtype=torch.float32,
-                         device=flat.device)
-    part_c = torch.empty_like(part_s)
+    if not values.is_contiguous():
+        values = values.contiguous()
+    if not mask.is_contiguous():
+        mask = mask.contiguous()
+    n = values.numel()
+    vp, mp = values.data_ptr(), mask.data_ptr()
+    vector, head, n4 = kahan_layout(n, vp, mp)
+    per_sm = cuda_build.blocks_per_sm("kahan_reduce", "kahan_occupancy",
+                                      _THREADS, 0)
+    sms = cuda_build.sm_count(dev)
+    blocks, threads, steps = kahan_launch_plan(n, sms, per_sm)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
+    scratch = _scratch.get(key)
+    if scratch is None:
+        scratch = _scratch[key] = (
+            torch.empty(sms * per_sm, dtype=torch.float64, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+    part, counter = scratch
+    out = torch.empty((), dtype=torch.float64, device=dev)
     rc = cuda_build.entry(*_KAHAN)(
-        flat.data_ptr(), m.data_ptr(), n, part_s.data_ptr(),
-        part_c.data_ptr(), blocks, _THREADS,
-        torch.cuda.current_stream(flat.device).cuda_stream)
+        vp, mp, n, head, n4, part.data_ptr(), counter.data_ptr(),
+        out.data_ptr(), blocks, threads, stream)
     cuda_build.check(rc, "kahan_sum_f32 launch")
     masked_kahan_sum.launches += 1
-    return part_s.double().sum() - part_c.double().sum()
+    masked_kahan_sum.config = {
+        "threads": threads, "blocks": blocks, "blocks_per_sm": per_sm,
+        "steps": steps, "vector": vector, "peeled": head}
+    return out
 
 
 masked_kahan_sum.launches = 0
+masked_kahan_sum.config = None
 
 
 def decode_rows(codes: torch.Tensor, dicts: torch.Tensor) -> torch.Tensor:
@@ -139,7 +194,7 @@ def fused_code_filter_sum_plain(qty_codes, disc_codes, ship, price, valid,
     """Plain PyTorch version of the kernel's arithmetic: the same code and
     shipdate compares, the discount decoded from its batch's row, the f32
     product price * disc, then compensated f32 chains combined in float64
-    as sum(s) - sum(c) (masked_kahan_sum_plain) and an int64 count."""
+    (masked_kahan_sum_plain) and an int64 count."""
     ok = code_filter_mask(qty_codes, disc_codes, ship, valid, qty_hi_codes,
                           disc_lo_codes, disc_hi_codes, ship_lo, ship_hi)
     prod = price.to(torch.float32) * decode_rows(disc_codes, disc_dicts)
@@ -231,8 +286,9 @@ fused_code_filter_sum.launches = 0
 
 # the C entry points: (source under csrc/, function, argument types)
 _KAHAN = ("kahan_reduce", "kahan_sum_f32", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _CODE_FILTER = ("code_filter_sum", "code_filter_sum", [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -49,6 +49,111 @@ def test_cuda_kahan_matches_plain(cuda_device, offset):
     assert abs(got - plain) / exact <= 2e-7
 
 
+# n 4097 is 4k + 1; the views start `offset` rows into buffers the
+# allocator aligns, so the kernel peels (4 - offset) % 4 rows and then
+# runs its float4 loop.  Mixed signs: within 1e-6 * sum(|v|) of the plain
+# version (the two add their chains in other orders).
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 1023, 4097, 4_194_304])
+def test_cuda_kahan_sizes_and_offsets(cuda_device, n, offset):
+    rng = np.random.default_rng(11 + n + offset)
+    v = (rng.random(n + offset) * 200 - 100).astype(np.float32)
+    m = rng.random(n + offset) < 0.6
+    dv = _t(v).to(cuda_device)[offset:]
+    dm = _t(m).to(cuda_device)[offset:]
+    before = masked_kahan_sum.launches
+    got = masked_kahan_sum(dv, dm)
+    assert masked_kahan_sum.launches == before + 1
+    assert got.dtype == torch.float64 and got.dim() == 0
+    cfg = masked_kahan_sum.config
+    assert cfg["vector"] and cfg["peeled"] == min(n, (4 - offset) % 4)
+    assert 1 <= cfg["blocks"] <= cfg["blocks_per_sm"] * \
+        torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    v, m = v[offset:], m[offset:]
+    plain = float(masked_kahan_sum_plain(_t(v), _t(m)))
+    bound = 1e-6 * float(np.abs(v.astype(np.float64)[m]).sum())
+    assert abs(float(got) - plain) <= bound
+    if n == 0:
+        assert float(got) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_kahan_offsets_that_disagree_read_row_by_row(cuda_device):
+    rng = np.random.default_rng(12)
+    n = 100_003
+    v = (rng.random(n + 1) * 2e4).astype(np.float32)
+    m = rng.random(n + 2) < 0.6
+    dv = _t(v).to(cuda_device)[1:]
+    dm = _t(m).to(cuda_device)[2:]
+    got = float(masked_kahan_sum(dv, dm))
+    assert not masked_kahan_sum.config["vector"]
+    exact = float(v[1:].astype(np.float64)[m[2:]].sum())
+    assert abs(got - exact) / exact <= 1e-7
+
+
+@pytest.mark.cuda
+def test_cuda_kahan_all_false_mask_is_exact_zero(cuda_device):
+    v = torch.full((4_194_307,), 3.25, device=cuda_device)
+    m = torch.zeros(v.shape, dtype=torch.bool, device=cuda_device)
+    assert float(masked_kahan_sum(v, m)) == 0.0
+    assert float(masked_kahan_sum(v[:0], m[:0])) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_kahan_repeated_calls_bit_identical(cuda_device):
+    rng = np.random.default_rng(13)
+    v = _t((rng.random(8_388_611) * 200 - 100).astype(np.float32))
+    m = _t(rng.random(8_388_611) < 0.5)
+    dv, dm = v.to(cuda_device), m.to(cuda_device)
+    outs = [masked_kahan_sum(dv, dm) for _ in range(5)]
+    vals = [float(o) for o in outs]
+    assert len(set(vals)) == 1, vals
+
+
+@pytest.mark.cuda
+def test_cuda_kahan_interleaved_on_two_streams(cuda_device):
+    """Launches on two streams keep their own block partials and ticket
+    counters: each stream's answers equal a default-stream call's."""
+    rng = np.random.default_rng(14)
+    ins = []
+    for n in (4_194_304, 3_000_001):
+        v = _t((rng.random(n) * 2e4).astype(np.float32)).to(cuda_device)
+        m = _t(rng.random(n) < 0.5).to(cuda_device)
+        ins.append((v, m, float(masked_kahan_sum(v, m))))
+    streams = [torch.cuda.Stream(cuda_device) for _ in ins]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(8):
+        for st, (v, m, _want) in zip(streams, ins):
+            with torch.cuda.stream(st):
+                outs.append(masked_kahan_sum(v, m))
+    torch.cuda.synchronize()
+    for i, o in enumerate(outs):
+        assert float(o) == ins[i % 2][2]
+
+
+@pytest.mark.cuda
+def test_cuda_kahan_one_device_kernel_per_call(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    v = torch.rand(4_194_304, device=cuda_device)
+    m = v < 0.5
+    masked_kahan_sum(v, m)
+    torch.cuda.synchronize()
+    before = masked_kahan_sum.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            masked_kahan_sum(v, m)
+        torch.cuda.synchronize()
+    assert masked_kahan_sum.launches == before + 5
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [(("kahan_sum_kernel" in e.key), e.count) for e in dev] == \
+        [(True, 5)], [(e.key, e.count) for e in dev]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1])
 def test_cuda_grouped_matches_plain(cuda_device, offset):

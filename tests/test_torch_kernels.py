@@ -21,6 +21,7 @@ import torch
 from snappydata_tpu.ops.pallas_group import grouped_reduce as jax_grouped
 from snappydata_tpu.ops.pallas_reduce import masked_kahan_sum as jax_kahan
 from snappydata_tpu_torch.ops import group_reduce as gr
+from snappydata_tpu_torch.ops import kahan_reduce as kr
 from snappydata_tpu_torch.ops.kahan_reduce import masked_kahan_sum
 
 
@@ -75,6 +76,69 @@ def test_kahan_result_is_float64_scalar():
     out = masked_kahan_sum(torch.ones(5), torch.ones(5, dtype=torch.bool))
     assert out.dtype == torch.float64 and out.dim() == 0
     assert float(out) == 5.0
+
+
+@pytest.mark.parametrize("n,offset", [(4099, 1), (4099, 2), (4099, 3),
+                                      (131_071, 1), (131_075, 3)])
+def test_kahan_ragged_offset_views(n, offset):
+    """Views that start 1 - 3 rows into their buffers, over ragged
+    lengths, against the reference on the same rows: mixed signs, so
+    1e-6 * sum(|v|) of the exact sum (+1e-6 absolute)."""
+    rng = np.random.default_rng(20 + n + offset)
+    v = (rng.random(n + offset) * 200 - 100).astype(np.float32)
+    m = rng.random(n + offset) < 0.7
+    got = float(masked_kahan_sum(_t(v)[offset:], _t(m)[offset:]))
+    v, m = v[offset:], m[offset:]
+    exact = float(v.astype(np.float64)[m].sum())
+    bound = 1e-6 * float(np.abs(v.astype(np.float64)[m]).sum()) + 1e-6
+    ref = float(jax_kahan(jnp.asarray(v), jnp.asarray(m)))
+    assert abs(got - exact) <= bound
+    assert abs(got - ref) <= 2 * bound
+
+
+def test_kahan_empty_and_all_false_are_exact_zero():
+    for v, m in ((torch.ones(0), torch.ones(0, dtype=torch.bool)),
+                 (torch.full((1000,), 3.5), torch.zeros(1000,
+                                                        dtype=torch.bool))):
+        out = masked_kahan_sum(v, m)
+        assert out.dtype == torch.float64 and float(out) == 0.0
+
+
+# 96,075,776 rows: the SF 16 lineitem plate of the in-HBM Q6
+@pytest.mark.parametrize("n", [0, 1, 3, 4_194_304, 8_388_608, 96_075_776])
+@pytest.mark.parametrize("sms,per_sm", [(132, 8), (132, 3), (1, 1)])
+def test_kahan_launch_plan(n, sms, per_sm):
+    blocks, threads, steps = kr.kahan_launch_plan(n, sms, per_sm)
+    n4 = n // 4
+    assert 1 <= blocks <= sms * per_sm
+    # the float4 steps cover the input, and none of the threads idles
+    # below its minimum once the grid has more than one block
+    assert blocks * threads * steps >= n4
+    if blocks > 1:
+        assert n4 >= blocks * threads * kr._MIN_STEPS
+    if n4 < threads * kr._MIN_STEPS:
+        assert blocks == 1
+    if n >= 8_388_608 and sms * per_sm > 1:
+        assert blocks > 1
+
+
+@pytest.mark.parametrize("v_off,m_off,want", [
+    (0, 0, (True, 0)), (1, 1, (True, 3)), (2, 2, (True, 2)),
+    (3, 3, (True, 1)), (1, 0, (False, 0)), (0, 2, (False, 0))])
+def test_kahan_layout_peels_to_the_vector_loop(v_off, m_off, want):
+    """Value and mask views at row offsets from 16- and 4-byte aligned
+    bases: offsets that agree modulo 4 rows peel a head and take the
+    float4 loop, others read every row alone."""
+    n = 1001
+    vector, head, n4 = kr.kahan_layout(n, 4096 + 4 * v_off, 64 + m_off)
+    assert (vector, head) == want
+    if vector:
+        assert (4096 + 4 * (v_off + head)) % 16 == 0
+        assert (64 + m_off + head) % 4 == 0
+        assert n4 == (n - head) // 4
+    else:
+        assert n4 == 0
+    assert kr.kahan_layout(2, 4100, 1) == (True, 2, 0)
 
 
 # --- grouped_reduce --------------------------------------------------------
