@@ -6,11 +6,18 @@ the compressed-domain entry points (`utils/tpch_code_domain`), run the
 run-space RLE probe, then load orders and answer TPC-H Q3C (orders LEFT
 JOIN lineitem) and a generic-key join through the device join engine,
 then stream Q1 and Q6 through the tiled out-of-core lane, answer Q1 and
-Q6 over exact DECIMAL(15,2) columns, and run count(DISTINCT) and the
-matmul reduction strategy.
+Q6 over exact DECIMAL(15,2) columns, run count(DISTINCT) and the matmul
+reduction strategy, then TPC-H Q4, Q22 and Q18 (subqueries) and a GROUP
+BY over scalar and string functions.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
+
+With --profile, each timed query also runs once under torch.profiler
+(each session opens with spin kernels that are left out of its figures,
+`profile_run`); every breakdown prints the device's kernel records
+beside the host's CUDA runtime launch records, which are equal when the
+trace kept every kernel (--trace-dir DIR keeps the traces that did not).
 
 Phases, in order; any failure exits non-zero before the result lines:
 
@@ -86,14 +93,33 @@ Phases, in order; any failure exits non-zero before the result lines:
    against `np.unique` of the (group, key) pairs, with no host fallback;
    the `matmul` and `scatter` strategies on one Q1 tile's float sums
    (integer-valued, so the answers must be identical), timed;
-14. the Kahan kernel under torch.profiler on phase 5's and phase 11's
-   inputs, after every timed phase: every device kernel in the trace is
-   its one kernel, the host's CUDA runtime records hold exactly one
-   kernel launch per call and no copy, memset or torch op but the
-   output's allocation, at every shape, in one profiler session each;
-   its mean device time (`device_ms`);
-15. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
-   kernel's `launches` counts its main-path runs of phases 4 and 11.
+14. subqueries and functions, each query with the launch counters set to
+   0 just before it and read just after, once and --reps times warm, with
+   its peak device memory: TPC-H Q4 (EXISTS as a semi join against the
+   late lineitems, a five-group count through the grouped kernel) and Q22
+   (customer loaded at a tenth of orders' rows; the scalar avg through
+   the Kahan kernel, NOT EXISTS as an anti join) over the --sf tables;
+   `FUNCTIONS_QUERY` (year, substr and abs in a GROUP BY) over lineitem;
+   Q18 on a session of its own at SF 1, cut because its IN subquery's
+   result substitutes one literal per passing order (about 4.6M at SF
+   16), with max_groups at 2^21 (the subquery groups every order), the
+   list's length and the subquery's and the outer query's seconds apart.
+   Each answer against numpy (counts exact, sums rel 1e-6), no host
+   fallback, one device join a run (two for Q18); over the phase both
+   kernels must have launched.  The grouped kernel against its plain
+   version on the inputs a warm Q4 run handed it, and the Kahan kernel on
+   those of a warm Q22 run (phase 5's checks and timings);
+15. the Kahan kernel under torch.profiler on phase 5's and phase 11's
+   inputs, in a child process of this script (`--kahan-profile`) that
+   loads them from a file, so that its profiler starts fresh (late in a
+   long process the profiler drops device records, PERF.md §7): one
+   profiler session per shape, in which every device kernel is the Kahan
+   kernel, the device's kernel records and the host's CUDA runtime
+   records each hold exactly one kernel launch per call, and there is no
+   copy, memset or torch op but the output's allocation; its mean device
+   time (`device_ms`);
+16. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+   kernel's `launches` counts its main-path runs of phases 4, 11 and 14.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -233,26 +259,77 @@ def check_rows(what, got, want, rel=1e-6):
                 fail(f"{what}: {a!r} vs {b!r} (rel {rel})")
 
 
-def profile_run(fn, top=8):
+def launch_records(prof):
+    """(host CUDA runtime kernel-launch records, device kernel records)
+    of a finished torch.profiler session: equal when the trace kept
+    every kernel the calls launched."""
+    import torch
+
+    runtime = device = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if not e.key.startswith(("Memcpy", "Memset")):
+                device += e.count
+        elif "LaunchKernel" in e.key or "LaunchCooperativeKernel" in e.key:
+            runtime += e.count
+    return runtime, device
+
+
+TRACE_DIR = []   # set by --trace-dir
+SPIN = "spin_kernel"   # torch.cuda._sleep's kernel
+
+
+def profile_run(fn, top=8, pad_s=1.0, spin_s=0.02):
     """One warm call of `fn` under torch.profiler: wall ms, the summed
     device time of its kernels, the device's idle share of the wall time,
-    and the kernels with the most device time."""
+    the kernels with the most device time, and the runtime launch and
+    device kernel record counts of the call (`whole` when they agree).
+
+    Late in a long process the profiler drops the kernel records of
+    about the first millisecond after a session's first launch (PERF.md
+    §7).  So each session opens with `spin_s` seconds of
+    `torch.cuda._sleep` spin kernels, which take that loss, then `pad_s`
+    seconds of host sleep; the spins are left out of every figure.  With
+    --trace-dir, a trace whose call lost records is also written there as
+    a Chrome trace (`trace` names the file)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        spins = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < spin_s:
+            torch.cuda._sleep(20_000)
+            spins += 1
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(pad_s)
     dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and SPIN not in e.key]
     dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
     dev.sort(key=lambda e: -e.self_device_time_total)
-    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+    runtime, kept = launch_records(prof)
+    runtime -= spins
+    kept -= sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and SPIN in e.key)
+    trace = None
+    if TRACE_DIR and runtime != kept:
+        os.makedirs(TRACE_DIR[0], exist_ok=True)
+        trace = os.path.join(TRACE_DIR[0],
+                             f"profile_{len(os.listdir(TRACE_DIR[0]))}.json")
+        prof.export_chrome_trace(trace)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "trace": trace,
             "idle_share": 1 - dev_ms / wall_ms if dev_ms else None,
+            "runtime_launches": runtime, "trace_kernels": kept,
+            "whole": runtime == kept, "spins": spins,
             "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
                     for e in dev[:top]]}
 
@@ -295,15 +372,14 @@ def kahan_phase(calls, reps):
 
 def kahan_profile(v, w, reps):
     """The Kahan kernel's calls on (v, w) in one torch.profiler session,
-    after one warm-up call.  The host's CUDA runtime records must hold one
-    kernel launch per call and no copy or memset, the only torch op must
-    be the output's allocation (`aten::empty`), every device kernel in the
-    trace must be the Kahan kernel, and the wrapper's launch count must
-    move by the calls.  The device records are not counted against the
-    calls: minutes into a process's life the profiler drops a run of the
-    first kernel records of some sessions (PERF.md §6), while the runtime
-    records stay whole.  `device_ms` is the mean device time of the kernel
-    records the trace kept, `trace_kernels` their number."""
+    after one warm-up call.  The host's CUDA runtime records and the
+    device's kernel records must each hold one kernel launch per call,
+    every device kernel in the trace must be the Kahan kernel, there must
+    be no copy or memset, the only torch op must be the output's
+    allocation (`aten::empty`), and the wrapper's launch count must move
+    by the calls.  Run in a fresh process (`kahan_profile_child`): late in
+    a long one the profiler drops device records (PERF.md §7).
+    `device_ms` is the kernel records' mean device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -325,7 +401,7 @@ def kahan_profile(v, w, reps):
             dev[e.key] = (e.count, e.self_device_time_total / e.count / 1e3)
         else:
             host[e.key] = e.count
-    runtime_launches = sum(c for k, c in host.items() if "LaunchKernel" in k)
+    runtime_launches, _kept = launch_records(prof)
     copies = {k: c for k, c in host.items()
               if "Memcpy" in k or "Memset" in k}
     torch_ops = {k: c for k, c in host.items()
@@ -334,13 +410,53 @@ def kahan_profile(v, w, reps):
              if "kahan_sum_kernel" in k]
     if launched != calls or runtime_launches != calls or copies \
             or torch_ops or len(dev) != 1 or not kahan \
-            or kahan[0][0] > calls:
+            or kahan[0][0] != calls:
         fail(f"masked_kahan_sum: {launched} wrapper launches over {calls} "
              f"calls gave {runtime_launches} runtime kernel launches, "
              f"copies {copies}, torch ops {torch_ops}, device kernels "
              f"{dev}; expected one kernel per call and nothing else")
     return {"device_ms": kahan[0][1], "runtime_launches": runtime_launches,
             "trace_kernels": kahan[0][0], "calls": calls, "rows": v.numel()}
+
+
+def kahan_profile_child(shapes, reps, root):
+    """`kahan_profile` on each (label, (v, w)) of `shapes` in a child
+    process of this script, which loads the inputs from a file under the
+    gitignored build directory; returns (label, result) pairs and fails
+    when the child does."""
+    import torch
+
+    path = os.path.join(root, "snappydata_tpu_torch", "build",
+                        "kahan_profile_inputs.pt")
+    torch.save([(label, v.cpu(), w.cpu()) for label, (v, w) in shapes],
+               path)
+    try:
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--kahan-profile",
+             path, "--reps", str(reps)], capture_output=True, text=True,
+            timeout=600)
+    finally:
+        os.remove(path)
+    if child.returncode != 0:
+        fail(f"the Kahan profile child exited {child.returncode}:\n"
+             f"{child.stdout[-4000:]}{child.stderr[-4000:]}")
+    out = [json.loads(line) for line in child.stdout.splitlines()
+           if line.startswith("{")]
+    if [r["label"] for r in out] != [label for label, _ in shapes]:
+        fail(f"the Kahan profile child printed {child.stdout[-4000:]}")
+    return [(r.pop("label"), r) for r in out]
+
+
+def kahan_profile_main(path, reps):
+    """The child's side of `kahan_profile_child`: one JSON line per
+    shape."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    for label, v, w in torch.load(path):
+        r = kahan_profile(v.cuda(), w.cuda(), reps)
+        log(json.dumps({"label": label, **r}))
+    return 0
 
 
 def grouped_phase(calls, reps):
@@ -958,6 +1074,276 @@ def strategy_timing(calls, reps):
                 reps * 3)}
 
 
+SUBQUERY_COUNTERS = ("host_fallbacks", "join_host_fallbacks",
+                     "join_device_joins", "join_build_sorts",
+                     "join_build_cache_hits")
+# GROUP BY a date part and a string prefix.  The prefix is two characters:
+# substr(l_shipmode, 1, 1) folds 'RAIL' and 'REG AIR' into one value, and
+# a derived group key whose values repeat takes the host path in both
+# packages (grouping runs on dictionary codes)
+FUNCTIONS_QUERY = (
+    "SELECT year(l_shipdate), substr(l_shipmode, 1, 2), "
+    "sum(abs(l_quantity - 25)), count(*) FROM lineitem GROUP BY 1, 2")
+
+
+def timed_query(session, sql, reps):
+    """`sql` through `session.sql` once and `reps` times warm, with the
+    two kernels' launch counters set to 0 just before and read just
+    after; (rows, first s, warm s, counter deltas, launches, the inputs of
+    each kernel's last call, peak device bytes, resident bytes before)."""
+    import torch
+
+    from snappydata_tpu_torch.engine import executor
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.ops import group_reduce as gr
+    from snappydata_tpu_torch.ops import kahan_reduce as kr
+
+    reg = global_registry()
+    before = {k: reg.counter(k) for k in SUBQUERY_COUNTERS}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"grouped_reduce": Recorder(executor.grouped_reduce, ends=True),
+           "masked_kahan_sum": Recorder(executor.masked_kahan_sum,
+                                        ends=True)}
+    executor.grouped_reduce = rec["grouped_reduce"]
+    executor.masked_kahan_sum = rec["masked_kahan_sum"]
+    gr.grouped_reduce.launches = 0
+    kr.masked_kahan_sum.launches = 0
+    times = []
+    try:
+        for _ in range(1 + reps):
+            t0 = time.perf_counter()
+            rows = session.sql(sql).rows()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        executor.grouped_reduce = rec["grouped_reduce"].fn
+        executor.masked_kahan_sum = rec["masked_kahan_sum"].fn
+    launches = {"grouped_reduce": gr.grouped_reduce.launches,
+                "masked_kahan_sum": kr.masked_kahan_sum.launches}
+    calls = {k: r.calls[-1:] for k, r in rec.items()}
+    peak = torch.cuda.max_memory_allocated()
+    moved = {k: reg.counter(k) - before[k] for k in SUBQUERY_COUNTERS}
+    warm = sorted(times[1:])[len(times[1:]) // 2] if reps else times[0]
+    return rows, times[0], warm, moved, launches, calls, peak, resident
+
+
+def value_codes(arr, sample=1000):
+    """(sorted distinct values, int64 code per row) of an object array
+    whose distinct values all occur in its first `sample` rows."""
+    import numpy as np
+
+    names = sorted(set(arr[:sample].tolist()))
+    code = np.full(len(arr), -1, dtype=np.int64)
+    for i, name in enumerate(names):
+        code[arr == name] = i
+    if (code < 0).any():
+        fail("oracle: a value outside the first rows of its column")
+    return names, code
+
+
+def q4_oracle(li, orders, tpch):
+    import numpy as np
+
+    late = li["l_commitdate"] < li["l_receiptdate"]
+    has = np.zeros(len(orders["o_orderkey"]) + 1, dtype=np.bool_)
+    has[li["l_orderkey"][late]] = True
+    od = orders["o_orderdate"]
+    m = (od >= tpch._days("1993-07-01")) & (od < tpch._days("1993-10-01")) \
+        & has[orders["o_orderkey"]]
+    names, code = value_codes(orders["o_orderpriority"])
+    cnt = np.bincount(code[m], minlength=len(names))
+    return [(names[i], int(cnt[i])) for i in range(len(names)) if cnt[i]]
+
+
+def q22_oracle(cust, orders):
+    import numpy as np
+
+    nat, bal = cust["c_nationkey"], cust["c_acctbal"]
+    sel = np.isin(nat, [1, 3, 5, 7])
+    avg = bal[sel & (bal > 0.0)].mean()
+    has = np.zeros(len(cust["c_custkey"]) + 1, dtype=np.bool_)
+    has[orders["o_custkey"]] = True
+    keep = sel & (bal > avg) & ~has[cust["c_custkey"]]
+    cnt = np.bincount(nat[keep], minlength=25)
+    tot = np.bincount(nat[keep], weights=bal[keep], minlength=25)
+    return [(k, int(cnt[k]), float(tot[k])) for k in range(25) if cnt[k]]
+
+
+def q18_oracle(li, orders, cust):
+    """(the IN subquery's length, the top 100 rows, the 100th price)."""
+    import numpy as np
+
+    per = np.bincount(li["l_orderkey"], weights=li["l_quantity"],
+                      minlength=len(orders["o_orderkey"]) + 1)
+    big = np.flatnonzero(per > 150)
+    row = big - 1
+    ck = orders["o_custkey"][row]
+    price = orders["o_totalprice"][row]
+    order = np.lexsort((orders["o_orderdate"][row], -price))[:100]
+    rows = {int(big[i]): (str(cust["c_name"][ck[i] - 1]), int(ck[i]),
+                          int(big[i]), int(orders["o_orderdate"][row[i]]),
+                          float(price[i]), float(per[big[i]]))
+            for i in order}
+    return len(big), rows, float(price[order[-1]])
+
+
+def functions_oracle(li):
+    import numpy as np
+    import pandas as pd
+
+    year = li["l_shipdate"].astype("datetime64[D]").astype(
+        "datetime64[Y]").astype(np.int64) + 1970
+    codes, uniq = pd.factorize(li["l_shipmode"])
+    prefix = sorted({str(u)[:2] for u in uniq})
+    pcode = np.array([prefix.index(str(u)[:2]) for u in uniq])[codes]
+    lo = int(year.min())
+    key = (year - lo) * len(prefix) + pcode
+    cnt = np.bincount(key)
+    tot = np.bincount(key, weights=np.abs(li["l_quantity"] - 25))
+    return [(lo + int(k) // len(prefix), prefix[int(k) % len(prefix)],
+             float(tot[k]), int(cnt[k])) for k in np.flatnonzero(cnt)]
+
+
+def subquery_path(session, tpch, li, orders, args):
+    """Phase 14: Q4, Q22 and the functions query at --sf, Q18 at SF 1 on
+    its own session; returns the two kernels' launches over the phase."""
+    import torch
+
+    from snappydata_tpu_torch import SnappySession, config
+    from snappydata_tpu_torch.catalog import Catalog
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+
+    def run(name, s, sql, reps, expect):
+        rows, first, warm, moved, launches, calls, peak, resident = \
+            timed_query(s, sql, reps)
+        log(f"{name}_counters {json.dumps(moved)} launches "
+            f"{json.dumps(launches)}")
+        log(f"{name} first_s {first:.4f} warm_s {warm:.4f} "
+            f"peak_device_bytes {peak} resident_before_bytes {resident}")
+        if moved["host_fallbacks"] or moved["join_host_fallbacks"]:
+            fail(f"{name} left the device: {moved}")
+        runs = 1 + reps
+        if moved["join_device_joins"] != expect["joins"] * runs:
+            fail(f"{name} ran {moved['join_device_joins']} device joins "
+                 f"over {runs} runs, expected {expect['joins']} a run")
+        for k in ("grouped_reduce", "masked_kahan_sum"):
+            if expect.get(k) and launches[k] < runs:
+                fail(f"{k} launched {launches[k]} times over {name}'s "
+                     f"{runs} runs")
+            total[k] += launches[k]
+        # each kernel the query must launch, against its plain version on
+        # the inputs of its last (warm) call; these launches come after
+        # the counters were read
+        if expect.get("grouped_reduce"):
+            log(f"kernel grouped_reduce on {name} " + json.dumps(
+                grouped_phase(calls["grouped_reduce"], args.reps)))
+        if expect.get("masked_kahan_sum"):
+            log(f"kernel masked_kahan_sum on {name} " + json.dumps(
+                kahan_phase(calls["masked_kahan_sum"], args.reps)))
+        del calls
+        if args.profile:
+            log(f"profile {name} " + json.dumps(profile_run(
+                lambda: s.sql(sql).rows())))
+        return rows
+
+    # Q4: EXISTS -> a semi join of orders against late lineitems, then a
+    # five-group count through the grouped kernel
+    rows = run("q4", session, tpch.Q4, args.reps,
+               {"joins": 1, "grouped_reduce": True})
+    want = q4_oracle(li, orders, tpch)
+    if rows != want:
+        fail(f"Q4 {rows} != numpy {want}")
+    log(f"q4 {json.dumps(rows)}")
+
+    # Q22: customer at a tenth of orders' rows, as gen_orders draws its
+    # customer keys; the scalar avg is a global f32 sum (Kahan kernel),
+    # NOT EXISTS an anti join against orders
+    n_cust = len(orders["o_orderkey"]) // 10
+    t0 = time.perf_counter()
+    cust = tpch.gen_customer(n_cust, args.seed + 2)
+    session.sql(tpch.CUSTOMER_DDL)
+    session.insert_arrays("customer", list(cust.values()))
+    log(f"customer_load_s {time.perf_counter() - t0:.3f} rows {n_cust}")
+    rows = run("q22", session, tpch.Q22, args.reps,
+               {"joins": 1, "masked_kahan_sum": True})
+    check_rows("Q22 vs numpy", rows, q22_oracle(cust, orders), 1e-6)
+    log(f"q22 {json.dumps(rows)}")
+    del cust
+
+    # scalar and string functions in a GROUP BY, over lineitem
+    rows = run("functions", session, FUNCTIONS_QUERY, args.reps,
+               {"joins": 0})
+    check_rows("functions query vs numpy", sorted(rows, key=lambda r: r[:2]),
+               functions_oracle(li), 1e-6)
+    log(f"functions {json.dumps(sorted(rows, key=lambda r: r[:2]))}")
+
+    # Q18 on its own session at SF 1: its IN subquery's result substitutes
+    # a literal list (about 19% of orders: 4.6M literals at SF 16)
+    n_l, n_o = ROWS_PER_SF, ORDERS_PER_SF
+    li18 = tpch.gen_lineitem(n_l, args.seed)
+    o18 = tpch.gen_orders(n_o, n_o // 10, args.seed + 1)
+    c18 = tpch.gen_customer(n_o // 10, args.seed + 2)
+    s18 = SnappySession(catalog=Catalog())
+    for ddl, name, cols in ((tpch.LINEITEM_DDL, "lineitem", li18),
+                            (tpch.ORDERS_DDL, "orders", o18),
+                            (tpch.CUSTOMER_DDL, "customer", c18)):
+        s18.sql(ddl)
+        s18.insert_arrays(name, list(cols.values()))
+    sub = []
+    run_sub = s18._run_subquery
+
+    def timed_subquery(plan, params):
+        t0 = time.perf_counter()
+        res = run_sub(plan, params)
+        torch.cuda.synchronize()
+        sub.append((time.perf_counter() - t0, res.num_rows))
+        return res
+
+    s18._run_subquery = timed_subquery
+    q18_reps = min(args.reps, 1)
+    # the subquery groups every order (1.5M groups) and the outer query
+    # every passing one: past the default max_groups (65,536) the generic
+    # group-key lane reroutes to the host in both packages
+    saved_groups = props.max_groups
+    props.max_groups = 1 << 21
+    try:
+        t0 = time.perf_counter()
+        rows = run("q18", s18, tpch.Q18, q18_reps, {"joins": 2})
+        total_s = time.perf_counter() - t0
+    finally:
+        props.max_groups = saved_groups
+    n_in, want, cut = q18_oracle(li18, o18, c18)
+    sub_s = sum(t for t, _ in sub)
+    log(f"q18 sf 1 reduced (the IN subquery's result substitutes one "
+        f"literal per passing order: about 4.6M at SF 16) in_list_len "
+        f"{sub[0][1]} subquery_s {json.dumps([round(t, 4) for t, _ in sub])}"
+        f" outer_s {(total_s - sub_s) / (1 + q18_reps):.4f} per run")
+    if sub[0][1] != n_in or len(rows) != 100:
+        fail(f"Q18: IN list {sub[0][1]} (numpy {n_in}), {len(rows)} rows")
+    prices = [r[4] for r in rows]
+    if any(a < b for a, b in zip(prices, prices[1:])) \
+            or min(prices) < cut * (1 - 1e-6):
+        fail("Q18 rows are not the 100 highest prices in order")
+    for r in rows:
+        w = want.get(r[2])
+        if w is None:
+            if r[4] > cut * (1 + 1e-6):
+                fail(f"Q18 row {r} is not in numpy's top 100")
+            continue
+        check_rows("Q18 vs numpy", [r], [w], 1e-6)
+    del s18, li18, o18, c18
+    log(f"q18_first_rows {json.dumps(rows[:3])}")
+    log("answers ok: Q4, Q22, the functions query and Q18 match numpy, "
+        "on the device")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=16.0,
@@ -965,17 +1351,27 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm Q1 and Q6, and one warm "
-                         "code_domain_q6 / q1, with torch.profiler")
+                    help="also trace one warm run of each timed query "
+                         "with torch.profiler")
     ap.add_argument("--ptxas", action="store_true",
                     help="build with -Xptxas -v and print each kernel's "
                          "registers, shared memory and spills")
+    ap.add_argument("--trace-dir", metavar="DIR",
+                    help="with --profile, write each trace that lost kernel "
+                         "records to DIR as a Chrome trace")
+    ap.add_argument("--kahan-profile", metavar="PATH",
+                    help="child mode of phase 15: profile the Kahan kernel "
+                         "on the inputs saved in PATH")
     args = ap.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if args.kahan_profile:
+        return kahan_profile_main(args.kahan_profile, args.reps)
+    if args.trace_dir:
+        TRACE_DIR.append(os.path.abspath(args.trace_dir))
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     try:
@@ -1324,13 +1720,26 @@ def main() -> int:
     log(f"strategy_timing {json.dumps(strat)}")
     log("answers ok: count(DISTINCT) matches numpy; matmul equals scatter")
 
-    # 14. the Kahan kernel under torch.profiler, after every timed phase
-    for label, (v, w) in kahan_shapes:
+    # 14. subqueries and functions on the card: Q4, Q22 and the functions
+    # query at --sf, Q18 at SF 1
+    try:
+        sub_launches = subquery_path(session, tpch, li, orders, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"subquery path: {type(e).__name__}: {e}")
+    log(f"subquery_path_launches {json.dumps(sub_launches)}")
+    for name, count in sub_launches.items():
+        if count < 1:
+            fail(f"{name} did not launch on the subquery path")
+        launches[name] += count
+
+    # 15. the Kahan kernel under torch.profiler, in a child process whose
+    # profiler starts fresh
+    for label, r in kahan_profile_child(kahan_shapes, args.reps, root):
         log(f"kernel masked_kahan_sum profile on the {label} "
-            f"{json.dumps(kahan_profile(v, w, args.reps))}")
+            f"{json.dumps(r)}")
     del kahan_shapes, rec_k
 
-    # 15. result lines
+    # 16. result lines
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",

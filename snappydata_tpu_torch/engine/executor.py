@@ -59,7 +59,8 @@ import torch
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch import types as T
 from snappydata_tpu_torch.engine import hosteval
-from snappydata_tpu_torch.engine.exprs import (CompileError, DVal,
+from snappydata_tpu_torch.engine.exprs import (STRING_VALUE_FUNCS,
+                                               CompileError, DVal,
                                                ExprBuilder, Runtime,
                                                _is_exact_decimal, _or_null)
 from snappydata_tpu_torch.engine.result import Result
@@ -289,8 +290,7 @@ class CompiledPlan:
         # builder just fetched
         aux = [_upload(b(params), device) for b in self.aux_builders]
         static = tuple(p() for p in self.static_providers)
-        pvals = tuple(_param_scalar(v, device) for v in params)
-        return rels, aux, static, pvals
+        return rels, aux, static, _DeviceParams(params, device)
 
     def run(self, params: Tuple, device: torch.device):
         """Bind + run; returns ((mask, [(value, null), ...]), overflow)
@@ -469,6 +469,29 @@ def _param_scalar(v, device: torch.device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
+class _DeviceParams:
+    """The tokenized literals of one execution as 0-dim tensors on the
+    device, each uploaded on its first read.  A long IN list (an IN
+    subquery's result) reaches the device only through its sorted aux
+    tensor, so its thousands of params are never uploaded one by one."""
+
+    __slots__ = ("_vals", "_device", "_cache")
+
+    def __init__(self, vals: Tuple, device: torch.device):
+        self._vals = vals
+        self._device = device
+        self._cache: Dict[int, torch.Tensor] = {}
+
+    def __len__(self) -> int:
+        return len(self._vals)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        t = self._cache.get(i)
+        if t is None:
+            t = self._cache[i] = _param_scalar(self._vals[i], self._device)
+        return t
+
+
 # ==========================================================================
 # Compiler
 # ==========================================================================
@@ -627,7 +650,7 @@ class Compiler:
             return self._emit_join(plan)
 
         raise CompileError(
-            f"node {type(plan).__name__} is not ported to the device path")
+            f"node {type(plan).__name__} not supported in device region")
 
     # -- join --------------------------------------------------------------
 
@@ -1262,9 +1285,14 @@ class Compiler:
             base_g = g.child if isinstance(g, ast.Alias) else g
             if gt.name == "string":
                 provider = _derived_dict_provider(g, scope)
-                if provider is None or not isinstance(base_g, ast.Col):
+                if provider is None:
                     raise CompileError(
                         "string group key without a dictionary: host path")
+                if not isinstance(base_g, ast.Col):
+                    # grouping is by CODE: a non-injective derived value
+                    # map (upper() folding 'a' and 'A') would split one
+                    # group in two — checked at every bind, host path if so
+                    provider = _unique_dict_or_host(provider)
                 si = self._add_static(
                     lambda p=provider: _padded_size(len(p())))
                 key_infos.append(("dict", si, provider))
@@ -2002,7 +2030,34 @@ def _derived_dict_provider(e: ast.Expr, scope):
     if isinstance(base, ast.Col) and base.dtype is not None \
             and base.dtype.name == "string":
         return scope[base.index].dict_provider
+    if isinstance(base, ast.Func) and base.name in STRING_VALUE_FUNCS:
+        # derivable transforms (concat(s, '_x'), upper(s), ...) share the
+        # base column's codes with a value-mapped dictionary
+        builder = ExprBuilder({i: s.dtype for i, s in enumerate(scope)},
+                              {}, {})
+        try:
+            ci, fn = builder._string_value_transform(base)
+        except CompileError:
+            return None
+        if ci is None or scope[ci].dict_provider is None:
+            return None
+        prov = scope[ci].dict_provider
+        return lambda: np.array([fn(v) for v in prov()], dtype=object)
     return None
+
+
+def _unique_dict_or_host(provider):
+    """Wrap a derived-dictionary provider: grouping relies on a code to
+    value bijection, so duplicate derived values reroute to the host."""
+    def wrapped():
+        d = provider()
+        vals = d.tolist()
+        if len(set(vals)) != len(vals):
+            raise CompileError(
+                "derived group dictionary is not value-unique: host path")
+        return d
+
+    return wrapped
 
 
 def _padded_size(n: int) -> int:

@@ -1,22 +1,27 @@
 """Expression -> tensor lowering with three-valued (SQL NULL) logic.
 
-Port of snappydata_tpu/engine/exprs.py, cut to the subset the analytic
-scan and the join slice need (TPC-H Q1/Q3/Q5/Q6/Q10/Q12/Q14 and the
-README Quick start): column refs, tokenized literals as runtime scalars,
-+ - * / %, comparisons, BETWEEN, AND/OR/NOT with Kleene logic, IS NULL,
-CASE WHEN, casts between numeric and decimal types, numeric IN lists,
-string = / < / IN / LIKE through host-built dictionary lookup tables,
-the code/run-domain compare lane (`_compressed_cmp`) and exact decimals
-as scaled int64 values (`_dec_*`).  Anything else raises CompileError,
-which the executor turns into the reference's host fallback
-(engine/hosteval.py).
+Port of snappydata_tpu/engine/exprs.py without its ARRAY / MAP / STRUCT
+functions and UDFs (the port's catalog holds no such columns yet):
+column refs, tokenized literals as runtime scalars, + - * / %,
+comparisons, BETWEEN, AND/OR/NOT with Kleene logic, IS NULL, CASE WHEN,
+casts, IN lists (a literal list longer than 8 as a sorted probe), string
+= / < / IN / LIKE through host-built dictionary lookup tables, the scalar
+numeric and date functions (`_emit_func`, civil-calendar integer math),
+string functions as derived dictionaries and int LUTs
+(`_emit_string_func`), the code/run-domain compare lane
+(`_compressed_cmp`) and exact decimals as scaled int64 values (`_dec_*`).
+Anything else raises CompileError, which the executor turns into the
+reference's host fallback (engine/hosteval.py).
 
 Design, as in the reference:
 - Values are (value, null) pairs; null masks exist only where a source
   is nullable.
 - Strings never reach the device: a string column is int32 dictionary
   codes, and a predicate `str_col OP literal` evaluates ONCE over the host
-  dictionary into a bool lookup table applied as one gather.
+  dictionary into a bool lookup table applied as one gather.  A string
+  function of one column (upper(concat(s, '_x'))) keeps the column's codes
+  and carries a derived dictionary, or an int LUT for length / instr /
+  ascii / to_date.
 - Tokenized literals arrive as 0-dim tensors, so a changed literal reuses
   the compiled plan.
 
@@ -28,6 +33,8 @@ at execution time over the bound plates.  PyTorch runs eagerly, so
 
 from __future__ import annotations
 
+import datetime
+import functools
 import re
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -45,6 +52,16 @@ from snappydata_tpu_torch.storage.device_decode import (code_cmp_mask,
 
 class CompileError(Exception):
     pass
+
+
+# string-valued functions computable per dictionary value on the host and
+# carried as derived dictionaries (the codes never leave the device)
+STRING_VALUE_FUNCS = frozenset(
+    {"upper", "lower", "trim", "ltrim", "rtrim", "substr", "substring",
+     "replace", "concat", "lpad", "rpad", "initcap", "repeat", "reverse",
+     "translate", "split_part"})
+# string functions with an int (DATE for to_date) value: int LUT gathers
+_STRING_INT_FUNCS = ("length", "instr", "ascii", "to_date")
 
 
 class DVal:
@@ -337,22 +354,23 @@ class ExprBuilder:
         self.aux_builders.append(builder)
         return len(self.aux_builders) - 1
 
-    def _string_pred_lut(self, col_idx: int,
-                         fn: Callable[[np.ndarray, tuple], np.ndarray]) -> int:
-        """Register a bool LUT over the column's dictionary, padded to a
+    def _dict_lut(self, col_idx: int,
+                  fn: Callable[[np.ndarray, tuple], np.ndarray],
+                  dtype=np.bool_) -> int:
+        """Register a LUT of `dtype` over the column's dictionary (one
+        entry per value, `fn(dictionary, params)`), padded with zeros to a
         power of two so dictionary growth rarely changes its shape."""
         if col_idx not in self.dict_getters:
             raise CompileError("string column without a dictionary")
         getter = self.dict_getters[col_idx]
 
         def build(params):
-            d = getter()
-            lut = fn(d, params).astype(np.bool_)
+            lut = np.asarray(fn(getter(), params)).astype(dtype)
             n = max(1, len(lut))
             padded = 1 << (n - 1).bit_length()
             if padded > len(lut):
                 lut = np.concatenate([lut, np.zeros(padded - len(lut),
-                                                    dtype=np.bool_)])
+                                                    dtype=dtype)])
             return lut
 
         return self._register_aux(build)
@@ -390,7 +408,10 @@ class ExprBuilder:
         if isinstance(e, (ast.ParamLiteral, ast.Param)):
             pos, dtype = e.pos, e.dtype
             if dtype is not None and dtype.name == "string":
-                raise CompileError(
+                # string params only appear inside string predicates and
+                # derived dictionaries, which read them at bind time; a
+                # bare string param has no device value
+                return _raise_on_run(
                     "string literal outside a dictionary predicate")
 
             def run_param(rt: Runtime) -> DVal:
@@ -447,22 +468,8 @@ class ExprBuilder:
         if isinstance(e, ast.Case):
             return self._emit_case(e)
 
-        if isinstance(e, ast.Func) and e.name in ast.AGG_FUNCS:
-            raise CompileError(
-                f"aggregate {e.name} outside aggregation context")
-
-        if isinstance(e, ast.Func) and e.name == "sqrt" \
-                and len(e.args) == 1:
-            # the one scalar function lowered so far: stddev's finish step
-            # (as the reference, in the plates' float width)
-            child = _dec_wrap_unscaled(self.emit(e.args[0]))
-
-            def run_sqrt(rt: Runtime) -> DVal:
-                c = child(rt)
-                return DVal(torch.sqrt(c.value.to(float_dtype())), c.null,
-                            T.DOUBLE)
-
-            return run_sqrt
+        if isinstance(e, ast.Func):
+            return self._emit_func(e)
 
         raise CompileError(f"{type(e).__name__} "
                            f"{getattr(e, 'name', '')} is not ported to the "
@@ -480,7 +487,10 @@ class ExprBuilder:
 
             return run_null
         if dtype is not None and dtype.name == "string":
-            raise CompileError(
+            # a function may emit its string-literal arguments without
+            # running them (substr, replace, concat read them at compile
+            # time): only running one raises
+            return _raise_on_run(
                 "string literal outside a dictionary predicate")
         eff = dtype or (T.DOUBLE if isinstance(value, float) else T.LONG)
         if _is_exact_decimal(eff):
@@ -515,13 +525,20 @@ class ExprBuilder:
     def _emit_binop(self, e: ast.BinOp) -> Callable[[Runtime], DVal]:
         op = e.op
         # --- string predicate vs literal -> dictionary LUT ---
+        # (a derivable string expression of one column compares through a
+        # LUT over that column's dictionary: upper(s) = 'XYZ')
         if op in _CMP:
             lcol = self._string_operand_info(e.left)
             rcol = self._string_operand_info(e.right)
-            if lcol is not None and self._is_literalish(e.right):
-                return self._emit_string_cmp(lcol, op, e.right)
-            if rcol is not None and self._is_literalish(e.left):
-                return self._emit_string_cmp(rcol, _FLIP_CMP[op], e.left)
+            if self._is_literalish(e.right):
+                ci, fnt = self._try_string_transform(e.left)
+                if ci is not None:
+                    return self._emit_string_cmp(ci, op, e.right, fnt)
+            if self._is_literalish(e.left):
+                ci, fnt = self._try_string_transform(e.right)
+                if ci is not None:
+                    return self._emit_string_cmp(ci, _FLIP_CMP[op], e.left,
+                                                 fnt)
             if lcol is not None and rcol is not None:
                 return self._emit_string_colcmp(lcol, rcol, op)
             if lcol is not None or rcol is not None:
@@ -608,18 +625,29 @@ class ExprBuilder:
 
         return run_bin
 
-    def _emit_string_cmp(self, col_idx: int, op: str, lit_expr
-                         ) -> Callable[[Runtime], DVal]:
+    def _try_string_transform(self, e: ast.Expr):
+        """(col_idx, value fn) when e is a derivable string expression of
+        one column (a raw column included), else (None, None)."""
+        try:
+            ci, fnt = self._string_value_transform(e)
+        except CompileError:
+            return None, None
+        return (ci, fnt) if ci is not None else (None, None)
+
+    def _emit_string_cmp(self, col_idx: int, op: str, lit_expr,
+                         transform=None) -> Callable[[Runtime], DVal]:
         get_lit = (lambda params: self._param_value(lit_expr, params))
         ops = {"=": np.equal, "!=": np.not_equal,
                "<": np.less, "<=": np.less_equal,
                ">": np.greater, ">=": np.greater_equal}
         cmp = ops[op]
+        fnt = transform or (lambda v: v)
 
         def one(v, params):
-            return v is not None and bool(cmp(v, get_lit(params)))
+            tv = fnt(v)
+            return tv is not None and bool(cmp(tv, get_lit(params)))
 
-        aux_i = self._string_pred_lut(
+        aux_i = self._dict_lut(
             col_idx, lambda d, params: np.array(
                 [one(v, params) for v in d],
                 dtype=np.bool_) if len(d) else np.zeros(0, np.bool_))
@@ -646,15 +674,20 @@ class ExprBuilder:
 
         return run
 
-    def _lut_runner(self, col_idx: int, aux_i: int
+    def _lut_runner(self, col_idx: int, aux_i: int,
+                    out_type: T.DataType = T.BOOLEAN, tdt=None
                     ) -> Callable[[Runtime], DVal]:
+        """Gather a `_dict_lut` by the column's codes: a value of
+        `out_type` per row (cast to the torch dtype `tdt` when given),
+        NULL where the column is."""
         def run(rt: Runtime) -> DVal:
             c = rt.cols[col_idx]
-            lut = rt.aux[aux_i]
             codes = c.value
-            v = torch.index_select(lut, 0, codes.reshape(-1)) \
+            v = torch.index_select(rt.aux[aux_i], 0, codes.reshape(-1)) \
                 .reshape(codes.shape)
-            return DVal(v, c.null, T.BOOLEAN)
+            if tdt is not None:
+                v = v.to(tdt)
+            return DVal(v, c.null, out_type)
 
         return run
 
@@ -664,7 +697,7 @@ class ExprBuilder:
         if col_idx is not None:
             getters = [(lambda params, x=v: self._param_value(x, params))
                        for v in e.values]
-            aux_i = self._string_pred_lut(
+            aux_i = self._dict_lut(
                 col_idx,
                 lambda d, params: np.isin(
                     np.array([x if x is not None else "" for x in d]),
@@ -679,8 +712,9 @@ class ExprBuilder:
 
             return run_negated
 
-        if len(e.values) > 8:
-            raise CompileError("large IN list: host path")
+        if len(e.values) > 8 and all(self._is_literalish(v)
+                                     for v in e.values):
+            return self._emit_in_sorted(e)
         child = _dec_wrap_unscaled(self.emit(e.child))
         values = [_dec_wrap_unscaled(self.emit(v)) for v in e.values]
 
@@ -700,22 +734,67 @@ class ExprBuilder:
 
         return run_in
 
+    def _emit_in_sorted(self, e: ast.InList) -> Callable[[Runtime], DVal]:
+        """A literal list longer than 8 (an IN subquery's result): the
+        values sort once per parameter set into an aux tensor padded to a
+        power of two by repeating the last value, and each row probes it
+        with searchsorted — O(log k) work a row, one aux upload a bind.
+        Float64 when either side is a float, even on CUDA: float32 would
+        alias distinct integer keys; int64 otherwise."""
+        negated = e.negated
+        getters = [(lambda params, x=v: self._param_value(x, params))
+                   for v in e.values]
+
+        def build_sorted(params):
+            vals = np.asarray([g(params) for g in getters])
+            vals = np.sort(vals.astype(np.float64)
+                           if vals.dtype == object else vals)
+            pad = (1 << (len(vals) - 1).bit_length()) - len(vals)
+            if pad:
+                vals = np.concatenate([vals, np.full(pad, vals[-1])])
+            return vals
+
+        aux_i = self._register_aux(build_sorted)
+        child = _dec_wrap_unscaled(self.emit(e.child))
+
+        def run_in_sorted(rt: Runtime) -> DVal:
+            c = child(rt)
+            table = rt.aux[aux_i]
+            # compare in the PROMOTED dtype: truncating a float probe to
+            # an int table would produce false positives
+            if c.value.is_floating_point() or table.is_floating_point():
+                table_c = table.to(torch.float64)
+                cv = c.value.to(torch.float64)
+            else:
+                table_c = table.to(torch.int64)
+                cv = c.value.to(torch.int64)
+            pos = torch.searchsorted(table_c, cv.contiguous()).clamp_(
+                0, table_c.shape[0] - 1)
+            hit = table_c[pos] == cv
+            if negated:
+                hit = ~hit
+            return DVal(hit, c.null, T.BOOLEAN)
+
+        return run_in_sorted
+
     def _emit_like(self, e: ast.Like) -> Callable[[Runtime], DVal]:
-        """`str_col [NOT] LIKE pattern`: one bool LUT over the column's
-        dictionary, like every string predicate."""
-        col_idx = self._string_operand_info(e.child)
+        """`str_expr [NOT] LIKE pattern`: one bool LUT over the column's
+        dictionary, like every string predicate (the expression may be a
+        derivable transform of the column: lower(s) LIKE 'abc%')."""
+        col_idx, fnt = self._try_string_transform(e.child)
         if col_idx is None:
             raise CompileError("LIKE requires a string column")
         # SQL LIKE: % = any run, _ = any single char
         regex = re.compile(
             "^" + re.escape(e.pattern).replace("%", ".*").replace("_", ".")
-            + "$", re.DOTALL)
+            .replace("\\%", "%").replace("\\_", "_") + "$", re.DOTALL)
         negated = e.negated
 
         def one(v):
-            return v is not None and regex.match(v) is not None
+            tv = fnt(v)
+            return tv is not None and regex.match(tv) is not None
 
-        aux_i = self._string_pred_lut(
+        aux_i = self._dict_lut(
             col_idx, lambda d, params: np.array([one(v) for v in d],
                                                 dtype=np.bool_))
         base = self._lut_runner(col_idx, aux_i)
@@ -769,10 +848,13 @@ class ExprBuilder:
 
     def _emit_cast(self, e: ast.Cast) -> Callable[[Runtime], DVal]:
         to = e.to
-        if to.name == "string" or not (
-                T.is_numeric(to) or to.name == "boolean"):
-            raise CompileError(f"CAST to {to} is not ported to the device "
-                               f"path")
+        if to.name == "string":
+            raise CompileError("CAST to string not supported on device")
+        if isinstance(to, (T.ArrayType, T.MapType, T.StructType)):
+            raise CompileError(f"CAST to {to} not supported on device")
+        src_col = self._string_operand_info(e.child)
+        if src_col is not None:
+            return self._emit_string_cast(src_col, to)
         child = self.emit(e.child)
         tdt = T.torch_dtype(to.device_dtype())
         to_exact = _is_exact_decimal(to)
@@ -809,6 +891,450 @@ class ExprBuilder:
         return run_cast
 
 
+    def _emit_string_cast(self, col_idx: int, to: T.DataType
+                          ) -> Callable[[Runtime], DVal]:
+        """CAST(string column AS numeric / DATE / TIMESTAMP / BOOLEAN):
+        each dictionary value converts once on the host, by the host
+        evaluator's own rule (`astype` of the target's numpy type), into
+        a LUT gathered by code.  A value that does not convert reroutes
+        the query to the host path, which raises as the host does."""
+        if _is_exact_decimal(to):
+            raise CompileError("CAST of a string to an exact decimal: "
+                               "host path")
+        np_dt = np.dtype(to.np_dtype)
+
+        def convert(d, params):
+            present = np.array([v is not None for v in d], dtype=np.bool_)
+            lut = np.zeros(len(d), dtype=np_dt)
+            try:
+                lut[present] = np.asarray(
+                    [v for v in d if v is not None],
+                    dtype=object).astype(np_dt)
+            except (ValueError, TypeError, OverflowError) as ex:
+                raise CompileError(
+                    f"CAST of a string that does not convert: {ex}")
+            return lut
+
+        aux_i = self._dict_lut(col_idx, convert, np_dt)
+        return self._lut_runner(col_idx, aux_i, to,
+                                T.torch_dtype(to.device_dtype()))
+
+    def _string_value_transform(self, e: ast.Expr):
+        """(col_idx | None, fn: dictionary value -> derived value) for a
+        string-valued expression computable from ONE column's dictionary
+        values plus literals, compositions like upper(concat(s, '_x'))
+        included.  col_idx None means literal-only.  Raises CompileError
+        when not derivable (two columns, non-literal args, ...)."""
+        if isinstance(e, ast.Alias):
+            return self._string_value_transform(e.child)
+        if isinstance(e, ast.Lit):
+            lit = None if e.value is None else str(e.value)
+            return None, lambda v: lit
+        ci = self._string_operand_info(e)
+        if ci is not None:
+            return ci, lambda v: v
+        if not isinstance(e, ast.Func) or \
+                e.name not in STRING_VALUE_FUNCS:
+            raise CompileError("not a derivable string expression")
+        name = e.name
+        if name == "concat":
+            parts = [self._string_value_transform(a) for a in e.args]
+            cis = {c for c, _ in parts if c is not None}
+            if len(cis) > 1:
+                raise CompileError("concat over two string columns")
+
+            def fn_concat(v, parts=parts):
+                out = []
+                for _, pf in parts:
+                    pv = pf(v)
+                    if pv is None:   # SQL concat: any NULL -> NULL
+                        return None
+                    out.append(pv)
+                return "".join(out)
+
+            return (cis.pop() if cis else None), fn_concat
+        ci, base = self._string_value_transform(e.args[0])
+        extra = []
+        for a in e.args[1:]:
+            if not isinstance(a, ast.Lit):
+                raise CompileError(f"{name} with non-literal args")
+            extra.append(a.value)
+        if name == "replace" and (not extra or extra[0] is None or (
+                len(extra) > 1 and extra[1] is None)):
+            # NULL search / replacement -> NULL result (Spark): the host
+            # path implements that
+            raise CompileError("replace with NULL argument")
+        if name == "split_part" and len(extra) > 1 \
+                and extra[1] is not None and int(extra[1]) == 0:
+            raise CompileError("split_part index must not be 0")
+        op = functools.partial(_string_value_op, name, extra)
+        return ci, lambda v: op(base(v))
+
+    def _emit_func(self, e: ast.Func) -> Callable[[Runtime], DVal]:
+        """Scalar functions (ref snappydata_tpu/engine/exprs.py
+        `_emit_func`, without its ARRAY / MAP / STRUCT branches and UDFs,
+        which the port's catalog does not hold yet)."""
+        name = e.name
+        if name in ast.AGG_FUNCS:
+            raise CompileError(
+                f"aggregate {name} outside aggregation context")
+        # scalar functions consume exact decimals in the plain float
+        # domain: their value math (round, sqrt, coalesce with literals)
+        # is blind to the scaled-int representation.  Aggregates never
+        # reach here (the executor sums them exactly).
+        args = [_dec_wrap_unscaled(self.emit(a)) for a in e.args]
+
+        if name == "coalesce":
+            def run_coalesce(rt: Runtime) -> DVal:
+                vals = [a(rt) for a in args]
+                out = vals[-1]
+                acc_v, acc_n = out.value, out.null
+                for v in reversed(vals[:-1]):
+                    dt = promote(acc_v.dtype, v.value.dtype)
+                    isnull = v.null if v.null is not None else \
+                        torch.zeros((), dtype=torch.bool, device=rt.device)
+                    acc_v = torch.where(isnull, acc_v.to(dt),
+                                        v.value.to(dt))
+                    # NULL only where this argument and every later one
+                    # are NULL; a never-NULL argument ends the chain
+                    acc_n = None if v.null is None or acc_n is None \
+                        else (v.null & acc_n)
+                return DVal(acc_v, acc_n, vals[0].dtype)
+
+            return run_coalesce
+
+        if name == "abs":
+            return self._unary_math(args[0], torch.abs, keep_type=True)
+        if name == "sqrt":
+            return self._unary_math(args[0], lambda x: torch.sqrt(
+                x.to(float_dtype())))
+        if name in ("ln", "log"):
+            return self._unary_math(args[0], lambda x: torch.log(
+                x.to(float_dtype())))
+        if name == "exp":
+            return self._unary_math(args[0], lambda x: torch.exp(
+                x.to(float_dtype())))
+        if name == "round":
+            return self._emit_round(e, args)
+        if name in ("pow", "power"):
+            def run_pow(rt: Runtime) -> DVal:
+                a, b = args[0](rt), args[1](rt)
+                av = a.value.to(float_dtype())
+                dt = promote(av.dtype, b.value.dtype)
+                return DVal(torch.pow(av.to(dt), b.value.to(dt)),
+                            _or_null(a.null, b.null), T.DOUBLE)
+
+            return run_pow
+
+        if name in _DATE_PARTS:
+            part = "day" if name == "dayofmonth" else name
+
+            def run_datepart(rt: Runtime) -> DVal:
+                c = args[0](rt)
+                return DVal(_date_part(part, _to_days(c)).to(torch.int32),
+                            c.null, T.INT)
+
+            return run_datepart
+
+        if name in ("hour", "minute", "second"):
+            divisor, modulo = {"hour": (3_600_000_000, 24),
+                               "minute": (60_000_000, 60),
+                               "second": (1_000_000, 60)}[name]
+
+            def run_timepart(rt: Runtime) -> DVal:
+                c = args[0](rt)
+                if c.dtype is not None and c.dtype.name == "timestamp":
+                    out = (c.value // divisor) % modulo
+                else:  # DATE has no time component
+                    out = torch.zeros_like(c.value)
+                return DVal(out.to(torch.int32), c.null, T.INT)
+
+            return run_timepart
+
+        if name in ("date_add", "date_sub"):
+            sign = 1 if name == "date_add" else -1
+
+            def run_dateadd(rt: Runtime) -> DVal:
+                a, b = args[0](rt), args[1](rt)
+                out = _to_days(a) + sign * b.value.to(torch.int32)
+                return DVal(out.to(torch.int32), _or_null(a.null, b.null),
+                            T.DATE)
+
+            return run_dateadd
+
+        if name == "datediff":
+            def run_datediff(rt: Runtime) -> DVal:
+                a, b = args[0](rt), args[1](rt)
+                return DVal((_to_days(a) - _to_days(b)).to(torch.int32),
+                            _or_null(a.null, b.null), T.INT)
+
+            return run_datediff
+
+        if name == "add_months":
+            def run_addmonths(rt: Runtime) -> DVal:
+                a, b = args[0](rt), args[1](rt)
+                y, m, d = _civil_from_days(_to_days(a))
+                m0 = y.to(torch.int64) * 12 + (m - 1) + \
+                    b.value.to(torch.int64)
+                y2 = (m0 // 12).to(torch.int32)
+                m2 = (m0 % 12 + 1).to(torch.int32)
+                d2 = torch.minimum(d, _days_in_month(y2, m2))
+                return DVal(_days_from_civil(y2, m2, d2),
+                            _or_null(a.null, b.null), T.DATE)
+
+            return run_addmonths
+
+        if name == "last_day":
+            def run_lastday(rt: Runtime) -> DVal:
+                c = args[0](rt)
+                y, m, _ = _civil_from_days(_to_days(c))
+                return DVal(_days_from_civil(y, m, _days_in_month(y, m)),
+                            c.null, T.DATE)
+
+            return run_lastday
+
+        if name == "trunc":
+            fmt = e.args[1].value if len(e.args) > 1 and \
+                isinstance(e.args[1], ast.Lit) else None
+            if fmt is None:
+                raise CompileError("trunc needs a literal format")
+            fmt = str(fmt).upper()
+            if fmt not in _TRUNC_FORMATS:
+                raise CompileError(f"trunc format {fmt!r}")
+
+            def run_trunc(rt: Runtime) -> DVal:
+                c = args[0](rt)
+                days = _to_days(c)
+                y, m, _ = _civil_from_days(days)
+                one = torch.ones_like(m)
+                if fmt in ("YEAR", "YYYY", "YY"):
+                    out = _days_from_civil(y, one, one)
+                elif fmt in ("MONTH", "MM", "MON"):
+                    out = _days_from_civil(y, m, one)
+                elif fmt in ("QUARTER", "Q"):
+                    out = _days_from_civil(y, ((m - 1) // 3) * 3 + 1, one)
+                else:  # WEEK: the ISO Monday
+                    out = days - (days + 3) % 7
+                return DVal(out.to(torch.int32), c.null, T.DATE)
+
+            return run_trunc
+
+        if name == "months_between":
+            def run_mb(rt: Runtime) -> DVal:
+                a, b = args[0](rt), args[1](rt)
+                fd = float_dtype()
+                y1, m1, d1 = _civil_from_days(_to_days(a))
+                y2, m2, d2 = _civil_from_days(_to_days(b))
+                whole = ((y1 - y2) * 12 + (m1 - m2)).to(fd)
+                same = (d1 == d2) | ((d1 == _days_in_month(y1, m1))
+                                     & (d2 == _days_in_month(y2, m2)))
+                frac = torch.where(same, torch.zeros((), dtype=fd,
+                                                     device=rt.device),
+                                   (d1 - d2).to(fd) / 31.0)
+                return DVal(whole + frac, _or_null(a.null, b.null),
+                            T.DOUBLE)
+
+            return run_mb
+
+        if name == "unix_timestamp":
+            def run_unix(rt: Runtime) -> DVal:
+                c = args[0](rt)
+                if c.dtype is not None and c.dtype.name == "timestamp":
+                    out = c.value // 1_000_000
+                else:
+                    out = c.value.to(torch.int64) * 86_400
+                return DVal(out.to(torch.int64), c.null, T.LONG)
+
+            return run_unix
+
+        if name == "to_date" and args:
+            # date / timestamp input: a pure conversion; a string column
+            # takes the dictionary int-LUT path below
+            try:
+                self._string_value_transform(e.args[0])
+                string_input = True
+            except CompileError:
+                string_input = False
+            if not string_input:
+                def run_todate(rt: Runtime) -> DVal:
+                    c = args[0](rt)
+                    return DVal(_to_days(c), c.null, T.DATE)
+
+                return run_todate
+
+        if name == "sign":
+            return self._unary_math(args[0], lambda x: torch.sign(
+                x.to(float_dtype())))
+        if name in ("floor", "ceil", "ceiling"):
+            tfn = torch.floor if name == "floor" else torch.ceil
+
+            def run_fc(rt: Runtime) -> DVal:
+                c = args[0](rt)
+                return DVal(tfn(c.value.to(float_dtype())).to(torch.int64),
+                            c.null, T.LONG)
+
+            return run_fc
+        if name in ("mod", "pmod"):
+            positive = name == "pmod"
+
+            def run_mod(rt: Runtime) -> DVal:
+                a, b = args[0](rt), args[1](rt)
+                dt = promote(a.value.dtype, b.value.dtype)
+                av, bv = a.value.to(dt), b.value.to(dt)
+                zero = bv == 0
+                bs = torch.where(zero, torch.ones_like(bv), bv)
+                # mod keeps the dividend's sign (Spark %); pmod is >= 0
+                out = torch.remainder(torch.remainder(av, bs) + bs, bs) \
+                    if positive else torch.fmod(av, bs)
+                null = _or_null(_or_null(a.null, b.null),
+                                zero.expand(out.shape))
+                return DVal(out, null, _promote(a.dtype, b.dtype))
+
+            return run_mod
+        if name == "nullif":
+            def run_nullif(rt: Runtime) -> DVal:
+                a, b = args[0](rt), args[1](rt)
+                _no_string_operands((a, b), name)
+                dt = promote(a.value.dtype, b.value.dtype)
+                eq = a.value.to(dt) == b.value.to(dt)
+                if b.null is not None:
+                    eq = eq & ~b.null
+                return DVal(a.value, eq if a.null is None else (a.null | eq),
+                            a.dtype)
+
+            return run_nullif
+        if name in ("greatest", "least"):
+            pickmax = name == "greatest"
+
+            def run_gl(rt: Runtime) -> DVal:
+                dvs = [a(rt) for a in args]
+                _no_string_operands(dvs, name)
+                dt = None
+                for d in dvs:
+                    dt = _promote(dt, d.dtype)
+                tdt = T.torch_dtype(dt.device_dtype())
+                if tdt.is_floating_point:
+                    ident = -float("inf") if pickmax else float("inf")
+                else:
+                    info = torch.iinfo(tdt)
+                    ident = info.min if pickmax else info.max
+                acc = None
+                for d in dvs:
+                    v = d.value.to(tdt)
+                    if d.null is not None:
+                        # a NULL argument is skipped, not contagious
+                        v = torch.where(d.null, torch.full(
+                            (), ident, dtype=tdt, device=rt.device), v)
+                    acc = v if acc is None else (
+                        torch.maximum(acc, v) if pickmax
+                        else torch.minimum(acc, v))
+                if any(d.null is None for d in dvs):
+                    out_null = None  # NULL only when EVERY arg is NULL
+                else:
+                    out_null = dvs[0].null
+                    for d in dvs[1:]:
+                        out_null = out_null & d.null
+                return DVal(acc, out_null, dt)
+
+            return run_gl
+
+        # string functions via derived dictionaries (compositions too:
+        # upper(concat(s, '_x')), instr(lower(s), 'q'), ...)
+        if name in STRING_VALUE_FUNCS or name in _STRING_INT_FUNCS:
+            return self._emit_string_func(e)
+
+        raise CompileError(f"unsupported function on device: {name}")
+
+    def _emit_round(self, e: ast.Func, args) -> Callable[[Runtime], DVal]:
+        """round(x[, d]): half to even, as jnp.round; negative digits
+        divide by the exact integer power (0.001 is not binary-exact)."""
+        digits, digits_pos = 0, None
+        if len(e.args) == 2 and isinstance(
+                e.args[1], (ast.Lit, ast.ParamLiteral, ast.Param)):
+            if isinstance(e.args[1], ast.Lit):
+                digits = int(e.args[1].value)
+            else:  # tokenized literal or prepared '?': a runtime scalar
+                digits, digits_pos = None, e.args[1].pos
+
+        def run_round(rt: Runtime) -> DVal:
+            c = args[0](rt)
+            v = c.value
+            if not v.is_floating_point():
+                v = v.to(float_dtype())
+            if digits is not None:  # static digits
+                if digits >= 0:
+                    mult = float(10 ** digits)
+                    out = torch.round(v * mult) / mult
+                else:
+                    scale = float(10 ** (-digits))
+                    out = torch.round(v / scale) * scale
+            else:
+                d = rt.params[digits_pos].to(torch.float64)
+                scale = torch.round(torch.pow(10.0, d.abs()))
+                out = torch.where(d >= 0, torch.round(v * scale) / scale,
+                                  torch.round(v / scale) * scale)
+            return DVal(out, c.null, c.dtype)
+
+        return run_round
+
+    def _unary_math(self, arg, fn, keep_type=False):
+        def run(rt: Runtime) -> DVal:
+            c = arg(rt)
+            return DVal(fn(c.value), c.null,
+                        c.dtype if keep_type else T.DOUBLE)
+
+        return run
+
+    def _emit_string_func(self, e: ast.Func) -> Callable[[Runtime], DVal]:
+        """String expressions as DERIVED DICTIONARIES: the codes stay on
+        the device untouched and the per-value transform runs once over
+        the (small) dictionary on the host.  length / instr / ascii /
+        to_date lower to int LUT gathers so they compose with device
+        filters and group keys."""
+        name = e.name
+        if name in _STRING_INT_FUNCS:
+            col_idx, base = self._string_value_transform(e.args[0])
+            if col_idx is None:
+                raise CompileError(f"{name} of literal-only expression")
+            if name == "instr" and (len(e.args) < 2
+                                    or not isinstance(e.args[1], ast.Lit)):
+                raise CompileError("instr with non-literal needle")
+            needle = str(e.args[1].value) if name == "instr" else None
+            val_of = functools.partial(_string_int_value, name, base,
+                                       needle)
+            aux_i = self._dict_lut(
+                col_idx, lambda d, params: [val_of(v) for v in d],
+                np.int32)
+            if name != "to_date":
+                return self._lut_runner(col_idx, aux_i, T.INT)
+            base = self._lut_runner(col_idx, aux_i, T.DATE)
+
+            def run_to_date(rt: Runtime) -> DVal:
+                r = base(rt)   # unparseable -> NULL via the sentinel
+                bad = r.value == _BAD_DATE
+                return DVal(torch.where(bad, torch.zeros_like(r.value),
+                                        r.value),
+                            _or_null(r.null, bad), T.DATE)
+
+            return run_to_date
+
+        col_idx, fn = self._string_value_transform(e)
+        if col_idx is None:
+            raise CompileError("literal-only string expression")
+        getter = self.dict_getters[col_idx]
+
+        def derived_dict():
+            # a CALLABLE dictionary, re-derived from the CURRENT table
+            # dictionary at assemble time, so codes minted after this
+            # plan compiled still decode
+            return np.array([fn(v) for v in getter()], dtype=object)
+
+        def run_strfn(rt: Runtime) -> DVal:
+            c = rt.cols[col_idx]
+            return DVal(c.value, c.null, T.STRING, dictionary=derived_dict)
+
+        return run_strfn
+
 def _promote(a: Optional[T.DataType], b: Optional[T.DataType]) -> T.DataType:
     if a is None:
         return b or T.DOUBLE
@@ -818,3 +1344,172 @@ def _promote(a: Optional[T.DataType], b: Optional[T.DataType]) -> T.DataType:
         return T.common_type(a, b)
     except TypeError:
         return a
+
+
+def _raise_on_run(msg: str) -> Callable[[Runtime], DVal]:
+    """An emitted value that has no device form: emitting it is fine (a
+    function reads its literal arguments structurally), running it raises
+    CompileError, which reroutes the query to the host path."""
+
+    def run(rt: Runtime) -> DVal:
+        raise CompileError(msg)
+
+    return run
+
+
+def _no_string_operands(dvals, name: str) -> None:
+    for d in dvals:
+        if d.dtype is not None and d.dtype.name == "string":
+            raise CompileError(f"{name} over strings: host path")
+
+
+def _string_value_op(name: str, extra: list, v):
+    """One STRING_VALUE_FUNCS transform of one dictionary value (None is
+    SQL NULL); `extra` holds the function's literal arguments."""
+    if v is None:
+        return None
+    if name == "upper":
+        return v.upper()
+    if name == "lower":
+        return v.lower()
+    if name == "trim":
+        return v.strip()
+    if name == "ltrim":
+        return v.lstrip()
+    if name == "rtrim":
+        return v.rstrip()
+    if name in ("substr", "substring"):
+        start = int(extra[0]) - 1 if extra and extra[0] is not None else 0
+        ln = int(extra[1]) if len(extra) > 1 and extra[1] is not None \
+            else None
+        return v[start:start + ln] if ln is not None else v[start:]
+    if name == "replace":
+        return v.replace(str(extra[0]),
+                         str(extra[1]) if len(extra) > 1 else "")
+    if name in ("lpad", "rpad"):
+        n2 = int(extra[0])
+        if n2 <= 0:
+            return ""
+        pad = str(extra[1]) if len(extra) > 1 and extra[1] is not None \
+            else " "
+        if len(v) >= n2:
+            return v[:n2]
+        fill = (pad * n2)[:n2 - len(v)] if pad else ""
+        return fill + v if name == "lpad" else v + fill
+    if name == "initcap":
+        return " ".join(p[:1].upper() + p[1:].lower() for p in v.split(" "))
+    if name == "repeat":
+        return v * max(0, int(extra[0]))
+    if name == "reverse":
+        return v[::-1]
+    if name == "translate":
+        frm = str(extra[0]) if extra and extra[0] is not None else ""
+        to = str(extra[1]) if len(extra) > 1 and extra[1] is not None else ""
+        return v.translate({ord(f): (to[i] if i < len(to) else None)
+                            for i, f in enumerate(frm)})
+    if name == "split_part":
+        delim = str(extra[0])
+        idx = int(extra[1])
+        parts = v.split(delim) if delim else [v]
+        pos = idx - 1 if idx > 0 else len(parts) + idx
+        return parts[pos] if 0 <= pos < len(parts) else ""
+    raise CompileError(name)
+
+
+_BAD_DATE = int(np.iinfo(np.int32).min)   # unparseable to_date sentinel
+_EPOCH_ORDINAL = datetime.date(1970, 1, 1).toordinal()
+
+
+def _string_int_value(name: str, base, needle, v) -> int:
+    """One int-LUT entry of length / instr / ascii / to_date."""
+    bv = base(v)
+    if name == "instr":
+        return bv.find(needle) + 1 if bv is not None else 0
+    if name == "ascii":
+        return ord(bv[0]) if bv else 0
+    if name == "to_date":
+        if bv is None:
+            return _BAD_DATE
+        try:
+            return datetime.date.fromisoformat(
+                str(bv)[:10]).toordinal() - _EPOCH_ORDINAL
+        except ValueError:
+            return _BAD_DATE
+    return len(bv) if bv is not None else 0   # length
+
+
+# ---------------------------------------------------------------------------
+# Civil-calendar arithmetic on days since 1970-01-01 (int32 in, int32 out;
+# int64 inside), Howard Hinnant's public-domain algorithms.  torch's `//`
+# and `%` floor like Python's, as jnp's do.
+# ---------------------------------------------------------------------------
+
+def _to_days(c: DVal) -> torch.Tensor:
+    """DATE / TIMESTAMP DVal -> days since the epoch, int32."""
+    if c.dtype is not None and c.dtype.name == "timestamp":
+        return (c.value // 86_400_000_000).to(torch.int32)
+    return c.value.to(torch.int32)
+
+
+def _days_from_civil(y, m, d) -> torch.Tensor:
+    """(year, month, day) -> days since the epoch (the inverse of
+    _civil_from_days)."""
+    y = y.to(torch.int64) - (m <= 2).to(torch.int64)
+    era = torch.where(y >= 0, y, y - 399) // 400
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9).to(torch.int64)
+    doy = (153 * mp + 2) // 5 + d.to(torch.int64) - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return (era * 146097 + doe - 719468).to(torch.int32)
+
+
+def _days_in_month(y, m) -> torch.Tensor:
+    dim = torch.tensor([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
+                       dtype=torch.int32, device=m.device)[m.long() - 1]
+    leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
+    return torch.where((m == 2) & leap, 29, dim).to(torch.int32)
+
+
+def _civil_from_days(days):
+    """Days since the epoch -> (year, month, day), int32 each."""
+    z = days.to(torch.int64) + 719468
+    era = torch.where(z >= 0, z, z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y.to(torch.int32), m.to(torch.int32), d.to(torch.int32)
+
+
+_DATE_PARTS = ("year", "month", "day", "dayofmonth", "quarter",
+               "dayofyear", "dayofweek", "weekofyear")
+_TRUNC_FORMATS = ("YEAR", "YYYY", "YY", "MONTH", "MM", "MON", "QUARTER",
+                  "Q", "WEEK")
+
+
+def _date_part(part: str, days: torch.Tensor) -> torch.Tensor:
+    y, m, d = _civil_from_days(days)
+    if part == "year":
+        return y
+    if part == "month":
+        return m
+    if part == "day":
+        return d
+    if part == "quarter":
+        return (m + 2) // 3
+    if part == "dayofyear":
+        return days - _days_from_civil(y, torch.ones_like(m),
+                                       torch.ones_like(d)) + 1
+    if part == "dayofweek":
+        # Spark: 1 = Sunday .. 7 = Saturday (1970-01-01 was a Thursday)
+        return (days + 4) % 7 + 1
+    # weekofyear: the ISO-8601 week, by the Thursday of the row's week
+    wd = (days + 3) % 7 + 1
+    thu = days + (4 - wd)
+    ty, _, _ = _civil_from_days(thu)
+    one = torch.ones_like(ty)
+    return (thu - _days_from_civil(ty, one, one)) // 7 + 1

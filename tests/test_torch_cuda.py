@@ -727,3 +727,107 @@ def test_cuda_tiled_global_sum_launches_kahan_per_tile(cuda_device):
     assert reg.counter("scan_tile_host_merges") == h0
     assert tiled[0][1] == untiled[0][1]
     assert tiled[0][0] == pytest.approx(untiled[0][0], rel=1e-6)
+
+
+# --- subqueries and functions on the card ----------------------------------
+
+def _sub_sessions(cuda_device):
+    """The same tables in a CUDA session and a CPU session: a(k, g) with a
+    string key, b(y, w) with a DOUBLE of distinct values (no value
+    dictionary), t(d, s, x) with dates, ship modes and quantities."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+
+    rng = np.random.default_rng(12)
+    n = 200_000
+    a = [np.arange(n, dtype=np.int64),
+         np.array(["p", "q", "r", "s"], dtype=object)[
+             rng.integers(0, 4, n)]]
+    b = [rng.integers(0, 2 * n, n).astype(np.int64), rng.random(n)]
+    modes = np.array(["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP",
+                      "TRUCK"], dtype=object)
+    t = [rng.integers(8000, 10500, n).astype(np.int32),
+         modes[rng.integers(0, 7, n)],
+         rng.integers(1, 51, n).astype(np.float64)]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        s = SnappySession(catalog=Catalog(), device=dev)
+        s.sql("CREATE TABLE a (k BIGINT, g STRING) USING column")
+        s.sql("CREATE TABLE b (y BIGINT, w DOUBLE) USING column")
+        s.sql("CREATE TABLE t (d DATE, s STRING, x DOUBLE) USING column")
+        s.insert_arrays("a", a)
+        s.insert_arrays("b", b)
+        s.insert_arrays("t", t)
+        out[str(dev)] = s
+    return out["cpu"], out[str(cuda_device)]
+
+
+def _on_card(cpu, card, sql, counter):
+    """Rows of `sql` on the card, equal to the CPU session's, with no host
+    fallback and `counter` (a kernel wrapper) launched."""
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    want = cpu.sql(sql).rows()
+    fb = global_registry().counter("host_fallbacks")
+    counter.launches = 0
+    got = card.sql(sql).rows()
+    assert global_registry().counter("host_fallbacks") == fb, sql
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g[:-1] == w[:-1]
+        assert g[-1] == pytest.approx(w[-1], rel=1e-6)
+    return counter.launches
+
+
+@pytest.mark.cuda
+def test_cuda_exists_and_large_in_list_stay_on_device(cuda_device):
+    """EXISTS becomes a semi join and a 500-literal IN list the sorted
+    probe (fault C2): both stay on the card, and their GROUP BY over a
+    string key launches the grouped kernel."""
+    from snappydata_tpu_torch import config
+
+    cpu, card = _sub_sessions(cuda_device)
+    props = config.global_properties()
+    saved = props.pallas_group_reduce
+    props.pallas_group_reduce = True
+    vals = ",".join(str(v) for v in range(0, 200_000, 401))
+    try:
+        for sql in ("SELECT g, count(*) FROM a WHERE EXISTS (SELECT 1 "
+                    "FROM b WHERE b.y = a.k AND b.w > 0.5) GROUP BY g "
+                    "ORDER BY g",
+                    f"SELECT g, count(*) FROM a WHERE k IN ({vals}) "
+                    "GROUP BY g ORDER BY g",
+                    "SELECT g, count(*) FROM a WHERE k IN (SELECT y FROM b "
+                    "WHERE w < 0.01) GROUP BY g ORDER BY g"):
+            assert _on_card(cpu, card, sql, gr.grouped_reduce) >= 1, sql
+    finally:
+        props.pallas_group_reduce = saved
+
+
+@pytest.mark.cuda
+def test_cuda_scalar_subquery_avg_launches_kahan(cuda_device):
+    from snappydata_tpu_torch import config
+
+    cpu, card = _sub_sessions(cuda_device)
+    props = config.global_properties()
+    saved = props.pallas_reduce
+    props.pallas_reduce = True
+    try:
+        launches = _on_card(cpu, card,
+                            "SELECT count(*), sum(w) FROM b "
+                            "WHERE w > (SELECT avg(w) FROM b)",
+                            kr.masked_kahan_sum)
+    finally:
+        props.pallas_reduce = saved
+    assert launches >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_date_and_string_functions_group_on_device(cuda_device):
+    """year() and substr() as GROUP BY keys and abs() in a sum stay on the
+    card (the date part on the generic key lane, the prefix as a derived
+    dictionary)."""
+    cpu, card = _sub_sessions(cuda_device)
+    _on_card(cpu, card,
+             "SELECT year(d), substr(s, 1, 2), count(*), sum(abs(x - 25)) "
+             "FROM t GROUP BY 1, 2 ORDER BY 1, 2", gr.grouped_reduce)
