@@ -8,7 +8,10 @@ JOIN lineitem) and a generic-key join through the device join engine,
 then stream Q1 and Q6 through the tiled out-of-core lane, answer Q1 and
 Q6 over exact DECIMAL(15,2) columns, run count(DISTINCT) and the matmul
 reduction strategy, then TPC-H Q4, Q22 and Q18 (subqueries) and a GROUP
-BY over scalar and string functions.
+BY over scalar and string functions, then window functions over orders,
+then UPDATE / DELETE / insert on lineitem under a pinned reader with Q1
+and Q6 through both kernels, concurrent scans and ingest, and row tables
+(TPC-H Q10 over nation, PUT INTO, get).
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
@@ -80,7 +83,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    last tile's inputs, and the Kahan kernel on the first (full) tile's
    too (phase 5's checks and timings); seconds, rows/s, bytes uploaded
    per pass and the pinned host-to-device rate;
-12. exact decimals: lineitem_dec (the --sf x 6M generated rows with
+12. exact decimals: lineitem_dec (the first quarter of the --sf x 6M
+   generated rows, `DEC_DEPTH`, cut to leave phases 15 - 16 room, with
    l_quantity, l_extendedprice, l_discount and l_tax as DECIMAL(15,2))
    loaded, Q1 and Q6 through `session.sql`: the exact slots are
    `Decimal`s equal, digit for digit, to an int64-cents numpy oracle, the
@@ -109,17 +113,44 @@ Phases, in order; any failure exits non-zero before the result lines:
    kernels must have launched.  The grouped kernel against its plain
    version on the inputs a warm Q4 run handed it, and the Kahan kernel on
    those of a warm Q22 run (phase 5's checks and timings);
-15. the Kahan kernel under torch.profiler on phase 5's and phase 11's
-   inputs, in a child process of this script (`--kahan-profile`) that
-   loads them from a file, so that its profiler starts fresh (late in a
-   long process the profiler drops device records, PERF.md §7): one
-   profiler session per shape, in which every device kernel is the Kahan
-   kernel, the device's kernel records and the host's CUDA runtime
-   records each hold exactly one kernel launch per call, and there is no
-   copy, memset or torch op but the output's allocation; its mean device
-   time (`device_ms`);
-16. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
-   kernel's `launches` counts its main-path runs of phases 4, 11 and 14.
+15. window functions: `WINDOW_QUERY` (row_number, rank, dense_rank,
+   running sum / count / avg / min / max and lag / lead of o_totalprice
+   over o_custkey partitions, ORDER BY o_orderdate and o_totalprice DESC)
+   over the orders of two years (about 7.4M of --sf x 1.5M rows), once
+   and --reps times warm: its columns against a numpy oracle built from
+   `np.lexsort` over the generated arrays (ranks, counts and NULLs exact,
+   running values rel 1e-6 of the float32-rounded prices), no host
+   fallback; first and warm seconds, peak device memory;
+16. mutations on lineitem at --sf: (a) a thread pins lineitem
+   (`mvcc.pinned_scope`) and reads Q1 / Q6; (b) `MUTATION_UPDATE` (about
+   12% of rows; moves Q6), (c) `MUTATION_DELETE` (about 4%), (d) one
+   insert of 131,072 rows, with seconds and rows/s; (e) Q1 and Q6 once
+   and --reps times warm, launch counters at 0: both kernels launch,
+   `compressed_fallback_deltas` moves, no host fallback, answers equal a
+   float64 numpy oracle over the mutated arrays (counts exact, sums rel
+   1e-6), each kernel against its plain version on a warm run's inputs;
+   (f) the pinned reader's Q1 / Q6 again equal phase 4's, peak memory
+   with both versions bound; (g) HTAP: scans of count(*) and
+   sum(l_extendedprice) while a second session inserts 8 batches of
+   131,072 rows, every scan equal to one of the 9 prefix states, scan
+   p50 / p99 concurrent and serialized, ingest rows/s; (h) nation and
+   region as row tables (`NATION_DDL`, `REGION_DDL`), TPC-H Q10 over
+   customer, orders, lineitem and nation against numpy with device joins
+   and no host fallback, PUT INTO nation (one upsert, one insert) read
+   back through `session.get`, and PUT INTO a keyed column table;
+17. the Kahan kernel under torch.profiler on phase 5's and phase 11's
+   inputs, in one child process of this script per shape
+   (`--kahan-profile`) that loads them from a file, so that its profiler
+   starts fresh, and with spin kernels at the session's start (the
+   profiler drops the device records of a session's first millisecond,
+   PERF.md §7): one profiler session per shape, in which every device
+   kernel but the spins is the Kahan kernel, the device's kernel records
+   and the host's CUDA runtime records each hold exactly one kernel
+   launch per call, and there is no copy, memset or torch op but the
+   output's allocation; its mean device time (`device_ms`);
+18. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+   kernel's `launches` counts its main-path runs of phases 4, 11, 14 and
+   16.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -142,6 +173,7 @@ ORDERS_PER_SF = 1_500_000
 KERNELS = ("kahan_reduce", "group_reduce", "code_filter_sum",
            "group_code_reduce")
 RLE_PROBE_ROWS = (1 << 16, 1 << 22)
+DEC_DEPTH = 4        # lineitem_dec holds 1 / DEC_DEPTH of lineitem's rows
 
 
 def fail(msg: str) -> None:
@@ -279,17 +311,33 @@ TRACE_DIR = []   # set by --trace-dir
 SPIN = "spin_kernel"   # torch.cuda._sleep's kernel
 
 
+def spin_prelude(spin_s, pad_s):
+    """Open a torch.profiler session with `spin_s` seconds of
+    `torch.cuda._sleep` spin kernels, which take the profiler's loss of
+    the kernel records of about the first millisecond after a session's
+    first launch (PERF.md §7), then `pad_s` seconds of host sleep.
+    Returns the number of spin kernels launched; the caller leaves them
+    out of every figure."""
+    import torch
+
+    spins = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < spin_s:
+        torch.cuda._sleep(20_000)
+        spins += 1
+    torch.cuda.synchronize()
+    time.sleep(pad_s)
+    return spins
+
+
 def profile_run(fn, top=8, pad_s=1.0, spin_s=0.02):
     """One warm call of `fn` under torch.profiler: wall ms, the summed
     device time of its kernels, the device's idle share of the wall time,
     the kernels with the most device time, and the runtime launch and
     device kernel record counts of the call (`whole` when they agree).
 
-    Late in a long process the profiler drops the kernel records of
-    about the first millisecond after a session's first launch (PERF.md
-    §7).  So each session opens with `spin_s` seconds of
-    `torch.cuda._sleep` spin kernels, which take that loss, then `pad_s`
-    seconds of host sleep; the spins are left out of every figure.  With
+    Each session opens with `spin_prelude(spin_s, pad_s)`, whose spin
+    kernels are left out of every figure.  With
     --trace-dir, a trace whose call lost records is also written there as
     a Chrome trace (`trace` names the file)."""
     import torch
@@ -298,13 +346,7 @@ def profile_run(fn, top=8, pad_s=1.0, spin_s=0.02):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        spins = 0
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < spin_s:
-            torch.cuda._sleep(20_000)
-            spins += 1
-        torch.cuda.synchronize()
-        time.sleep(pad_s)
+        spins = spin_prelude(spin_s, pad_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -377,9 +419,12 @@ def kahan_profile(v, w, reps):
     every device kernel in the trace must be the Kahan kernel, there must
     be no copy or memset, the only torch op must be the output's
     allocation (`aten::empty`), and the wrapper's launch count must move
-    by the calls.  Run in a fresh process (`kahan_profile_child`): late in
-    a long one the profiler drops device records (PERF.md §7).
-    `device_ms` is the kernel records' mean device time."""
+    by the calls.  Run in a fresh process, one for each shape
+    (`kahan_profile_child`), and opened with `spin_prelude`, whose spin
+    kernels are left out: the profiler drops the kernel records of about
+    the first millisecond of a session (PERF.md §7), which here is the
+    start of the calls themselves.  `device_ms` is the kernel records'
+    mean device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -391,17 +436,22 @@ def kahan_profile(v, w, reps):
     before = masked_kahan_sum.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        spins = spin_prelude(0.02, 1.0)
         for _ in range(calls):
             masked_kahan_sum(v, w)
         torch.cuda.synchronize()
+        time.sleep(1.0)
     launched = masked_kahan_sum.launches - before
     host, dev = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev[e.key] = (e.count, e.self_device_time_total / e.count / 1e3)
+            if SPIN not in e.key:
+                dev[e.key] = (e.count,
+                              e.self_device_time_total / e.count / 1e3)
         else:
             host[e.key] = e.count
     runtime_launches, _kept = launch_records(prof)
+    runtime_launches -= spins
     copies = {k: c for k, c in host.items()
               if "Memcpy" in k or "Memset" in k}
     torch_ops = {k: c for k, c in host.items()
@@ -420,31 +470,35 @@ def kahan_profile(v, w, reps):
 
 
 def kahan_profile_child(shapes, reps, root):
-    """`kahan_profile` on each (label, (v, w)) of `shapes` in a child
-    process of this script, which loads the inputs from a file under the
-    gitignored build directory; returns (label, result) pairs and fails
-    when the child does."""
+    """`kahan_profile` on each (label, (v, w)) of `shapes`, each in a
+    child process of its own, which loads its inputs from a file under
+    the gitignored build directory; returns (label, result) pairs and
+    fails when a child does."""
     import torch
 
     path = os.path.join(root, "snappydata_tpu_torch", "build",
                         "kahan_profile_inputs.pt")
-    torch.save([(label, v.cpu(), w.cpu()) for label, (v, w) in shapes],
-               path)
-    try:
-        child = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--kahan-profile",
-             path, "--reps", str(reps)], capture_output=True, text=True,
-            timeout=600)
-    finally:
-        os.remove(path)
-    if child.returncode != 0:
-        fail(f"the Kahan profile child exited {child.returncode}:\n"
-             f"{child.stdout[-4000:]}{child.stderr[-4000:]}")
-    out = [json.loads(line) for line in child.stdout.splitlines()
-           if line.startswith("{")]
-    if [r["label"] for r in out] != [label for label, _ in shapes]:
-        fail(f"the Kahan profile child printed {child.stdout[-4000:]}")
-    return [(r.pop("label"), r) for r in out]
+    results = []
+    for label, (v, w) in shapes:
+        torch.save([(label, v.cpu(), w.cpu())], path)
+        try:
+            child = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--kahan-profile", path, "--reps", str(reps)],
+                capture_output=True, text=True, timeout=600)
+        finally:
+            os.remove(path)
+        if child.returncode != 0:
+            fail(f"the Kahan profile child on the {label} exited "
+                 f"{child.returncode}:\n"
+                 f"{child.stdout[-4000:]}{child.stderr[-4000:]}")
+        out = [json.loads(line) for line in child.stdout.splitlines()
+               if line.startswith("{")]
+        if [r["label"] for r in out] != [label]:
+            fail(f"the Kahan profile child printed {child.stdout[-4000:]}")
+        results.append((label, {k: x for k, x in out[0].items()
+                                if k != "label"}))
+    return results
 
 
 def kahan_profile_main(path, reps):
@@ -1344,6 +1398,464 @@ def subquery_path(session, tpch, li, orders, args):
     return total
 
 
+# --- phase 15: window functions over orders --------------------------------
+
+WINDOW_DATES = ("1995-01-01", "1997-01-01")
+WINDOW_QUERY = (
+    "SELECT o_orderkey, "
+    "row_number() OVER (PARTITION BY o_custkey ORDER BY o_orderdate, "
+    "o_orderkey), "
+    "rank() OVER (PARTITION BY o_custkey ORDER BY o_orderdate), "
+    "dense_rank() OVER (PARTITION BY o_custkey ORDER BY o_totalprice DESC), "
+    "sum(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY o_orderdate), "
+    "count(*) OVER (PARTITION BY o_custkey ORDER BY o_orderdate), "
+    "avg(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY o_orderdate), "
+    "min(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY o_orderdate), "
+    "max(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY o_orderdate), "
+    "lag(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY o_orderdate, "
+    "o_orderkey), "
+    "lead(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY o_orderdate, "
+    "o_orderkey) "
+    f"FROM orders WHERE o_orderdate >= DATE '{WINDOW_DATES[0]}' "
+    f"AND o_orderdate < DATE '{WINDOW_DATES[1]}'")
+
+
+def window_oracle(orders, tpch):
+    """Phase 15's columns in numpy, one row per passing order in key
+    order: a lexsort by (custkey, date, key), segment and tie bounds,
+    prefix sums, and running min / max through per-segment offsets.
+    Prices are the float32-rounded values the card's plates hold, so
+    ranks over them are exact; NaN marks a NULL lag / lead."""
+    import numpy as np
+
+    od = orders["o_orderdate"].astype(np.int64)
+    m = (od >= tpch._days(WINDOW_DATES[0])) \
+        & (od < tpch._days(WINDOW_DATES[1]))
+    key = orders["o_orderkey"][m]
+    cust = orders["o_custkey"][m]
+    date = od[m]
+    price = orders["o_totalprice"][m].astype(np.float32).astype(np.float64)
+    n = len(key)
+    pos = np.arange(n)
+
+    def segments(new):
+        sid = np.cumsum(new) - 1
+        starts = np.flatnonzero(new)
+        return sid, starts[sid], np.r_[starts[1:], n][sid] - 1
+
+    order = np.lexsort((key, date, cust))
+    cs, ds, ps = cust[order], date[order], price[order]
+    new_seg = np.r_[True, cs[1:] != cs[:-1]]
+    sid, first, _last = segments(new_seg)
+    tie_new = new_seg | np.r_[True, ds[1:] != ds[:-1]]
+    _tid, tfirst, tlast = segments(tie_new)
+    c = np.cumsum(ps)
+    run_sum = (c - (c[first] - ps[first]))[tlast]
+    run_cnt = (pos - first + 1)[tlast]
+    off = sid.astype(np.float64) * float(1 << 20)   # > every price
+    run_min = (np.minimum.accumulate(ps - off) + off)[tlast]
+    run_max = (np.maximum.accumulate(ps + off) - off)[tlast]
+    lag = np.where(new_seg, np.nan, np.r_[np.nan, ps[:-1]])
+    lead = np.where(np.r_[new_seg[1:], True], np.nan, np.r_[ps[1:], np.nan])
+    sorted_cols = [pos - first + 1, tfirst - first + 1, None, run_sum,
+                   run_cnt, run_sum / run_cnt, run_min, run_max, lag, lead]
+    o2 = np.lexsort((-price, cust))
+    c2, p2 = cust[o2], price[o2]
+    new2 = np.r_[True, c2[1:] != c2[:-1]]
+    tid2 = np.cumsum(new2 | np.r_[True, p2[1:] != p2[:-1]]) - 1
+    _s, first2, _l = segments(new2)
+    dense = np.empty(n, dtype=np.int64)
+    dense[o2] = tid2 - tid2[first2] + 1
+    by_key = np.argsort(key)
+    inv = np.empty(n, dtype=np.int64)
+    inv[order] = pos
+    cols = [key[by_key]]
+    for j, col in enumerate(sorted_cols):
+        cols.append(dense[by_key] if j == 2 else col[inv][by_key])
+    return cols
+
+
+def check_window(res, want):
+    """The session's window Result against the oracle columns: ranks and
+    counts exact, running sums / averages / extremes and lag / lead
+    within rel 1e-6, NULLs exactly where the oracle has NaN."""
+    import numpy as np
+
+    keys = np.asarray(res.columns[0]).astype(np.int64)
+    if len(keys) != len(want[0]):
+        fail(f"window query: {len(keys)} rows, numpy {len(want[0])}")
+    by = np.argsort(keys)
+    if not (keys[by] == want[0]).all():
+        fail("window query: order keys differ from numpy's")
+    exact = {1: "row_number", 2: "rank", 3: "dense_rank", 5: "count"}
+    for j in range(1, 11):
+        got = np.asarray(res.columns[j])[by]
+        nl = res.nulls[j]
+        nl = np.zeros(len(got), np.bool_) if nl is None \
+            else np.asarray(nl)[by]
+        w = np.asarray(want[j], dtype=np.float64)
+        wn = np.isnan(w)
+        if (nl != wn).any():
+            fail(f"window column {j}: NULLs differ from numpy "
+                 f"({int(nl.sum())} vs {int(wn.sum())})")
+        g = got[~nl].astype(np.float64)
+        w = w[~wn]
+        if j in exact:
+            if not (g == w).all():
+                bad = int(np.flatnonzero(g != w)[0])
+                fail(f"window {exact[j]}: {g[bad]} != numpy {w[bad]}")
+        else:
+            err = np.abs(g - w) / np.maximum(np.abs(w), 1e-30)
+            if len(err) and err.max() > 1e-6:
+                fail(f"window column {j}: max rel err {err.max():.3g}")
+
+
+def window_path(session, tpch, orders, args):
+    """Phase 15: WINDOW_QUERY once and --reps times warm with
+    `host_fallbacks` read around the runs; its answer against numpy."""
+    import torch
+
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    reg = global_registry()
+    fb = reg.counter("host_fallbacks")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(1 + args.reps):
+        t0 = time.perf_counter()
+        res = session.sql(WINDOW_QUERY)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if reg.counter("host_fallbacks") != fb:
+        fail("the window query left the device")
+    t0 = time.perf_counter()
+    want = window_oracle(orders, tpch)
+    oracle_s = time.perf_counter() - t0
+    check_window(res, want)
+    warm = sorted(times[1:])[len(times[1:]) // 2] if args.reps else times[0]
+    log(f"window rows {res.num_rows} first_s {times[0]:.4f} warm_s "
+        f"{warm:.4f} rows_per_s {res.num_rows / warm:.0f} "
+        f"peak_device_bytes {peak} resident_before_bytes {resident} "
+        f"oracle_s {oracle_s:.3f}")
+    if args.profile:
+        log("profile window " + json.dumps(profile_run(
+            lambda: session.sql(WINDOW_QUERY))))
+    log("answers ok: the window query matches numpy, on the device")
+
+
+# --- phase 16: mutations, MVCC pins, HTAP, row tables ----------------------
+
+MUTATION_UPDATE = ("UPDATE lineitem SET l_discount = l_discount + 0.01 "
+                   "WHERE l_shipdate >= DATE '1998-01-01' "
+                   "AND l_discount < 0.10")
+MUTATION_DELETE = "DELETE FROM lineitem WHERE l_quantity >= 49"
+MUTATION_INSERT_ROWS = 131_072
+HTAP_QUERY = "SELECT count(*), sum(l_extendedprice) FROM lineitem"
+HTAP_BATCHES = 8
+
+
+class PinnedReader:
+    """A thread that holds one `mvcc.pinned_scope` over lineitem: it reads
+    Q1 and Q6 when it pins (binding that version's plates), waits, reads
+    them again under the same pin, and releases when told."""
+
+    def __init__(self, session, tpch):
+        import threading
+
+        self.session, self.tpch = session, tpch
+        self.pinned = threading.Event()
+        self.go = threading.Event()
+        self.done = threading.Event()
+        self.out = {}
+        self.error = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        if not self.pinned.wait(600) or self.error:
+            fail(f"pinned reader: {self.error}")
+
+    def _run(self):
+        import torch
+
+        from snappydata_tpu_torch.storage import mvcc
+
+        try:
+            with mvcc.pinned_scope(self.session.catalog, ["lineitem"]):
+                self.out["before"] = run_queries(self.session, self.tpch)
+                self.pinned.set()
+                self.go.wait()
+                torch.cuda.reset_peak_memory_stats()
+                self.out["after"] = run_queries(self.session, self.tpch)
+                self.out["peak"] = torch.cuda.max_memory_allocated()
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            self.error = f"{type(e).__name__}: {e}"
+        finally:
+            self.pinned.set()
+            self.done.set()
+
+    def read_again(self):
+        self.go.set()
+        if not self.done.wait(900) or self.error:
+            fail(f"pinned reader: {self.error}")
+        return self.out
+
+
+def mutated_lineitem(li, extra, tpch):
+    """The generated arrays after phase 16's UPDATE, DELETE and insert, as
+    the card's plates hold them: l_discount float32 (the UPDATE's
+    arithmetic and compare run at the plate width), rows with l_quantity
+    >= 49 gone, the inserted rows appended."""
+    import numpy as np
+
+    disc = li["l_discount"].astype(np.float32)
+    hit = (li["l_shipdate"] >= tpch._days("1998-01-01")) \
+        & (disc < np.float32(0.10))
+    disc = np.where(hit, disc + np.float32(0.01), disc)
+    keep = li["l_quantity"] < 49
+    out = {}
+    for k, v in li.items():
+        col = disc if k == "l_discount" else v
+        tail = extra[k].astype(np.float32) if k == "l_discount" else extra[k]
+        out[k] = np.concatenate([col[keep], tail])
+    return out, int(hit.sum()), int((~keep).sum())
+
+
+def q10_oracle(li, orders, cust, tpch):
+    """TPC-H Q10 in float64 numpy: per-order date filter and customer,
+    then `np.bincount` of the returned lines' revenue per customer."""
+    import numpy as np
+
+    od = orders["o_orderdate"]
+    ok = (od >= tpch._days("1993-10-01")) & (od < tpch._days("1994-01-01"))
+    row = li["l_orderkey"] - 1
+    has = row < len(od)   # inserted lines may name orders that are absent
+    row = np.where(has, row, 0)
+    m = has & ok[row] & (li["l_returnflag"] == "R")
+    ck = orders["o_custkey"][row[m]]
+    rev = (li["l_extendedprice"] * (1 - li["l_discount"].astype(
+        np.float64)))[m]
+    tot = np.bincount(ck, weights=rev, minlength=len(cust["c_custkey"]) + 1)
+    top = np.argsort(-tot, kind="stable")[:20]
+    names = tpch.gen_nation()["n_name"]
+    bal = cust["c_acctbal"].astype(np.float32).astype(np.float64)
+    return [(int(c), cust["c_name"][c - 1], float(tot[c]), float(bal[c - 1]),
+             names[cust["c_nationkey"][c - 1]]) for c in top if tot[c] > 0]
+
+
+def mutation_path(session, tpch, li, orders, cust, first, args):
+    """Phase 16 (a) - (h); returns the two kernels' launches over (e)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from snappydata_tpu_torch import SnappySession, config
+    from snappydata_tpu_torch.engine import executor
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.ops import group_reduce as gr
+    from snappydata_tpu_torch.ops import kahan_reduce as kr
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    reg = global_registry()
+
+    # (a) a reader pins lineitem's current version
+    reader = PinnedReader(session, tpch)
+    for q in ("q1", "q6"):
+        check_rows(f"pinned {q} before the mutations vs phase 4",
+                   reader.out["before"][q][0], first[q][0], 1e-9)
+
+    # (b) - (d) the mutations
+    t0 = time.perf_counter()
+    n_upd = int(session.sql(MUTATION_UPDATE).rows()[0][0])
+    upd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_del = int(session.sql(MUTATION_DELETE).rows()[0][0])
+    del_s = time.perf_counter() - t0
+    extra = tpch.gen_lineitem(MUTATION_INSERT_ROWS, args.seed + 3)
+    t0 = time.perf_counter()
+    session.insert_arrays("lineitem", list(extra.values()))
+    ins_s = time.perf_counter() - t0
+    mut, want_upd, want_del = mutated_lineitem(li, extra, tpch)
+    log(f"mutation update rows {n_upd} s {upd_s:.3f} rows_per_s "
+        f"{n_upd / upd_s:.0f}; delete rows {n_del} s {del_s:.3f} "
+        f"rows_per_s {n_del / del_s:.0f}; insert rows "
+        f"{MUTATION_INSERT_ROWS} s {ins_s:.3f}")
+    if (n_upd, n_del) != (want_upd, want_del):
+        fail(f"UPDATE / DELETE touched {n_upd} / {n_del} rows, numpy "
+             f"{want_upd} / {want_del}")
+
+    # (e) Q1 and Q6 over the mutated table, counters at 0
+    cf0 = reg.counter("compressed_fallback_deltas")
+    out = {}
+    launches = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    for name, sql in (("q1", tpch.Q1), ("q6", tpch.Q6)):
+        rows, f_s, w_s, moved, lc, calls, peak, resident = \
+            timed_query(session, sql, args.reps)
+        out[name] = rows
+        log(f"mutated_{name} first_s {f_s:.4f} warm_s {w_s:.4f} counters "
+            f"{json.dumps(moved)} launches {json.dumps(lc)} "
+            f"peak_device_bytes {peak} resident_before_bytes {resident}")
+        if moved["host_fallbacks"]:
+            fail(f"mutated {name} left the device")
+        kname = "grouped_reduce" if name == "q1" else "masked_kahan_sum"
+        if lc[kname] < 1 + args.reps:
+            fail(f"{kname} launched {lc[kname]} times over mutated "
+                 f"{name}'s {1 + args.reps} runs")
+        for k in launches:
+            launches[k] += lc[k]
+        phase = grouped_phase if kname == "grouped_reduce" else kahan_phase
+        log(f"kernel {kname} on mutated {name} "
+            f"{json.dumps(phase(calls[kname], args.reps))}")
+        del calls
+        if args.profile:
+            log(f"profile mutated_{name} " + json.dumps(profile_run(
+                lambda sql=sql: session.sql(sql).rows())))
+    cf = reg.counter("compressed_fallback_deltas") - cf0
+    log(f"compressed_fallback_deltas moved {cf}")
+    if cf < 1:
+        fail("the updated l_discount kept its encoded form")
+    want = oracle(mut, tpch)
+    for q in ("q1", "q6"):
+        check_rows(f"mutated {q} vs numpy", out[q], want[q])
+    log(f"mutated_q1 {json.dumps(out['q1'])}")
+    log(f"mutated_q6 {json.dumps(out['q6'])}")
+
+    # (f) the pinned reader still sees phase 4's table
+    pinned = reader.read_again()
+    for q in ("q1", "q6"):
+        check_rows(f"pinned {q} after the mutations vs phase 4",
+                   pinned["after"][q][0], first[q][0], 1e-9)
+    log(f"pinned_reader q1_s {pinned['after']['q1'][1]:.4f} q6_s "
+        f"{pinned['after']['q6'][1]:.4f} peak_device_bytes_both_versions "
+        f"{pinned['peak']} allocated_bytes {torch.cuda.memory_allocated()}")
+    log("answers ok: mutated Q1 / Q6 match numpy; the pinned reader's "
+        "match phase 4")
+
+    # (g) HTAP: one thread scans while a second session inserts
+    price = mut["l_extendedprice"].astype(np.float32).astype(np.float64)
+    states = [(len(price), float(price.sum()))]
+    batches = [tpch.gen_lineitem(MUTATION_INSERT_ROWS, args.seed + 10 + i)
+               for i in range(HTAP_BATCHES)]
+    for b in batches:
+        p = b["l_extendedprice"].astype(np.float32).astype(np.float64)
+        states.append((states[-1][0] + len(p), states[-1][1] + p.sum()))
+    writer = SnappySession(catalog=session.catalog)
+    scans, ingest_s = [], []
+    stop = threading.Event()
+
+    def ingest():
+        for b in batches:
+            t0 = time.perf_counter()
+            writer.insert_arrays("lineitem", list(b.values()))
+            ingest_s.append(time.perf_counter() - t0)
+            time.sleep(0.5)   # paced, so the scans interleave the inserts
+        stop.set()
+
+    fb = reg.counter("host_fallbacks")
+    th = threading.Thread(target=ingest, daemon=True)
+    th.start()
+    while not stop.is_set() or len(scans) < 8:
+        t0 = time.perf_counter()
+        cnt, sm = session.sql(HTAP_QUERY).rows()[0]
+        scans.append((time.perf_counter() - t0, int(cnt), float(sm)))
+    th.join()
+    serial = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        session.sql(HTAP_QUERY).rows()
+        serial.append(time.perf_counter() - t0)
+    mismatches = 0
+    for _t, cnt, sm in scans:
+        hit = [s for c, s in states if c == cnt]
+        if not hit or abs(sm - hit[0]) > 1e-6 * abs(hit[0]):
+            mismatches += 1
+    if reg.counter("host_fallbacks") != fb:
+        fail("an HTAP scan left the device")
+
+    def pct(ts, q):
+        ts = sorted(ts)
+        return ts[min(len(ts) - 1, int(len(ts) * q))]
+
+    conc = [t for t, _c, _s in scans]
+    log(f"htap scans {len(scans)} states_seen "
+        f"{len({c for _t, c, _s in scans})} mismatches {mismatches} "
+        f"concurrent_p50_s {pct(conc, 0.5):.4f} p99_s {pct(conc, 0.99):.4f}"
+        f" serialized_p50_s {pct(serial, 0.5):.4f} p99_s "
+        f"{pct(serial, 0.99):.4f} ingest_rows_per_s "
+        f"{HTAP_BATCHES * MUTATION_INSERT_ROWS / sum(ingest_s):.0f}")
+    if mismatches:
+        fail(f"{mismatches} HTAP scans saw no single epoch")
+    htap_batches = batches
+    del price
+
+    # (h) row tables: nation and region, Q10, PUT INTO and get
+    session.sql(tpch.NATION_DDL)
+    session.sql(tpch.REGION_DDL)
+    session.insert_arrays("nation", list(tpch.gen_nation().values()))
+    session.insert_arrays("region", list(tpch.gen_region().values()))
+    saved_groups = props.max_groups
+    props.max_groups = 1 << 22   # Q10 groups every returning customer
+    try:
+        rows, f_s, w_s, moved, _lc, _calls, peak, _res = \
+            timed_query(session, tpch.Q10, args.reps)
+    finally:
+        props.max_groups = saved_groups
+    log(f"q10 first_s {f_s:.4f} warm_s {w_s:.4f} counters "
+        f"{json.dumps(moved)} peak_device_bytes {peak}")
+    if args.profile:
+        props.max_groups = 1 << 22
+        try:
+            log("profile q10 " + json.dumps(profile_run(
+                lambda: session.sql(tpch.Q10).rows())))
+        finally:
+            props.max_groups = saved_groups
+    if moved["host_fallbacks"] or moved["join_host_fallbacks"] \
+            or moved["join_device_joins"] < 1 + args.reps:
+        fail(f"Q10 left the device: {moved}")
+    # the table now holds the HTAP batches too
+    final = {k: np.concatenate([mut[k]] + [
+        b[k].astype(np.float32) if k == "l_discount" else b[k]
+        for b in htap_batches])
+        for k in ("l_orderkey", "l_returnflag", "l_extendedprice",
+                  "l_discount")}
+    check_rows("Q10 vs numpy", rows, q10_oracle(final, orders, cust, tpch))
+    log(f"q10 {json.dumps(rows[:3], default=str)}")
+    del final
+
+    # PUT INTO the row table nation (one upsert, one insert), get(), and
+    # PUT INTO a keyed column table
+    session.sql("PUT INTO nation VALUES (7, 'GERMANIA', 3), "
+                "(25, 'ATLANTIS', 1)")
+    got = [tuple(session.get("nation", (k,)) or ()) for k in (7, 25, 3)]
+    want_get = [(7, "GERMANIA", 3), (25, "ATLANTIS", 1),
+                (3, "CANADA", 1)]
+    if [tuple(x if isinstance(x, str) else int(x) for x in g)
+            for g in got] != want_get:
+        fail(f"nation after PUT INTO: get() {got}, expected {want_get}")
+    cnt = session.sql("SELECT count(*), sum(n_regionkey) FROM nation"
+                      ).rows()[0]
+    if tuple(cnt) != (26, sum(tpch.gen_nation()["n_regionkey"]) + 1):
+        fail(f"nation after PUT INTO: {cnt}")
+    session.sql("CREATE TABLE kv (k BIGINT, v DOUBLE) USING column "
+                "OPTIONS (key_columns 'k')")
+    session.insert_arrays("kv", [np.arange(100_000, dtype=np.int64),
+                                 np.ones(100_000)])
+    session.sql("PUT INTO kv VALUES (5, 100.0), (100000, 7.0)")
+    kv = tuple(session.sql("SELECT count(*), sum(v), max(v) FROM kv"
+                           ).rows()[0])
+    if kv != (100_001, 100_106.0, 100.0):
+        fail(f"keyed column table after PUT INTO: {kv}")
+    log(f"put_into nation get {json.dumps(got, default=str)} kv "
+        f"{json.dumps(kv, default=str)}")
+    log("answers ok: HTAP scans saw single epochs; Q10 over the row table "
+        "nation matches numpy; PUT INTO and get() upsert on the key")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=16.0,
@@ -1360,7 +1872,7 @@ def main() -> int:
                     help="with --profile, write each trace that lost kernel "
                          "records to DIR as a Chrome trace")
     ap.add_argument("--kahan-profile", metavar="PATH",
-                    help="child mode of phase 15: profile the Kahan kernel "
+                    help="child mode of phase 17: profile the Kahan kernel "
                          "on the inputs saved in PATH")
     args = ap.parse_args()
 
@@ -1687,17 +2199,22 @@ def main() -> int:
     del tk_calls
     log("answers ok: tiled Q1 and Q6 match phase 4 and the oracle")
 
-    # 12. exact decimals on the card
+    # 12. exact decimals on the card, over the first quarter of the rows:
+    # a second full-size ingest would leave phases 15 - 16 too little of
+    # the run's time limit
+    n_dec = n_rows // DEC_DEPTH
     try:
-        dec = decimal_path(session, tpch, li, args.reps, budget,
-                           args.profile)
+        dec = decimal_path(session, tpch,
+                           {k: v[:n_dec] for k, v in li.items()},
+                           args.reps, budget, args.profile)
     except Exception as e:  # noqa: BLE001 - report the phase, then exit
         fail(f"decimal path: {type(e).__name__}: {e}")
-    log(f"decimal_load_s {dec['load_s']:.3f} rows {n_rows}")
+    log(f"decimal_load_s {dec['load_s']:.3f} rows {n_dec} (1/{DEC_DEPTH} "
+        f"of lineitem's)")
     for q in ("q1", "q6"):
         log(f"decimal_{q} first_s {dec[q + '_first_s']:.4f} warm_s "
             f"{dec[q + '_warm_s']:.4f} rows_per_s "
-            f"{n_rows / dec[q + '_warm_s']:.0f}")
+            f"{n_dec / dec[q + '_warm_s']:.0f}")
     log(f"decimal_q1_tiled tiles {dec['q1_tiles']} first_s "
         f"{dec['q1_tiled_first_s']:.4f} warm_s {dec['q1_tiled_warm_s']:.4f} "
         f"counters {json.dumps(dec['q1_tiled_counters'])}")
@@ -1732,14 +2249,33 @@ def main() -> int:
             fail(f"{name} did not launch on the subquery path")
         launches[name] += count
 
-    # 15. the Kahan kernel under torch.profiler, in a child process whose
+    # 15. window functions over orders, on the device
+    try:
+        window_path(session, tpch, orders, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"window path: {type(e).__name__}: {e}")
+
+    # 16. mutations at --sf on lineitem: a pinned reader, UPDATE, DELETE,
+    # insert, Q1 / Q6 through both kernels, HTAP, row tables
+    cust = tpch.gen_customer(n_orders // 10, args.seed + 2)
+    try:
+        mut_launches = mutation_path(session, tpch, li, orders, cust, first,
+                                     args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"mutation path: {type(e).__name__}: {e}")
+    del cust
+    log(f"mutation_path_launches {json.dumps(mut_launches)}")
+    for name, count in mut_launches.items():
+        launches[name] += count
+
+    # 17. the Kahan kernel under torch.profiler, in a child process whose
     # profiler starts fresh
     for label, r in kahan_profile_child(kahan_shapes, args.reps, root):
         log(f"kernel masked_kahan_sum profile on the {label} "
             f"{json.dumps(r)}")
     del kahan_shapes, rec_k
 
-    # 16. result lines
+    # 18. result lines
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",

@@ -14,7 +14,8 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 from snappydata_tpu_torch import types as T
-from snappydata_tpu_torch.storage.table_store import ColumnTableData
+from snappydata_tpu_torch.storage.table_store import (ColumnTableData,
+                                                     RowTableData)
 from snappydata_tpu_torch.utils import locks
 
 
@@ -75,19 +76,23 @@ class Catalog:
             key_columns = tuple(k.lower() for k in key_columns) or tuple(
                 c.strip().lower() for c in opts.get("key_columns", "").split(",")
                 if c.strip())
-            if provider != "column":
+            if provider not in ("column", "row"):
                 raise NotImplementedError(
-                    f"{provider} tables are not ported; use USING column")
+                    f"{provider} tables are not ported; use USING column "
+                    f"or USING row")
             for f in schema.fields:
                 if f.dtype.name in ("array", "map", "struct"):
                     raise NotImplementedError(
                         f"{f.dtype.name} columns are not ported")
-            cap = int(opts.get("column_batch_rows",
-                               props.column_batch_rows))
-            max_delta = int(opts.get("column_max_delta_rows",
-                                     props.column_max_delta_rows))
-            data = ColumnTableData(schema, capacity=cap,
-                                   max_delta_rows=max_delta)
+            if provider == "row":
+                data = RowTableData(schema, key_columns=key_columns)
+            else:
+                cap = int(opts.get("column_batch_rows",
+                                   props.column_batch_rows))
+                max_delta = int(opts.get("column_max_delta_rows",
+                                         props.column_max_delta_rows))
+                data = ColumnTableData(schema, capacity=cap,
+                                       max_delta_rows=max_delta)
             base_table = opts.get("basetable") or opts.get("base_table")
             info = TableInfo(
                 name=key, schema=schema, provider=provider, options=opts,

@@ -22,10 +22,14 @@ SnappyHashAggregateExec):
                run-space SUM/COUNT (ops/code_agg.py) and the packed
                reduction families (ops/reduction.py)
 
+  WindowProject -> one stable-sort chain per (PARTITION BY, ORDER BY),
+               segmented doubling scans and searchsorted segment / tie
+               bounds, scattered back to table order
+
 Everything above the aggregate (ORDER BY / LIMIT / DISTINCT / outer
 projects) runs on the host over the small reduced result.  Window
-functions and the functions the port's expression lowering lacks raise
-CompileError, and the executor answers those plans with the host
+shapes the device lane lacks and the functions the port's expression
+lowering lacks raise CompileError, and the executor answers those plans with the host
 evaluator (engine/hosteval.py), as the reference does for constructs it
 cannot lower.  Data-dependent limits (a join expansion past its bucket,
 generic keys past max_groups, an exact-decimal sum at int64 risk) raise
@@ -72,7 +76,8 @@ from snappydata_tpu_torch.ops.group_reduce import grouped_reduce
 from snappydata_tpu_torch.ops.kahan_reduce import masked_kahan_sum
 from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.sql.analyzer import _expr_name, expr_type
-from snappydata_tpu_torch.storage.device import (batch_bucket,
+from snappydata_tpu_torch.storage import mvcc
+from snappydata_tpu_torch.storage.device import (DeviceTable, batch_bucket,
                                                  build_device_table,
                                                  current_scan_scale,
                                                  numeric_key_domain)
@@ -80,6 +85,7 @@ from snappydata_tpu_torch.storage.device_decode import (BitPlate, CodePlate,
                                                         RlePlate, bit_values,
                                                         compressed_fallback,
                                                         rle_values)
+from snappydata_tpu_torch.storage.table_store import RowTableData
 
 
 # aggregates whose argument may be a string (dictionary codes count and
@@ -135,8 +141,11 @@ class _RelationInput:
         self._tls = threading.local()
 
     def bind(self, device: torch.device):
-        dt = build_device_table(self.info.data, self.used, device,
-                                code_ok=self.allow_code)
+        if isinstance(self.info.data, RowTableData):
+            dt = _row_table_device(self.info, self.used, device)
+        else:
+            dt = build_device_table(self.info.data, self.used, device,
+                                    code_ok=self.allow_code)
         self._tls.dt = dt
         return dt
 
@@ -562,6 +571,8 @@ class Compiler:
         region root."""
         if isinstance(plan, ast.Aggregate):
             return self._emit_aggregate(plan)
+        if isinstance(plan, ast.WindowProject):
+            return self._emit_window(plan)
         rel_emit, scope = self._emit_rel(plan)
 
         def run_root(ctx) -> tuple:
@@ -571,6 +582,279 @@ class Compiler:
             return out.valid, pairs
 
         return run_root, scope
+
+    # -- window ------------------------------------------------------------
+
+    _WINDOW_DEVICE_FUNCS = frozenset({
+        "row_number", "rank", "dense_rank", "sum", "count", "avg", "min",
+        "max", "lag", "lead"})
+
+    def _emit_window(self, plan: ast.WindowProject):
+        """Device OVER(): one sort per distinct (PARTITION BY, ORDER BY)
+        pair — successive stable sorts, last ORDER BY key first and the
+        partition key last — then segmented scans in the sorted domain
+        (`_segscan`), rank / row_number from segment and tie bounds
+        (`searchsorted` of the sorted segment / tie ids against
+        themselves), and one scatter back to table order.  Shapes outside
+        `_WINDOW_DEVICE_FUNCS`, rank without ORDER BY, ORDER BY a string
+        and lag / lead with a default raise CompileError, which routes
+        the plan to `hosteval.eval_window` exactly where the reference
+        routes it."""
+        child, scope = self._emit_rel(plan.child)
+        wfs: List[ast.WindowFunc] = []
+
+        def collect(e):
+            if isinstance(e, ast.WindowFunc):
+                if e not in wfs:
+                    wfs.append(e)
+                return
+            for c in e.children():
+                collect(c)
+
+        for e in plan.exprs:
+            collect(e)
+        if not wfs:
+            raise CompileError("window project without window functions")
+
+        builder = self._builder_for(scope)
+        groups: Dict[tuple, dict] = {}
+        specs = []
+        for wf in wfs:
+            if wf.name not in self._WINDOW_DEVICE_FUNCS:
+                raise CompileError(f"window {wf.name}: host path")
+            if wf.name in ("rank", "dense_rank") and not wf.order_by:
+                raise CompileError("rank without ORDER BY: host path")
+            for oe, *_ in wf.order_by:
+                odt = expr_type(oe)
+                if odt is None or odt.name in ("string", "array", "map"):
+                    raise CompileError("window ORDER BY on non-numeric "
+                                       "key: host path")
+            arg_run = None
+            arg_dtype = None
+            offset = 1
+            if wf.name in ("sum", "avg", "min", "max"):
+                arg_dtype = expr_type(wf.args[0])
+                if arg_dtype is None or not T.is_numeric(arg_dtype):
+                    raise CompileError("window aggregate over non-numeric "
+                                       "argument: host path")
+                arg_run = builder.emit(wf.args[0])
+            elif wf.name == "count" and wf.args:
+                arg_run = builder.emit(wf.args[0])
+            elif wf.name in ("lag", "lead"):
+                if not wf.order_by:
+                    raise CompileError("lag/lead without ORDER BY")
+                if len(wf.args) > 2:
+                    raise CompileError("lag/lead default value: host path")
+                arg_dtype = expr_type(wf.args[0])
+                if arg_dtype is not None and arg_dtype.name == "string":
+                    raise CompileError("lag/lead over strings: host path")
+                if len(wf.args) > 1:
+                    if not isinstance(wf.args[1], ast.Lit):
+                        raise CompileError("non-literal lag/lead offset")
+                    offset = int(wf.args[1].value)
+                arg_run = builder.emit(wf.args[0])
+            gk = (wf.partition_by, wf.order_by)
+            if gk not in groups:
+                groups[gk] = {
+                    "part": [builder.emit(p) for p in wf.partition_by],
+                    "order": [(builder.emit(o[0]), o[1],
+                               o[2] if len(o) > 2 else None)
+                              for o in wf.order_by],
+                }
+            specs.append((wf, gk, arg_run, arg_dtype, offset))
+
+        # the select list sees the window values as appended columns
+        ext_scope = list(scope) + [
+            _ScopeCol(f"__w{i}", expr_type(wf) or T.DOUBLE, None, True)
+            for i, wf in enumerate(wfs)]
+
+        def rewrite(e):
+            if isinstance(e, ast.WindowFunc):
+                i = wfs.index(e)
+                return ast.Col(f"__w{i}", None, len(scope) + i,
+                               ext_scope[len(scope) + i].dtype)
+            return e.map_children(rewrite)
+
+        out_exprs = [rewrite(e) for e in plan.exprs]
+        ext_builder = self._builder_for(ext_scope)
+        out_runs = [ext_builder.emit(
+            e.child if isinstance(e, ast.Alias) else e) for e in out_exprs]
+        out_scope = [
+            _ScopeCol(_expr_name(orig), expr_type(orig) or T.DOUBLE,
+                      _derived_dict_provider(
+                          e.child if isinstance(e, ast.Alias) else e,
+                          ext_scope), True)
+            for orig, e in zip(plan.exprs, out_exprs)]
+
+        def run_window(ctx) -> tuple:
+            fdt = torch.float64 if config.use_float64() else torch.float32
+            out = child(ctx)
+            valid2 = out.valid
+            flatmask = valid2.reshape(-1)
+            n = int(flatmask.shape[0])
+            dev = flatmask.device
+            idx = torch.arange(n, device=dev)
+            rt = ctx.runtime(out.cols)
+
+            def flat(dv: DVal):
+                v = _broadcast_to_mask(dv.value, valid2).reshape(-1)
+                nl = _broadcast_to_mask(dv.null, valid2).reshape(-1) \
+                    if dv.null is not None else None
+                return v, nl
+
+            gdata: Dict[tuple, dict] = {}
+            for gk, g in groups.items():
+                part_flat = []
+                for r in g["part"]:
+                    v, nl = flat(r(rt))
+                    if nl is not None:
+                        # every NULL of a key is one partition, whatever
+                        # filler its slot holds
+                        v = torch.where(nl, torch.zeros_like(v), v)
+                    part_flat.append(DVal(v, nl))
+                pk = _combine_keys(part_flat) if part_flat \
+                    else torch.zeros(n, dtype=torch.int64, device=dev)
+                pk = torch.where(flatmask, pk, _dj.I64_MAX)
+                okeys = []
+                for r, asc, nf in g["order"]:
+                    v, nl = flat(r(rt))
+                    if v.dtype == torch.bool:
+                        v = v.to(torch.int32)
+                    kv = v if asc else -v
+                    if nl is not None:
+                        # Spark: ASC -> NULLS FIRST, DESC -> NULLS LAST,
+                        # unless NULLS FIRST / LAST is explicit
+                        nulls_first = nf if nf is not None else asc
+                        kv = torch.where(
+                            nl, reduction.extreme_value(kv.dtype,
+                                                        not nulls_first),
+                            kv)
+                    okeys.append(kv)
+                # lexsort by (pk, okeys...): stable sorts from the least
+                # significant key to the most
+                perm = idx
+                for key in list(reversed(okeys)) + [pk]:
+                    _s, p = torch.sort(key[perm], stable=True)
+                    perm = perm[p]
+                inv = torch.empty_like(perm)
+                inv[perm] = idx
+                gs = pk[perm]
+                one = torch.ones(1, dtype=torch.bool, device=dev)
+                new_seg = torch.cat([one, gs[1:] != gs[:-1]])
+                seg_id = torch.cumsum(new_seg, 0) - 1
+                seg_first = torch.searchsorted(seg_id, seg_id)
+                seg_last = torch.searchsorted(seg_id, seg_id, right=True) - 1
+                # the scans need as many doubling passes as the longest
+                # segment of LIVE rows: filtered and padding rows share
+                # one sentinel segment whose values nothing reads
+                seg_len = torch.where(flatmask[perm],
+                                      seg_last - seg_first + 1, 0)
+                d = dict(perm=perm, inv=inv, new_seg=new_seg,
+                         seg_first=seg_first, seg_last=seg_last,
+                         span=int(seg_len.max()) if n else 0)
+                if okeys:
+                    tie_new = new_seg
+                    for kv in okeys:
+                        ks = kv[perm]
+                        tie_new = tie_new | torch.cat([one, ks[1:] != ks[:-1]])
+                    tie_id = torch.cumsum(tie_new, 0) - 1
+                    d["tie_id"] = tie_id
+                    d["tie_first"] = torch.searchsorted(tie_id, tie_id)
+                    d["tie_last"] = torch.searchsorted(tie_id, tie_id,
+                                                       right=True) - 1
+                gdata[gk] = d
+
+            win_vals: List[DVal] = []
+            for wf, gk, arg_run, arg_dtype, offset in specs:
+                d = gdata[gk]
+                perm, inv = d["perm"], d["inv"]
+                frame_end = d["tie_last"] if wf.order_by else d["seg_last"]
+                if wf.name == "row_number":
+                    res = idx - d["seg_first"] + 1
+                    win_vals.append(DVal(res[inv], None, T.LONG))
+                    continue
+                if wf.name == "rank":
+                    res = d["tie_first"] - d["seg_first"] + 1
+                    win_vals.append(DVal(res[inv], None, T.LONG))
+                    continue
+                if wf.name == "dense_rank":
+                    res = d["tie_id"] - d["tie_id"][d["seg_first"]] + 1
+                    win_vals.append(DVal(res[inv], None, T.LONG))
+                    continue
+                if wf.name in ("lag", "lead"):
+                    dv = arg_run(rt)
+                    v, nl = flat(dv)
+                    vs = v[perm]
+                    k = offset if wf.name == "lag" else -offset
+                    src = idx - k
+                    ok = (src >= d["seg_first"]) & (src <= d["seg_last"])
+                    srcc = src.clamp(0, max(n - 1, 0))
+                    null_s = ~ok
+                    if nl is not None:
+                        null_s = null_s | nl[perm][srcc]
+                    win_vals.append(DVal(vs[srcc][inv], null_s[inv],
+                                         arg_dtype or dv.dtype))
+                    continue
+                # aggregates: sum / count / avg / min / max
+                if arg_run is not None:
+                    v, nl = flat(arg_run(rt))
+                else:  # count(*)
+                    v = torch.ones(n, dtype=torch.int64, device=dev)
+                    nl = None
+                vs = v[perm]
+                notnull = flatmask[perm] if nl is None \
+                    else ~nl[perm] & flatmask[perm]
+                cnt = _segscan(torch.add, notnull.to(torch.int64),
+                               d["new_seg"], d["span"])[frame_end]
+                if wf.name == "count":
+                    win_vals.append(DVal(cnt[inv], None, T.LONG))
+                    continue
+                if wf.name in ("sum", "avg"):
+                    # running sums accumulate in float64 (int64 for
+                    # integer sums) and cast back to the plate type: a
+                    # float32 scan loses digits over long partitions
+                    floating = wf.name == "avg" or vs.is_floating_point()
+                    acc_dt = torch.float64 if floating else torch.int64
+                    contrib = torch.where(notnull, vs,
+                                          torch.zeros_like(vs)).to(acc_dt)
+                    ssum = _segscan(torch.add, contrib, d["new_seg"],
+                                    d["span"])[frame_end]
+                    if wf.name == "avg":
+                        ssum = ssum / cnt.clamp(min=1).to(torch.float64)
+                    if floating:
+                        ssum = ssum.to(fdt)
+                    win_vals.append(DVal(ssum[inv], (cnt == 0)[inv],
+                                         expr_type(wf) or T.DOUBLE))
+                    continue
+                # min / max
+                sent = reduction.extreme_value(vs.dtype, wf.name == "min")
+                contrib = torch.where(notnull, vs, sent)
+                op = torch.minimum if wf.name == "min" else torch.maximum
+                res = _segscan(op, contrib, d["new_seg"],
+                               d["span"])[frame_end]
+                win_vals.append(DVal(res[inv], (cnt == 0)[inv],
+                                     arg_dtype or T.DOUBLE))
+
+            ext_cols: Dict[int, DVal] = {}
+            for i, dv in out.cols.items():
+                v, nl = flat(dv)
+                ext_cols[i] = DVal(v, nl, dv.dtype, dv.dictionary)
+            for i, dv in enumerate(win_vals):
+                ext_cols[len(scope) + i] = dv
+            rt2 = ctx.runtime(ext_cols)
+            # compact to the live rows on the device: the host then copies
+            # and assembles only them, not the whole padded flat domain
+            keep = flatmask.nonzero().squeeze(1)
+            pairs = []
+            for r in out_runs:
+                dv = r(rt2)
+                v = _broadcast_to_mask(dv.value, flatmask)[keep]
+                nl = None if dv.null is None \
+                    else _broadcast_to_mask(dv.null, flatmask)[keep]
+                pairs.append((v, nl))
+            return flatmask[keep], pairs
+
+        return run_window, out_scope
 
     def _emit_rel(self, plan: ast.Plan):
         """Relational body -> (emitter(ctx) -> RelOut, scope)."""
@@ -1299,6 +1583,7 @@ class Compiler:
             elif gt.name == "boolean":
                 key_infos.append(("bool", None, None))
             elif (base_info is not None and isinstance(base_g, ast.Col)
+                  and not isinstance(base_info.data, RowTableData)
                   and base_g.index is not None and gt.name != "decimal"
                   and T.is_numeric(gt)):
                 # vdict: a direct numeric key of a base column table
@@ -1336,6 +1621,11 @@ class Compiler:
 
         strategy_si = self._add_static(lambda p=props: _strategy_token(p))
         code_agg_si = self._add_static(lambda p=props: _code_agg_token(p))
+        # run-space readiness rides the static key too: a DELETE's mask
+        # re-specializes the plan off the run lane, no cache flush
+        rle_gate_si = self._add_static(
+            lambda d=base_info.data: _rle_agg_ready(d)) \
+            if base_info is not None else None
         kernel_si = self._add_static(_kernel_token)
         notes = self._agg_notes = {}
 
@@ -1535,10 +1825,9 @@ class Compiler:
             # dictionary-space SUM is a scatter-heavy lane: auto keeps it
             # off the CPU; "on" forces it everywhere, "off" kills it.  The
             # run-space lane is cheap arithmetic: only "off" disables it.
-            # (The reference also gates it on the snapshot holding no
-            # delete mask; the port has no DELETE, so runs are whole.)
             code_agg_on = tok == 2 or (tok == 1 and dev.type != "cpu")
             rle_ok = tok != 0 and base_info is not None \
+                and bool(ctx.static[rle_gate_si]) \
                 and out.valid.dim() == 2
             if groups and fast and any(ki[0] in ("dict", "vdict")
                                        for ki in key_infos):
@@ -2020,7 +2309,80 @@ class _RunCtx:
 def _dict_provider(info, ci):
     if info.schema.fields[ci].dtype.name != "string":
         return None
+    if isinstance(info.data, RowTableData):
+        return lambda: info.data.string_dict(ci)
     return lambda: info.data.dictionary(ci)
+
+
+def _rle_agg_ready(data) -> int:
+    """Static gate of the run-space aggregate lane: run arithmetic sums
+    WHOLE runs, so a delete mask (row-level holes the runs cannot see)
+    disqualifies the snapshot.  Deltas and row-buffer rows already
+    disqualify the compressed bind itself."""
+    if isinstance(data, RowTableData):
+        return 0
+    man = mvcc.snapshot_of(data)
+    return int(not any(v.delete_mask is not None for v in man.views))
+
+
+def _row_table_device(info, used, device: torch.device) -> DeviceTable:
+    """A row table presents the same stacked [1, N] plate interface as a
+    column table.  The DeviceTable is cached per (mutation version,
+    device, columns); a pinned statement binds its captured host snapshot
+    and keys the cache by the CAPTURED version."""
+    data = info.data
+    cache = data.__dict__.setdefault("_device_cache", {})
+    pin = mvcc.current_pin()
+    if pin is not None:
+        arrays, row_masks, n, ver = pin.row_snapshot(data)
+    else:
+        arrays = None
+        ver = data.version
+    key = (ver, str(device), tuple(used))
+    hit = cache.get(key)
+    if hit is not None:
+        return hit
+    if arrays is None:
+        arrays, row_masks, n = data.to_arrays_with_nulls()
+    cap = max(1, n)
+    cols, dicts, nulls = {}, {}, {}
+    for ci in used:
+        f = info.schema.fields[ci]
+        if f.dtype.name == "string":
+            d = data.string_dict(ci)
+            dicts[ci] = d
+            lookup = {v: i for i, v in enumerate(d.tolist())}
+            vals = np.fromiter(
+                (lookup.get(v if v is not None else "", 0)
+                 for v in arrays[ci]), dtype=np.int32, count=n)
+        elif f.dtype.name == "decimal" \
+                and f.dtype.device_dtype().kind == "i":
+            # exact decimal: host rows -> scaled int64 device plate
+            vals = T.decimal_to_unscaled(
+                f.dtype, np.asarray(arrays[ci], dtype=np.float64))
+        else:
+            vals = np.asarray(arrays[ci]).astype(f.dtype.device_dtype())
+        padded = np.zeros(cap, dtype=vals.dtype)
+        padded[:n] = vals
+        cols[ci] = _upload(padded[None, :], device)
+        nulls[ci] = None
+        if row_masks[ci] is not None:
+            nmask = np.zeros((1, cap), dtype=np.bool_)
+            nmask[0, :n] = row_masks[ci]
+            nulls[ci] = _upload(nmask, device)
+    valid = np.zeros((1, cap), dtype=np.bool_)
+    valid[0, :n] = True
+    dt = DeviceTable(info.schema, 1, cap, _upload(valid, device), cols, dicts,
+                     {}, {}, n, nulls)
+    # old versions go, unless pinned or the LIVE version (a pinned bind
+    # at an older capture must not evict the entry unpinned traffic hits)
+    pinned = mvcc.pinned_row_versions(data)
+    live = data.version
+    for k in [k for k in list(cache)
+              if k[0] != ver and k[0] != live and k[0] not in pinned]:
+        cache.pop(k, None)
+    cache[key] = dt
+    return dt
 
 
 def _derived_dict_provider(e: ast.Expr, scope):
@@ -2125,6 +2487,24 @@ def _broadcast_to_mask(v, mask):
     return torch.broadcast_to(v, mask.shape)
 
 
+def _segscan(op, vals: torch.Tensor, new_seg: torch.Tensor,
+             span: int) -> torch.Tensor:
+    """Inclusive segmented scan of `vals` under `op`, reset where
+    `new_seg` is set: a doubling (Hillis-Steele) scan over the monoid
+    (f, v) . (g, w) = (f | g, w if g else op(v, w)).  `span` is the
+    longest segment, so ceil(log2(span)) passes suffice — no prefix
+    crosses a segment start, and no value cancels against another
+    segment's."""
+    v = vals
+    f = new_seg
+    k = 1
+    while k < span:
+        v = torch.cat([v[:k], torch.where(f[k:], v[k:], op(v[:-k], v[k:]))])
+        f = torch.cat([f[:k], f[k:] | f[:-k]])
+        k *= 2
+    return v
+
+
 def _combine_keys(dvals: List[DVal]) -> torch.Tensor:
     """Combine N key DVals into one int64 key.  Single key: exact (NULL
     maps to a reserved sentinel).  Multiple: a 64-bit hash with the null
@@ -2186,7 +2566,14 @@ def _require_f64_exact_int_key(info, ordinal: int) -> None:
     Verified per bind (cached per mutation version) — values at risk
     reroute to the exact host join."""
     data = info.data
-    key = (id(data), data.snapshot().version, ordinal)
+    if isinstance(data, RowTableData):
+        # the pin's captured version when pinned, else the live one
+        pin = mvcc.current_pin()
+        ver = pin.row_snapshot(data)[3] if pin is not None \
+            else data.version
+    else:
+        ver = mvcc.snapshot_of(data).version
+    key = (id(data), ver, ordinal)
     ok = None
     entry = _absmax_cache.get(key)
     if entry is not None:
@@ -2214,10 +2601,14 @@ def _require_f64_exact_int_key(info, ordinal: int) -> None:
 
 
 def _host_key_columns(info, ordinals: Tuple[int, ...]) -> List[np.ndarray]:
-    """Live host values of a column table's key columns at the current
-    snapshot: decoded batches, then the row buffer."""
+    """Host values of a table's key columns at the statement's snapshot:
+    a row table's captured rows, or a column table's decoded live batch
+    rows, then its row buffer."""
     data = info.data
-    m = data.snapshot()
+    if isinstance(data, RowTableData):
+        arrays, _, n, _ver = mvcc.row_snapshot_of(data)
+        return [np.asarray(arrays[i])[:n] for i in ordinals]
+    m = mvcc.snapshot_of(data)
     out = []
     for i in ordinals:
         name = info.schema.fields[i].name
@@ -2289,6 +2680,8 @@ def _plan_width(plan: ast.Plan) -> int:
         if plan.how in ("semi", "anti"):
             return _plan_width(plan.left)
         return _plan_width(plan.left) + _plan_width(plan.right)
+    if isinstance(plan, ast.WindowProject):
+        return len(plan.exprs)
     raise CompileError(f"width of {type(plan).__name__}")
 
 
@@ -2330,6 +2723,12 @@ def _collect_used(plan: ast.Plan, needed: Optional[set],
         needed = set(needed) | _expr_cols(plan.condition)
         _collect_used(plan.left, {i for i in needed if i < wl}, out)
         _collect_used(plan.right, {i - wl for i in needed if i >= wl}, out)
+        return
+    if isinstance(plan, ast.WindowProject):
+        need = set()
+        for e in plan.exprs:
+            need |= _expr_cols(e)  # walk() covers args, partition, order
+        _collect_used(plan.child, need, out)
         return
     raise CompileError(f"{type(plan).__name__} is not ported to the device "
                        f"path")
@@ -2445,6 +2844,9 @@ class Executor:
             return hosteval.set_op(self.execute(node.left, params),
                                    self.execute(node.right, params), node.op)
         reg = global_registry()
+        fast = self._try_point_lookup(node, params)
+        if fast is not None:
+            return fast
         key = (_plan_key(node), self.catalog.generation)
         compiled = self._cache_get(key)
         if compiled is None:
@@ -2462,6 +2864,83 @@ class Executor:
         except CompileError:
             reg.inc("host_fallbacks")
             return self._host_fallback(node, params)
+
+    def _try_point_lookup(self, node: ast.Plan, params: Tuple
+                          ) -> Optional[Result]:
+        """Key queries on a row table (`col = literal` over every key
+        column, plain column projections) answer straight from the
+        primary-key index, never entering the device engine (ref:
+        ExecutionEngineArbiter routing simple queries to the store's own
+        engine, docs/architecture/cluster_architecture.md:31-33).
+        Secondary indexes are not ported."""
+        proj = None
+        n = node
+        if isinstance(n, ast.Project):
+            proj, n = n, n.child
+        while isinstance(n, ast.SubqueryAlias):
+            n = n.child
+        if not isinstance(n, ast.Filter):
+            return None
+        inner = n.child
+        while isinstance(inner, ast.SubqueryAlias):
+            inner = inner.child
+        if not isinstance(inner, ast.Relation):
+            return None
+        info = self.catalog.lookup_table(inner.name)
+        if info is None or not isinstance(info.data, RowTableData) \
+                or not info.key_columns:
+            return None
+        pairs: Dict[str, object] = {}
+
+        def flatten(e) -> bool:
+            if isinstance(e, ast.BinOp) and e.op == "and":
+                return flatten(e.left) and flatten(e.right)
+            if isinstance(e, ast.BinOp) and e.op == "=" \
+                    and isinstance(e.left, ast.Col) \
+                    and isinstance(e.right, (ast.Lit, ast.ParamLiteral,
+                                             ast.Param)):
+                v = e.right.value if isinstance(e.right, ast.Lit) \
+                    else params[e.right.pos]
+                name = e.left.name.lower()
+                if name in pairs and pairs[name] != v:
+                    return False  # contradictory k=1 AND k=2: engine path
+                pairs[name] = v
+                return True
+            return False
+
+        if not flatten(n.condition):
+            return None
+        if proj is not None and not all(
+                isinstance(e.child if isinstance(e, ast.Alias) else e,
+                           ast.Col) for e in proj.exprs):
+            return None
+        if frozenset(pairs) != frozenset(info.key_columns):
+            return None
+        got = info.data.get(tuple(pairs[k] for k in info.key_columns))
+        rows = [got] if got is not None else []
+        global_registry().inc("point_lookups")
+        schema = info.schema
+        if proj is not None:
+            idxs = [(e.child if isinstance(e, ast.Alias) else e).index
+                    for e in proj.exprs]
+            names = [_expr_name(e) for e in proj.exprs]
+            dtypes = [schema.fields[i].dtype for i in idxs]
+            rows = [tuple(r[i] for i in idxs) for r in rows]
+        else:
+            names = schema.names()
+            dtypes = [f.dtype for f in schema.fields]
+        cols, nulls = [], []
+        for j, dt in enumerate(dtypes):
+            vals = [r[j] for r in rows]
+            nmask = np.array([v is None for v in vals]) if vals else None
+            if dt.name == "string":
+                cols.append(np.array(vals, dtype=object))
+            else:
+                cols.append(np.array([0 if v is None else v for v in vals],
+                                     dtype=dt.np_dtype))
+            nulls.append(nmask if nmask is not None and nmask.any()
+                         else None)
+        return Result(names, cols, nulls, dtypes)
 
     def _host_fallback(self, node: ast.Plan, params: Tuple) -> Result:
         """CodegenSparkFallback analogue (core/.../execution/

@@ -1122,8 +1122,17 @@ def _eval_rel(plan: ast.Plan, params, executor):
     """Returns (cols, nulls, names, dtypes, n) with host arrays."""
     if isinstance(plan, ast.Relation):
         info = executor.catalog.lookup_table(plan.name)
+        from snappydata_tpu_torch.storage import mvcc
         from snappydata_tpu_torch.storage.device import host_scan_units
+        from snappydata_tpu_torch.storage.table_store import RowTableData
 
+        if isinstance(info.data, RowTableData):
+            # pinned statements read their captured host snapshot (row
+            # tables mutate in place; repeatable reads within the query)
+            arrays, col_nulls, n, _ver = mvcc.row_snapshot_of(info.data)
+            return ([np.asarray(a) for a in arrays], list(col_nulls),
+                    info.schema.names(),
+                    [f.dtype for f in info.schema.fields], n)
         # honor the active scan window (the same pinned snapshot and unit
         # slice as build_device_table): a tile of a scan_tile_bytes pass
         # that falls back to the host (the exact-decimal overflow guard

@@ -1,9 +1,14 @@
 """SnappySession — the user entry point of the PyTorch port.
 
-Port of snappydata_tpu/session.py, cut to the analytic scan: `sql()`
-for CREATE TABLE ... USING column, INSERT ... VALUES / SELECT, DROP,
-TRUNCATE, SHOW / DESCRIBE, SET and queries; `insert` / `insert_arrays`
-for bulk ingest.  A query runs parse -> optimize -> analyze -> tokenize
+Port of snappydata_tpu/session.py, cut to the analytic store: `sql()`
+for CREATE TABLE ... USING column | row, INSERT / PUT INTO ... VALUES /
+SELECT, UPDATE, DELETE, ALTER TABLE ADD / DROP COLUMN, DROP, TRUNCATE,
+SHOW / DESCRIBE, SET and queries; `insert` / `insert_arrays` for bulk
+ingest and `put` / `update` / `delete` / `get` for point operations.
+Every statement whose reads are scan-shaped pins ONE snapshot epoch for
+its whole run (`execute_statement`, storage/mvcc.py): the device bind,
+the host fallback, join key encodes, subquery rewrites, CTAS sources and
+the tiled pass with its prefetch worker all read the pinned manifest.  A query runs parse -> optimize -> analyze -> tokenize
 literals -> executor (ref: SnappySession.sqlPlan:2571).  Subqueries
 rewrite first, as in the reference: correlated [NOT] EXISTS / IN become
 semi / anti joins and a correlated scalar aggregate a join on its grouped
@@ -15,7 +20,8 @@ snappydata_tpu/session.py:1329): one compiled partial program per tile,
 the [G] partials merged on the device where the group space is
 tile-aligned, a double-buffered prefetcher warming the next tile's
 plates.  Durability, mesh execution, views, samples and streams are not
-ported and raise NotImplementedError.
+ported and raise NotImplementedError; UPDATE / DELETE / PUT leave out the
+reference's materialized-view maintenance hooks with the views.
 
 A session runs on one torch device: `cuda` unless the caller asks for
 another (`SnappySession(device="cpu")`).  Without a GPU, a session that
@@ -47,17 +53,21 @@ from snappydata_tpu_torch.engine.result import (Result, empty_result,
 from snappydata_tpu_torch.observability.metrics import global_registry
 from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.sql.analyzer import (Analyzer, AnalysisError,
+                                               Scope, ScopeEntry,
                                                _expr_name,
                                                assign_param_positions,
+                                               fold_constants,
                                                tokenize_plan)
 from snappydata_tpu_torch.sql.optimizer import optimize
 from snappydata_tpu_torch.sql.parser import parse
 from snappydata_tpu_torch.sql.render import (RenderError, render_expr,
                                              render_plan)
+from snappydata_tpu_torch.storage import mvcc
 from snappydata_tpu_torch.storage.device import (scan_unit_count,
                                                  scan_window)
 from snappydata_tpu_torch.storage.prefetch import TilePrefetcher
-from snappydata_tpu_torch.storage.table_store import ColumnTableData
+from snappydata_tpu_torch.storage.table_store import (ColumnTableData,
+                                                      RowTableData)
 from snappydata_tpu_torch.utils import locks
 
 
@@ -104,16 +114,49 @@ class SnappySession:
         # lowering picks float widths from the device: every statement
         # runs inside the session's device scope
         with config.device_scope(self.device):
-            stmt = parse(sql_text)
-            if isinstance(stmt, ast.Query):
-                if stmt.with_error is not None:
-                    raise NotImplementedError(
-                        "WITH ERROR (approximate queries) is not ported")
-                return finalize_decimals(
-                    self._run_query(stmt.plan, tuple(params)))
-            return self._execute_statement(stmt, tuple(params))
+            return self.execute_statement(parse(sql_text), tuple(params))
+
+    def _snapshot_tables_for(self, stmt: ast.Statement):
+        """Tables a statement's READS pin at one consistent epoch: the
+        query plan's relations, a CTAS or INSERT ... SELECT source, and
+        UPDATE / DELETE WHERE-subquery relations.  None = the statement
+        has no snapshot-shaped reads."""
+        if isinstance(stmt, ast.Query):
+            return _referenced_tables(stmt.plan)
+        if isinstance(stmt, ast.CreateTable) and stmt.as_select is not None:
+            return _referenced_tables(stmt.as_select)
+        if isinstance(stmt, ast.InsertInto) \
+                and not isinstance(stmt.source, ast.Values):
+            return _referenced_tables(stmt.source) or None
+        if isinstance(stmt, ast.UpdateStmt):
+            names = []
+            for e in [stmt.where] + [x for _, x in stmt.assignments]:
+                if e is not None:
+                    names.extend(_expr_subquery_tables(e))
+            return names or None
+        if isinstance(stmt, ast.DeleteStmt) and stmt.where is not None:
+            return _expr_subquery_tables(stmt.where) or None
+        return None
+
+    def execute_statement(self, stmt: ast.Statement, user_params=()
+                          ) -> Result:
+        """Statement entry: reads pin ONE snapshot epoch for the whole
+        statement (subquery rewrites, tile passes and host fallbacks all
+        traverse it), so a long scan and concurrent ingest never block
+        each other and never mix table versions.  Nested executions find
+        the ambient pin and extend it."""
+        names = self._snapshot_tables_for(stmt)
+        if names is not None and mvcc.current_pin() is None:
+            with mvcc.pinned_scope(self.catalog, names):
+                return self._execute_statement(stmt, user_params)
+        return self._execute_statement(stmt, user_params)
 
     def _execute_statement(self, stmt: ast.Statement, params) -> Result:
+        if isinstance(stmt, ast.Query):
+            if stmt.with_error is not None:
+                raise NotImplementedError(
+                    "WITH ERROR (approximate queries) is not ported")
+            return finalize_decimals(self._run_query(stmt.plan, params))
         if isinstance(stmt, ast.CreateTable):
             return self._create_table(stmt)
         if isinstance(stmt, ast.DropTable):
@@ -124,13 +167,19 @@ class SnappySession:
             return _status()
         if isinstance(stmt, ast.InsertInto):
             return _count_result(self._insert(stmt, params))
+        if isinstance(stmt, ast.UpdateStmt):
+            return _count_result(self._update(stmt, params))
+        if isinstance(stmt, ast.DeleteStmt):
+            return _count_result(self._delete(stmt, params))
+        if isinstance(stmt, ast.AlterTable):
+            return self._alter_table(stmt)
         if isinstance(stmt, ast.ShowTables):
             infos = self.catalog.list_tables()
             return Result(
                 ["tableName", "provider", "rowCount"],
                 [np.array([i.name for i in infos], dtype=object),
                  np.array([i.provider for i in infos], dtype=object),
-                 np.array([i.data.snapshot().total_rows() for i in infos],
+                 np.array([_row_count(i) for i in infos],
                           dtype=np.int64)],
                 [None, None, None], [T.STRING, T.STRING, T.LONG])
         if isinstance(stmt, ast.DescribeTable):
@@ -640,7 +689,8 @@ class SnappySession:
                 if isinstance(c, ast.Col)}
         total = 0
         for bi in build_infos:
-            rows = bi.data.snapshot().total_rows()
+            rows = bi.data.count() if isinstance(bi.data, RowTableData) \
+                else mvcc.snapshot_of(bi.data).total_rows()
             w = 1
             for f in bi.schema.fields:
                 cw = self._decoded_col_width(f)
@@ -669,8 +719,10 @@ class SnappySession:
             return None
         outer, having, node, info, exprs, build_infos = shaped
         data = info.data
-        # the pass pins ONE manifest across every window
-        manifest = data.snapshot()
+        # the pass pins ONE manifest across every window — the statement's
+        # pinned one, so a tiled aggregate and an untiled one see the
+        # same epoch, and the prefetch worker binds it, never the live one
+        manifest = mvcc.snapshot_of(data)
         units = scan_unit_count(data, manifest)
         if units <= 1:
             return None
@@ -903,12 +955,53 @@ class SnappySession:
         info = self.catalog.describe(table)
         with config.device_scope(self.device):
             arrays, nulls = _rows_to_arrays(info.schema, rows)
+            if isinstance(info.data, RowTableData):
+                return info.data.insert_arrays(
+                    _restore_none_arrays(arrays, nulls))
             return info.data.insert_arrays(arrays, nulls=nulls)
 
     def insert_arrays(self, table: str, arrays: Sequence[np.ndarray]) -> int:
         info = self.catalog.describe(table)
         with config.device_scope(self.device):
             return info.data.insert_arrays([np.asarray(a) for a in arrays])
+
+    def put(self, table: str, *rows) -> int:
+        """PUT INTO by rows: an upsert on the table's key columns."""
+        info = self.catalog.describe(table)
+        arrays, nulls = _rows_to_arrays(info.schema, rows)
+        if isinstance(info.data, RowTableData):
+            arrays = _restore_none_arrays(arrays, nulls)
+        return self.put_arrays(table, arrays)
+
+    def put_arrays(self, table: str, arrays: Sequence[np.ndarray]) -> int:
+        info = self.catalog.describe(table)
+        arrays = [np.asarray(a) for a in arrays]
+        with config.device_scope(self.device):
+            if isinstance(info.data, RowTableData):
+                return info.data.put_arrays(arrays)
+            return self._column_put(info, arrays)
+
+    def update(self, table: str, where_sql: str, new_values: Dict[str, Any]
+               ) -> int:
+        """Programmatic UPDATE, routed through sql()."""
+        sets = ", ".join(f"{k} = {_sql_literal(v)}"
+                         for k, v in new_values.items())
+        text = f"UPDATE {table} SET {sets}" + \
+            (f" WHERE {where_sql}" if where_sql else "")
+        return int(self.sql(text).rows()[0][0])
+
+    def delete(self, table: str, where_sql: str) -> int:
+        text = f"DELETE FROM {table}" + \
+            (f" WHERE {where_sql}" if where_sql else "")
+        return int(self.sql(text).rows()[0][0])
+
+    def get(self, table: str, key: tuple):
+        """Point lookup on a row table's primary key: never enters the
+        query engine (ref: ExecutionEngineArbiter fast path)."""
+        info = self.catalog.describe(table)
+        if not isinstance(info.data, RowTableData):
+            raise ValueError("get() requires a row table with a primary key")
+        return info.data.get(key)
 
     def stop(self) -> None:
         self.executor.clear_cache()
@@ -917,9 +1010,9 @@ class SnappySession:
         self.executor.clear_cache()
 
     def _create_table(self, stmt: ast.CreateTable) -> Result:
-        if stmt.stream or stmt.provider != "column":
+        if stmt.stream or stmt.provider not in ("column", "row"):
             raise NotImplementedError(
-                "only CREATE TABLE ... USING column is ported")
+                "only CREATE TABLE ... USING column | row is ported")
         if stmt.as_select is not None:
             if stmt.if_not_exists and \
                     self.catalog.lookup_table(stmt.name) is not None:
@@ -927,22 +1020,26 @@ class SnappySession:
             result = to_host_domain(self._run_query(stmt.as_select))
             schema = T.Schema([T.Field(n, dt) for n, dt in
                                zip(result.names, result.dtypes)])
-            info = self.catalog.create_table(stmt.name, schema, "column",
-                                             stmt.options,
+            info = self.catalog.create_table(stmt.name, schema,
+                                             stmt.provider, stmt.options,
                                              stmt.if_not_exists)
             if result.num_rows:
                 arrays, nulls = _result_to_arrays(result, schema)
-                info.data.insert_arrays(arrays, nulls=nulls)
+                if isinstance(info.data, RowTableData):
+                    info.data.insert_arrays(
+                        _restore_none_arrays(arrays, nulls))
+                else:
+                    info.data.insert_arrays(arrays, nulls=nulls)
             return _status()
         schema = T.Schema([T.Field(c.name, c.dtype, c.nullable)
                            for c in stmt.columns])
-        self.catalog.create_table(stmt.name, schema, "column",
-                                  stmt.options, stmt.if_not_exists)
+        keys = tuple(c.name for c in stmt.columns if c.primary_key)
+        self.catalog.create_table(stmt.name, schema, stmt.provider,
+                                  stmt.options, stmt.if_not_exists,
+                                  key_columns=keys)
         return _status()
 
     def _insert(self, stmt: ast.InsertInto, user_params) -> int:
-        if stmt.put:
-            raise NotImplementedError("PUT INTO is not ported")
         info = self.catalog.describe(stmt.table)
         schema = info.schema
         if isinstance(stmt.source, ast.Values):
@@ -976,7 +1073,245 @@ class SnappySession:
             null_masks.append(nmask)
         if stmt.overwrite:
             info.data.truncate()
+        if isinstance(info.data, RowTableData):
+            raw = _restore_none_arrays(arrays, null_masks)
+            return info.data.put_arrays(raw) if stmt.put \
+                else info.data.insert_arrays(raw)
+        if stmt.put:
+            return self._column_put(info, arrays, null_masks)
         return info.data.insert_arrays(arrays, nulls=null_masks)
+
+    # ------------------------------------------------------------------
+    # Mutations (ref session.py:3201-3408)
+    # ------------------------------------------------------------------
+
+    def _column_put(self, info, arrays, nulls=None) -> int:
+        """PUT INTO a column table: delete the rows whose key_columns
+        match an incoming row, then insert everything (ref:
+        ColumnPutIntoExec = update-matched + insert-rest; the same visible
+        effect under the statement's snapshot).  Without key columns it
+        is a plain insert."""
+        keys = info.key_columns
+        if not keys:
+            return info.data.insert_arrays(arrays, nulls=nulls)
+        key_idx = [info.schema.index(k) for k in keys]
+        incoming = {tuple(np.asarray(arrays[i])[r] for i in key_idx)
+                    for r in range(len(np.asarray(arrays[0])))}
+
+        def pred(cols):
+            stacked = [np.asarray(cols[info.schema.fields[i].name])
+                       for i in key_idx]
+            return np.fromiter((k in incoming for k in zip(*stacked)),
+                               dtype=np.bool_, count=len(stacked[0]))
+
+        info.data.delete(pred)
+        return info.data.insert_arrays(arrays, nulls=nulls)
+
+    def _resolve_where(self, table_info, where, user_params):
+        # UPDATE / DELETE expressions may carry subqueries: pre-evaluate
+        # them as queries do
+        where = ast.transform(where, self._subquery_fn(user_params))
+        alias = table_info.name.split(".")[-1]
+        scope = Scope([ScopeEntry(alias, f.name, f.dtype, f.nullable)
+                       for f in table_info.schema.fields])
+        return fold_constants(self.analyzer.resolve_expr(where, scope))
+
+    @staticmethod
+    def _assign_expr_params(e: ast.Expr, counter: list) -> ast.Expr:
+        """Positional '?' assignment for mutation statements, whose
+        expressions are resolved standalone: without it every '?' kept
+        pos=-1 and bound the LAST parameter."""
+        def rec(node: ast.Expr) -> ast.Expr:
+            if isinstance(node, ast.Param) and node.pos < 0:
+                p = ast.Param(counter[0], node.dtype)
+                counter[0] += 1
+                return p
+            return node.map_children(rec)
+
+        return rec(e)
+
+    def _update(self, stmt: ast.UpdateStmt, user_params) -> int:
+        info = self.catalog.describe(stmt.table)
+        # '?' positions follow SQL text order: SET expressions, then WHERE
+        counter = [0]
+        assignments = [(name, self._assign_expr_params(e, counter))
+                       for name, e in stmt.assignments]
+        raw_where = self._assign_expr_params(stmt.where, counter) \
+            if stmt.where is not None else None
+        where = self._resolve_where(info, raw_where, user_params) \
+            if raw_where is not None else ast.Lit(True, T.BOOLEAN)
+        assigns = {}
+        for name, e in assignments:
+            resolved = self._resolve_where(info, e, user_params)
+            assigns[name] = self._host_value_fn(info, resolved, user_params)
+        pred = self._host_pred_fn(info, where, user_params)
+        return info.data.update(pred, assigns)
+
+    def _delete(self, stmt: ast.DeleteStmt, user_params) -> int:
+        info = self.catalog.describe(stmt.table)
+        raw_where = self._assign_expr_params(stmt.where, [0]) \
+            if stmt.where is not None else None
+        where = self._resolve_where(info, raw_where, user_params) \
+            if raw_where is not None else ast.Lit(True, T.BOOLEAN)
+        return info.data.delete(
+            self._host_pred_fn(info, where, user_params))
+
+    def _host_pred_fn(self, info, resolved_where, user_params):
+        names = info.schema.names()
+
+        def pred(cols: Dict[str, np.ndarray]) -> np.ndarray:
+            arrays = _ColsByIndex(cols, names)  # decode only touched cols
+            n = arrays.num_rows(resolved_where)
+            v, nl = hosteval.eval_expr(resolved_where, arrays,
+                                       _NoneSeq(), tuple(user_params), n)
+            out = np.broadcast_to(v, (n,)).astype(bool)
+            if nl is not None:
+                out = out & ~np.broadcast_to(nl, (n,))
+            return out
+
+        return pred
+
+    def _host_value_fn(self, info, resolved_expr, user_params):
+        names = info.schema.names()
+
+        def value(cols: Dict[str, np.ndarray]):
+            if isinstance(resolved_expr, ast.Lit):
+                return resolved_expr.value  # incl. None = SQL NULL
+            arrays = _ColsByIndex(cols, names)
+            n = arrays.num_rows(resolved_expr)
+            v, _ = hosteval.eval_expr(resolved_expr, arrays,
+                                      _NoneSeq(), tuple(user_params), n)
+            return v if np.shape(v) == () else np.broadcast_to(v, (n,))
+
+        return value
+
+    def _alter_table(self, stmt: ast.AlterTable) -> Result:
+        """ALTER TABLE ADD / DROP COLUMN (ref SnappySession.alterTable:1628)
+        on row and column tables; existing rows read an added column as
+        NULL.  DROP COLUMN shifts ordinals in place, so it refuses with
+        SQLSTATE 40001 while a snapshot pin holds the table."""
+        info = self.catalog.describe(stmt.table)
+        if stmt.add:
+            cd = stmt.column
+            if any(f.name.lower() == cd.name.lower()
+                   for f in info.schema.fields):
+                raise ValueError(f"column already exists: {cd.name}")
+            info.data.add_column(T.Field(cd.name, cd.dtype, cd.nullable))
+        else:
+            cname = stmt.name
+            info.schema.index(cname)  # validates existence
+            low = cname.lower()
+            if low in info.partition_by:
+                raise ValueError(
+                    f"cannot drop partitioning column {cname}")
+            if low in info.key_columns:
+                raise ValueError(f"cannot drop primary key column {cname}")
+            mvcc.check_ddl(info.data, "ALTER TABLE DROP COLUMN")
+            info.data.drop_column(cname)
+        info.schema = info.data.schema
+        self.catalog.generation += 1
+        return _status()
+
+
+class _ColsByIndex:
+    """Ordinal-indexed view over a {name: values} mapping that fetches
+    (and so decodes, when backed by LazyBatchColumns) only the columns an
+    expression touches."""
+
+    def __init__(self, cols, names):
+        self._cols = cols
+        self._names = names
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return np.asarray(self._cols[self._names[i]])
+
+    def num_rows(self, expr: ast.Expr) -> int:
+        for node in ast.walk(expr):
+            if isinstance(node, ast.Col):
+                return int(self[node.index].shape[0])
+        # no column refs (WHERE 1=1): any column's length works
+        return int(self[0].shape[0]) if self._names else 0
+
+
+class _NoneSeq:
+    def __getitem__(self, i):
+        return None
+
+
+def _row_count(info) -> int:
+    if isinstance(info.data, RowTableData):
+        return info.data.count()
+    return info.data.snapshot().total_rows()
+
+
+def _expr_subquery_tables(e: ast.Expr):
+    out = []
+    for node in ast.walk(e):
+        if isinstance(node, (ast.ScalarSubquery, ast.InSubquery,
+                             ast.ExistsSubquery)):
+            out.extend(_referenced_tables(node.plan))
+    return out
+
+
+def _referenced_tables(plan: ast.Plan):
+    """Names of the tables a parsed plan reads, subqueries included."""
+    out = []
+
+    def rec(p):
+        if isinstance(p, ast.UnresolvedRelation):
+            out.append(p.name)
+        for e in _plan_exprs(p):
+            for node in ast.walk(e):
+                if isinstance(node, (ast.ScalarSubquery, ast.InSubquery,
+                                     ast.ExistsSubquery)):
+                    rec(node.plan)
+        for k in p.children():
+            rec(k)
+
+    def _plan_exprs(p):
+        if isinstance(p, ast.Filter):
+            return [p.condition]
+        if isinstance(p, (ast.Project, ast.WindowProject)):
+            return list(p.exprs)
+        if isinstance(p, ast.Aggregate):
+            return list(p.group_exprs) + list(p.agg_exprs)
+        if isinstance(p, ast.Join) and p.condition is not None:
+            return [p.condition]
+        if isinstance(p, ast.Values):
+            return [e for row in p.rows for e in row]
+        if isinstance(p, ast.Sort):
+            return [e for e, *_ in p.orders]
+        return []
+
+    rec(plan)
+    return out
+
+
+def _restore_none_arrays(arrays, nulls):
+    """Row tables store python values: object arrays with None where the
+    null mask is set."""
+    out = []
+    for a, m in zip(arrays, nulls or [None] * len(arrays)):
+        if m is not None and np.asarray(m).any():
+            obj = np.asarray(a, dtype=object).copy()
+            obj[np.asarray(m)] = None
+            out.append(obj)
+        else:
+            out.append(a)
+    return out
+
+
+def _sql_literal(v) -> str:
+    if v is None:
+        return "NULL"
+    if isinstance(v, bool):
+        return "TRUE" if v else "FALSE"
+    if isinstance(v, (int, float)):
+        return repr(v)
+    if hasattr(v, "item"):
+        return repr(v.item())
+    escaped = str(v).replace("'", "''")
+    return f"'{escaped}'"
 
 
 def _status() -> Result:

@@ -434,8 +434,9 @@ class Values(Plan):
 
 @dataclasses.dataclass(frozen=True)
 class WindowProject(Plan):
-    """Projection containing window functions — evaluated host-side over
-    the materialized child (device path is a later round)."""
+    """Projection containing window functions — lowered to the device
+    (`Compiler._emit_window`), or evaluated on the host over the
+    materialized child for the shapes the device lane lacks."""
 
     child: Plan
     exprs: Tuple[Expr, ...] = ()

@@ -171,7 +171,10 @@ def _factor_info(f: ast.Plan, catalog):
         if info is None:
             return None, set(), 0
         alias = (f.alias or f.name.split(".")[-1]).lower()
-        size = info.data.snapshot().total_rows()
+        from snappydata_tpu_torch.storage.table_store import RowTableData
+
+        size = info.data.count() if isinstance(info.data, RowTableData) \
+            else info.data.snapshot().total_rows()
         return alias, {n.lower() for n in info.schema.names()}, size
     if isinstance(f, ast.SubqueryAlias):
         # derived table: alias + output columns are known; size is not —

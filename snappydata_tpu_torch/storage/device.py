@@ -17,6 +17,12 @@ Exact decimals (DECIMAL(p<=18)) keep float64 host plates, the SQL value
 domain, and bind as the scaled int64 unscaled value `round(v * 10^s)`
 (HALF_UP), as in the reference; they never stay code-resident.
 
+Update deltas and delete masks (storage/table_store.BatchView) apply at
+the bind: a column with a delta decodes with it merged (its encoded form
+is refused, counted `compressed_fallback_deltas`), deletes ride the
+validity plate.  The bind reads the statement's pinned manifest
+(storage/mvcc), and the plate cache keeps every pinned version.
+
 Per-batch min/max stats ride along host-side for predicate batch
 skipping (ref: stats-row filter codegen, columnBatchesSkipped metric,
 ColumnTableScan.scala:115-130).  Plates are cached per (manifest
@@ -42,6 +48,7 @@ from snappydata_tpu_torch import config
 from snappydata_tpu_torch import types as T
 from snappydata_tpu_torch.storage import bitmask
 from snappydata_tpu_torch.storage import device_decode as _dd
+from snappydata_tpu_torch.storage import mvcc
 from snappydata_tpu_torch.storage.encoding import Encoding
 from snappydata_tpu_torch.storage.table_store import ColumnTableData
 
@@ -88,7 +95,7 @@ def scan_window_active() -> bool:
 def scan_unit_count(data, manifest=None) -> int:
     """Number of bindable units (column batches + row-buffer chunks)."""
     if manifest is None:
-        manifest = data.snapshot()
+        manifest = mvcc.snapshot_of(data)
     n_chunks = -(-manifest.row_count // data.capacity) \
         if manifest.row_count > 0 else 0
     return len(manifest.views) + n_chunks
@@ -136,13 +143,16 @@ _COMPRESSIBLE = {Encoding.VALUE_DICT: "dict", Encoding.RUN_LENGTH: "rle",
 
 
 def _compressed_mode(is_str: bool, dec_exact: bool, cols_enc,
-                     has_row_chunks: bool, code_ok: bool = True,
+                     any_delta: bool, has_row_chunks: bool,
+                     code_ok: bool = True,
                      count: bool = False) -> Optional[str]:
     """Per-column compressed-domain decision: 'dict' | 'rle' | 'bitset'
     when the column can stay resident encoded, None for a decoded bind.
     `code_ok=False` (a device-join relation) forces a decoded bind, as
     does an exact decimal (its device plate is the scaled int64 value,
-    the encoded forms hold host-domain floats).  With count=True (the
+    the encoded forms hold host-domain floats) and an update delta on
+    the column (its values are no longer the encoded ones; deletes ride
+    the validity plate and keep the encoded form).  With count=True (the
     cache-miss build) every decode-first reroute of a compressible
     column is counted by reason, as in the reference."""
     knob = str(config.global_properties().get(
@@ -167,6 +177,9 @@ def _compressed_mode(is_str: bool, dec_exact: bool, cols_enc,
         return None
     if not code_ok:
         reject("join_key")
+        return None
+    if any_delta:
+        reject("deltas")
         return None
     if has_row_chunks:
         reject("row_buffer")
@@ -194,7 +207,10 @@ def _scan_units(data: ColumnTableData, manifest=None):
         if wentry[2] is not None:
             manifest = wentry[2]
     if manifest is None:
-        manifest = data.snapshot()
+        # the statement's pinned snapshot (storage/mvcc): the device bind
+        # and the host fallback both read the pinned epoch, so concurrent
+        # ingest never changes a query mid-flight
+        manifest = mvcc.snapshot_of(data)
     views = list(manifest.views)
     row_chunks = []
     pos = 0
@@ -229,11 +245,15 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
     manifest, views, row_chunks, window = _scan_units(data)
     cache_key = (manifest.version, str(device), window)
     cache = data._device_cache.setdefault(cache_key, {})
-    # stale versions of this device go: their plates are dead weight.
-    # list() snapshots are atomic under the GIL: the tile prefetcher's
-    # worker inserts window entries concurrently
+    # stale versions of this device go: their plates are dead weight —
+    # except the versions an active snapshot pin holds (a pinned reader
+    # re-binding its old epoch must not have its plates evicted by a
+    # newer version's bind).  list() snapshots are atomic under the GIL:
+    # the tile prefetcher's worker inserts window entries concurrently
+    pinned = mvcc.pinned_versions(data)
     for k in [k for k in list(data._device_cache)
-              if k[1] == cache_key[1] and k[0] != manifest.version]:
+              if k[1] == cache_key[1] and k[0] != manifest.version
+              and k[0] not in pinned]:
         data._device_cache.pop(k, None)
     if window is not None:
         # a tile pass must not accumulate every window's plates (the
@@ -265,8 +285,10 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
             valid[i] = v.live_mask()
         for j, (_, take) in enumerate(row_chunks):
             valid[len(views) + j, :take] = True
-        if window is not None:  # a tile's row count is not the table's
-            cache["nrows"] = int(valid.sum())
+        # counted once per bind: a tile's row count is not the table's,
+        # and summing every delete mask again at each execution is not free
+        cache["nrows"] = int(valid.sum()) if window is not None \
+            else manifest.total_rows()
         cache["valid"] = place(valid)
 
     columns: Dict[int, object] = {}
@@ -285,12 +307,14 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
         # the DEVICE plate is the scaled int64 unscaled value
         dec_exact = f.dtype.name == "decimal" and dt.kind == "i"
         cols_enc = [v.batch.columns[ci] for v in views]
-        cd_mode = _compressed_mode(is_str, dec_exact, cols_enc,
+        # only deltas that target THIS column cost it its encoded form
+        any_delta = any(any(d[0] == ci for d in v.deltas) for v in views)
+        cd_mode = _compressed_mode(is_str, dec_exact, cols_enc, any_delta,
                                    bool(row_chunks), code_ok)
         key = ("ccol", ci) if cd_mode else ("col", ci)
         if key not in cache:
-            _compressed_mode(is_str, dec_exact, cols_enc, bool(row_chunks),
-                             code_ok, count=True)
+            _compressed_mode(is_str, dec_exact, cols_enc, any_delta,
+                             bool(row_chunks), code_ok, count=True)
             cache[key] = _build_code_column(cd_mode, views, cols_enc, ci, b,
                                             cap, dt, device, place, cache) \
                 if cd_mode else \
@@ -302,7 +326,7 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
             dict_domains[ci] = dom
     return DeviceTable(schema, b, cap, cache["valid"], columns, dicts,
                        stats_min, stats_max,
-                       cache.get("nrows", manifest.total_rows()), nulls,
+                       cache["nrows"], nulls,
                        dict_domains)
 
 
@@ -354,8 +378,10 @@ def _build_decoded_column(data, manifest, views, row_chunks, ci, f, b, cap,
                           dt, place, cache):
     """Decoded [b, cap] plate: every batch decodes on the host (the
     reference decodes the encoded batches of a mixed column in-trace
-    instead; the values are identical) and row-buffer chunks append after
-    the batches.  An exact decimal converts to its scaled int64 value
+    instead; the values are identical), deltas merged
+    (`BatchView.decoded_column`), and row-buffer chunks append after the
+    batches.  A batch with deltas takes its stats from its live decoded
+    values, never from the encoded column's.  An exact decimal converts to its scaled int64 value
     here; its stats stay in the host (unscaled) domain, which is what
     sargable predicate literals compare against."""
     is_str = f.dtype.name == "string"
@@ -370,7 +396,8 @@ def _build_decoded_column(data, manifest, views, row_chunks, ci, f, b, cap,
         stacked[i] = T.decimal_to_unscaled(f.dtype, decoded) \
             if dec_exact else decoded
         st = col.stats
-        if st is not None and not is_str and st.min is not None:
+        if st is not None and not v.deltas and not is_str \
+                and st.min is not None:
             smin[i], smax[i] = float(st.min), float(st.max)
         elif not is_str and v.batch.num_rows:
             live = decoded[v.live_mask()]
@@ -442,7 +469,7 @@ def numeric_key_domain(data: ColumnTableData, ci: int, max_card: int):
     same host values.  None (the caller's cue to leave the device path)
     when the column exceeds `max_card` distinct values or holds NaN.
     Cached per (manifest version, column)."""
-    man = data.snapshot()
+    man = mvcc.snapshot_of(data)
     cache = data.__dict__.setdefault("_key_domain_cache", {})
     key = (man.version, ci, max_card)
     if key in cache:
@@ -451,12 +478,15 @@ def numeric_key_domain(data: ColumnTableData, ci: int, max_card: int):
     parts = []
     for v in man.views:
         col = v.batch.columns[ci]
-        if col.encoding == Encoding.VALUE_DICT \
+        untouched = not any(d[0] == ci for d in v.deltas)
+        if untouched and col.encoding == Encoding.VALUE_DICT \
                 and col.dictionary is not None:
             parts.append(np.asarray(col.dictionary))
-        elif col.encoding == Encoding.RUN_LENGTH:
+        elif untouched and col.encoding == Encoding.RUN_LENGTH:
             parts.append(np.asarray(col.data))
         else:
+            # deltas / mixed encodings: the domain must cover the values
+            # a decoded bind groups by
             parts.append(np.asarray(v.decoded_column(ci)))
     if man.row_count:
         parts.append(np.asarray(man.row_arrays[ci][:man.row_count]))

@@ -7,26 +7,36 @@ single-session column table needs:
 - Row delta buffer + rollover into column batches at `column_max_delta_rows`
   (ref: ColumnBatchCreator.createAndStoreBatch core/.../columnar/
   ColumnBatchCreator.scala:46, fired from StoreCallbacksImpl.createColumnBatch:77).
-- Writers build a new immutable Manifest and publish it by one reference
-  swap; a reader holds whichever Manifest it read.
+- Update / delete deltas merged at scan time (ref: ColumnDeltaEncoder /
+  UpdatedColumnDecoder / delete mask column -3, encoders/.../impl/
+  ColumnFormatEntry.scala:89-95): a BatchView carries its batch, a delete
+  mask and per-column replacement deltas; row-buffer rows mutate in
+  place.
+- Snapshot isolation: writers build a new immutable Manifest and publish
+  it by one reference swap under the MVCC clock (storage/mvcc.py), which
+  stamps its epoch and retains the superseded one while pins hold it.
+- Row tables (`RowTableData`): host rows with a primary-key hash index
+  for point lookups and PUT upserts.
+- ALTER TABLE ADD / DROP COLUMN on both table kinds.
 
 The same inserts produce the same encodings as the reference package
 (VALUE_DICT, RLE, DICTIONARY, bitset), because batch cutting and encoding
-are copied unchanged.  MVCC epoch pins, host spill, tiered storage,
-compaction, UPDATE/DELETE deltas and complex-typed columns are not ported:
-a batch view is just its batch.
+are copied unchanged.  Host spill, tiered storage, compaction, secondary
+indexes on row tables and complex-typed columns are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch import types as T
+from snappydata_tpu_torch.storage import mvcc
 from snappydata_tpu_torch.storage.batch import ColumnBatch
 from snappydata_tpu_torch.storage.encoding import decode_to_numpy, decode_validity
 from snappydata_tpu_torch.storage.strings import fast_encode_strings
@@ -35,28 +45,53 @@ from snappydata_tpu_torch.utils import locks
 
 @dataclasses.dataclass(frozen=True)
 class BatchView:
-    """One batch as visible in a particular Manifest version (the port has
-    no UPDATE/DELETE, so a view carries no deltas or delete mask)."""
+    """One batch as visible in a particular Manifest version."""
 
     batch: ColumnBatch
+    delete_mask: Optional[np.ndarray] = None     # bool[capacity]; True = deleted
+    # update deltas: col_idx -> (hit mask bool[capacity],
+    #   values host-domain [capacity], value-null mask bool[capacity] | None)
+    deltas: Tuple[Tuple[int, np.ndarray, np.ndarray,
+                        Optional[np.ndarray]], ...] = ()
 
     def decoded_column(self, col_idx: int, strings: bool = False) -> np.ndarray:
-        return decode_to_numpy(self.batch.columns[col_idx],
-                               self.batch.capacity, strings=strings)
+        """Base decode + delta merge (ref UpdatedColumnDecoder semantics)."""
+        out = decode_to_numpy(self.batch.columns[col_idx],
+                              self.batch.capacity, strings=strings)
+        for ci, mask, values, _ in self.deltas:
+            if ci == col_idx:
+                out = np.where(mask, values, out)
+        return out
 
     def null_mask(self, col_idx: int) -> Optional[np.ndarray]:
+        """Effective null mask after the delta merge (a delta can both
+        clear a NULL by assigning a value and set one by assigning
+        NULL)."""
         base = decode_validity(self.batch.columns[col_idx],
                                self.batch.capacity)
-        if base is None:
+        mask = (~base) if base is not None else None
+        for ci, hit, _, value_nulls in self.deltas:
+            if ci != col_idx:
+                continue
+            if mask is None:
+                mask = np.zeros(self.batch.capacity, dtype=np.bool_)
+            vn = value_nulls if value_nulls is not None else False
+            mask = np.where(hit, vn, mask)
+        if mask is not None and not mask.any():
             return None
-        mask = ~base
-        return mask if mask.any() else None
+        return mask
 
     def live_mask(self) -> np.ndarray:
-        return np.arange(self.batch.capacity) < self.batch.num_rows
+        m = np.arange(self.batch.capacity) < self.batch.num_rows
+        if self.delete_mask is not None:
+            m = m & ~self.delete_mask
+        return m
 
+    @functools.cached_property
     def live_rows(self) -> int:
-        return int(self.batch.num_rows)
+        """Rows not deleted (computed once: a view never changes)."""
+        return int(self.batch.num_rows - (0 if self.delete_mask is None
+                                          else int(self.delete_mask.sum())))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +105,11 @@ class Manifest:
     row_count: int
     # per-column bool null masks for the row-buffer rows (None = no nulls)
     row_nulls: Tuple[Optional[np.ndarray], ...] = ()
+    # the process-wide epoch this publish advanced to (storage/mvcc.py)
+    epoch: int = 0
 
     def total_rows(self) -> int:
-        return sum(v.live_rows() for v in self.views) + self.row_count
+        return sum(v.live_rows for v in self.views) + self.row_count
 
 
 class RowBuffer:
@@ -87,6 +124,7 @@ class RowBuffer:
         self._cols: List[np.ndarray] = [
             np.empty(capacity, dtype=f.dtype.np_dtype) for f in schema.fields]
         self._nulls: List[Optional[np.ndarray]] = [None] * len(schema.fields)
+        self._valid = np.ones(capacity, dtype=np.bool_)  # False = deleted in place
         self.count = 0
 
     def append(self, arrays: Sequence[np.ndarray],
@@ -102,19 +140,45 @@ class RowBuffer:
                 self._nulls[i][self.count:self.count + n] = nm
             elif self._nulls[i] is not None:
                 self._nulls[i][self.count:self.count + n] = False
+        self._valid[self.count:self.count + n] = True
         self.count += n
         return n
 
     def snapshot(self) -> Tuple[Tuple[np.ndarray, ...],
                                 Tuple[Optional[np.ndarray], ...], int]:
-        arrs = tuple(c[:self.count].copy() for c in self._cols)
-        nls = tuple(m[:self.count].copy() if m is not None else None
+        live = self._valid[:self.count]
+        if live.all():
+            arrs = tuple(c[:self.count].copy() for c in self._cols)
+            nls = tuple(m[:self.count].copy() if m is not None else None
+                        for m in self._nulls)
+            return arrs, nls, self.count
+        arrs = tuple(c[:self.count][live].copy() for c in self._cols)
+        nls = tuple(m[:self.count][live].copy() if m is not None else None
                     for m in self._nulls)
-        return arrs, nls, self.count
+        return arrs, nls, int(live.sum())
 
     def clear(self) -> None:
         self.count = 0
         self._nulls = [None] * len(self.schema.fields)
+
+    def add_field(self, field: T.Field) -> None:
+        """Schema evolution: existing buffered rows read NULL."""
+        self.schema = T.Schema(tuple(self.schema.fields) + (field,))
+        npd = field.dtype.np_dtype
+        self._cols.append(np.empty(self.capacity, dtype=npd)
+                          if npd == object
+                          else np.zeros(self.capacity, dtype=npd))
+        nm = None
+        if self.count:
+            nm = np.zeros(self.capacity, dtype=np.bool_)
+            nm[:self.count] = True
+        self._nulls.append(nm)
+
+    def drop_field(self, idx: int) -> None:
+        self.schema = T.Schema(tuple(
+            f for i, f in enumerate(self.schema.fields) if i != idx))
+        del self._cols[idx]
+        del self._nulls[idx]
 
 
 class ColumnTableData:
@@ -152,9 +216,15 @@ class ColumnTableData:
 
     def _publish(self, views: Tuple[BatchView, ...]) -> Manifest:
         row_arrays, row_nulls, row_count = self._row_buffer.snapshot()
-        m = Manifest(self._manifest.version + 1, views, row_arrays,
-                     row_count, row_nulls)
-        self._manifest = m
+        # the epoch stamp and the reference swap happen under ONE clock
+        # hold, so a pin capturing a cross-table cut never observes half
+        # a commit (mvcc.SnapshotPin.pin_many holds the same lock)
+        with mvcc.clock():
+            m = Manifest(self._manifest.version + 1, views, row_arrays,
+                         row_count, row_nulls,
+                         epoch=mvcc._bump_epoch_locked())
+            mvcc.retain_locked(self, self._manifest)
+            self._manifest = m
         return m
 
     # --- dictionaries ----------------------------------------------------
@@ -341,6 +411,174 @@ class ColumnTableData:
                 b, batch_id=next(self._batch_ids))) for b in batches]
             self._publish(tuple(self._manifest.views) + tuple(views))
 
+    # --- schema evolution (ref: AlterTableAddColumnCommand /
+    # AlterTableDropColumnCommand, SnappySession.alterTable:1628; existing
+    # rows read an added column as NULL) ---
+
+    def _all_null_column(self, col_idx: int, dtype: T.DataType, n: int):
+        from snappydata_tpu_torch.storage import bitmask
+        from snappydata_tpu_torch.storage.encoding import (ColumnStats,
+                                                           EncodedColumn,
+                                                           Encoding)
+
+        validity = bitmask.pack(np.zeros(n, dtype=np.bool_))
+        stats = ColumnStats(None, None, n, n)
+        if dtype.name == "string":
+            return EncodedColumn(
+                Encoding.DICTIONARY, dtype, n, np.zeros(n, dtype=np.int32),
+                dictionary=np.array(self._dicts[col_idx], dtype=object),
+                validity=validity, stats=stats)
+        if dtype.name == "boolean":
+            return EncodedColumn(Encoding.BOOLEAN_BITSET, dtype, n,
+                                 bitmask.pack(np.zeros(n, dtype=np.bool_)),
+                                 validity=validity, stats=stats)
+        # run-length [0]*n: one cell whatever the batch size (at-rest bytes
+        # live in the HOST domain: np_dtype for decimals)
+        return EncodedColumn(Encoding.RUN_LENGTH, dtype, n,
+                             np.zeros(1, dtype=dtype.np_dtype
+                                      if dtype.name == "decimal"
+                                      else dtype.device_dtype()),
+                             runs=np.array([n], dtype=np.int32),
+                             validity=validity, stats=stats)
+
+    def add_column(self, field: T.Field) -> None:
+        """ALTER TABLE ADD COLUMN: existing batches get a constant-size
+        all-null encoded column; the manifest version bump invalidates
+        device caches and compiled plans."""
+        with self._lock:
+            idx = len(self.schema.fields)
+            self.schema = T.Schema(tuple(self.schema.fields) + (field,))
+            if field.dtype.name == "string":
+                # non-empty shared dictionary so device LUTs over it are
+                # never zero-sized (codes are masked null anyway)
+                self._dicts[idx] = [""]
+                self._dict_lookup[idx] = {"": 0}
+            self._row_buffer.add_field(field)
+            views = []
+            for v in self._manifest.views:
+                b = v.batch
+                nb = dataclasses.replace(
+                    b, columns=b.columns + (self._all_null_column(
+                        idx, field.dtype, b.num_rows),))
+                views.append(dataclasses.replace(v, batch=nb))
+            self._publish(tuple(views))
+
+    def drop_column(self, name: str) -> None:
+        """ALTER TABLE DROP COLUMN remaps the shared dictionaries in place
+        and shifts ordinals — state a pinned reader may be traversing — so
+        it refuses (40001) while snapshots are active, and `ddl_scope`
+        blocks new pins for the remap's duration."""
+        with mvcc.ddl_scope(self, "ALTER TABLE DROP COLUMN"), self._lock:
+            idx = self.schema.index(name)
+            if len(self.schema.fields) == 1:
+                raise ValueError("cannot drop the only column")
+            self.schema = T.Schema(tuple(
+                f for i, f in enumerate(self.schema.fields) if i != idx))
+
+            def remap(i):
+                return i - 1 if i > idx else i
+
+            self._dicts = {remap(i): d for i, d in self._dicts.items()
+                           if i != idx}
+            self._dict_lookup = {remap(i): d
+                                 for i, d in self._dict_lookup.items()
+                                 if i != idx}
+            self._row_buffer.drop_field(idx)
+            views = []
+            for v in self._manifest.views:
+                b = v.batch
+                nb = dataclasses.replace(b, columns=tuple(
+                    c for i, c in enumerate(b.columns) if i != idx))
+                deltas = tuple((remap(ci), hit, vals, vn)
+                               for ci, hit, vals, vn in v.deltas if ci != idx)
+                views.append(dataclasses.replace(v, batch=nb, deltas=deltas))
+            self._publish(tuple(views))
+
+    # --- mutations -------------------------------------------------------
+
+    def update(self, predicate: Callable[[Dict[str, np.ndarray]], np.ndarray],
+               assignments: Dict[str, Callable[[Dict[str, np.ndarray]],
+                                               np.ndarray]]) -> int:
+        """UPDATE ... SET: per-batch replacement deltas (ref
+        ColumnUpdateExec -> ColumnDelta entries) and row-buffer rows
+        mutated in place.  `predicate` / assignment callables take {column
+        name: decoded host values} and return a bool mask / new values."""
+        with self._lock:
+            touched = 0
+            new_views = []
+            for view in self._manifest.views:
+                cols = self._decode_all(view)
+                hit = np.asarray(predicate(cols)) & view.live_mask()
+                if not hit.any():
+                    new_views.append(view)
+                    continue
+                touched += int(hit.sum())
+                deltas = list(view.deltas)
+                for name, fn in assignments.items():
+                    ci = self.schema.index(name)
+                    values, vnulls = self._to_device_domain(
+                        ci, fn(cols), cols[self.schema.fields[ci].name])
+                    deltas.append((ci, hit.copy(), values, vnulls))
+                new_views.append(dataclasses.replace(view,
+                                                     deltas=tuple(deltas)))
+            rb_cols = self._row_buffer_dict()
+            if rb_cols is not None:
+                rb = self._row_buffer
+                hit = np.asarray(predicate(rb_cols)) & rb._valid[:rb.count]
+                if hit.any():
+                    touched += int(hit.sum())
+                    for name, fn in assignments.items():
+                        ci = self.schema.index(name)
+                        col = rb._cols[ci][:rb.count]
+                        raw = fn(rb_cols)
+                        if raw is None:  # SQL NULL assignment
+                            if rb._nulls[ci] is None:
+                                rb._nulls[ci] = np.zeros(rb.capacity,
+                                                         dtype=np.bool_)
+                            rb._nulls[ci][:rb.count][hit] = True
+                            continue
+                        vals = np.asarray(raw)
+                        new = np.broadcast_to(
+                            np.asarray(vals, dtype=col.dtype),
+                            col.shape)[hit] \
+                            if vals.shape == () else vals[hit]
+                        if ci in self._dicts:
+                            # intern, so the device bind resolves the codes
+                            self._intern_strings(
+                                ci, np.asarray(new, dtype=object))
+                        col[hit] = new
+                        if rb._nulls[ci] is not None:
+                            rb._nulls[ci][:rb.count][hit] = False
+            self._publish(tuple(new_views))
+            return touched
+
+    def delete(self, predicate) -> int:
+        """DELETE: new delete-mask arrays per batch (ref ColumnDeleteExec
+        -> ColumnDeleteDelta bitmap, meta column -3); row-buffer rows are
+        marked dead in place."""
+        with self._lock:
+            touched = 0
+            new_views = []
+            for view in self._manifest.views:
+                cols = self._decode_all(view)
+                hit = np.asarray(predicate(cols)) & view.live_mask()
+                if not hit.any():
+                    new_views.append(view)
+                    continue
+                touched += int(hit.sum())
+                mask = hit if view.delete_mask is None \
+                    else (view.delete_mask | hit)
+                new_views.append(dataclasses.replace(view, delete_mask=mask))
+            rb_cols = self._row_buffer_dict()
+            if rb_cols is not None:
+                rb = self._row_buffer
+                hit = np.asarray(predicate(rb_cols)) & rb._valid[:rb.count]
+                if hit.any():
+                    touched += int(hit.sum())
+                    rb._valid[:rb.count][hit] = False
+            self._publish(tuple(new_views))
+            return touched
+
     def truncate(self) -> None:
         with self._lock:
             self._row_buffer.clear()
@@ -349,10 +587,53 @@ class ColumnTableData:
     # --- helpers ---------------------------------------------------------
 
     def _decode_all(self, view: BatchView) -> "LazyBatchColumns":
-        """Lazily-decoding column mapping for the host evaluator: only the
-        columns a plan touches get decoded; string columns decode through
-        the table dictionary."""
+        """Lazily-decoding column mapping for mutation predicates and the
+        host evaluator: only the columns a plan touches get decoded.
+        String columns decode in the CODE domain first (so update deltas,
+        stored as codes, merge correctly), then map through the table
+        dictionary."""
         return LazyBatchColumns(self, view)
+
+    def _row_buffer_dict(self) -> Optional[Dict[str, np.ndarray]]:
+        rb = self._row_buffer
+        if rb.count == 0:
+            return None
+        return {f.name: rb._cols[i][:rb.count]
+                for i, f in enumerate(self.schema.fields)}
+
+    def _to_device_domain(self, col_idx: int, values, like: np.ndarray
+                          ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Assignment values -> (storage-domain array, null mask | None).
+        Accepts python scalars (None = SQL NULL) or arrays with None
+        entries for string columns.  Deltas live in the HOST storage
+        domain: dictionary codes for strings (new values are interned
+        into the table dictionary), plain float64 for decimals."""
+        f = self.schema.fields[col_idx]
+        shape = like.shape
+        if values is None:
+            dt = np.int32 if f.dtype.name == "string" \
+                else (f.dtype.np_dtype if f.dtype.name == "decimal"
+                      else f.dtype.device_dtype())
+            return (np.zeros(shape, dtype=dt),
+                    np.ones(shape, dtype=np.bool_))
+        values = np.asarray(values)
+        if f.dtype.name == "string":
+            vals = np.broadcast_to(values, shape) if values.shape == () \
+                else values
+            vals = np.asarray(vals, dtype=object)
+            self._intern_strings(col_idx, vals)
+            lookup = self._dict_lookup[col_idx]
+            codes = np.fromiter(
+                (lookup[v] if v is not None else 0 for v in vals),
+                dtype=np.int32, count=len(vals))
+            vnulls = np.fromiter((v is None for v in vals), dtype=np.bool_,
+                                 count=len(vals))
+            return codes, (vnulls if vnulls.any() else None)
+        dt = f.dtype.np_dtype if f.dtype.name == "decimal" \
+            else f.dtype.device_dtype()
+        if values.shape == ():
+            return np.full(shape, values, dtype=dt), None
+        return values.astype(dt), None
 
 
 class LazyBatchColumns:
@@ -383,5 +664,213 @@ class LazyBatchColumns:
 
     def keys(self):
         return self._data.schema.names()
+
+
+class RowTableData:
+    """Storage for a ROW table: host rows with an optional primary-key
+    hash index for point operations that bypass the query engine (ref:
+    ExecutionEngineArbiter routing, docs/architecture/
+    cluster_architecture.md:31-33; row store GemFireContainer rows).
+    Rows mutate in place under the table lock; `version` counts
+    mutations, and the MVCC pin captures a host snapshot per version
+    (storage/mvcc.row_snapshot_of)."""
+
+    def __init__(self, schema: T.Schema, key_columns: Sequence[str] = ()):
+        self.schema = schema
+        self.key_columns = [k.lower() for k in key_columns]
+        self._key_idx = [schema.index(k) for k in self.key_columns]
+        self._lock = locks.named_lock("storage.row_table")
+        self._cols: List[List] = [[] for _ in schema.fields]
+        self._live: List[bool] = []
+        self._pk: Dict[tuple, int] = {}
+        self._version = 0
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    def insert_arrays(self, arrays: Sequence[np.ndarray]) -> int:
+        arrays = [np.asarray(a) for a in arrays]
+        n = int(arrays[0].shape[0])
+        with self._lock:
+            if self._key_idx:
+                # validate the whole batch before touching state, so a
+                # key violation leaves the table unchanged
+                seen = set()
+                for i in range(n):
+                    key = tuple(arrays[j][i] for j in self._key_idx)
+                    old = self._pk.get(key)
+                    if (old is not None and self._live[old]) or key in seen:
+                        raise ValueError(f"primary key violation: {key}")
+                    seen.add(key)
+            for i in range(n):
+                self._append_row(tuple(a[i] for a in arrays), upsert=False)
+            self._version += 1
+        return n
+
+    def put_arrays(self, arrays: Sequence[np.ndarray]) -> int:
+        """PUT INTO upsert by primary key (ref: SnappySession.put:2024)."""
+        arrays = [np.asarray(a) for a in arrays]
+        n = int(arrays[0].shape[0])
+        with self._lock:
+            for i in range(n):
+                self._append_row(tuple(a[i] for a in arrays), upsert=True)
+            self._version += 1
+        return n
+
+    def _append_row(self, row: tuple, upsert: bool) -> None:
+        if self._key_idx:
+            key = tuple(row[i] for i in self._key_idx)
+            old = self._pk.get(key)
+            if old is not None and self._live[old]:
+                if not upsert:
+                    raise ValueError(f"primary key violation: {key}")
+                self._live[old] = False
+            self._pk[key] = len(self._live)
+        for c, v in zip(self._cols, row):
+            c.append(v)
+        self._live.append(True)
+
+    def get(self, key: tuple):
+        """Point lookup: never enters the query engine."""
+        ordinal = self._pk.get(tuple(key))
+        if ordinal is None or not self._live[ordinal]:
+            return None
+        return tuple(c[ordinal] for c in self._cols)
+
+    def to_arrays_with_nulls(self):
+        """(arrays, null masks, count) of the live rows: rows store python
+        values incl. None; numeric Nones fill as 0 with the mask set."""
+        with self._lock:
+            live = np.array(self._live, dtype=np.bool_)
+            out: List[np.ndarray] = []
+            masks: List[Optional[np.ndarray]] = []
+            for f, c in zip(self.schema.fields, self._cols):
+                nm = np.array([v is None for v in c], dtype=np.bool_)
+                if f.dtype.name == "string":
+                    arr = np.array(c, dtype=object)
+                else:
+                    arr = np.array([0 if v is None else v for v in c],
+                                   dtype=f.dtype.np_dtype)
+                if len(live):
+                    arr = arr[live]
+                    nm = nm[live]
+                out.append(arr)
+                masks.append(nm if nm.any() else None)
+            n = int(live.sum()) if len(live) else 0
+            return out, masks, n
+
+    def update(self, predicate, assignments) -> int:
+        with self._lock:
+            if not self._live:
+                return 0
+            # typed like the DELETE predicate's columns: the reference
+            # builds np.array(c, dtype) here and raises on a NULL in an
+            # integer column (ROADMAP C, faults of the reference)
+            cols = self._typed_cols_locked()
+            hit = np.asarray(predicate(cols)) & np.array(self._live)
+            for name, fn in assignments.items():
+                ci = self.schema.index(name)
+                vals = np.asarray(fn(cols))
+                for ordinal in np.flatnonzero(hit):
+                    v = vals if vals.shape == () else vals[ordinal]
+                    self._cols[ci][ordinal] = v.item() \
+                        if hasattr(v, "item") else v
+            if self._key_idx and any(self.schema.index(n) in self._key_idx
+                                     for n in assignments):
+                self._rebuild_pk_locked()
+            self._version += 1
+            return int(hit.sum())
+
+    def _rebuild_pk_locked(self) -> None:
+        """Key-column updates invalidate the hash index: rebuild it and
+        verify uniqueness."""
+        pk: Dict[tuple, int] = {}
+        for ordinal, live in enumerate(self._live):
+            if not live:
+                continue
+            key = tuple(self._cols[i][ordinal] for i in self._key_idx)
+            if key in pk:
+                raise ValueError(f"primary key violation after update: {key}")
+            pk[key] = ordinal
+        self._pk = pk
+
+    def _typed_cols_locked(self) -> Dict[str, np.ndarray]:
+        """Typed column arrays of every row for a mutation predicate.  NaN
+        fills a float NULL (it never compares equal), other dtypes take 0;
+        string columns keep their None."""
+        typed = {}
+        for f, c in zip(self.schema.fields, self._cols):
+            dt = f.dtype.np_dtype
+            if dt != np.dtype(object) and any(v is None for v in c):
+                fill = np.nan if np.issubdtype(dt, np.floating) else 0
+                c = [fill if v is None else v for v in c]
+            typed[f.name] = np.array(c, dtype=dt)
+        return typed
+
+    def delete(self, predicate) -> int:
+        with self._lock:
+            if not self._live:
+                return 0
+            cols = self._typed_cols_locked()
+            hit = np.asarray(predicate(cols)) & np.array(self._live)
+            for ordinal in np.flatnonzero(hit):
+                self._live[ordinal] = False
+                if self._key_idx:
+                    key = tuple(self._cols[i][ordinal] for i in self._key_idx)
+                    if self._pk.get(key) == ordinal:
+                        del self._pk[key]
+            self._version += 1
+            return int(hit.sum())
+
+    def truncate(self) -> None:
+        with self._lock:
+            self._cols = [[] for _ in self.schema.fields]
+            self._live = []
+            self._pk = {}
+            self._version += 1
+
+    def count(self) -> int:
+        return int(sum(self._live))
+
+    def add_column(self, field: T.Field) -> None:
+        """ALTER TABLE ADD COLUMN: existing rows read NULL."""
+        with self._lock:
+            self.schema = T.Schema(tuple(self.schema.fields) + (field,))
+            self._cols.append([None] * len(self._live))
+            self._version += 1
+
+    def drop_column(self, name: str) -> None:
+        # rows mutate in place: a pinned reader that has not captured its
+        # host snapshot yet would resolve stale ordinals — the same typed
+        # refusal and new-pin fence as the column-table form
+        with mvcc.ddl_scope(self, "ALTER TABLE DROP COLUMN"), self._lock:
+            idx = self.schema.index(name)
+            if len(self.schema.fields) == 1:
+                raise ValueError("cannot drop the only column")
+            if idx in self._key_idx:
+                raise ValueError(f"cannot drop primary key column {name}")
+            self.schema = T.Schema(tuple(
+                f for i, f in enumerate(self.schema.fields) if i != idx))
+            del self._cols[idx]
+            self._key_idx = [i - 1 if i > idx else i for i in self._key_idx]
+            self._version += 1
+
+    def string_dict(self, col_idx: int) -> np.ndarray:
+        """Version-cached sorted dictionary of a string column, so the
+        device bind and result assembly agree on codes within one
+        version."""
+        with self._lock:
+            cache = getattr(self, "_sdict_cache", None)
+            if cache is None or cache[0] != self._version:
+                cache = (self._version, {})
+                self._sdict_cache = cache
+            if col_idx not in cache[1]:
+                vals = [v for v, live in zip(self._cols[col_idx], self._live)
+                        if live]
+                cache[1][col_idx] = np.unique(np.array(
+                    [v if v is not None else "" for v in vals],
+                    dtype=object)) if vals else np.empty(0, dtype=object)
+            return cache[1][col_idx]
 
 

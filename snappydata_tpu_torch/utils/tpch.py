@@ -191,12 +191,14 @@ PARTSUPP_DDL = """CREATE TABLE partsupp (
     ps_supplycost DOUBLE
 ) USING column"""
 
+# the dimension tables are row tables keyed as in the TPC-H schema, so
+# PUT INTO upserts on the key and `session.get` reads it
 NATION_DDL = """CREATE TABLE nation (
-    n_nationkey BIGINT, n_name STRING, n_regionkey BIGINT
+    n_nationkey BIGINT PRIMARY KEY, n_name STRING, n_regionkey BIGINT
 ) USING row"""
 
 REGION_DDL = """CREATE TABLE region (
-    r_regionkey BIGINT, r_name STRING
+    r_regionkey BIGINT PRIMARY KEY, r_name STRING
 ) USING row"""
 
 LINEITEM_DDL = """CREATE TABLE lineitem (

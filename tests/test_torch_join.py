@@ -551,8 +551,8 @@ JOIN_QUERIES = [3, 5, 7, 8, 9, 10, 12, 14, 19]
 
 @pytest.fixture(scope="module")
 def tpch_pair():
-    """TPC-H at sf 0.002 in both packages from the same arrays; nation and
-    region as column tables (the port has no row tables)."""
+    """TPC-H at sf 0.002 in both packages from the same arrays, with the
+    real DDL: nation and region are row tables."""
     props = (ref_config.global_properties(), config.global_properties())
     saved = [{k: p.get(k) for k in _KNOBS} for p in props]
     pair = Pair()
@@ -577,7 +577,7 @@ def tpch_pair():
         (tpch.REGION_DDL, "region", tpch.gen_region()),
     ]
     for ddl, name, cols in tables:
-        pair.sql(ddl.replace("USING row", "USING column"))
+        pair.sql(ddl)
         pair.insert_arrays(name, list(cols.values()))
     yield pair
     for p, old in zip(props, saved):

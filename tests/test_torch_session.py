@@ -216,12 +216,13 @@ def test_host_fallback_for_unported_shapes(lineitem):
     ref, port = _sessions(lineitem)
     reg = global_registry()
     before = reg.counter("host_fallbacks")
-    # window functions have no device lowering in the port yet (the
-    # shapes this test used before, count(DISTINCT) and then abs, run on
-    # the device now)
-    q = ("SELECT l_orderkey, l_linenumber, sum(l_quantity) OVER "
-         "(PARTITION BY l_returnflag) FROM lineitem "
-         "WHERE l_orderkey < 200 ORDER BY l_orderkey, l_linenumber")
+    # ntile has no device lowering in either package (the shapes this
+    # test used before — count(DISTINCT), abs, then a windowed sum — run
+    # on the device now)
+    q = ("SELECT l_orderkey, l_linenumber, ntile(3) OVER "
+         "(PARTITION BY l_returnflag ORDER BY l_orderkey, l_linenumber) "
+         "FROM lineitem WHERE l_orderkey < 200 "
+         "ORDER BY l_orderkey, l_linenumber")
     _assert_rows_equal(port.sql(q).rows(), ref.sql(q).rows())
     assert reg.counter("host_fallbacks") == before + 1
 
