@@ -11,7 +11,9 @@ reduction strategy, then TPC-H Q4, Q22 and Q18 (subqueries) and a GROUP
 BY over scalar and string functions, then window functions over orders,
 then UPDATE / DELETE / insert on lineitem under a pinned reader with Q1
 and Q6 through both kernels, concurrent scans and ingest, and row tables
-(TPC-H Q10 over nation, PUT INTO, get).
+(TPC-H Q10 over nation, PUT INTO, get), then nested orders with ARRAY /
+MAP / STRUCT columns, then a durable lineitem through the WAL, a
+checkpoint, crash-shape recovery and the compactor.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
@@ -148,9 +150,36 @@ Phases, in order; any failure exits non-zero before the result lines:
    and the host's CUDA runtime records each hold exactly one kernel
    launch per call, and there is no copy, memset or torch op but the
    output's allocation; its mean device time (`device_ms`);
-18. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
-   kernel's `launches` counts its main-path runs of phases 4, 11, 14 and
-   16.
+18. nested orders: `gen_orders(1,500,000)` with `gen_lineitem(6,000,000,
+   seed 7)` nested by l_orderkey (`tpch.gen_orders_nested`: an `info`
+   STRUCT, `modes` ARRAY<STRING>, `prices` ARRAY<DOUBLE>, `qty_by_mode`
+   MAP<STRING, DOUBLE>; SF 1, `reduced`: the cells are Python objects on
+   the host), ingested through `insert_arrays`; `NESTED_N1` (GROUP BY
+   the two BOOLEAN keys array_contains(modes, 'AIR') and size(modes) >=
+   4: the reference has no device dictionary for a GROUP BY over a
+   struct's STRING field) and `NESTED_N2` once and --reps times
+   warm, launch counters at 0: no host fallback, the grouped kernel
+   launched by N1 and the Kahan kernel by N2, each against its plain
+   version on a warm run's inputs, answers against a numpy oracle
+   (counts exact, sums rel 1e-6); ingest rows/s, first and warm seconds,
+   the complex plates' bytes on the card;
+19. a durable lineitem: the first 1 / DEC_DEPTH of the rows in a session
+   with `data_dir` under a temporary directory (its filesystem's free
+   bytes first, removed at the end): (a) CREATE and `insert_arrays` in
+   1,048,576-row statements (rows/s, WAL bytes, fsyncs); (b)
+   `checkpoint()` (seconds, bytes on disk, the codec used); (c) phase
+   16's UPDATE, DELETE and 131,072-row insert, journaled; (d) 4 threads x
+   500 single-row INSERT statements in `group` mode (acks/s, fsyncs,
+   group commits); (e) a second session on the open directory (the crash
+   shape; recovery seconds), Q1 and Q6 once and --reps times warm
+   through both kernels against numpy over the mutated rows, with
+   `compressed_fallback_deltas` moving; (f) `run_compaction_pass` on the
+   recovered table, then Q1 / Q6 again with no delta fallback and the
+   grouped kernel's slot count; (g) a third session on the directory
+   answers the same;
+20. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+   kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
+   18 and 19.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -1856,6 +1885,320 @@ def mutation_path(session, tpch, li, orders, cust, first, args):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 18: nested orders (ARRAY / MAP / STRUCT plates)
+# --------------------------------------------------------------------------
+
+NESTED_ORDERS = 1_500_000     # SF 1: the cells are Python objects
+NESTED_LINES = 6_000_000
+NESTED_COLS = ("o_orderkey", "o_orderdate", "info", "modes", "prices",
+               "qty_by_mode")
+
+
+def nested_oracle(orders, li):
+    """N1 / N2 in float64 numpy from the generated arrays: per order its
+    line count, whether a line ships by MAIL and by AIR, its AIR quantity
+    and its first line's price (stable l_orderkey order), the DOUBLE
+    values rounded to the card's float32 plates."""
+    import numpy as np
+
+    f32 = lambda a: a.astype(np.float32).astype(np.float64)  # noqa: E731
+    n = len(orders["o_orderkey"])
+    ok = orders["o_orderkey"]
+    key = li["l_orderkey"]
+    order = np.argsort(key, kind="stable")
+    lo = np.searchsorted(key[order], ok, side="left")
+    lines = np.bincount(key, minlength=n + 2)[ok]
+    mode = li["l_shipmode"]
+
+    def per_order(w):
+        return np.bincount(key, weights=w, minlength=n + 2)[ok]
+
+    mail = per_order(mode == "MAIL") > 0
+    has_air = per_order(mode == "AIR") > 0
+    air = f32(per_order(li["l_quantity"] * (mode == "AIR")))
+    price = f32(li["l_extendedprice"][order])
+    first = np.where(lines > 0, price[np.minimum(lo, len(price) - 1)], 0.0)
+    total = f32(orders["o_totalprice"])
+    n1 = []
+    for a in (False, True):
+        for big in (False, True):
+            m = mail & (has_air == a) & ((lines >= 4) == big)
+            if m.any():
+                n1.append((a, big, int(m.sum()), float(air[m].sum()),
+                           int(lines[m].sum()), float(total[m].sum()),
+                           float(first[m].max())))
+    m2 = (lines >= 3) & (total > 100000)
+    return n1, [(float(first[m2].sum()),)]
+
+
+def complex_plate_bytes(data):
+    """Bytes of the complex columns' plates in a table's device cache."""
+    import torch
+
+    total = 0
+    for entry in list(data._device_cache.values()):
+        for key, val in entry.items():
+            if isinstance(key, tuple) and str(key[0]).startswith("_build_"):
+                total += sum(t.numel() * t.element_size()
+                             for t in torch.utils._pytree.tree_leaves(val)
+                             if isinstance(t, torch.Tensor))
+    return total
+
+
+def nested_path(tpch, args):
+    """Phase 18; returns the two kernels' launches over N1 and N2."""
+    from snappydata_tpu_torch import SnappySession, config
+    from snappydata_tpu_torch.catalog import Catalog
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    t0 = time.perf_counter()
+    orders = tpch.gen_orders(NESTED_ORDERS, NESTED_ORDERS // 10, args.seed)
+    li = tpch.gen_lineitem(NESTED_LINES, 7)
+    nested = tpch.gen_orders_nested(orders, li)
+    log(f"nested_gen_s {time.perf_counter() - t0:.3f} orders "
+        f"{NESTED_ORDERS} lines {NESTED_LINES}")
+    s = SnappySession(catalog=Catalog())
+    s.sql(tpch.ORDERS_NESTED_DDL)
+    t0 = time.perf_counter()
+    s.insert_arrays("orders_nested", [nested[c] for c in NESTED_COLS])
+    ing = time.perf_counter() - t0
+    log(f"nested_ingest_s {ing:.3f} rows_per_s {NESTED_ORDERS / ing:.0f}")
+    del nested
+    want = dict(zip(("n1", "n2"), nested_oracle(orders, li)))
+    del orders, li
+    launches = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    data = s.catalog.describe("orders_nested").data
+    for name, sql, kname in (("n1", tpch.NESTED_N1, "grouped_reduce"),
+                             ("n2", tpch.NESTED_N2, "masked_kahan_sum")):
+        rows, f_s, w_s, moved, lc, calls, peak, resident = \
+            timed_query(s, sql, args.reps)
+        log(f"nested_{name} first_s {f_s:.4f} warm_s {w_s:.4f} counters "
+            f"{json.dumps(moved)} launches {json.dumps(lc)} "
+            f"peak_device_bytes {peak} resident_before_bytes {resident}")
+        if moved["host_fallbacks"]:
+            fail(f"nested {name} left the device")
+        if lc[kname] < 1 + args.reps:
+            fail(f"{kname} launched {lc[kname]} times over nested "
+                 f"{name}'s {1 + args.reps} runs")
+        for k in launches:
+            launches[k] += lc[k]
+        phase = grouped_phase if kname == "grouped_reduce" else kahan_phase
+        log(f"kernel {kname} on nested {name} "
+            f"{json.dumps(phase(calls[kname], args.reps))}")
+        check_rows(f"nested {name} vs numpy", rows, want[name])
+        log(f"nested_{name} {json.dumps(rows[:4])}")
+        if args.profile:
+            log(f"profile nested_{name} " + json.dumps(profile_run(
+                lambda sql=sql: s.sql(sql).rows())))
+    log(f"nested_complex_plate_bytes {complex_plate_bytes(data)}")
+    log("answers ok: N1 / N2 over the nested orders match numpy")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 19: durable lineitem (WAL, checkpoint, recovery, compaction)
+# --------------------------------------------------------------------------
+
+GROUP_COMMIT_THREADS = 4
+GROUP_COMMIT_STMTS = 500
+DURABLE_STMT_ROWS = 1 << 20
+
+
+def _row_sql(rows, i, names):
+    vals = []
+    for k in names:
+        v = rows[k][i]
+        vals.append(f"'{v}'" if isinstance(v, str) else repr(v.item()))
+    return "INSERT INTO lineitem VALUES (" + ", ".join(vals) + ")"
+
+
+def durable_queries(s, tpch, want, args, what):
+    """Q1 and Q6 once and --reps times warm on `s`, checked against
+    `want`; (launches, compressed_fallback_deltas moved, the grouped
+    kernel's last launch configuration)."""
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.ops import group_reduce as gr
+
+    reg = global_registry()
+    cf0 = reg.counter("compressed_fallback_deltas")
+    fb0 = {k: v for k, v in reg.snapshot().items()
+           if k.startswith("compressed_fallback_")}
+    launches = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    cfg = None
+    for name, sql in (("q1", tpch.Q1), ("q6", tpch.Q6)):
+        rows, f_s, w_s, moved, lc, calls, peak, _res = \
+            timed_query(s, sql, args.reps)
+        log(f"durable_{what}_{name} first_s {f_s:.4f} warm_s {w_s:.4f} "
+            f"counters {json.dumps(moved)} launches {json.dumps(lc)} "
+            f"peak_device_bytes {peak}")
+        if moved["host_fallbacks"]:
+            fail(f"durable {what} {name} left the device")
+        kname = "grouped_reduce" if name == "q1" else "masked_kahan_sum"
+        if lc[kname] < 1 + args.reps:
+            fail(f"{kname} launched {lc[kname]} times over durable {what} "
+                 f"{name}'s {1 + args.reps} runs")
+        if name == "q1":
+            cfg = dict(gr.grouped_reduce.config)
+        for k in launches:
+            launches[k] += lc[k]
+        phase = grouped_phase if kname == "grouped_reduce" else kahan_phase
+        log(f"kernel {kname} on durable {what} {name} "
+            f"{json.dumps(phase(calls[kname], args.reps))}")
+        check_rows(f"durable {what} {name} vs numpy", rows, want[name])
+        if args.profile:
+            log(f"profile durable_{what}_{name} " + json.dumps(profile_run(
+                lambda sql=sql: s.sql(sql).rows())))
+    moved = {k: v - fb0.get(k, 0) for k, v in reg.snapshot().items()
+             if k.startswith("compressed_fallback_") and v != fb0.get(k, 0)}
+    log(f"durable_{what} compressed_fallbacks {json.dumps(moved)}")
+    return launches, reg.counter("compressed_fallback_deltas") - cf0, cfg
+
+
+def durable_path(tpch, li, args):
+    """Phase 19 (a) - (g) on the first 1 / DEC_DEPTH of lineitem's rows in
+    a durable session under a temporary directory; returns the two
+    kernels' launches over (e) - (g)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from snappydata_tpu_torch import SnappySession, config
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.storage import compact
+    from snappydata_tpu_torch.storage.encoding import compress_bytes
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    props.wal_fsync_mode = "group"
+    reg = global_registry()
+    d = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    st = os.statvfs(d)
+    log(f"durable_dir_free_bytes {st.f_bavail * st.f_frsize}")
+    codec = compress_bytes(b"\0" * 1024, props.compression_codec)[0]
+    log(f"durable_codec configured {props.compression_codec} used {codec}")
+    try:
+        n = len(li["l_orderkey"])
+        names = list(li.keys())
+        # (a) CREATE, then insert_arrays in 1,048,576-row statements
+        s1 = SnappySession(catalog=Catalog(), data_dir=d, recover=False)
+        s1.sql(tpch.LINEITEM_DDL)
+        f0, w0 = reg.counter("wal_fsync_count"), \
+            reg.counter("wal_bytes_written")
+        t0 = time.perf_counter()
+        for lo in range(0, n, DURABLE_STMT_ROWS):
+            s1.insert_arrays("lineitem", [li[k][lo:lo + DURABLE_STMT_ROWS]
+                                          for k in names])
+        ing = time.perf_counter() - t0
+        log(f"durable_ingest rows {n} s {ing:.3f} rows_per_s {n / ing:.0f}"
+            f" wal_bytes {reg.counter('wal_bytes_written') - w0} "
+            f"wal_fsync_count {reg.counter('wal_fsync_count') - f0}")
+        # (b) checkpoint
+        t0 = time.perf_counter()
+        s1.checkpoint()
+        ck = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _d, fs in os.walk(d) for f in fs)
+        log(f"durable_checkpoint s {ck:.3f} bytes_on_disk {disk} codec "
+            f"{codec}")
+        # (c) journaled UPDATE, DELETE and one insert
+        times = {}
+        for what, sql in (("update", MUTATION_UPDATE),
+                          ("delete", MUTATION_DELETE)):
+            t0 = time.perf_counter()
+            cnt = int(s1.sql(sql).rows()[0][0])
+            times[what] = (time.perf_counter() - t0, cnt)
+        extra = tpch.gen_lineitem(MUTATION_INSERT_ROWS, args.seed + 3)
+        t0 = time.perf_counter()
+        s1.insert_arrays("lineitem", [extra[k] for k in names])
+        times["insert"] = (time.perf_counter() - t0, MUTATION_INSERT_ROWS)
+        log("durable_mutations " + " ".join(
+            f"{k}_s {v[0]:.3f} {k}_rows {v[1]}" for k, v in times.items()))
+        # (d) group commit: threads of single-row INSERT statements
+        single = tpch.gen_lineitem(GROUP_COMMIT_THREADS * GROUP_COMMIT_STMTS,
+                                   args.seed + 20)
+        stmts = [_row_sql(single, i, names)
+                 for i in range(GROUP_COMMIT_THREADS * GROUP_COMMIT_STMTS)]
+        f0 = reg.counter("wal_fsync_count")
+        g0 = reg.counter("wal_group_commit_batches")
+        errors = []
+
+        def committer(w):
+            try:
+                for sql in stmts[w::GROUP_COMMIT_THREADS]:
+                    s1.sql(sql)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=committer, args=(w,))
+                   for w in range(GROUP_COMMIT_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        gc_s = time.perf_counter() - t0
+        if errors:
+            fail(f"group commit: {errors[0]!r}")
+        log(f"durable_group_commit statements {len(stmts)} threads "
+            f"{GROUP_COMMIT_THREADS} s {gc_s:.3f} acks_per_s "
+            f"{len(stmts) / gc_s:.0f} wal_fsync_count "
+            f"{reg.counter('wal_fsync_count') - f0} "
+            f"wal_group_commit_batches "
+            f"{reg.counter('wal_group_commit_batches') - g0}")
+        tail = {k: np.concatenate([extra[k], single[k]]) for k in names}
+        mut, _u, _d = mutated_lineitem(li, tail, tpch)
+        want = oracle(mut, tpch)
+        del mut, tail
+        # (e) crash-shape reopen: s1 stays open
+        launches = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+        t0 = time.perf_counter()
+        s2 = SnappySession(data_dir=d)
+        log(f"durable_recovery_s {time.perf_counter() - t0:.3f}")
+        lc, cf, _cfg = durable_queries(s2, tpch, want, args, "recovered")
+        log(f"durable_recovered compressed_fallback_deltas moved {cf}")
+        if cf < 1:
+            fail("the recovered l_discount kept its encoded form")
+        for k in launches:
+            launches[k] += lc[k]
+        # (f) compaction of the recovered lineitem
+        data = s2.catalog.describe("lineitem").data
+        t0 = time.perf_counter()
+        out = compact.run_compaction_pass(data, force=True)
+        log(f"durable_compaction s {time.perf_counter() - t0:.3f} "
+            f"batches_rewritten {out['rewritten']} produced "
+            f"{out['produced']} reclaimed_bytes {out['reclaimed_bytes']}")
+        if out["rewritten"] < 1:
+            fail(f"compaction rewrote nothing: {out}")
+        lc, cf, cfg = durable_queries(s2, tpch, want, args, "compacted")
+        log(f"durable_compacted compressed_fallback_deltas moved {cf} "
+            f"grouped_reduce_config {json.dumps(cfg)}")
+        if cf:
+            fail("a compacted column still bound with its delta")
+        for k in launches:
+            launches[k] += lc[k]
+        # (g) a third crash-shape reopen answers the same
+        t0 = time.perf_counter()
+        s3 = SnappySession(data_dir=d)
+        log(f"durable_recovery_again_s {time.perf_counter() - t0:.3f}")
+        lc, _cf, _cfg = durable_queries(s3, tpch, want, args, "reopened")
+        for k in launches:
+            launches[k] += lc[k]
+        for s in (s1, s2, s3):
+            s.disk_store.close()
+        log("answers ok: the recovered, compacted and reopened lineitem "
+            "match numpy")
+        return launches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=16.0,
@@ -2275,7 +2618,37 @@ def main() -> int:
             f"{json.dumps(r)}")
     del kahan_shapes, rec_k
 
-    # 18. result lines
+    # 18. nested orders: ARRAY / MAP / STRUCT plates on the card
+    # the main session's plates are not read again: free the card first
+    for info in session.catalog.list_tables():
+        getattr(info.data, "_device_cache", {}).clear()
+    del session
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        n_launches = nested_path(tpch, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"nested path: {type(e).__name__}: {e}")
+    log(f"nested_path_launches {json.dumps(n_launches)}")
+    for name, count in n_launches.items():
+        launches[name] += count
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19. a durable lineitem: WAL, checkpoint, crash-shape recovery and
+    # the compactor, over the first 1 / DEC_DEPTH of the rows
+    try:
+        d_launches = durable_path(tpch, {k: v[:n_dec] for k, v in li.items()},
+                                  args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"durable path: {type(e).__name__}: {e}")
+    log(f"durable_path_launches {json.dumps(d_launches)}")
+    for name, count in d_launches.items():
+        launches[name] += count
+
+    # 20. result lines
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",

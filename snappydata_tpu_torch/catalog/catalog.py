@@ -80,10 +80,6 @@ class Catalog:
                 raise NotImplementedError(
                     f"{provider} tables are not ported; use USING column "
                     f"or USING row")
-            for f in schema.fields:
-                if f.dtype.name in ("array", "map", "struct"):
-                    raise NotImplementedError(
-                        f"{f.dtype.name} columns are not ported")
             if provider == "row":
                 data = RowTableData(schema, key_columns=key_columns)
             else:

@@ -304,16 +304,6 @@ class Properties:
     # double-applying. Ids persist in WAL record headers, so the window
     # survives crash recovery. Entries are bounded FIFO.
     mutation_dedup_entries: int = 8192
-    # Seed for the fault-injection registry's probabilistic arming and
-    # the backoff jitter RNG — chaos schedules replay deterministically
-    # (env twin: SNAPPY_TPU_FAULT_SEED).
-    fault_seed: int = 0
-    # Boot-time failpoint arming, same compact grammar as the
-    # SNAPPY_TPU_FAULTS env twin (fault/failpoints.py):
-    # "wal.append=torn_write:7@1;flight.rpc=latency:0.01@p0.25".
-    # Read once when the registry is created; runtime changes go
-    # through fault.arm()/REST POST /faults.
-    faults: str = ""
 
     # Prepared-statement serving path (serving/ — compile-once
     # parameterized plans + adaptive micro-batched dispatch; ref: the

@@ -63,9 +63,11 @@ import torch
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch import types as T
 from snappydata_tpu_torch.engine import hosteval
-from snappydata_tpu_torch.engine.exprs import (STRING_VALUE_FUNCS,
+from snappydata_tpu_torch.engine.exprs import (ARRAY_DEVICE_FUNCS,
+                                               STRING_VALUE_FUNCS,
                                                CompileError, DVal,
-                                               ExprBuilder, Runtime,
+                                               ExprBuilder, MapDicts,
+                                               Runtime, StructDicts,
                                                _is_exact_decimal, _or_null)
 from snappydata_tpu_torch.engine.result import Result
 from snappydata_tpu_torch.observability.metrics import global_registry
@@ -77,10 +79,14 @@ from snappydata_tpu_torch.ops.kahan_reduce import masked_kahan_sum
 from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.sql.analyzer import _expr_name, expr_type
 from snappydata_tpu_torch.storage import mvcc
-from snappydata_tpu_torch.storage.device import (DeviceTable, batch_bucket,
+from snappydata_tpu_torch.storage.device import (DeviceTable,
+                                                 batch_bucket,
                                                  build_device_table,
+                                                 complex_device_eligible,
                                                  current_scan_scale,
-                                                 numeric_key_domain)
+                                                 map_device_eligible,
+                                                 numeric_key_domain,
+                                                 struct_device_eligible)
 from snappydata_tpu_torch.storage.device_decode import (BitPlate, CodePlate,
                                                         RlePlate, bit_values,
                                                         compressed_fallback,
@@ -550,6 +556,7 @@ class Compiler:
 
     def compile(self, plan: ast.Plan) -> CompiledPlan:
         is_agg = isinstance(plan, ast.Aggregate)
+        _validate_array_usage(plan)
         self._add_static(_compressed_token)
         # column pruning: per-relation needed ordinals, DFS leaf order
         self._pruned: List[set] = []
@@ -865,6 +872,17 @@ class Compiler:
             self._prune_cursor += 1
             used = sorted(pruned) if pruned is not None \
                 else list(range(len(info.schema)))
+            col_store = not isinstance(info.data, RowTableData)
+            for uci in used:
+                fdt = info.schema.fields[uci].dtype
+                if fdt.name in ("map", "struct", "array") and not (
+                        col_store and complex_device_eligible(fdt)):
+                    # numeric / string-element arrays, MAP<STRING, V> and
+                    # flat STRUCTs of column tables have device plates
+                    # (string parts ride as dictionary codes); nested
+                    # complex types and row tables stay host
+                    raise CompileError(
+                        "complex-typed columns evaluate on the host path")
             rel_idx = len(self.relations)
             self.relations.append(_RelationInput(info, used))
             scope = [
@@ -919,7 +937,8 @@ class Compiler:
             runs = [builder.emit(e) for e in plan.exprs]
             out_scope = [
                 _ScopeCol(_expr_name(e), expr_type(e),
-                          _derived_dict_provider(e, scope), True)
+                          _derived_dict_provider(e, scope)
+                          or _element_dict_provider(e, scope), True)
                 for e in plan.exprs]
 
             def run_project(ctx) -> RelOut:
@@ -2307,7 +2326,26 @@ class _RunCtx:
 
 
 def _dict_provider(info, ci):
-    if info.schema.fields[ci].dtype.name != "string":
+    f = info.schema.fields[ci]
+    col_store = not isinstance(info.data, RowTableData)
+    if col_store and isinstance(f.dtype, T.ArrayType) \
+            and f.dtype.element.name == "string":
+        # ARRAY<STRING> plates carry element CODES: the provider is the
+        # element dictionary (element_at decodes through it; contains
+        # literals resolve to codes against it)
+        return lambda: info.data.array_element_dictionary(ci)
+    if col_store and isinstance(f.dtype, T.MapType) \
+            and map_device_eligible(f.dtype):
+        return MapDicts(
+            lambda: info.data.map_key_dictionary(ci),
+            (lambda: info.data.map_value_dictionary(ci))
+            if f.dtype.value.name == "string" else None)
+    if col_store and isinstance(f.dtype, T.StructType) \
+            and struct_device_eligible(f.dtype):
+        return StructDicts({
+            fn: (lambda fn=fn: info.data.struct_field_dictionary(ci, fn))
+            for fn, ft in f.dtype.fields if ft.name == "string"})
+    if f.dtype.name != "string":
         return None
     if isinstance(info.data, RowTableData):
         return lambda: info.data.string_dict(ci)
@@ -2405,6 +2443,37 @@ def _derived_dict_provider(e: ast.Expr, scope):
             return None
         prov = scope[ci].dict_provider
         return lambda: np.array([fn(v) for v in prov()], dtype=object)
+    return None
+
+
+def _element_dict_provider(e: ast.Expr, scope):
+    """Dictionary of a projected element_at over a device-plated complex
+    column whose value is a string CODE: the array element dictionary, the
+    map value dictionary or the struct field's dictionary.  Only
+    projections decode through it; a GROUP BY over such a value has no
+    dictionary and takes the host path, as in the reference."""
+    base = e
+    while isinstance(base, ast.Alias):
+        base = base.child
+    if not (isinstance(base, ast.Func) and base.name == "element_at"
+            and len(base.args) == 2):
+        return None
+    col = base.args[0]
+    while isinstance(col, ast.Alias):
+        col = col.child
+    if not isinstance(col, ast.Col) or col.index is None:
+        return None
+    dt, prov = scope[col.index].dtype, scope[col.index].dict_provider
+    if isinstance(dt, T.ArrayType) and dt.element.name == "string":
+        return prov
+    if isinstance(dt, T.MapType) and isinstance(prov, MapDicts):
+        return prov.value
+    if isinstance(dt, T.StructType) and isinstance(prov, StructDicts) \
+            and isinstance(base.args[1], ast.Lit):
+        want = str(base.args[1].value).lower()
+        for fn, ft in dt.fields:
+            if fn.lower() == want and ft.name == "string":
+                return prov.fields.get(fn)
     return None
 
 
@@ -2683,6 +2752,40 @@ def _plan_width(plan: ast.Plan) -> int:
     if isinstance(plan, ast.WindowProject):
         return len(plan.exprs)
     raise CompileError(f"width of {type(plan).__name__}")
+
+
+def _validate_array_usage(plan: ast.Plan) -> None:
+    """Array-typed columns may appear on device ONLY as the first argument
+    of size/element_at/array_contains (their plate layout is opaque to
+    every other operator) — anything else reroutes to the host path."""
+    def check_expr(e: ast.Expr, allowed: bool) -> None:
+        if isinstance(e, ast.Col) \
+                and isinstance(e.dtype, (T.ArrayType, T.MapType,
+                                         T.StructType)) \
+                and not allowed:
+            raise CompileError(
+                "array/map/struct column outside size/element_at/"
+                "array_contains: host path")
+        for i, c in enumerate(e.children()):
+            ok = isinstance(e, ast.Func) and i == 0 and \
+                e.name in ARRAY_DEVICE_FUNCS
+            check_expr(c, ok)
+
+    def walk(p: ast.Plan) -> None:
+        if isinstance(p, ast.Filter):
+            check_expr(p.condition, False)
+        elif isinstance(p, (ast.Project, ast.WindowProject)):
+            for e in p.exprs:
+                check_expr(e, False)
+        elif isinstance(p, ast.Aggregate):
+            for e in list(p.group_exprs) + list(p.agg_exprs):
+                check_expr(e, False)
+        elif isinstance(p, ast.Join) and p.condition is not None:
+            check_expr(p.condition, False)
+        for k in p.children():
+            walk(k)
+
+    walk(plan)
 
 
 def _collect_used(plan: ast.Plan, needed: Optional[set],

@@ -34,6 +34,7 @@ at execution time over the bound plates.  PyTorch runs eagerly, so
 from __future__ import annotations
 
 import datetime
+import dataclasses
 import functools
 import re
 from typing import Callable, Dict, List, Optional, Sequence
@@ -62,6 +63,28 @@ STRING_VALUE_FUNCS = frozenset(
      "translate", "split_part"})
 # string functions with an int (DATE for to_date) value: int LUT gathers
 _STRING_INT_FUNCS = ("length", "instr", "ascii", "to_date")
+
+# the ONLY functions that may consume an ARRAY / MAP / STRUCT column on the
+# device (their plate layouts are opaque to every other operator);
+# executor._validate_array_usage enforces the same set
+ARRAY_DEVICE_FUNCS = ("size", "element_at", "array_contains")
+
+
+@dataclasses.dataclass
+class MapDicts:
+    """Dictionary providers of a device-plated MAP<STRING, V> column: key
+    codes always, value codes when V is string."""
+
+    key: Callable[[], np.ndarray]
+    value: Optional[Callable[[], np.ndarray]] = None
+
+
+@dataclasses.dataclass
+class StructDicts:
+    """Per-field value-dictionary providers of a device-plated STRUCT
+    column (string fields only)."""
+
+    fields: Dict[str, Callable[[], np.ndarray]] = None
 
 
 class DVal:
@@ -970,10 +993,193 @@ class ExprBuilder:
         op = functools.partial(_string_value_op, name, extra)
         return ci, lambda v: op(base(v))
 
+    def _arg_typed_col(self, e: ast.Expr, type_cls):
+        """(dtype, column ordinal) of an argument that is (an alias of) a
+        raw column of `type_cls`, else (None, None)."""
+        if isinstance(e, ast.Alias):
+            return self._arg_typed_col(e.child, type_cls)
+        if isinstance(e, ast.Col):
+            dt = e.dtype if e.dtype is not None else \
+                self.col_types.get(e.index)
+            if isinstance(dt, type_cls):
+                return dt, e.index
+        return None, None
+
+    def _literal_code_aux(self, lit_expr, getter) -> int:
+        """Register an aux tensor resolving a literal at bind time to
+        [dictionary code, needle is NULL]: -1 = absent (matches no code);
+        a NULL literal flags [1] == 1 so the runners propagate NULL."""
+        def build(params, getter=getter):
+            lit = self._param_value(lit_expr, params)
+            if lit is None:
+                return np.array([-1, 1], np.int32)
+            hit = np.flatnonzero(
+                np.asarray(getter(), dtype=object) == str(lit))
+            return np.array([hit[0] if hit.size else -1, 0], np.int32)
+
+        return self._register_aux(build)
+
+    def _emit_struct_field(self, e: ast.Func, s0, s_ci, arr_run):
+        """element_at(struct, 'field'): the field name is STRUCTURAL
+        (tokenization keeps it a literal) and picks one [B, C] plate at
+        compile time."""
+        sdicts = self.dict_getters.get(s_ci)
+        if not isinstance(sdicts, StructDicts):
+            raise CompileError("struct column without device plates: "
+                               "host path")
+        if not isinstance(e.args[1], ast.Lit):
+            raise CompileError("element_at over a struct needs a literal "
+                               "field name: host path")
+        want = str(e.args[1].value).lower()
+        fidx = next((k for k, (fn, _t) in enumerate(s0.fields)
+                     if fn.lower() == want), None)
+        if fidx is None:
+            raise CompileError(f"no struct field {want!r}: host path")
+        fname, ftype = s0.fields[fidx]
+
+        def run_sfield(rt: Runtime) -> DVal:
+            d = arr_run(rt)
+            fvals, fnuls = d.value
+            return DVal(fvals[fidx], _or_null(d.null, fnuls[fidx]), ftype,
+                        dictionary=sdicts.fields.get(fname)
+                        if ftype.name == "string" else None)
+
+        return run_sfield
+
+    def _emit_map_func(self, e: ast.Func, m0, m_ci, arr_run):
+        """size(map) and element_at(map, 'key') over key-code plates: the
+        literal key resolves to its key-dictionary CODE at bind; the first
+        matching entry's value answers, NULL for a missing key, a NULL
+        key or a NULL value."""
+        mdicts = self.dict_getters.get(m_ci)
+        if not isinstance(mdicts, MapDicts):
+            raise CompileError("map column without device plates: "
+                               "host path")
+        if e.name == "size":
+            def run_msize(rt: Runtime) -> DVal:
+                d = arr_run(rt)
+                _k, _v, lengths, _vn = d.value
+                return DVal(lengths.to(torch.int32), d.null, T.INT)
+
+            return run_msize
+        if not self._is_literalish(e.args[1]):
+            raise CompileError("element_at over a map needs a literal "
+                               "key: host path")
+        aux_i = self._literal_code_aux(e.args[1], mdicts.key)
+        val_t = m0.value
+        val_is_str = val_t.name == "string"
+
+        def run_melem(rt: Runtime) -> DVal:
+            d = arr_run(rt)
+            kcodes, vals, lengths, vnul = d.value
+            L = kcodes.shape[-1]
+            code = rt.aux[aux_i][0]
+            key_null = rt.aux[aux_i][1] == 1
+            in_range = torch.arange(L, device=kcodes.device) \
+                < lengths[..., None]
+            hit = (kcodes == code) & in_range
+            found = hit.any(dim=-1)
+            idx = torch.argmax(hit.to(torch.uint8), dim=-1,
+                               keepdim=True)
+            out = torch.gather(vals, -1, idx)[..., 0]
+            vn = torch.gather(vnul, -1, idx)[..., 0]
+            null = _or_null(d.null, ~found | vn | key_null.expand(
+                found.shape))
+            return DVal(out, null, val_t,
+                        dictionary=mdicts.value if val_is_str else None)
+
+        return run_melem
+
+    def _emit_array_func(self, e: ast.Func, t0, a_ci, arr_run, other):
+        """size / element_at / array_contains over array plates (values
+        [.., L], lengths, element nulls): padding and NULL elements are
+        excluded through the length and element-null masks.  A position
+        past the length or a NULL element gives NULL; string needles
+        resolve to element-dictionary codes at bind."""
+        is_str_elem = t0.element.name == "string"
+        elem_dict = self.dict_getters.get(a_ci) if a_ci is not None \
+            else None
+        if not T.is_numeric(t0.element) and not (
+                is_str_elem and elem_dict is not None):
+            raise CompileError("array element type has no device plates: "
+                               "host path")
+        if e.name == "size":
+            def run_size(rt: Runtime) -> DVal:
+                d = arr_run(rt)
+                _vals, lengths, _en = d.value
+                return DVal(lengths.to(torch.int32), d.null, T.INT)
+
+            return run_size
+        if e.name == "element_at":
+            def run_elem(rt: Runtime) -> DVal:
+                d = arr_run(rt)
+                iv = other(rt)
+                vals, lengths, enul = d.value
+                pos = torch.as_tensor(iv.value, device=vals.device).to(
+                    torch.int64) - 1
+                pos_b = pos.expand(lengths.shape)
+                safe = pos_b.clamp(0, vals.shape[-1] - 1)[..., None]
+                out = torch.gather(vals, -1, safe)[..., 0]
+                el_null = torch.gather(enul, -1, safe)[..., 0]
+                bad = (pos_b < 0) | (pos_b >= lengths) | el_null
+                # string elements are CODES: the DVal carries the element
+                # dictionary so projections decode
+                return DVal(out, _or_null(_or_null(d.null, iv.null), bad),
+                            t0.element,
+                            dictionary=elem_dict if is_str_elem else None)
+
+            return run_elem
+        if is_str_elem:
+            # array_contains(a, 'lit'): the needle's element-dictionary
+            # CODE at bind (an absent value -> -1, which no code matches)
+            if not self._is_literalish(e.args[1]):
+                raise CompileError("array_contains over a string array "
+                                   "needs a literal needle: host path")
+            aux_i = self._literal_code_aux(e.args[1], elem_dict)
+
+            def run_contains_str(rt: Runtime) -> DVal:
+                d = arr_run(rt)
+                vals, lengths, enul = d.value
+                L = vals.shape[-1]
+                code = rt.aux[aux_i][0]
+                needle_null = rt.aux[aux_i][1] == 1
+                in_range = (torch.arange(L, device=vals.device)
+                            < lengths[..., None]) & ~enul
+                out = ((vals == code) & in_range).any(dim=-1)
+                return DVal(out, _or_null(d.null,
+                                          needle_null.expand(out.shape)),
+                            T.BOOLEAN)
+
+            return run_contains_str
+        exact_elem = _is_exact_decimal(t0.element)
+
+        def run_contains(rt: Runtime) -> DVal:
+            d = arr_run(rt)
+            xv = other(rt)
+            vals, lengths, enul = d.value
+            L = vals.shape[-1]
+            needle = torch.as_tensor(xv.value, device=vals.device)
+            if exact_elem and not vals.is_floating_point():
+                # element plates hold SCALED ints: the needle scales the
+                # same way (HALF_UP)
+                nf = needle.to(torch.float64) * (10 ** t0.element.scale)
+                needle = (torch.sign(nf) * torch.floor(nf.abs() + 0.5)
+                          ).to(torch.int64)
+            x = needle.expand(lengths.shape)
+            # compare under type promotion: a fractional needle must not
+            # truncate into the int element domain
+            eq = vals == x[..., None]
+            in_range = (torch.arange(L, device=vals.device)
+                        < lengths[..., None]) & ~enul
+            out = (eq & in_range).any(dim=-1)
+            return DVal(out, _or_null(d.null, xv.null), T.BOOLEAN)
+
+        return run_contains
+
     def _emit_func(self, e: ast.Func) -> Callable[[Runtime], DVal]:
         """Scalar functions (ref snappydata_tpu/engine/exprs.py
-        `_emit_func`, without its ARRAY / MAP / STRUCT branches and UDFs,
-        which the port's catalog does not hold yet)."""
+        `_emit_func`, without UDFs), with the device lowering of size /
+        element_at / array_contains over ARRAY / MAP / STRUCT plates."""
         name = e.name
         if name in ast.AGG_FUNCS:
             raise CompileError(
@@ -983,6 +1189,21 @@ class ExprBuilder:
         # is blind to the scaled-int representation.  Aggregates never
         # reach here (the executor sums them exactly).
         args = [_dec_wrap_unscaled(self.emit(a)) for a in e.args]
+
+        if name in ARRAY_DEVICE_FUNCS and e.args:
+            if name == "element_at" and len(e.args) == 2:
+                s0, s_ci = self._arg_typed_col(e.args[0], T.StructType)
+                if s0 is not None:
+                    return self._emit_struct_field(e, s0, s_ci, args[0])
+            if name in ("size", "element_at"):
+                m0, m_ci = self._arg_typed_col(e.args[0], T.MapType)
+                if m0 is not None:
+                    return self._emit_map_func(e, m0, m_ci, args[0])
+            t0, a_ci = self._arg_typed_col(e.args[0], T.ArrayType)
+            if t0 is not None:
+                return self._emit_array_func(
+                    e, t0, a_ci, args[0], args[1] if len(args) > 1
+                    else None)
 
         if name == "coalesce":
             def run_coalesce(rt: Runtime) -> DVal:

@@ -2,15 +2,16 @@
 
 The counter subset of snappydata_tpu/observability/metrics.py: the engine
 counts plan-cache verdicts, host fallbacks, batch skipping, compressed-
-domain fallbacks, the aggregate lanes a plan took and the tiled lane's
-passes (TILE_COUNTERS), under the same names as the reference so the two
-packages' evidence lines up.
+domain fallbacks, the aggregate lanes a plan took, the tiled lane's
+passes (TILE_COUNTERS) and the WAL's group commits, under the same names
+as the reference so the two packages' evidence lines up, plus summed
+timers (`record_time`).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 # the tiled lane's evidence, under the reference's names:
 #   scan_tiles                  tiles executed (work, not queries)
@@ -34,10 +35,18 @@ class Registry:
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: Dict[str, int] = {}
+        self._timers: Dict[str, Tuple[int, float]] = {}
 
     def inc(self, name: str, n: int = 1) -> None:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + int(n)
+
+    def record_time(self, name: str, seconds: float) -> None:
+        """One timed event (count and total seconds; the reference keeps
+        a histogram, the port only the sum so far)."""
+        with self._lock:
+            n, tot = self._timers.get(name, (0, 0.0))
+            self._timers[name] = (n + 1, tot + float(seconds))
 
     def counter(self, name: str) -> int:
         return self._counters.get(name, 0)

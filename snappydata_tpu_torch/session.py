@@ -19,8 +19,16 @@ through the device in tiles (`_maybe_tiled_aggregate`, ref
 snappydata_tpu/session.py:1329): one compiled partial program per tile,
 the [G] partials merged on the device where the group space is
 tile-aligned, a double-buffered prefetcher warming the next tile's
-plates.  Durability, mesh execution, views, samples and streams are not
-ported and raise NotImplementedError; UPDATE / DELETE / PUT leave out the
+plates.  ARRAY / MAP / STRUCT columns insert through `array()` /
+`map()` / `named_struct()` literals and object cells.
+
+With `data_dir` a session is durable (storage/persistence.py): DDL and DML
+statements are journaled to the store's WAL before they apply and acked
+after the covering fsync (`_sql_statement`), the bulk paths journal their
+arrays (`_journal_then`), `checkpoint()` folds the WAL into batch files,
+and a session opened on an existing directory recovers into itself, on
+its device.  Mesh execution, views, samples and streams are not ported
+and raise NotImplementedError; UPDATE / DELETE / PUT leave out the
 reference's materialized-view maintenance hooks with the views.
 
 A session runs on one torch device: `cuda` unless the caller asks for
@@ -91,8 +99,24 @@ class SnappySession:
     _default_lock = locks.named_lock("session.default_registry")
 
     def __init__(self, catalog: Optional[Catalog] = None, conf=None,
-                 device=None):
+                 device=None, data_dir: Optional[str] = None,
+                 recover: bool = True):
+        """`data_dir` attaches a DiskStore (ref: sys-disk-dir): DML becomes
+        WAL-durable, `checkpoint()` persists batches and manifests, and
+        with `recover` (and no `catalog`) the catalog and data are rebuilt
+        from the directory into this session."""
         self.device = resolve_device(device)
+        self.disk_store = None
+        needs_recovery = False
+        if data_dir is not None:
+            from snappydata_tpu_torch.storage.persistence import DiskStore
+
+            self.disk_store = DiskStore(data_dir)
+            if catalog is None and recover:
+                # recovery replays against THIS session; the placeholder
+                # catalog is swapped for the recovered one
+                needs_recovery = True
+                catalog = Catalog()
         if catalog is None:
             with SnappySession._default_lock:
                 if SnappySession._default_catalog is None:
@@ -108,13 +132,84 @@ class SnappySession:
         self._tile_merge_pool: Dict[str, list] = {}
         self._in_tile = False
         self._device_bytes: Optional[int] = None
+        if needs_recovery:
+            self.disk_store.recover_catalog(self)
+
+    def checkpoint(self) -> None:
+        """Persist every table and the catalog to the attached disk store
+        and fold the WAL (ref: disk-store flush / backup base image)."""
+        if self.disk_store is None:
+            raise ValueError("no data_dir configured on this session")
+        with config.device_scope(self.device):
+            self.disk_store.checkpoint(self.catalog)
 
     def sql(self, sql_text: str, params: Sequence[Any] = ()) -> Result:
         # storage encodes DOUBLE at the device width and the expression
         # lowering picks float widths from the device: every statement
         # runs inside the session's device scope
         with config.device_scope(self.device):
-            return self.execute_statement(parse(sql_text), tuple(params))
+            return self._sql_statement(parse(sql_text), sql_text,
+                                       tuple(params))
+
+    def _sql_statement(self, stmt: ast.Statement, sql_text: str,
+                       params) -> Result:
+        """Durable sessions journal DML and ALTER / TRUNCATE text BEFORE
+        applying (under the store's mutation lock, shared with
+        checkpoints: the on-disk log always covers memory) and ack after
+        the covering group fsync; CREATE / DROP TABLE persist the catalog
+        after they apply (ref snappydata_tpu/session.py `_sql_statement`)."""
+        ds = self.disk_store
+        if ds is not None and isinstance(
+                stmt, (ast.InsertInto, ast.UpdateStmt, ast.DeleteStmt,
+                       ast.TruncateTable, ast.AlterTable)):
+            import contextlib
+
+            from snappydata_tpu_torch.catalog.catalog import _norm
+            from snappydata_tpu_torch.reliability import current_stmt_id
+
+            ddl_gate = contextlib.nullcontext()
+            if isinstance(stmt, ast.AlterTable) and not stmt.add:
+                # DROP COLUMN against a pinned snapshot raises 40001: the
+                # gate is entered BEFORE journaling (the WAL must never
+                # hold a statement that did not apply) and held across
+                # journal and apply
+                info = self.catalog.lookup_table(stmt.table)
+                if info is not None:
+                    ddl_gate = mvcc.ddl_scope(info.data,
+                                              "ALTER TABLE DROP COLUMN")
+            table = getattr(stmt, "table", None) or stmt.name
+            # a client-stamped statement id rides the record header, so
+            # replay re-seeds the mutation dedup window
+            sid = current_stmt_id()
+            with ddl_gate, ds.mutation_lock:
+                seq = ds.wal_append(_norm(table), "sql", sql=sql_text,
+                                    params=tuple(params),
+                                    extra={"stmt_id": sid} if sid else None)
+                # the WAL seq IS the commit timestamp: manifests this
+                # statement publishes carry it
+                with mvcc.commit_scope(seq):
+                    result = self.execute_statement(stmt, tuple(params))
+            # the ack waits for the covering fsync OUTSIDE the mutation
+            # lock, so concurrent committers coalesce into one group
+            ds.wal_sync(seq)
+            return result
+        result = self.execute_statement(stmt, tuple(params))
+        if ds is not None:
+            from snappydata_tpu_torch.catalog.catalog import _norm
+
+            if isinstance(stmt, ast.CreateTable):
+                ds.save_catalog(self.catalog)
+                if stmt.as_select is not None:
+                    # CTAS rows exist only in memory (they were never
+                    # journaled): checkpoint the new table now
+                    info = self.catalog.lookup_table(stmt.name)
+                    if info is not None:
+                        with ds.mutation_lock:
+                            ds.checkpoint_table(info, ds.current_wal_seq())
+            elif isinstance(stmt, ast.DropTable):
+                ds.drop_table_dir(_norm(stmt.name))
+                ds.save_catalog(self.catalog)
+        return result
 
     def _snapshot_tables_for(self, stmt: ast.Statement):
         """Tables a statement's READS pin at one consistent epoch: the
@@ -951,19 +1046,48 @@ class SnappySession:
         return self.catalog.create_table(name, schema, provider,
                                          options or {}, if_not_exists)
 
+    def _journal_then(self, info, kind: str, arrays, nulls, apply_fn,
+                      extra: Optional[dict] = None):
+        """WAL-then-apply under the mutation lock, then ack after the
+        covering group fsync (no journal without a store).  The append
+        only buffers the framed record: while `apply_fn` encodes and cuts
+        batches, the background flusher can already be fsyncing the
+        group, and `wal_sync` releases the ack once the fsync covers this
+        record's seq."""
+        with config.device_scope(self.device):
+            ds = self.disk_store
+            if ds is None:
+                return apply_fn()
+            from snappydata_tpu_torch.reliability import current_stmt_id
+
+            extra = dict(extra or {})
+            if current_stmt_id():
+                extra["stmt_id"] = current_stmt_id()
+            with ds.mutation_lock:
+                seq = ds.wal_append(info.name, kind, arrays=arrays,
+                                    nulls=nulls, extra=extra or None)
+                with mvcc.commit_scope(seq):
+                    out = apply_fn()
+            ds.wal_sync(seq)
+            return out
+
     def insert(self, table: str, *rows) -> int:
         info = self.catalog.describe(table)
-        with config.device_scope(self.device):
-            arrays, nulls = _rows_to_arrays(info.schema, rows)
-            if isinstance(info.data, RowTableData):
-                return info.data.insert_arrays(
-                    _restore_none_arrays(arrays, nulls))
-            return info.data.insert_arrays(arrays, nulls=nulls)
+        arrays, nulls = _rows_to_arrays(info.schema, rows)
+        if isinstance(info.data, RowTableData):
+            raw = _restore_none_arrays(arrays, nulls)
+            return self._journal_then(
+                info, "insert", raw, None,
+                lambda: info.data.insert_arrays(raw))
+        return self._journal_then(
+            info, "insert", arrays, nulls,
+            lambda: info.data.insert_arrays(arrays, nulls=nulls))
 
     def insert_arrays(self, table: str, arrays: Sequence[np.ndarray]) -> int:
         info = self.catalog.describe(table)
-        with config.device_scope(self.device):
-            return info.data.insert_arrays([np.asarray(a) for a in arrays])
+        arrays = [np.asarray(a) for a in arrays]
+        return self._journal_then(info, "insert", arrays, None,
+                                  lambda: info.data.insert_arrays(arrays))
 
     def put(self, table: str, *rows) -> int:
         """PUT INTO by rows: an upsert on the table's key columns."""
@@ -976,10 +1100,29 @@ class SnappySession:
     def put_arrays(self, table: str, arrays: Sequence[np.ndarray]) -> int:
         info = self.catalog.describe(table)
         arrays = [np.asarray(a) for a in arrays]
-        with config.device_scope(self.device):
+
+        def apply():
             if isinstance(info.data, RowTableData):
                 return info.data.put_arrays(arrays)
             return self._column_put(info, arrays)
+
+        return self._journal_then(info, "put", arrays, None, apply)
+
+    def delete_keys(self, table: str, key_columns: Sequence[str],
+                    key_arrays: Sequence[np.ndarray]) -> int:
+        """Delete the rows whose key tuple appears in `key_arrays` (the
+        CDC delete path; WAL kind `delete_keys`)."""
+        from snappydata_tpu_torch.storage.persistence import _key_predicate
+
+        info = self.catalog.describe(table)
+        key_arrays = [np.asarray(a) for a in key_arrays]
+        keys = {tuple(c[i] for c in key_arrays)
+                for i in range(len(key_arrays[0]))}
+        pred = _key_predicate(list(key_columns), keys)
+        return self._journal_then(
+            info, "delete_keys", key_arrays, None,
+            lambda: info.data.delete(pred),
+            extra={"key_columns": list(key_columns)})
 
     def update(self, table: str, where_sql: str, new_values: Dict[str, Any]
                ) -> int:
@@ -1004,7 +1147,12 @@ class SnappySession:
         return info.data.get(key)
 
     def stop(self) -> None:
+        """Drop the compiled-plan cache and, on a durable session, save
+        the catalog (the WAL stays open: a later session on the same
+        directory recovers in the crash shape)."""
         self.executor.clear_cache()
+        if self.disk_store is not None:
+            self.disk_store.save_catalog(self.catalog)
 
     def clear_plan_cache(self) -> None:
         self.executor.clear_cache()
@@ -1331,7 +1479,7 @@ def _rows_to_arrays(schema: T.Schema, rows):
     for i, f in enumerate(schema.fields):
         vals = [r[i] for r in rows]
         nmask = np.array([v is None for v in vals])
-        if f.dtype.name == "string":
+        if f.dtype.name in ("string", "array", "map"):
             arr = np.empty(len(vals), dtype=object)
             for j, v in enumerate(vals):
                 arr[j] = v
@@ -1355,6 +1503,16 @@ def _result_to_arrays(result: Result, schema: T.Schema):
 def _coerce(col: np.ndarray, nmask, dtype: T.DataType):
     """-> (storage array, null mask | None): NULLs become fillers + mask
     instead of being silently written as 0."""
+    if dtype.name in ("array", "map"):
+        out = np.empty(len(col), dtype=object)
+        for i, v in enumerate(col):
+            if isinstance(v, (list, tuple, np.ndarray)):
+                out[i] = list(v)
+            else:
+                out[i] = v  # dicts / None pass through
+        if nmask is not None:
+            out[np.asarray(nmask)] = None
+        return out, (np.asarray(nmask) if nmask is not None else None)
     if dtype.name == "string":
         out = np.array([None if v is None else str(v) for v in col],
                        dtype=object)

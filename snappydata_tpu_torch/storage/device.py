@@ -23,6 +23,12 @@ is refused, counted `compressed_fallback_deltas`), deletes ride the
 validity plate.  The bind reads the statement's pinned manifest
 (storage/mvcc), and the plate cache keeps every pinned version.
 
+ARRAY (numeric or STRING elements), MAP<STRING, numeric | STRING> and
+flat STRUCT columns bind as fixed-width plates: values [B, C, L] with
+lengths [B, C] and element-null bits, key-code plus value plates, and one
+[B, C] plate per struct field; their string parts ride as codes of the
+table's append-only dictionaries.  Nested complex types stay host-side.
+
 Per-batch min/max stats ride along host-side for predicate batch
 skipping (ref: stats-row filter codegen, columnBatchesSkipped metric,
 ColumnTableScan.scala:115-130).  Plates are cached per (manifest
@@ -145,7 +151,7 @@ _COMPRESSIBLE = {Encoding.VALUE_DICT: "dict", Encoding.RUN_LENGTH: "rle",
 def _compressed_mode(is_str: bool, dec_exact: bool, cols_enc,
                      any_delta: bool, has_row_chunks: bool,
                      code_ok: bool = True,
-                     count: bool = False) -> Optional[str]:
+                     count: bool = False, table=None) -> Optional[str]:
     """Per-column compressed-domain decision: 'dict' | 'rle' | 'bitset'
     when the column can stay resident encoded, None for a decoded bind.
     `code_ok=False` (a device-join relation) forces a decoded bind, as
@@ -164,7 +170,7 @@ def _compressed_mode(is_str: bool, dec_exact: bool, cols_enc,
 
     def reject(reason: str) -> None:
         if count and compressible:
-            _dd.compressed_fallback(reason)
+            _dd.compressed_fallback(reason, table=table)
 
     if knob not in ("on", "auto"):
         reject("disabled")
@@ -188,7 +194,8 @@ def _compressed_mode(is_str: bool, dec_exact: bool, cols_enc,
         return _COMPRESSIBLE[next(iter(encs))]
     if count and (compressible or knob == "on"):
         _dd.compressed_fallback(
-            "mixed_encoding" if compressible else "not_encoded")
+            "mixed_encoding" if compressible else "not_encoded",
+            table=table)
     return None
 
 
@@ -299,6 +306,19 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
     dict_domains: Dict[int, tuple] = {}
     for ci in col_indices:
         f = schema.fields[ci]
+        builder = _complex_builder(f.dtype)
+        if builder is not None:
+            # ARRAY / MAP / flat STRUCT: fixed-width plates, string parts
+            # as codes of the table's append-only dictionaries — the
+            # device lowering of size / element_at / array_contains reads
+            # them (ref: SerializedArray fixed-width fast path)
+            key = (builder.__name__, ci)
+            if key not in cache:
+                cache[key] = builder(data, manifest, views, row_chunks, ci,
+                                     f, b, cap, place)
+            columns[ci], stats_min[ci], stats_max[ci], nulls[ci] = \
+                cache[key]
+            continue
         is_str = f.dtype.name == "string"
         if is_str:
             dicts[ci] = data.dictionary(ci)
@@ -314,7 +334,8 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
         key = ("ccol", ci) if cd_mode else ("col", ci)
         if key not in cache:
             _compressed_mode(is_str, dec_exact, cols_enc, any_delta,
-                             bool(row_chunks), code_ok, count=True)
+                             bool(row_chunks), code_ok, count=True,
+                             table=data)
             cache[key] = _build_code_column(cd_mode, views, cols_enc, ci, b,
                                             cap, dt, device, place, cache) \
                 if cd_mode else \
@@ -502,3 +523,273 @@ def numeric_key_domain(data: ColumnTableData, ci: int, max_card: int):
         del cache[k]
     cache[key] = dom
     return dom
+
+
+# --------------------------------------------------------------------------
+# complex-typed columns (ref snappydata_tpu/storage/device.py:641-864)
+# --------------------------------------------------------------------------
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def array_device_eligible(dt) -> bool:
+    """ARRAY of a numeric or STRING element gets device plates; other
+    element types (nested complex values) stay host-evaluated."""
+    el = getattr(dt, "element", None)
+    return el is not None and (T.is_numeric(el) or el.name == "string")
+
+
+def map_device_eligible(dt) -> bool:
+    """MAP<STRING, numeric|string> gets device plates; other key / value
+    types stay host-evaluated."""
+    return (getattr(dt, "key", None) is not None
+            and dt.key.name == "string"
+            and (T.is_numeric(dt.value) or dt.value.name == "string"))
+
+
+def struct_device_eligible(dt) -> bool:
+    """STRUCT with only numeric / string fields gets per-field plates;
+    nested complex fields keep the host path."""
+    fields = getattr(dt, "fields", ())
+    return bool(fields) and all(
+        T.is_numeric(ft) or ft.name == "string" for _n, ft in fields)
+
+
+def complex_device_eligible(dt) -> bool:
+    """Whether a complex column type binds as device plates at all."""
+    return _complex_builder(dt) is not None
+
+
+def _complex_builder(dt):
+    if isinstance(dt, T.StructType) and struct_device_eligible(dt):
+        return _build_struct_column
+    if isinstance(dt, T.MapType) and map_device_eligible(dt):
+        return _build_map_column
+    if isinstance(dt, T.ArrayType) and array_device_eligible(dt):
+        return _build_array_column
+    return None
+
+
+def _complex_column_sources(manifest, views, row_chunks, ci):
+    """(batch row, decoded cells, null mask) triples of a complex column
+    — the one assembly the three complex-plate builders share."""
+    sources = []
+    for i, v in enumerate(views):
+        sources.append((i, v.decoded_column(ci), v.null_mask(ci)))
+    for j, (pos, take) in enumerate(row_chunks):
+        src = np.asarray(manifest.row_arrays[ci][pos:pos + take],
+                         dtype=object)
+        rn = None
+        if manifest.row_nulls and manifest.row_nulls[ci] is not None:
+            rn = manifest.row_nulls[ci][pos:pos + take]
+        sources.append((len(views) + j, src, rn))
+    return sources
+
+
+def _value_plate_dtype(vt) -> np.dtype:
+    """Fill dtype of a complex type's VALUE plate: exact decimals fill as
+    plain float64 and convert to scaled int64 afterwards (writing raw
+    values into the int64 device dtype would truncate them)."""
+    dt = vt.device_dtype()
+    if vt.name == "decimal" and dt.kind == "i":
+        return np.dtype(np.float64)
+    return dt
+
+
+def _finish_value_plate(vt, plate: np.ndarray) -> np.ndarray:
+    """Host-domain fill plate -> device plate (scale exact decimals)."""
+    dt = vt.device_dtype()
+    if vt.name == "decimal" and dt.kind == "i":
+        return T.decimal_to_unscaled(vt, plate)
+    return plate
+
+
+def _row_nulls(null_mask, bi, cells_null, nm) -> bool:
+    """OR a source's non-cell rows and its stored null mask into the
+    [b, cap] row-null plate; True when any row of the source is NULL."""
+    any_null = bool(cells_null.any())
+    null_mask[bi, :len(cells_null)] |= cells_null
+    if nm is not None:
+        null_mask[bi, :len(nm)] |= np.asarray(nm, dtype=bool)
+        any_null = True
+    return any_null
+
+
+def _flatten_cells(dec, is_cell, size_of):
+    """(is-cell mask, per-row lengths, [(row, k, part), ...] flat parts)
+    of one source's cells; `size_of(cell)` lists a cell's parts."""
+    n = len(dec)
+    cell = np.fromiter((is_cell(x) for x in dec), dtype=np.bool_, count=n)
+    parts = [size_of(x) if c else () for x, c in zip(dec, cell)]
+    lens = np.fromiter((len(p) for p in parts), dtype=np.int64, count=n)
+    return cell, lens, parts
+
+
+def _scatter_positions(lens: np.ndarray):
+    """Row and in-cell position of every flat part of lengths `lens`."""
+    total = int(lens.sum())
+    rows = np.repeat(np.arange(lens.shape[0]), lens)
+    starts = np.repeat(np.cumsum(lens) - lens, lens)
+    return rows, np.arange(total) - starts
+
+
+def _build_struct_column(data, manifest, views, row_chunks, ci, f, b, cap,
+                         place):
+    """STRUCT column -> ((field value plates, field null plates) in the
+    dtype's field order, nan-stats, row-null mask).  String fields encode
+    against per-field append-only dictionaries."""
+    import itertools
+
+    from snappydata_tpu_torch.storage.table_store import _struct_get
+
+    sources = _complex_column_sources(manifest, views, row_chunks, ci)
+    fnames = [n for n, _t in f.dtype.fields]
+    ftypes = [t for _n, t in f.dtype.fields]
+    str_fields = [fn for fn, ft in zip(fnames, ftypes)
+                  if ft.name == "string"]
+    # all string fields intern in ONE pass over the cells
+    str_lookups = data.intern_struct_fields(
+        ci, str_fields, itertools.chain.from_iterable(
+            dec for _bi, dec, _nm in sources)) if str_fields else {}
+    lookups = [str_lookups.get(fn) if ft.name == "string" else None
+               for fn, ft in zip(fnames, ftypes)]
+    fvals = [np.zeros((b, cap), dtype=np.int32 if lk is not None
+                      else _value_plate_dtype(ft))
+             for lk, ft in zip(lookups, ftypes)]
+    fnuls = [np.zeros((b, cap), dtype=np.bool_) for _ in fnames]
+    null_mask = np.zeros((b, cap), dtype=np.bool_)
+    any_null = False
+    for bi, dec, nm in sources:
+        n = len(dec)
+        cell = np.fromiter((isinstance(x, dict) for x in dec),
+                           dtype=np.bool_, count=n)
+        for k, (fn, lk) in enumerate(zip(fnames, lookups)):
+            got = [_struct_get(x, fn) if c else None
+                   for x, c in zip(dec, cell)]
+            isnull = np.fromiter((v is None for v in got), dtype=np.bool_,
+                                 count=n)
+            fnuls[k][bi, :n] = isnull & cell
+            if lk is not None:
+                fvals[k][bi, :n] = np.fromiter(
+                    (0 if v is None else lk[str(v)] for v in got),
+                    dtype=np.int32, count=n)
+            else:
+                fvals[k][bi, :n] = np.array(
+                    [0 if v is None else v for v in got],
+                    dtype=fvals[k].dtype)
+        any_null |= _row_nulls(null_mask, bi, ~cell, nm)
+    fvals = [a if lk is not None else _finish_value_plate(ft, a)
+             for a, lk, ft in zip(fvals, lookups, ftypes)]
+    return ((tuple(place(a) for a in fvals), tuple(place(a) for a in fnuls)),
+            np.full(b, np.nan), np.full(b, np.nan),
+            place(null_mask) if any_null else None)
+
+
+def _build_map_column(data, manifest, views, row_chunks, ci, f, b, cap,
+                      place):
+    """MAP<STRING, V> column -> ((key codes [b, cap, L], values [b, cap,
+    L], lengths [b, cap], value nulls [b, cap, L]), nan-stats, row-null
+    mask).  Keys (and string values) encode against the table's
+    append-only map dictionaries, so plates of any pinned manifest stay
+    valid."""
+    import itertools
+
+    val_is_str = f.dtype.value.name == "string"
+    vdt = np.dtype(np.int32) if val_is_str \
+        else _value_plate_dtype(f.dtype.value)
+    sources = _complex_column_sources(manifest, views, row_chunks, ci)
+    klookup, vlookup = data.intern_map_entries(
+        ci, itertools.chain.from_iterable(
+            dec for _bi, dec, _nm in sources))
+    flat = [(bi, nm) + _flatten_cells(dec, lambda x: isinstance(x, dict),
+                                      lambda x: list(x.items()))
+            for bi, dec, nm in sources]
+    maxlen = max([1] + [int(lens.max()) for *_x, lens, _p in flat
+                        if lens.size])
+    L = _next_pow2(maxlen)
+    kcodes = np.full((b, cap, L), -1, dtype=np.int32)
+    vals = np.zeros((b, cap, L), dtype=vdt)
+    lengths = np.zeros((b, cap), dtype=np.int32)
+    vnul = np.zeros((b, cap, L), dtype=np.bool_)
+    null_mask = np.zeros((b, cap), dtype=np.bool_)
+    any_null = False
+    for bi, nm, cell, lens, parts in flat:
+        lengths[bi, :lens.shape[0]] = lens
+        items = list(itertools.chain.from_iterable(parts))
+        if items:
+            rows, ks = _scatter_positions(lens)
+            m = len(items)
+            kcodes[bi, rows, ks] = np.fromiter(
+                (klookup[str(k)] for k, _v in items), dtype=np.int32,
+                count=m)
+            vn = np.fromiter((v is None for _k, v in items),
+                             dtype=np.bool_, count=m)
+            vnul[bi, rows, ks] = vn
+            if val_is_str:
+                vals[bi, rows, ks] = np.fromiter(
+                    (0 if v is None else vlookup[str(v)]
+                     for _k, v in items), dtype=np.int32, count=m)
+            else:
+                vals[bi, rows, ks] = np.array(
+                    [0 if v is None else v for _k, v in items], dtype=vdt)
+        any_null |= _row_nulls(null_mask, bi, ~cell, nm)
+    if not val_is_str:
+        vals = _finish_value_plate(f.dtype.value, vals)
+    return ((place(kcodes), place(vals), place(lengths), place(vnul)),
+            np.full(b, np.nan), np.full(b, np.nan),
+            place(null_mask) if any_null else None)
+
+
+def _build_array_column(data, manifest, views, row_chunks, ci, f, b, cap,
+                        place):
+    """Numeric / string ARRAY column -> ((values [b, cap, L], lengths [b,
+    cap], element nulls [b, cap, L]), nan-stats, row-null mask).  String
+    elements encode as int32 codes of the table's append-only element
+    dictionary, so size / element_at / array_contains run on the device
+    exactly like their numeric forms."""
+    import itertools
+
+    is_str = f.dtype.element.name == "string"
+    sources = _complex_column_sources(manifest, views, row_chunks, ci)
+    if is_str:
+        edt = np.dtype(np.int32)
+        # intern THIS pinned manifest's cells in one call, so the bind is
+        # self-sufficient across recovery and concurrent mutation
+        lookup = data.intern_array_elements(
+            ci, itertools.chain.from_iterable(
+                dec for _bi, dec, _nm in sources))
+    else:
+        edt = _value_plate_dtype(f.dtype.element)
+    flat = [(bi, nm) + _flatten_cells(
+        dec, lambda x: isinstance(x, (list, tuple, np.ndarray)), list)
+        for bi, dec, nm in sources]
+    maxlen = max([1] + [int(lens.max()) for *_x, lens, _p in flat
+                        if lens.size])
+    L = _next_pow2(maxlen)
+    vals = np.zeros((b, cap, L), dtype=edt)
+    lengths = np.zeros((b, cap), dtype=np.int32)
+    enul = np.zeros((b, cap, L), dtype=np.bool_)
+    null_mask = np.zeros((b, cap), dtype=np.bool_)
+    any_null = False
+    for bi, nm, cell, lens, parts in flat:
+        lengths[bi, :lens.shape[0]] = lens
+        els = list(itertools.chain.from_iterable(parts))
+        if els:
+            rows, ks = _scatter_positions(lens)
+            m = len(els)
+            enul[bi, rows, ks] = np.fromiter(
+                (el is None for el in els), dtype=np.bool_, count=m)
+            if is_str:
+                vals[bi, rows, ks] = np.fromiter(
+                    (0 if el is None else lookup[str(el)] for el in els),
+                    dtype=np.int32, count=m)
+            else:
+                vals[bi, rows, ks] = np.array(
+                    [0 if el is None else el for el in els], dtype=edt)
+        any_null |= _row_nulls(null_mask, bi, ~cell, nm)
+    if not is_str:
+        vals = _finish_value_plate(f.dtype.element, vals)
+    return ((place(vals), place(lengths), place(enul)),
+            np.full(b, np.nan), np.full(b, np.nan),
+            place(null_mask) if any_null else None)

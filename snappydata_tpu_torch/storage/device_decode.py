@@ -25,12 +25,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import weakref
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from snappydata_tpu_torch.observability.metrics import global_registry
+from snappydata_tpu_torch.utils import locks
 
 # bind-transfer accounting: encoded bytes that crossed to the device vs the
 # decoded bytes they stand for, and batches that stayed code-resident
@@ -105,13 +107,38 @@ def counters() -> Dict[str, int]:
     return dict(_counters)
 
 
-def compressed_fallback(reason: str, n: int = 1) -> None:
+def compressed_fallback(reason: str, n: int = 1, table=None) -> None:
     """Count a decode-first reroute (a column that did NOT bind in the
     compressed domain), itemized by reason: compressed_fallback_<reason>
-    plus the total."""
+    plus the total.  With `table` (the ColumnTableData the reroute
+    happened on) the count also lands in a per-table tally, the
+    compactor's signal (storage/compact.foldable_fallbacks)."""
     reg = global_registry()
     reg.inc("compressed_fallbacks", n)
     reg.inc("compressed_fallback_" + reason, n)
+    if table is not None:
+        with _table_fb_lock:
+            d = _table_fallbacks.setdefault(table, {})
+            d[reason] = d.get(reason, 0) + n
+
+
+# per-table fallback tallies: weak keys, so a dropped table takes its
+# tally with it; the lock is a leaf (nothing is acquired under it)
+_table_fallbacks: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_table_fb_lock = locks.named_lock("storage.table_fallbacks")
+
+
+def table_fallbacks(table) -> Dict[str, int]:
+    """Per-table compressed-fallback counts since the last reset."""
+    with _table_fb_lock:
+        return dict(_table_fallbacks.get(table, ()))
+
+
+def reset_table_fallbacks(table) -> None:
+    """Zero a table's tally: the compactor calls this after a rewrite
+    pass, so the next window measures only post-compaction reroutes."""
+    with _table_fb_lock:
+        _table_fallbacks.pop(table, None)
 
 
 def _next_pow2(n: int) -> int:

@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Optional
+import zlib
+from typing import Any, Optional, Tuple
 
 import numpy as np
 
@@ -339,3 +340,45 @@ def decode_validity(col: EncodedColumn, capacity: Optional[int] = None) -> Optio
     if cap > col.num_rows:
         v = np.concatenate([v, np.zeros(cap - col.num_rows, dtype=np.bool_)])
     return v
+
+
+# --- at-rest compression (ref: CompressionUtils LZ4/Snappy; env has zlib) ---
+
+_zstd_available: Optional[bool] = None
+
+
+def _have_zstd() -> bool:
+    global _zstd_available
+    if _zstd_available is None:
+        try:
+            import zstandard  # noqa: F401
+
+            _zstd_available = True
+        except ImportError:
+            _zstd_available = False
+    return _zstd_available
+
+
+def compress_bytes(raw: bytes, codec: str) -> Tuple[str, bytes]:
+    if codec == "zstd":
+        if _have_zstd():
+            import zstandard
+
+            return "zstd", zstandard.ZstdCompressor(level=1).compress(raw)
+        # zstandard not installed: degrade to the stdlib codec instead of
+        # failing every WAL append / checkpoint on this machine (each
+        # record tags the codec actually used, so mixed files read fine)
+        codec = "zlib"
+    if codec == "zlib":
+        return "zlib", zlib.compress(raw, level=1)
+    return "none", raw
+
+
+def decompress_bytes(codec: str, blob: bytes) -> bytes:
+    if codec == "zstd":
+        import zstandard
+
+        return zstandard.ZstdDecompressor().decompress(blob)
+    if codec == "zlib":
+        return zlib.decompress(blob)
+    return blob

@@ -85,6 +85,34 @@ def _bump_epoch_locked() -> int:
     return _epoch[0]
 
 
+def advance_to(seq: int) -> None:
+    """Recovery: resume the clock past a checkpoint / WAL fence so
+    post-recovery epochs stay monotone with pre-crash ones."""
+    with _clock_lock:
+        if int(seq) > _epoch[0]:
+            _epoch[0] = int(seq)
+
+
+# WAL seq of the committing statement, set by the session's journal paths
+# (and WAL replay) around apply — ``_publish`` stamps it on the manifest
+# as the commit timestamp.
+_commit_seq: contextvars.ContextVar = contextvars.ContextVar(
+    "mvcc_commit_seq", default=0)
+
+
+@contextlib.contextmanager
+def commit_scope(seq: int):
+    tok = _commit_seq.set(int(seq))
+    try:
+        yield
+    finally:
+        _commit_seq.reset(tok)
+
+
+def current_commit_seq() -> int:
+    return _commit_seq.get()
+
+
 def enabled() -> bool:
     from snappydata_tpu_torch import config
 

@@ -21,8 +21,11 @@ single-session column table needs:
 
 The same inserts produce the same encodings as the reference package
 (VALUE_DICT, RLE, DICTIONARY, bitset), because batch cutting and encoding
-are copied unchanged.  Host spill, tiered storage, compaction, secondary
-indexes on row tables and complex-typed columns are not ported.
+are copied unchanged.  ARRAY / MAP / STRUCT columns store their cells
+as OBJECT and keep append-only dictionaries of their string parts
+(array elements, map keys and values, struct fields) for the device
+bind.  Host spill, tiered storage and secondary indexes on row tables
+are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +44,17 @@ from snappydata_tpu_torch.storage.batch import ColumnBatch
 from snappydata_tpu_torch.storage.encoding import decode_to_numpy, decode_validity
 from snappydata_tpu_torch.storage.strings import fast_encode_strings
 from snappydata_tpu_torch.utils import locks
+
+
+def _struct_get(cell: dict, fname: str):
+    """Case-insensitive struct field read (analyzer semantics)."""
+    got = cell.get(fname)
+    if got is None:
+        fl = fname.lower()
+        for k, v in cell.items():
+            if isinstance(k, str) and k.lower() == fl:
+                return v
+    return got
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +119,12 @@ class Manifest:
     row_count: int
     # per-column bool null masks for the row-buffer rows (None = no nulls)
     row_nulls: Tuple[Optional[np.ndarray], ...] = ()
-    # the process-wide epoch this publish advanced to (storage/mvcc.py)
+    # commit stamps (storage/mvcc.py): the process-wide epoch this
+    # publish advanced to, and — on durable sessions — the WAL seq of the
+    # committing statement (0 for in-memory publishes; a recovered
+    # checkpoint carries its fence)
     epoch: int = 0
+    wal_seq: int = 0
 
     def total_rows(self) -> int:
         return sum(v.live_rows for v in self.views) + self.row_count
@@ -200,6 +218,36 @@ class ColumnTableData:
         self._dicts: Dict[int, List] = {
             i: [] for i, f in enumerate(schema.fields) if f.dtype.name == "string"}
         self._dict_lookup: Dict[int, Dict] = {i: {} for i in self._dicts}
+        # ARRAY<STRING> columns: append-only ELEMENT dictionaries (same
+        # protocol as scalar strings — codes never shift, so device
+        # plates built under any pinned manifest stay decodable by every
+        # later dictionary read)
+        self._elem_dicts: Dict[int, List] = {
+            i: [] for i, f in enumerate(schema.fields)
+            if f.dtype.name == "array"
+            and getattr(f.dtype, "element", None) is not None
+            and f.dtype.element.name == "string"}
+        self._elem_lookup: Dict[int, Dict] = {i: {}
+                                              for i in self._elem_dicts}
+        # MAP<STRING, V> columns: append-only KEY dictionaries, plus
+        # VALUE dictionaries when V is also string
+        self._map_key_dicts: Dict[int, List] = {
+            i: [] for i, f in enumerate(schema.fields)
+            if f.dtype.name == "map"
+            and getattr(f.dtype, "key", None) is not None
+            and f.dtype.key.name == "string"}
+        self._map_key_lookup: Dict[int, Dict] = {
+            i: {} for i in self._map_key_dicts}
+        self._map_val_dicts: Dict[int, List] = {
+            i: [] for i, f in enumerate(schema.fields)
+            if i in self._map_key_dicts
+            and f.dtype.value.name == "string"}
+        self._map_val_lookup: Dict[int, Dict] = {
+            i: {} for i in self._map_val_dicts}
+        # STRUCT columns: per-(column, field-name) value dictionaries
+        # for string fields, created lazily at the first intern
+        self._struct_dicts: Dict[int, Dict[str, List]] = {}
+        self._struct_lookup: Dict[int, Dict[str, Dict]] = {}
         self._manifest = Manifest(
             0, (), tuple(np.empty(0, dtype=f.dtype.np_dtype)
                          for f in schema.fields), 0,
@@ -222,7 +270,8 @@ class ColumnTableData:
         with mvcc.clock():
             m = Manifest(self._manifest.version + 1, views, row_arrays,
                          row_count, row_nulls,
-                         epoch=mvcc._bump_epoch_locked())
+                         epoch=mvcc._bump_epoch_locked(),
+                         wal_seq=mvcc.current_commit_seq())
             mvcc.retain_locked(self, self._manifest)
             self._manifest = m
         return m
@@ -241,6 +290,94 @@ class ColumnTableData:
         if col_idx in self._dicts:
             return np.array(self._dicts[col_idx], dtype=object)
         return None
+
+    def intern_array_elements(self, col_idx: int, cells) -> Dict:
+        """Append-only intern of an ARRAY<STRING> column's element
+        values (device binds call this over their PINNED manifest's
+        cells, so a bind is always self-sufficient — recovery included).
+        Returns a point-in-time copy of the lookup for code assignment."""
+        lk = self._elem_lookup[col_idx]
+        d = self._elem_dicts[col_idx]
+        with self._lock:
+            for cell in cells:
+                if isinstance(cell, (list, tuple, np.ndarray)):
+                    for el in cell:
+                        if el is not None:
+                            key = str(el)
+                            if key not in lk:
+                                lk[key] = len(d)
+                                d.append(key)
+            return dict(lk)
+
+    def array_element_dictionary(self, col_idx: int) -> np.ndarray:
+        """Element dictionary of an ARRAY<STRING> column. Append-only:
+        a superset of the values any existing device plates encode."""
+        with self._lock:
+            return np.array(self._elem_dicts[col_idx], dtype=object)
+
+    def intern_map_entries(self, col_idx: int, cells
+                           ) -> Tuple[Dict, Optional[Dict]]:
+        """Append-only intern of a MAP<STRING, V> column's keys (and
+        values when V is string). Returns point-in-time copies of the
+        (key lookup, value lookup | None) for code assignment."""
+        klk = self._map_key_lookup[col_idx]
+        kd = self._map_key_dicts[col_idx]
+        vlk = self._map_val_lookup.get(col_idx)
+        vd = self._map_val_dicts.get(col_idx)
+        with self._lock:
+            for cell in cells:
+                if isinstance(cell, dict):
+                    for k, v in cell.items():
+                        ks = str(k)
+                        if ks not in klk:
+                            klk[ks] = len(kd)
+                            kd.append(ks)
+                        if vlk is not None and v is not None:
+                            vs = str(v)
+                            if vs not in vlk:
+                                vlk[vs] = len(vd)
+                                vd.append(vs)
+            return dict(klk), (dict(vlk) if vlk is not None else None)
+
+    def map_key_dictionary(self, col_idx: int) -> np.ndarray:
+        with self._lock:
+            return np.array(self._map_key_dicts[col_idx], dtype=object)
+
+    def map_value_dictionary(self, col_idx: int) -> Optional[np.ndarray]:
+        with self._lock:
+            if col_idx not in self._map_val_dicts:
+                return None
+            return np.array(self._map_val_dicts[col_idx], dtype=object)
+
+    def intern_struct_fields(self, col_idx: int, fnames, cells
+                             ) -> Dict[str, Dict]:
+        """Append-only intern of a STRUCT column's string-field values
+        — ALL fields in one pass over the cells (case-insensitive field
+        resolution like the analyzer). Returns {field: point-in-time
+        lookup copy}."""
+        with self._lock:
+            col_lk = self._struct_lookup.setdefault(col_idx, {})
+            col_d = self._struct_dicts.setdefault(col_idx, {})
+            lks = {fn: col_lk.setdefault(fn, {}) for fn in fnames}
+            ds = {fn: col_d.setdefault(fn, []) for fn in fnames}
+            for cell in cells:
+                if isinstance(cell, dict):
+                    for fn in fnames:
+                        v = _struct_get(cell, fn)
+                        if v is not None:
+                            key = str(v)
+                            lk = lks[fn]
+                            if key not in lk:
+                                d = ds[fn]
+                                lk[key] = len(d)
+                                d.append(key)
+            return {fn: dict(lk) for fn, lk in lks.items()}
+
+    def struct_field_dictionary(self, col_idx: int, fname: str
+                                ) -> np.ndarray:
+        with self._lock:
+            d = self._struct_dicts.get(col_idx, {}).get(fname, [])
+            return np.array(d, dtype=object)
 
 
     def insert_arrays(self, arrays: Sequence[np.ndarray],
@@ -423,6 +560,10 @@ class ColumnTableData:
 
         validity = bitmask.pack(np.zeros(n, dtype=np.bool_))
         stats = ColumnStats(None, None, n, n)
+        if dtype.name in ("array", "map"):
+            return EncodedColumn(Encoding.OBJECT, dtype, n,
+                                 np.full(n, None, dtype=object),
+                                 validity=validity, stats=stats)
         if dtype.name == "string":
             return EncodedColumn(
                 Encoding.DICTIONARY, dtype, n, np.zeros(n, dtype=np.int32),
@@ -453,6 +594,22 @@ class ColumnTableData:
                 # never zero-sized (codes are masked null anyway)
                 self._dicts[idx] = [""]
                 self._dict_lookup[idx] = {"": 0}
+            # the per-column complex-type dictionary families need
+            # entries too, or the first device bind of an ALTER-added
+            # column dies on a raw KeyError
+            if field.dtype.name == "array" \
+                    and getattr(field.dtype, "element", None) is not None \
+                    and field.dtype.element.name == "string":
+                self._elem_dicts[idx] = []
+                self._elem_lookup[idx] = {}
+            if field.dtype.name == "map" \
+                    and getattr(field.dtype, "key", None) is not None \
+                    and field.dtype.key.name == "string":
+                self._map_key_dicts[idx] = []
+                self._map_key_lookup[idx] = {}
+                if field.dtype.value.name == "string":
+                    self._map_val_dicts[idx] = []
+                    self._map_val_lookup[idx] = {}
             self._row_buffer.add_field(field)
             views = []
             for v in self._manifest.views:
@@ -483,6 +640,17 @@ class ColumnTableData:
             self._dict_lookup = {remap(i): d
                                  for i, d in self._dict_lookup.items()
                                  if i != idx}
+            # remap the complex-type dictionary families the same way
+            # (stale ordinals would make a survivor column
+            # intern into its neighbour's dictionary)
+            for attr in ("_elem_dicts", "_elem_lookup", "_map_key_dicts",
+                         "_map_key_lookup", "_map_val_dicts",
+                         "_map_val_lookup", "_struct_dicts",
+                         "_struct_lookup"):
+                setattr(self, attr,
+                        {remap(i): d
+                         for i, d in getattr(self, attr).items()
+                         if i != idx})
             self._row_buffer.drop_field(idx)
             views = []
             for v in self._manifest.views:

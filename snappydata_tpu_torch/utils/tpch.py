@@ -86,6 +86,48 @@ def gen_orders(num_rows: int, num_customers: int, seed: int = 1
     }
 
 
+def gen_orders_nested(orders: Dict[str, np.ndarray],
+                      lineitem: Dict[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+    """Orders with their line items nested, the way Spark users
+    denormalize TPC-H: `info` STRUCT of the order's scalar attributes,
+    `modes` / `prices` ARRAYs of each line's l_shipmode /
+    l_extendedprice (in l_orderkey order, stable), and `qty_by_mode` MAP
+    of the summed l_quantity per ship mode.  An order without lines gets
+    empty arrays and an empty map."""
+    n = len(orders["o_orderkey"])
+    key = lineitem["l_orderkey"]
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    lo = np.searchsorted(ks, orders["o_orderkey"], side="left")
+    hi = np.searchsorted(ks, orders["o_orderkey"], side="right")
+    modes_all = lineitem["l_shipmode"][order].tolist()
+    prices_all = lineitem["l_extendedprice"][order].tolist()
+    qty_all = lineitem["l_quantity"][order].tolist()
+    modes = np.empty(n, dtype=object)
+    prices = np.empty(n, dtype=object)
+    qty_by_mode = np.empty(n, dtype=object)
+    info = np.empty(n, dtype=object)
+    for i, (a, b) in enumerate(zip(lo.tolist(), hi.tolist())):
+        modes[i] = modes_all[a:b]
+        prices[i] = prices_all[a:b]
+        d: Dict[str, float] = {}
+        for m, q in zip(modes_all[a:b], qty_all[a:b]):
+            d[m] = d.get(m, 0.0) + q
+        qty_by_mode[i] = d
+    for i, (p, c, sp, tp) in enumerate(zip(
+            orders["o_orderpriority"].tolist(),
+            (f"Clerk#{k % 1000:09d}" for k in
+             orders["o_custkey"].tolist()),
+            orders["o_shippriority"].tolist(),
+            orders["o_totalprice"].tolist())):
+        info[i] = {"priority": p, "clerk": c, "shippriority": sp,
+                   "totalprice": tp}
+    return {"o_orderkey": orders["o_orderkey"],
+            "o_orderdate": orders["o_orderdate"], "info": info,
+            "modes": modes, "prices": prices, "qty_by_mode": qty_by_mode}
+
+
 def gen_customer(num_rows: int, seed: int = 2) -> Dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     return {
@@ -219,6 +261,36 @@ CUSTOMER_DDL = """CREATE TABLE customer (
     c_custkey BIGINT, c_name STRING, c_nationkey INT, c_acctbal DOUBLE,
     c_mktsegment STRING
 ) USING column OPTIONS (partition_by 'c_custkey')"""
+
+ORDERS_NESTED_DDL = """CREATE TABLE orders_nested (
+  o_orderkey BIGINT, o_orderdate DATE,
+  info STRUCT<priority: STRING, clerk: STRING, shippriority: INT,
+              totalprice: DOUBLE>,
+  modes ARRAY<STRING>, prices ARRAY<DOUBLE>,
+  qty_by_mode MAP<STRING, DOUBLE>) USING column"""
+
+# nested-orders queries: the MAIL orders split by whether they also ship
+# by AIR and whether they hold 4 lines or more, with their AIR quantity,
+# line count, value and largest first-line price (grouped), and the
+# first-line revenue of large multi-line orders (a filtered global sum).
+# Grouping by a struct's STRING field (element_at(info, 'priority')) has
+# no device dictionary in the reference and runs on its host path, and a
+# GROUP BY size(modes) takes the generic key lane; N1's two BOOLEAN keys
+# keep the dictionary fast path, which the grouped kernel serves.
+NESTED_N1 = """SELECT array_contains(modes, 'AIR') AS has_air,
+  size(modes) >= 4 AS big, count(*),
+  sum(element_at(qty_by_mode, 'AIR')), sum(size(modes)),
+  sum(element_at(info, 'totalprice')), max(element_at(prices, 1))
+FROM orders_nested WHERE array_contains(modes, 'MAIL')
+GROUP BY array_contains(modes, 'AIR'), size(modes) >= 4
+ORDER BY has_air, big"""
+NESTED_N1_BY_PRIORITY = """SELECT element_at(info, 'priority') AS p,
+  count(*), sum(element_at(qty_by_mode, 'AIR')), sum(size(modes)),
+  max(element_at(prices, 1))
+FROM orders_nested WHERE array_contains(modes, 'MAIL')
+GROUP BY element_at(info, 'priority') ORDER BY p"""
+NESTED_N2 = """SELECT sum(element_at(prices, 1)) FROM orders_nested
+WHERE size(prices) >= 3 AND element_at(info, 'totalprice') > 100000"""
 
 Q1 = """SELECT l_returnflag, l_linestatus,
     sum(l_quantity) AS sum_qty,

@@ -994,3 +994,105 @@ def test_cuda_pinned_versions_keep_their_plates(cuda_device):
             next(iter(plates.values()))
     assert s.sql(q).rows() == [(100_010, 100_010.0)]
     assert not any(k[0] == ver for k in data._device_cache)
+
+
+def _close_rows(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if b is None or isinstance(b, (str, int)):
+                assert a == b
+            else:
+                assert a == pytest.approx(b, rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_complex_plates_launch_both_kernels(cuda_device):
+    """The nested-orders queries over ARRAY / MAP / STRUCT plates on the
+    card: the plates live on the GPU, N1 launches the grouped kernel and
+    N2 the Kahan kernel with no host fallback, and both answer as a CPU
+    session under float32 plates."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.utils import tpch
+
+    nested = tpch.gen_orders_nested(tpch.gen_orders(20_000, 2_000),
+                                    tpch.gen_lineitem(80_000, 7))
+    cols = ["o_orderkey", "o_orderdate", "info", "modes", "prices",
+            "qty_by_mode"]
+    props, saved = _f32_cpu_policy()
+    knobs = (props.pallas_reduce, props.pallas_group_reduce)
+    props.pallas_reduce = props.pallas_group_reduce = True
+    try:
+        rows = {}
+        for dev in ("cpu", cuda_device):
+            s = SnappySession(catalog=Catalog(), device=dev)
+            s.sql(tpch.ORDERS_NESTED_DDL)
+            s.insert_arrays("orders_nested", [nested[c] for c in cols])
+            fb = global_registry().counter("host_fallbacks")
+            gr.grouped_reduce.launches = 0
+            kr.masked_kahan_sum.launches = 0
+            rows[str(dev)] = (s.sql(tpch.NESTED_N1).rows(),
+                              s.sql(tpch.NESTED_N2).rows())
+            assert global_registry().counter("host_fallbacks") == fb
+            if dev != "cpu":
+                assert gr.grouped_reduce.launches >= 1
+                assert kr.masked_kahan_sum.launches >= 1
+                data = s.catalog.describe("orders_nested").data
+                tensors = [t for entry in data._device_cache.values()
+                           for key, val in entry.items()
+                           if isinstance(key, tuple)
+                           and key[0].startswith("_build_")
+                           for t in torch.utils._pytree.tree_leaves(val)
+                           if isinstance(t, torch.Tensor)]
+                assert tensors and all(t.is_cuda for t in tensors)
+    finally:
+        props.decimal_as_float64 = saved
+        props.pallas_reduce, props.pallas_group_reduce = knobs
+    for got, want in zip(rows[str(cuda_device)], rows["cpu"]):
+        _close_rows(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_recovered_table_launches_both_kernels(cuda_device, tmp_path):
+    """A durable lineitem (checkpoint, then an UPDATE and a DELETE in the
+    WAL tail) recovered by a second session on the card: Q1 and Q6 launch
+    both kernels on the recovered plates and answer as the same directory
+    recovered on the CPU under float32 plates."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.utils import tpch
+
+    d = str(tmp_path)
+    props, saved = _f32_cpu_policy()
+    knobs = (props.pallas_reduce, props.pallas_group_reduce)
+    props.pallas_reduce = props.pallas_group_reduce = True
+    try:
+        w = SnappySession(catalog=Catalog(), data_dir=d, recover=False,
+                          device=cuda_device)
+        w.sql(tpch.LINEITEM_DDL)
+        li = tpch.gen_lineitem(200_000, 4)
+        w.insert_arrays("lineitem", [li[f.name] for f in
+                                     w.catalog.describe("lineitem")
+                                     .schema.fields])
+        w.checkpoint()
+        w.sql("DELETE FROM lineitem WHERE l_quantity >= 49")
+        w.sql("UPDATE lineitem SET l_discount = l_discount + 0.01 "
+              "WHERE l_discount < 0.10")
+        rows = {}
+        for dev in ("cpu", cuda_device):
+            s = SnappySession(data_dir=d, device=dev)
+            gr.grouped_reduce.launches = 0
+            kr.masked_kahan_sum.launches = 0
+            rows[str(dev)] = (s.sql(tpch.Q1).rows(), s.sql(tpch.Q6).rows())
+            if dev != "cpu":
+                assert gr.grouped_reduce.launches >= 1
+                assert kr.masked_kahan_sum.launches >= 1
+            s.disk_store.close()
+        w.disk_store.close()
+    finally:
+        props.decimal_as_float64 = saved
+        props.pallas_reduce, props.pallas_group_reduce = knobs
+    for got, want in zip(rows[str(cuda_device)], rows["cpu"]):
+        _close_rows(got, want)

@@ -69,3 +69,37 @@ def test_session_without_device_needs_a_gpu():
         SnappySession()
     with pytest.raises(RuntimeError):
         SnappySession(device="cuda")
+
+
+_DURABLE = r"""
+import sys, tempfile
+import snappydata_tpu_torch.fault as fault
+import snappydata_tpu_torch.reliability as reliability
+from snappydata_tpu_torch.reliability import failpoints
+from snappydata_tpu_torch.storage import compact, persistence
+from snappydata_tpu_torch import SnappySession
+from snappydata_tpu_torch.catalog import Catalog
+
+d = tempfile.mkdtemp()
+s = SnappySession(catalog=Catalog(), data_dir=d, recover=False, device="cpu")
+s.sql("CREATE TABLE t (k INT, tags ARRAY<STRING>) USING column")
+with reliability.stmt_scope("sid-1"):
+    s.sql("INSERT INTO t VALUES (1, array('a')), (2, NULL)")
+s2 = SnappySession(data_dir=d, device="cpu")
+assert s2.sql("SELECT k, size(tags) FROM t ORDER BY k").rows() == \
+    [(1, 1), (2, None)]
+assert reliability.dedup_for(s2.catalog).begin("sid-1")["replayed"]
+compact.run_compaction_pass(s2.catalog.describe("t").data, force=True)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_durability_fault_and_reliability_import_no_jax():
+    """The port's fault/ and reliability/ packages, the WAL, recovery and
+    the compactor run without JAX or the JAX package."""
+    out = _run(_DURABLE)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
