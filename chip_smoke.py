@@ -13,7 +13,10 @@ then UPDATE / DELETE / insert on lineitem under a pinned reader with Q1
 and Q6 through both kernels, concurrent scans and ingest, and row tables
 (TPC-H Q10 over nation, PUT INTO, get), then nested orders with ARRAY /
 MAP / STRUCT columns, then a durable lineitem through the WAL, a
-checkpoint, crash-shape recovery and the compactor.
+checkpoint, crash-shape recovery and the compactor, then, on that
+durable lineitem, the resource governor (ledger, admission, degradation,
+cancellation), the HBM -> host -> disk tier ladder with a healed tier
+file, a seeded fault storm and the broker-kicked compactor.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
@@ -177,9 +180,43 @@ Phases, in order; any failure exits non-zero before the result lines:
    recovered table, then Q1 / Q6 again with no delta fallback and the
    grouped kernel's slot count; (g) a third session on the directory
    answers the same;
-20. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+20. the resource governor, the tier ladder and self-healing on (g)'s
+   session, its `want` oracle, before the stores close (the first two
+   sessions are closed first, so the broker ledgers one lineitem):
+   (a) the broker's ledger (host and device bytes per table) beside
+   `memory_allocated` / `memory_reserved` and the process RSS; (b)
+   `tier_device_bytes` at a quarter of the bound plates, a tiled Q1 at
+   phase 11's budget (a tenth of Q1's decoded bind), `tier.maybe_demote`
+   once the statement's pin is gone: entries dropped, ledger and
+   allocator bytes before and after; (c) `tier_host_bytes` at a quarter
+   of the table's host bytes, `maybe_demote` frames about three quarters
+   of the batches into CRC-framed tier files (seconds, bytes, GB/s), then
+   Q1 / Q6 once and --reps times warm over the memmapped batches (both
+   kernels, answers against numpy) and a tiled Q1 over the disk tier;
+   (d) `promote_table` (seconds), then one record corrupted through the
+   `tier.write` `corrupt_bytes` failpoint, the retained epochs trimmed,
+   and `promote_table` again: one file quarantined and one batch rebuilt
+   through `DiskStore.load_batch`, Q1 / Q6 against numpy; (e) a
+   `memory_limit_bytes` of half Q1's estimate rejects it (XCL54) with no
+   kernel launch; a limit 5% above the measured residency walks the
+   degradation ladder (`governor_degrade_*`) under a tiled Q1; a limit of
+   1.25 tiles admits the tiled Q1; (f) a tiled Q1 at a quarter of that
+   budget on a thread, cancelled after its first tile, then stopped by a
+   50 ms `query_timeout_s`: XCL52 before the last tile, the ms from the
+   cancel to the raise, no tile flag / pin / window / registration left,
+   `memory_allocated` back at its level, then Q1 / Q6 against numpy; (g)
+   the seeded fault storm (`reliability/faultstorm.run_storm`, 26 rounds)
+   over a small durable table on the card: every injection accounted,
+   no value mismatch; (h) `COMPACTION_UPDATE` writes l_discount back
+   unchanged (deltas, the oracle untouched), the next admission kicks one
+   background compaction sweep in the device scope, then Q1 / Q6 with no
+   delta fallback and the grouped kernel back at phase 4's slot count
+   (8 at SF 16).  The broker-kicked compactor stays off
+   (`compaction_enabled`) from phase 3 until (h), so the earlier phases
+   run as before;
+21. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
-   18 and 19.
+   18, 19 and 20.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -2057,10 +2094,12 @@ def durable_queries(s, tpch, want, args, what):
     return launches, reg.counter("compressed_fallback_deltas") - cf0, cfg
 
 
-def durable_path(tpch, li, args):
+def durable_path(tpch, li, args, clean_ops):
     """Phase 19 (a) - (g) on the first 1 / DEC_DEPTH of lineitem's rows in
-    a durable session under a temporary directory; returns the two
-    kernels' launches over (e) - (g)."""
+    a durable session under a temporary directory, then phase 20 on its
+    third session; returns the two kernels' launches over 19 (e) - (g)
+    and 20.  `clean_ops` is the grouped kernel's slot count on phase 4's
+    unmutated Q1."""
     import shutil
     import tempfile
     import threading
@@ -2190,13 +2229,491 @@ def durable_path(tpch, li, args):
         lc, _cf, _cfg = durable_queries(s3, tpch, want, args, "reopened")
         for k in launches:
             launches[k] += lc[k]
-        for s in (s1, s2, s3):
-            s.disk_store.close()
         log("answers ok: the recovered, compacted and reopened lineitem "
             "match numpy")
+        # phase 20 on s3 alone: the first two sessions' tables would sum
+        # into the broker's lineitem line and walk the ladder beside it
+        for s in (s1, s2):
+            s.disk_store.close()
+        del s1, s2, data
+        import gc
+
+        import torch
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        g_launches = governed_path(s3, tpch, want, args, clean_ops)
+        log(f"governed_path_launches {json.dumps(g_launches)}")
+        log("answers ok: Q1 / Q6 over demoted, disk-tier, healed, admitted "
+            "and compacted lineitem match numpy; the storm is accounted")
+        for k in launches:
+            launches[k] += g_launches[k]
+        s3.disk_store.close()
         return launches
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# phase 20: the resource governor, the tier ladder, self-healing, the
+# fault storm and the broker-kicked compactor, on phase 19's s3
+# --------------------------------------------------------------------------
+
+STORM_ROUNDS = 26
+STORM_SEED = 1717
+# writes each value back unchanged: deltas on a seventh of the orders,
+# the oracle untouched
+COMPACTION_UPDATE = ("UPDATE lineitem SET l_discount = l_discount "
+                     "WHERE l_orderkey % 7 = 0")
+
+
+def _mem(what):
+    """One line of the card's allocator figures beside the broker's
+    ledger and the process RSS."""
+    import torch
+
+    from snappydata_tpu_torch.resource import global_broker
+    from snappydata_tpu_torch.storage import hoststore
+
+    torch.cuda.synchronize()
+    led = global_broker().ledger()
+    out = {"ledger_host": led["host"], "ledger_device": led["device"],
+           "host_total": led["host_total"],
+           "device_total": led["device_total"],
+           "tier_file_bytes": led["tier_file_bytes"],
+           "spill_file_bytes": led["spill_file_bytes"],
+           "retained_epoch_bytes": led["retained_epoch_bytes"],
+           "memory_allocated": torch.cuda.memory_allocated(),
+           "memory_reserved": torch.cuda.memory_reserved(),
+           "rss": hoststore.process_rss_bytes()}
+    log(f"governed_{what} {json.dumps(out)}")
+    return out
+
+
+def _drop_leftover_registrations(s):
+    """Unregister from the broker every table that is not one of `s`'s:
+    tables of earlier phases whose sessions the script let go but that a
+    lingering reference keeps alive would otherwise sum into phase 20's
+    ledger lines and walk the ladder beside s's lineitem.  Each one is
+    logged with what refers to it."""
+    import gc
+
+    from snappydata_tpu_torch.resource import global_broker
+
+    broker = global_broker()
+    mine = {id(i.data) for i in s.catalog.list_tables()}
+    with broker._tables_lock:
+        regs = [(k, r()) for k, r in broker._tables.items()]
+    for (owner, name), data in regs:
+        if data is None or id(data) in mine:
+            continue
+        refs = sorted({type(r).__name__ for r in gc.get_referrers(data)})
+        rows = data.snapshot().total_rows() \
+            if hasattr(data, "snapshot") else None
+        log(f"governed_leftover table {name} owner {owner} rows {rows} "
+            f"referrers {refs}")
+        broker.unregister_table(name, owner)
+
+
+def _settled_allocated():
+    """memory_allocated once the card is idle and the caching allocator
+    retired blocks whose record_stream events completed."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    probe = torch.empty(1, device="cuda")
+    del probe
+    return torch.cuda.memory_allocated()
+
+
+def _launch_sum(total, lc):
+    for k in total:
+        total[k] += lc[k]
+
+
+def _tiled_q1(s, tpch, want, args, what, budget, total):
+    """Tiled Q1 at `budget`, once and --reps times warm; rows, tiles and
+    rows/s."""
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    props = config.global_properties()
+    saved = props.scan_tile_bytes
+    reg = global_registry()
+    t0 = reg.counter("scan_tiles")
+    props.scan_tile_bytes = budget
+    try:
+        rows, f_s, w_s, moved, lc, _calls, peak, res = \
+            timed_query(s, tpch.Q1, args.reps)
+    finally:
+        props.scan_tile_bytes = saved
+    tiles = reg.counter("scan_tiles") - t0
+    n = s.catalog.describe("lineitem").data.snapshot().total_rows()
+    log(f"governed_{what}_tiled_q1 first_s {f_s:.4f} warm_s {w_s:.4f} "
+        f"rows_per_s {n / w_s:.0f} tiles {tiles} launches {json.dumps(lc)} "
+        f"peak_above_resident {peak - res}")
+    if moved["host_fallbacks"]:
+        fail(f"tiled Q1 ({what}) left the device")
+    if lc["grouped_reduce"] < tiles:
+        fail(f"grouped_reduce launched {lc['grouped_reduce']} times over "
+             f"{tiles} tiles ({what})")
+    check_rows(f"tiled Q1 ({what}) vs numpy", rows, want["q1"])
+    _launch_sum(total, lc)
+    return w_s
+
+
+def _q1_q6(s, tpch, want, args, what, total):
+    """Q1 and Q6 once and --reps times warm, both kernels launched,
+    answers against numpy."""
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    reg = global_registry()
+    for name, sql in (("q1", tpch.Q1), ("q6", tpch.Q6)):
+        fb0 = {k: v for k, v in reg.snapshot().items()
+               if k.startswith("compressed_fallback_")}
+        rows, f_s, w_s, moved, lc, _calls, _peak, _res = \
+            timed_query(s, sql, args.reps)
+        fb = {k: v - fb0.get(k, 0) for k, v in reg.snapshot().items()
+              if k.startswith("compressed_fallback_")
+              and v != fb0.get(k, 0)}
+        log(f"governed_{what}_{name} first_s {f_s:.4f} warm_s {w_s:.4f} "
+            f"launches {json.dumps(lc)} compressed_fallbacks "
+            f"{json.dumps(fb)}")
+        if moved["host_fallbacks"]:
+            fail(f"{what} {name} left the device")
+        kname = "grouped_reduce" if name == "q1" else "masked_kahan_sum"
+        if lc[kname] < 1 + args.reps:
+            fail(f"{kname} launched {lc[kname]} times over {what} {name}'s "
+                 f"{1 + args.reps} runs")
+        check_rows(f"{what} {name} vs numpy", rows, want[name])
+        _launch_sum(total, lc)
+
+
+def _cancel_tiled(s, tpch, budget, by_timeout):
+    """A tiled Q1 on a thread, stopped by cancel() after its first tile
+    (or by query_timeout_s): (tiles run, tiles of the pass, ms from the
+    cancel to the raise, memory_allocated before and after)."""
+    import threading
+
+    from snappydata_tpu_torch import config, resource
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.storage import mvcc, prefetch
+
+    props = config.global_properties()
+    reg = global_registry()
+    data = s.catalog.describe("lineitem").data
+    units, _ub, tu, tiles = tile_plan(s, "lineitem", Q1_COLS, budget)
+    saved = (props.scan_tile_bytes, props.query_timeout_s)
+    props.scan_tile_bytes = budget
+    before = _settled_allocated()
+    t0 = reg.counter("scan_tiles")
+    out = {}
+
+    def run():
+        try:
+            s.sql(tpch.Q1)
+            out["err"] = None
+        except Exception as e:  # noqa: BLE001 - checked below
+            out["err"] = e
+        out["raised"] = time.perf_counter()
+
+    try:
+        if by_timeout:
+            props.query_timeout_s = TIMEOUT_S
+        th = threading.Thread(target=run)
+        th.start()
+        if not by_timeout:
+            deadline = time.monotonic() + 60
+            while reg.counter("scan_tiles") == t0 and th.is_alive() \
+                    and time.monotonic() < deadline:
+                time.sleep(0.0005)
+            qid = [q["id"] for q in resource.global_broker().queries()
+                   if q["sql"] == tpch.Q1]
+            if not qid:
+                fail("the tiled Q1 was not registered with the broker")
+            t_cancel = time.perf_counter()
+            resource.global_broker().cancel(qid[0], "cancelled by "
+                                            "chip_smoke")
+        else:
+            t_cancel = time.perf_counter()
+        th.join(120)
+    finally:
+        props.scan_tile_bytes, props.query_timeout_s = saved
+    err = out.get("err")
+    if not isinstance(err, resource.CancelException) \
+            or "XCL52" not in str(err):
+        fail(f"the tiled Q1 was not cancelled: {err!r}")
+    ran = reg.counter("scan_tiles") - t0
+    if ran >= tiles:
+        fail(f"the cancelled pass ran all {tiles} tiles")
+    if s._in_tile or mvcc.has_pins(data) or prefetch.keep_windows(data):
+        fail("the cancelled pass left its tile flag, pin or windows")
+    if any(q["sql"] == tpch.Q1 for q in resource.global_broker().queries()):
+        fail("the cancelled query is still registered")
+    after = _settled_allocated()
+    return ran, tiles, (out["raised"] - t_cancel) * 1e3, before, after
+
+
+TIMEOUT_S = 0.05
+
+
+def governed_path(s, tpch, want, args, clean_ops):
+    """Phase 20 (a) - (h) on phase 19's third session `s` (durable
+    lineitem, `want` its oracle); returns the two kernels' launches."""
+    import shutil
+    import tempfile
+
+    from snappydata_tpu_torch import config, resource
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.reliability import failpoints as rfail
+    from snappydata_tpu_torch.reliability import faultstorm
+    from snappydata_tpu_torch.storage import compact, hoststore, mvcc
+    from snappydata_tpu_torch.storage import persistence, tier
+
+    props = config.global_properties()
+    reg = global_registry()
+    broker = resource.global_broker()
+    data = s.catalog.describe("lineitem").data
+    total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    units, ub, _tu, _t = tile_plan(s, "lineitem", Q1_COLS, 1)
+    budget = units * ub // 10
+    _drop_leftover_registrations(s)
+
+    # (a) the ledger after warm Q1 / Q6 (phase 19 (g) ran them)
+    mem_a = _mem("a_ledger")
+
+    # (b) HBM -> host: tier_device_bytes below the bound plates, a tiled
+    # Q1, and maybe_demote once the statement's pin is released
+    dev_bytes = mem_a["ledger_device"].get("lineitem", 0)
+    entries0 = len(data._device_cache)
+    props.tier_device_bytes = max(1, dev_bytes // 4)
+    h0 = reg.counter("tier_demotions_hbm")
+    alloc0 = _settled_allocated()
+    try:
+        _tiled_q1(s, tpch, want, args, "b", budget, total)
+    finally:
+        props.tier_device_bytes = 0
+    alloc1 = _settled_allocated()
+    mem_b = _mem("b_after_hbm_demotion")
+    dropped = reg.counter("tier_demotions_hbm") - h0
+    log(f"governed_b entries_before {entries0} entries_dropped {dropped} "
+        f"ledger_device_before {dev_bytes} ledger_device_after "
+        f"{mem_b['ledger_device'].get('lineitem', 0)} "
+        f"memory_allocated_before {alloc0} after {alloc1}")
+    if dropped < 1:
+        fail("maybe_demote dropped no device entry")
+
+    # (c) host -> disk: tier_host_bytes at a quarter of the table's host
+    # bytes, so about three quarters of the batches are framed
+    host0 = mem_b["ledger_host"]["lineitem"]
+    props.tier_host_bytes = host0 // 4
+    d0, f0 = reg.counter("tier_demotions_host"), tier.tier_file_bytes()
+    t0 = time.perf_counter()
+    try:
+        tier.maybe_demote()
+    finally:
+        props.tier_host_bytes = 0
+    dem_s = time.perf_counter() - t0
+    fbytes = tier.tier_file_bytes() - f0
+    nb = reg.counter("tier_demotions_host") - d0
+    views = len(data.snapshot().views)
+    if nb > views:
+        fail(f"host -> disk framed {nb} batches, the table has {views}")
+    log(f"governed_c demoted_batches {nb} of {views} s {dem_s:.3f} "
+        f"tier_file_bytes {fbytes} gb_per_s {fbytes / dem_s / 1e9:.3f}")
+    if nb < views // 2:
+        fail(f"host -> disk framed {nb} of {views} batches")
+    _mem("c_after_disk_demotion")
+    _q1_q6(s, tpch, want, args, "c_disk_tier", total)
+    _tiled_q1(s, tpch, want, args, "c_disk_tier", budget, total)
+
+    # (d) promote, then heal one corrupted tier record from the durable
+    # store's checkpointed batch file
+    t0 = time.perf_counter()
+    promoted = tier.promote_table(data)
+    log(f"governed_d promote_table batches {promoted} s "
+        f"{time.perf_counter() - t0:.3f}")
+    if promoted < nb:
+        fail(f"promote_table brought back {promoted} of {nb} batches")
+    first = data.snapshot().views[0].batch
+    one = hoststore.batch_resident_bytes(first)
+    q0, r0 = reg.counter("tier_quarantined_files"), \
+        reg.counter("tier_rebuilds")
+    rfail.arm("tier.write", "corrupt_bytes", param=4, count=1)
+    try:
+        tier.demote_host([("lineitem", data)], 4 * one)
+    finally:
+        rfail.clear()
+    # no resident twin in a retained epoch: the rebuild must come from
+    # the checkpointed batch files
+    mvcc.trim_unpinned([("lineitem", data)])
+    loads = []
+    orig_load = persistence.DiskStore.load_batch
+
+    def counted_load(self, table, batch_id):
+        got = orig_load(self, table, batch_id)
+        loads.append((table, batch_id, got is not None))
+        return got
+
+    persistence.DiskStore.load_batch = counted_load
+    try:
+        t0 = time.perf_counter()
+        healed = tier.promote_table(data)
+        heal_s = time.perf_counter() - t0
+    finally:
+        persistence.DiskStore.load_batch = orig_load
+    dq = reg.counter("tier_quarantined_files") - q0
+    dr = reg.counter("tier_rebuilds") - r0
+    log(f"governed_d heal batches {healed} s {heal_s:.3f} quarantined {dq} "
+        f"rebuilds {dr} load_batch {json.dumps(loads)}")
+    if dq != 1 or dr != 1 or not any(ok for _t, _b, ok in loads):
+        fail("the corrupted record was not quarantined and rebuilt from "
+             "DiskStore.load_batch")
+    _q1_q6(s, tpch, want, args, "d_healed", total)
+
+    # (e) admission: reject below the estimate (no launch), the ladder
+    # under a limit just above the measured residency, a limit of one
+    # tile admitting the tiled Q1
+    from snappydata_tpu_torch.ops import group_reduce as gr
+    from snappydata_tpu_torch.ops import kahan_reduce as kr
+    from snappydata_tpu_torch.sql.parser import parse
+
+    with config.device_scope(s.device):   # DOUBLE plates at f32 there
+        est = resource.estimate_statement_bytes(s.catalog, parse(tpch.Q1))
+    gr.grouped_reduce.launches = kr.masked_kahan_sum.launches = 0
+    rej0 = reg.counter("governor_rejected")
+    props.memory_limit_bytes = est // 2
+    try:
+        s.sql(tpch.Q1)
+        fail("Q1 under half its estimate was admitted")
+    except resource.LowMemoryException as e:
+        if "XCL54" not in str(e):
+            fail(f"the rejection carries no XCL54: {e}")
+        log(f"governed_e rejected estimate {est} limit {est // 2} "
+            f"launches {gr.grouped_reduce.launches + kr.masked_kahan_sum.launches}"
+            f" error {str(e)[:80]!r}")
+    finally:
+        props.memory_limit_bytes = 0
+    if gr.grouped_reduce.launches or kr.masked_kahan_sum.launches:
+        fail("a rejected query launched a kernel")
+    if reg.counter("governor_rejected") != rej0 + 1:
+        fail("governor_rejected did not move")
+    host, device = broker.measured_bytes()
+    deg0 = {k: v for k, v in reg.snapshot().items()
+            if k.startswith("governor_degrade_")}
+    props.memory_limit_bytes = int((host + device) * 1.05)
+    try:
+        t0 = time.perf_counter()
+        _tiled_q1(s, tpch, want, args, "e_ladder", budget, total)
+        lad_s = time.perf_counter() - t0
+    finally:
+        props.memory_limit_bytes = 0
+    deg = {k: v - deg0.get(k, 0) for k, v in reg.snapshot().items()
+           if k.startswith("governor_degrade_") and v != deg0.get(k, 0)}
+    log(f"governed_e ladder measured {host + device} limit "
+        f"{int((host + device) * 1.05)} s {lad_s:.3f} counters "
+        f"{json.dumps(deg)}")
+    if not deg:
+        fail("the ladder recorded no governor_degrade_* counter")
+    _mem("e_after_ladder")
+    deg0 = {k: v for k, v in reg.snapshot().items()
+            if k.startswith("governor_degrade_")}
+    props.memory_limit_bytes = int(budget * 1.25)
+    try:
+        t0 = time.perf_counter()
+        _tiled_q1(s, tpch, want, args, "e_one_tile_limit", budget, total)
+        one_s = time.perf_counter() - t0
+    finally:
+        props.memory_limit_bytes = 0
+    deg = {k: v - deg0.get(k, 0) for k, v in reg.snapshot().items()
+           if k.startswith("governor_degrade_") and v != deg0.get(k, 0)}
+    log(f"governed_e one_tile limit {int(budget * 1.25)} s {one_s:.3f} "
+        f"counters {json.dumps(deg)}")
+    _mem("e_after_one_tile_limit")
+
+    # (f) cancel after the first tile, then query_timeout_s
+    small = max(budget // 4, ub)
+    for how in ("cancel", "timeout"):
+        ran, tiles, ms, before, after = _cancel_tiled(
+            s, tpch, small, how == "timeout")
+        log(f"governed_f {how} tiles_run {ran} of {tiles} "
+            f"cancel_to_raise_ms {ms:.2f} memory_allocated_before {before}"
+            f" after {after}")
+        if after > before:
+            import gc
+
+            import torch
+
+            live = sorted((o.untyped_storage().nbytes(), tuple(o.shape))
+                          for o in gc.get_objects()
+                          if torch.is_tensor(o) and o.is_cuda)
+            fail(f"the {how}led pass left {after - before} bytes allocated; "
+                 f"largest live tensors {live[-6:]}")
+    _q1_q6(s, tpch, want, args, "f_after_cancel", total)
+
+    # (g) the seeded fault storm over a small durable table
+    sd = tempfile.mkdtemp(prefix="chip_smoke_storm_")
+    t0 = time.perf_counter()
+    try:
+        res = faultstorm.run_storm(sd, seed=STORM_SEED, rounds=STORM_ROUNDS,
+                                   device=s.device)
+    finally:
+        shutil.rmtree(sd, ignore_errors=True)
+    storm_s = time.perf_counter() - t0
+    log(f"governed_g storm s {storm_s:.3f} " + json.dumps(
+        {k: res[k] for k in ("rounds", "injected", "recovered",
+                             "typed_errors", "recovery_ratio",
+                             "value_mismatches", "crash_recoveries",
+                             "rows_final", "fired_by_point", "tier",
+                             "prefetch")}))
+    if res["recovery_ratio"] != 1.0 or res["value_mismatches"] \
+            or res["unexpected"]:
+        fail(f"fault storm: {res['unexpected'][:3]}")
+
+    # (h) the broker-kicked compactor: an UPDATE that writes values back
+    # (a Q1 binds its deltas and tallies them on the table), then the
+    # next admission kicks one background sweep
+    t0 = time.perf_counter()
+    cnt = int(s.sql(COMPACTION_UPDATE).rows()[0][0])
+    log(f"governed_h update rows {cnt} s {time.perf_counter() - t0:.3f}")
+    cf0 = reg.counter("compressed_fallback_deltas")
+    check_rows("Q1 over the updated lineitem vs numpy",
+               s.sql(tpch.Q1).rows(), want["q1"])
+    if reg.counter("compressed_fallback_deltas") == cf0:
+        fail("the UPDATE left no delta for the sweep to fold")
+    props.compaction_enabled = True
+    compact._last_pass = 0.0
+    sw0, p0 = reg.counter("compaction_sweeps"), \
+        reg.counter("compaction_passes")
+    t0 = time.perf_counter()
+    try:
+        s.sql("SELECT count(*) FROM lineitem")
+        if not compact.wait_idle(600):
+            fail("the background compaction sweep did not finish")
+    finally:
+        props.compaction_enabled = False
+    sweep_s = time.perf_counter() - t0
+    log(f"governed_h sweeps {reg.counter('compaction_sweeps') - sw0} "
+        f"passes {reg.counter('compaction_passes') - p0} s {sweep_s:.3f}")
+    if reg.counter("compaction_sweeps") != sw0 + 1 \
+            or reg.counter("compaction_passes") < p0 + 1:
+        fail("admission did not kick one background compaction sweep")
+    cf0 = reg.counter("compressed_fallback_deltas")
+    _q1_q6(s, tpch, want, args, "h_compacted", total)
+    cfg = dict(gr.grouped_reduce.config or {})
+    log(f"governed_h compressed_fallback_deltas moved "
+        f"{reg.counter('compressed_fallback_deltas') - cf0} "
+        f"grouped_reduce_config {json.dumps(cfg)}")
+    if reg.counter("compressed_fallback_deltas") != cf0:
+        fail("a compacted column still bound with its delta")
+    if cfg.get("ops") != clean_ops:
+        fail(f"compacted Q1 ran {cfg.get('ops')} slots, the unmutated "
+             f"table's Q1 {clean_ops}")
+    _mem("h_end")
+    return total
 
 
 def main() -> int:
@@ -2278,6 +2795,9 @@ def main() -> int:
     li = tpch.gen_lineitem(n_rows, args.seed)
     log(f"gen_s {time.perf_counter() - t0:.3f} rows {n_rows}")
     props = config.global_properties()
+    # the broker-kicked compactor would fold the mutated tables between
+    # the timed phases: it stays off until phase 20 (h) drives its sweep
+    props.compaction_enabled = False
     session = SnappySession(catalog=Catalog())   # device: cuda
     session.sql(tpch.LINEITEM_DDL)
     t0 = time.perf_counter()
@@ -2641,14 +3161,15 @@ def main() -> int:
     # the compactor, over the first 1 / DEC_DEPTH of the rows
     try:
         d_launches = durable_path(tpch, {k: v[:n_dec] for k, v in li.items()},
-                                  args)
+                                  args,
+                                  kres["grouped_reduce"]["config"]["ops"])
     except Exception as e:  # noqa: BLE001 - report the phase, then exit
         fail(f"durable path: {type(e).__name__}: {e}")
     log(f"durable_path_launches {json.dumps(d_launches)}")
     for name, count in d_launches.items():
         launches[name] += count
 
-    # 20. result lines
+    # 21. result lines
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",

@@ -89,6 +89,10 @@ class Catalog:
                                          props.column_max_delta_rows))
                 data = ColumnTableData(schema, capacity=cap,
                                        max_delta_rows=max_delta)
+                if "eviction_bytes" in opts:
+                    # the per-table EVICTION clause analogue: this table
+                    # spills above its own host budget
+                    data.eviction_bytes = int(opts["eviction_bytes"])
             base_table = opts.get("basetable") or opts.get("base_table")
             info = TableInfo(
                 name=key, schema=schema, provider=provider, options=opts,
@@ -100,6 +104,14 @@ class Catalog:
                 base_table=_norm(base_table) if base_table else None)
             self._tables[key] = info
             self.generation += 1
+        # the resource broker's ledger, keyed per catalog (same-named
+        # tables of two catalogs must not clobber each other); internal
+        # '__'-named scratch tables (the tiled merge's partials) stay out.
+        # Outside the catalog lock: the broker has its own
+        if not key.split(".")[-1].startswith("__"):
+            from snappydata_tpu_torch.resource import global_broker
+
+            global_broker().register_table(key, data, owner=id(self))
         return info
 
     def drop_table(self, name: str, if_exists: bool = False) -> bool:
@@ -111,6 +123,11 @@ class Catalog:
                 raise ValueError(f"table not found: {name}")
             del self._tables[key]
             self.generation += 1
+        # a plan cache may keep the data object alive: a dropped table
+        # must stop counting toward broker memory pressure
+        from snappydata_tpu_torch.resource import global_broker
+
+        global_broker().unregister_table(key, owner=id(self))
         return True
 
     def create_view(self, name: str, plan, or_replace: bool = False) -> None:

@@ -440,6 +440,13 @@ _device: contextvars.ContextVar = contextvars.ContextVar(
     "snappy_torch_device", default=None)
 
 
+def current_device():
+    """The torch device of the statement running in this context (None
+    outside any session scope): background threads a statement starts
+    re-enter it through `device_scope`."""
+    return _device.get()
+
+
 @contextlib.contextmanager
 def device_scope(device):
     """Run the enclosed work for `device` (a torch.device)."""

@@ -76,6 +76,7 @@ from snappydata_tpu_torch.ops import group_reduce as _gr
 from snappydata_tpu_torch.ops import join as _dj
 from snappydata_tpu_torch.ops.group_reduce import grouped_reduce
 from snappydata_tpu_torch.ops.kahan_reduce import masked_kahan_sum
+from snappydata_tpu_torch.resource.context import check_current
 from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.sql.analyzer import _expr_name, expr_type
 from snappydata_tpu_torch.storage import mvcc
@@ -159,6 +160,9 @@ class _RelationInput:
         """The full DeviceTable of this thread's current bind — what the
         join's artifact and expansion bound read, before batch skipping."""
         return self._tls.dt
+
+    def unbind(self) -> None:
+        self._tls.dt = None
 
     def keep_mask(self, dt, params) -> Optional[np.ndarray]:
         """bool [B] of batches that can contain matches; None = keep all."""
@@ -260,6 +264,9 @@ class CompiledPlan:
         self.tile_merge = tile_merge
 
     def _bind(self, params: Tuple, device: torch.device):
+        # one bind and its launches are the atomic unit of work: the
+        # cooperative cancellation point sits right before them
+        check_current()
         reg = global_registry()
         for check in self.bind_checks:
             check()
@@ -310,9 +317,16 @@ class CompiledPlan:
     def run(self, params: Tuple, device: torch.device):
         """Bind + run; returns ((mask, [(value, null), ...]), overflow)
         still on the device — `overflow` is None or a bool tensor."""
-        rels, aux, static, pvals = self._bind(params, device)
-        ctx = _RunCtx(self.relations, rels, aux, pvals, static, device)
-        outs = self.emitter(ctx)
+        try:
+            rels, aux, static, pvals = self._bind(params, device)
+            ctx = _RunCtx(self.relations, rels, aux, pvals, static, device)
+            outs = self.emitter(ctx)
+        finally:
+            # the bind's DeviceTables serve this run only: a cached plan
+            # must not keep a table's plates alive past a demotion or an
+            # eviction of its cache entry
+            for r in self.relations:
+                r.unbind()
         self._count_agg_notes(static)
         return outs, ctx.overflow
 
@@ -332,7 +346,9 @@ class CompiledPlan:
         for lane in note["lanes"]:
             reg.inc("agg_" + lane)
         if note["rle_fallbacks"]:
-            compressed_fallback("rle_agg", note["rle_fallbacks"])
+            tref = note.get("table")
+            compressed_fallback("rle_agg", note["rle_fallbacks"],
+                                table=tref() if tref is not None else None)
 
     def execute(self, params: Tuple, device: torch.device) -> Result:
         (mask, pairs), overflow = self.run(params, device)
@@ -1498,6 +1514,10 @@ class Compiler:
             inner = inner.child
         base_info = self.relations[-1].info \
             if isinstance(inner, ast.Relation) and self.relations else None
+        # the rle_agg reroute is tallied per table too (the compactor's
+        # trigger); a weak reference, so a cached plan keeps no table
+        base_table_ref = weakref.ref(base_info.data) \
+            if base_info is not None else None
 
         # collect primitive agg slots (decomposing avg -> sum + count)
         slots: List[Tuple[str, Optional[ast.Expr]]] = []
@@ -2207,7 +2227,8 @@ class Compiler:
                 "passes": note["passes"],
                 "strategies": frozenset(note["strategies"]),
                 "lanes": frozenset(note["lanes"]),
-                "rle_fallbacks": note["rle_fallbacks"]}
+                "rle_fallbacks": note["rle_fallbacks"],
+                "table": base_table_ref}
             return gvalid, pairs
 
         return run_agg, out_cols
@@ -2414,12 +2435,18 @@ def _row_table_device(info, used, device: torch.device) -> DeviceTable:
                      {}, {}, n, nulls)
     # old versions go, unless pinned or the LIVE version (a pinned bind
     # at an older capture must not evict the entry unpinned traffic hits)
+    from snappydata_tpu_torch.storage.device import (_cache_budget,
+                                                     _entry_bytes)
+
     pinned = mvcc.pinned_row_versions(data)
     live = data.version
     for k in [k for k in list(cache)
               if k[0] != ver and k[0] != live and k[0] not in pinned]:
         cache.pop(k, None)
+        _cache_budget.forget(cache, k)
     cache[key] = dt
+    if _cache_budget.enabled():
+        _cache_budget.touch(cache, key, _entry_bytes(dt))
     return dt
 
 
@@ -2884,9 +2911,17 @@ class Executor:
         self._plan_cache: "collections.OrderedDict" = \
             collections.OrderedDict()
         self._depth = 0
+        # plan caches are the first rung the resource broker's ladder
+        # evicts (a weak registration: executors die with their sessions)
+        from snappydata_tpu_torch.resource import global_broker
+
+        global_broker().register_executor(self)
 
     def clear_cache(self):
+        """Drop compiled plans and the join build-artifact cache (the
+        degradation ladder's first rung; both rebuild on next use)."""
         self._plan_cache.clear()
+        _dj.clear_join_caches()
 
     def _cache_get(self, key):
         hit = self._plan_cache.get(key)
@@ -2917,6 +2952,7 @@ class Executor:
         return hit or None
 
     def execute(self, plan: ast.Plan, params: Tuple = ()) -> Result:
+        check_current()  # cancellation point: every (sub)plan execution
         if self._depth:  # nested calls (unions, host fallback) count once
             return self._execute_with_host_ops(plan, params)
         reg = global_registry()

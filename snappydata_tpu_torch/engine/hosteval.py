@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from snappydata_tpu_torch import types as T
+from snappydata_tpu_torch.resource.context import check_current
 from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.sql.analyzer import expr_type, _expr_name
 
@@ -1114,6 +1115,7 @@ def _unsort(sorted_vals, sorted_idx, dtype):
 # --------------------------------------------------------------------------
 
 def eval_plan(plan: ast.Plan, params, executor) -> Result:
+    check_current()  # host fallback entry = cancellation point
     cols, nulls, names, dtypes, n = _eval_rel(plan, params, executor)
     return Result(names, cols, nulls, dtypes)
 
@@ -1142,6 +1144,7 @@ def _eval_rel(plan: ast.Plan, params, executor):
         chunks: List[List[np.ndarray]] = [[] for _ in info.schema.fields]
         nchunks: List[List[np.ndarray]] = [[] for _ in info.schema.fields]
         for view in views:
+            check_current()  # batch boundary = cancellation point
             live = view.live_mask()
             lazy = info.data._decode_all(view)
             for i, f in enumerate(info.schema.fields):

@@ -6,9 +6,9 @@ from snappydata_tpu_torch.reliability import failpoints
 from snappydata_tpu_torch.reliability.failpoints import (ACTIONS, FailSpec,
                                                          InjectedFault, arm,
                                                          clear, disarm, hit,
-                                                         reseed)
+                                                         mangle, reseed)
 
 __all__ = [
     "ACTIONS", "FailSpec", "InjectedFault", "arm", "clear", "disarm",
-    "failpoints", "hit", "reseed",
+    "failpoints", "hit", "mangle", "reseed",
 ]

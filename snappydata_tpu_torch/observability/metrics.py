@@ -5,13 +5,14 @@ counts plan-cache verdicts, host fallbacks, batch skipping, compressed-
 domain fallbacks, the aggregate lanes a plan took, the tiled lane's
 passes (TILE_COUNTERS) and the WAL's group commits, under the same names
 as the reference so the two packages' evidence lines up, plus summed
-timers (`record_time`).
+timers (`record_time`) and pull gauges (`gauge`: the resource governor's
+in-flight, queue and ledger readings).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 # the tiled lane's evidence, under the reference's names:
 #   scan_tiles                  tiles executed (work, not queries)
@@ -36,6 +37,7 @@ class Registry:
         self._lock = threading.Lock()
         self._counters: Dict[str, int] = {}
         self._timers: Dict[str, Tuple[int, float]] = {}
+        self._gauges: Dict[str, Callable[[], float]] = {}
 
     def inc(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -47,6 +49,24 @@ class Registry:
         with self._lock:
             n, tot = self._timers.get(name, (0, 0.0))
             self._timers[name] = (n + 1, tot + float(seconds))
+
+    def gauge(self, name: str, fn: Callable[[], float]) -> None:
+        """Register a pull gauge: `fn` is read when `gauges()` is."""
+        with self._lock:
+            self._gauges[name] = fn
+
+    def gauges(self) -> Dict[str, float]:
+        """Every gauge's current value.  The functions run outside the
+        registry lock: they may walk ledgers that bump counters."""
+        with self._lock:
+            fns = dict(self._gauges)
+        out = {}
+        for name, fn in fns.items():
+            try:
+                out[name] = float(fn())
+            except Exception:
+                out[name] = float("nan")
+        return out
 
     def counter(self, name: str) -> int:
         return self._counters.get(name, 0)

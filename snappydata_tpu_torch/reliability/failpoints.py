@@ -14,19 +14,27 @@ name decides what the next eligible hits do:
   torn_write     ``hit`` returns the spec and the write site cuts
                  ``param`` bytes off what it writes, then raises
                  InjectedFault: the crash-mid-write shape
+  corrupt_bytes  data plane: ``mangle()`` XOR-flips ``param`` bytes of
+                 the buffer at a seeded offset (CRC-detectable damage)
+  short_write    data plane: ``mangle()`` cuts ``param`` bytes off the
+                 buffer's tail, and the write site sees the short count
 
 ``count=N`` fires the first N eligible hits then lies dormant;
 ``prob=X`` fires on a fraction X of hits, off the registry RNG, which is
 seeded (``reseed()``) so a fault schedule replays exactly.  No trigger
 fires every hit.
 
-The seams wired in the port (grep ``failpoints.hit``): wal.append (per
-record), wal.group_commit (per group, at the batched write), wal.fsync,
-wal.salvage, checkpoint.write, checkpoint.publish and
-storage.compaction.  Arming other names is allowed.
+The seams wired in the port (grep ``failpoints.hit`` / ``mangle``):
+wal.append (per record), wal.group_commit (per group, at the batched
+write), wal.fsync, wal.salvage, checkpoint.write, checkpoint.publish,
+storage.compaction, the disk tier's tier.demote, tier.write (hit and
+mangle), tier.promote and tier.memmap_read, broker.admit and
+prefetch.worker.  Arming other names is allowed.  A data-plane spec never
+fires at ``hit()``, and a control-plane spec never at ``mangle()``.
 
-Zero cost when unarmed: ``hit()`` checks one module-global dict for
-truthiness and returns before touching any lock, metric or the RNG.
+Zero cost when unarmed: ``hit()`` and ``mangle()`` check one
+module-global dict for truthiness and return before touching any lock,
+metric or the RNG.
 
 Every fired action bumps ``fault_injected`` and
 ``fault_injected_<name>``; ``fired_counts()`` gives the same accounting
@@ -43,6 +51,8 @@ import errno as _errno
 import random
 import time
 from typing import Dict, List, Optional, Union
+
+import numpy as np
 
 from snappydata_tpu_torch.utils import locks
 
@@ -64,7 +74,11 @@ _EXC_FAMILIES = {
     "oserror": OSError,
 }
 
-ACTIONS = ("raise", "sleep", "kill_worker", "return_errno", "torn_write")
+ACTIONS = ("raise", "sleep", "kill_worker", "return_errno", "torn_write",
+           "corrupt_bytes", "short_write")
+
+# data-plane actions are interpreted by mangle(); hit() passes them by
+_DATA_ACTIONS = ("corrupt_bytes", "short_write")
 
 
 @dataclasses.dataclass
@@ -140,11 +154,21 @@ def fired_counts() -> Dict[str, int]:
                 if any(s.fired for s in specs)}
 
 
-# -- the hook --------------------------------------------------------------
+# -- the hooks -------------------------------------------------------------
 
-def _select(name: str) -> Optional[FailSpec]:
+def _account(name: str) -> None:
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    reg = global_registry()
+    reg.inc("fault_injected")
+    reg.inc(f"fault_injected_{name.replace('.', '_')}")
+
+
+def _select(name: str, data_plane: bool = False) -> Optional[FailSpec]:
     with _LOCK:
         for spec in _SPECS.get(name, ()):
+            if (spec.action in _DATA_ACTIONS) != data_plane:
+                continue
             if spec.count is not None and spec.fired >= spec.count:
                 continue
             spec.hits += 1
@@ -164,11 +188,7 @@ def hit(name: str) -> Optional[FailSpec]:
     spec = _select(name)
     if spec is None:
         return None
-    from snappydata_tpu_torch.observability.metrics import global_registry
-
-    reg = global_registry()
-    reg.inc("fault_injected")
-    reg.inc(f"fault_injected_{name.replace('.', '_')}")
+    _account(name)
     if spec.action == "torn_write":
         return spec
     if spec.action == "sleep":
@@ -181,3 +201,28 @@ def hit(name: str) -> Optional[FailSpec]:
         raise OSError(e, f"failpoint {name}: injected "
                          f"{_errno.errorcode.get(e, e)}")
     raise _resolve_exc(spec)(f"failpoint {name}: injected failure")
+
+
+def mangle(name: str, buf: bytes) -> bytes:
+    """The data-plane hook: a write site passes the exact bytes about to
+    land on disk; an armed corrupt_bytes / short_write spec returns a
+    damaged copy (seeded offsets: deterministic), anything else returns
+    `buf` untouched."""
+    if not _SPECS:               # hot-path gate, mirror of hit()
+        return buf
+    spec = _select(name, data_plane=True)
+    if spec is None:
+        return buf
+    _account(name)
+    n = max(1, int(spec.param))
+    if spec.action == "short_write":
+        return buf[:max(0, len(buf) - n)]
+    # corrupt_bytes: XOR-flip n bytes at a seeded offset past the first
+    # 8 bytes, so magic and head length stay readable and the damage is
+    # caught by the CRC (the quarantine path), not fatal to the frame
+    arr = np.frombuffer(buf, dtype=np.uint8).copy()
+    lo = 8 if len(arr) > 8 + n else 0
+    with _LOCK:
+        off = _RNG.randrange(lo, max(lo + 1, len(arr) - n))
+    arr[off:off + n] ^= 0xFF
+    return arr.tobytes()

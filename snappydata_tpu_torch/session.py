@@ -31,6 +31,17 @@ its device.  Mesh execution, views, samples and streams are not ported
 and raise NotImplementedError; UPDATE / DELETE / PUT leave out the
 reference's materialized-view maintenance hooks with the views.
 
+Every query runs governed (resource/): `_governed_query` estimates its
+memory (a tilable aggregate is charged one tile plus its join build
+sides), is admitted, queued or rejected by the process-wide broker
+(`LowMemoryException`, XCL54), and runs under a `QueryContext` whose
+cooperative checks at each plan execution, host-fallback batch and tile
+boundary stop it on `cancel()` or `query_timeout_s` (`CancelException`,
+XCL52).  A tiled pass leaves the tier knobs (`tier_device_bytes`,
+`tier_host_bytes`) to be enforced by `storage/tier.maybe_demote` once the
+statement's read pin is released.  A durable session's store is the disk
+tier's quarantine rebuild source.
+
 A session runs on one torch device: `cuda` unless the caller asks for
 another (`SnappySession(device="cpu")`).  Without a GPU, a session that
 did not ask for the CPU raises instead of moving there silently.
@@ -45,7 +56,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from snappydata_tpu_torch import config
+from snappydata_tpu_torch import config, resource
 from snappydata_tpu_torch import types as T
 from snappydata_tpu_torch.catalog import Catalog
 from snappydata_tpu_torch.engine import hosteval
@@ -59,6 +70,7 @@ from snappydata_tpu_torch.engine.result import (Result, empty_result,
                                                 finalize_decimals,
                                                 to_host_domain)
 from snappydata_tpu_torch.observability.metrics import global_registry
+from snappydata_tpu_torch.resource.context import check_current
 from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.sql.analyzer import (Analyzer, AnalysisError,
                                                Scope, ScopeEntry,
@@ -100,18 +112,24 @@ class SnappySession:
 
     def __init__(self, catalog: Optional[Catalog] = None, conf=None,
                  device=None, data_dir: Optional[str] = None,
-                 recover: bool = True):
+                 recover: bool = True, user: str = "admin"):
         """`data_dir` attaches a DiskStore (ref: sys-disk-dir): DML becomes
         WAL-durable, `checkpoint()` persists batches and manifests, and
         with `recover` (and no `catalog`) the catalog and data are rebuilt
-        from the directory into this session."""
+        from the directory into this session.  `user` is the principal the
+        admission queue's fair slots count."""
         self.device = resolve_device(device)
+        self.user = user.lower()
         self.disk_store = None
         needs_recovery = False
         if data_dir is not None:
+            from snappydata_tpu_torch.storage import tier
             from snappydata_tpu_torch.storage.persistence import DiskStore
 
             self.disk_store = DiskStore(data_dir)
+            # the store's write-once batch files are the tier
+            # quarantine's rebuild source (storage/tier.py self-healing)
+            tier.attach_store(self.disk_store)
             if catalog is None and recover:
                 # recovery replays against THIS session; the placeholder
                 # catalog is swapped for the recovered one
@@ -132,6 +150,9 @@ class SnappySession:
         self._tile_merge_pool: Dict[str, list] = {}
         self._in_tile = False
         self._device_bytes: Optional[int] = None
+        # set by the tiled lane; consumed after the statement's read pin
+        # is released (execute_statement)
+        self._tier_enforce_pending = False
         if needs_recovery:
             self.disk_store.recover_catalog(self)
 
@@ -143,13 +164,74 @@ class SnappySession:
         with config.device_scope(self.device):
             self.disk_store.checkpoint(self.catalog)
 
-    def sql(self, sql_text: str, params: Sequence[Any] = ()) -> Result:
+    def sql(self, sql_text: str, params: Sequence[Any] = (),
+            query_ctx=None) -> Result:
+        """Run one statement.  Queries run governed; `query_ctx` (a
+        context created and watched before submission) governs any other
+        statement too, so a cancel that lands before it starts stops it."""
         # storage encodes DOUBLE at the device width and the expression
         # lowering picks float widths from the device: every statement
         # runs inside the session's device scope
         with config.device_scope(self.device):
-            return self._sql_statement(parse(sql_text), sql_text,
-                                       tuple(params))
+            stmt = parse(sql_text)
+            if isinstance(stmt, ast.Query):
+                return self._governed_query(sql_text, stmt, tuple(params),
+                                            query_ctx)
+            if query_ctx is not None and resource.current_query() is None:
+                # estimate 0: DML has no scan estimate yet; CANCEL and
+                # query_timeout_s still apply
+                broker = resource.global_broker()
+                if not query_ctx.sql:
+                    query_ctx.sql = sql_text
+                try:
+                    broker.admit(query_ctx, 0,
+                                 float(self.conf.query_timeout_s or 0.0))
+                    with resource.query_scope(query_ctx):
+                        return self._sql_statement(stmt, sql_text,
+                                                   tuple(params))
+                finally:
+                    broker.release(query_ctx)
+            return self._sql_statement(stmt, sql_text, tuple(params))
+
+    def _governed_query(self, sql_text: str, stmt: ast.Query, params,
+                        query_ctx=None) -> Result:
+        """The resource governor's choke point for top-level queries:
+        submit a memory estimate, get admitted, queued or rejected, and
+        run under a QueryContext, so cancel / timeout / broker kills stop
+        the scan at the next tile boundary.  Nested executions (tile
+        partials, the tiled merge's scratch session, subquery rewrites)
+        inherit the outer context and skip re-admission."""
+        if resource.current_query() is not None:
+            return self.execute_statement(stmt, params)
+        broker = resource.global_broker()
+        ctx = query_ctx or resource.new_query(sql_text, self.user)
+        if not ctx.sql:
+            ctx.sql = sql_text
+        # the estimate walk matters only when a byte budget meters it
+        estimate = 0
+        if broker.accounting_enabled():
+            estimate = resource.estimate_statement_bytes(self.catalog, stmt)
+            tile = self._tile_budget()
+            shaped = self._tilable_agg_shape(stmt.plan) \
+                if tile > 0 and not params else None
+            if shaped is not None:
+                # a tilable aggregate streams under scan_tile_bytes: its
+                # peak is one tile plus the join build sides, which stay
+                # resident across tiles.  When the builds alone exceed
+                # the tile budget the pass declines and the query runs
+                # untiled: admit it at full cost
+                bb = self._join_build_side_bytes(shaped[4], shaped[5])
+                if bb is not None and bb < tile:
+                    estimate = min(estimate, tile + bb)
+        try:
+            # admit INSIDE the try: release() also clears a watched
+            # context whose admission failed
+            broker.admit(ctx, estimate,
+                         float(self.conf.query_timeout_s or 0.0))
+            with resource.query_scope(ctx):
+                return self.execute_statement(stmt, params)
+        finally:
+            broker.release(ctx)
 
     def _sql_statement(self, stmt: ast.Statement, sql_text: str,
                        params) -> Result:
@@ -241,10 +323,21 @@ class SnappySession:
         each other and never mix table versions.  Nested executions find
         the ambient pin and extend it."""
         names = self._snapshot_tables_for(stmt)
-        if names is not None and mvcc.current_pin() is None:
-            with mvcc.pinned_scope(self.catalog, names):
-                return self._execute_statement(stmt, user_params)
-        return self._execute_statement(stmt, user_params)
+        try:
+            if names is not None and mvcc.current_pin() is None:
+                with mvcc.pinned_scope(self.catalog, names):
+                    return self._execute_statement(stmt, user_params)
+            return self._execute_statement(stmt, user_params)
+        finally:
+            # a tiled pass may have left a tier over its knob; the ladder
+            # walk waits until the statement pin is gone, or demote_device
+            # would pin-skip the very entries it must drop.  A caller-held
+            # pin defers it to that caller's next unpinned statement
+            if self._tier_enforce_pending and mvcc.current_pin() is None:
+                self._tier_enforce_pending = False
+                from snappydata_tpu_torch.storage import tier
+
+                tier.maybe_demote()
 
     def _execute_statement(self, stmt: ast.Statement, params) -> Result:
         if isinstance(stmt, ast.Query):
@@ -896,6 +989,9 @@ class SnappySession:
                                           tile_units, self.device)
                 try:
                     for lo in range(0, units, tile_units):
+                        # tile boundary = cancellation point: cancel,
+                        # statement timeouts and broker kills land here
+                        check_current()
                         if pf is not None:
                             pf.await_window(lo)
                         with scan_window(data, lo,
@@ -915,6 +1011,9 @@ class SnappySession:
                 reg.inc("scan_tile_host_merges")
         finally:
             self._in_tile = False
+        # steady-state tier enforcement waits for the statement's read
+        # pin to go (execute_statement): here it still covers the epoch
+        self._tier_enforce_pending = True
         if merged is not None:
             pieces = [merged]
         return self._merge_partial_pieces(pieces, node, merged_select,
@@ -949,30 +1048,35 @@ class SnappySession:
                 scratch_sess.sql(f"CREATE TABLE __tile_partials "
                                  f"({fields_sql}) USING column")
             sdata = scratch_sess.catalog.describe("__tile_partials").data
-            for piece in pieces:
-                if piece.num_rows:
-                    # executor results carry exact decimals as scaled
-                    # int64: unscale into the host float domain the
-                    # scratch DOUBLE columns expect (self.sql pieces
-                    # arrive finalized)
-                    piece = to_host_domain(piece)
-                    nmask = piece.nulls \
-                        if any(m is not None for m in piece.nulls) else None
-                    sdata.insert_arrays(piece.columns, nulls=nmask)
-            merge_items = ", ".join(render_expr(e) for e in merged_select)
-            msql = f"SELECT {merge_items} FROM __tile_partials"
-            if node.group_exprs:
-                msql += " GROUP BY " + ", ".join(
-                    f"__g{gi}" for gi in range(len(node.group_exprs)))
-            if merge_having is not None:
-                msql += f" HAVING {render_expr(merge_having)}"
-            result = scratch_sess.sql(msql)
+            try:
+                for piece in pieces:
+                    if piece.num_rows:
+                        # executor results carry exact decimals as scaled
+                        # int64: unscale into the host float domain the
+                        # scratch DOUBLE columns expect (self.sql pieces
+                        # arrive finalized)
+                        piece = to_host_domain(piece)
+                        nmask = piece.nulls \
+                            if any(m is not None for m in piece.nulls) \
+                            else None
+                        sdata.insert_arrays(piece.columns, nulls=nmask)
+                merge_items = ", ".join(render_expr(e)
+                                        for e in merged_select)
+                msql = f"SELECT {merge_items} FROM __tile_partials"
+                if node.group_exprs:
+                    msql += " GROUP BY " + ", ".join(
+                        f"__g{gi}" for gi in range(len(node.group_exprs)))
+                if merge_having is not None:
+                    msql += f" HAVING {render_expr(merge_having)}"
+                result = scratch_sess.sql(msql)
+            finally:
+                # result columns are host arrays: recycle the scratch
+                # table underneath them (bounded pool), also when a
+                # cancel stopped the merge
+                sdata.truncate()
+                if len(pool) < 4:
+                    pool.append(scratch_sess)
         result.names = [_expr_name(e) for e in node.agg_exprs]
-        # result columns are host arrays: recycle the scratch table
-        # underneath them (bounded pool)
-        sdata.truncate()
-        if len(pool) < 4:
-            pool.append(scratch_sess)
         return _apply_outer(result, outer)
 
     def _tiled_device_pass(self, compiled, params, data, manifest, units,
@@ -996,6 +1100,7 @@ class SnappySession:
         try:
             try:
                 for lo in range(0, units, tile_units):
+                    check_current()  # tile boundary = cancellation point
                     if pf is not None:
                         pf.await_window(lo)
                     with scan_window(data, lo, min(lo + tile_units, units),
@@ -1018,6 +1123,16 @@ class SnappySession:
                             events[-2].synchronize()
             except CompileError:
                 return None
+            except BaseException:
+                # a cancel (or any failure) mid-pass: no launched tile is
+                # left running behind the raise, and the tiles' partials
+                # go now (the exception's traceback keeps this frame, and
+                # a caller holding the exception would keep them)
+                if events:
+                    events[-1].synchronize()
+                outs.clear()
+                events.clear()
+                raise
         finally:
             if pf is not None:
                 pf.close()

@@ -40,9 +40,13 @@ records), so no WAL record is written and recovery replays to the same
 logical rows.
 
 Port of snappydata_tpu/storage/compact.py: the synchronous pass
-(`run_compaction_pass`) and its selection.  The reference's scheduler
-(`maybe_kick` / `_sweep_body`, kicked by the resource broker's admission
-path) waits for the broker; a caller runs the pass itself.
+(`run_compaction_pass`), its selection, and the scheduler: the resource
+broker's admission path calls `maybe_kick`, which starts at most one
+background sweep per `compaction_interval_s` over the tables whose
+foldable per-table fallback tally (storage/device_decode.table_fallbacks,
+`rle_agg` included) reached `compaction_min_fallbacks`.  The sweep runs
+inside the admitting statement's device scope: the rewrite re-encodes
+DOUBLE columns at that device's width, as every insert does.
 
 Fault injection: the ``storage.compaction`` failpoint sits inside the
 table lock immediately before the publish — a raise/kill there proves
@@ -52,11 +56,24 @@ are garbage-collected, and no reader ever observes a torn rewrite.
 
 from __future__ import annotations
 
+import logging
+import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from snappydata_tpu_torch import config
+from snappydata_tpu_torch.utils import locks
+
+log = logging.getLogger("snappydata_tpu_torch.compact")
+
+# single-flight background sweep: the leaf lock guards the flag and the
+# last pass's time only
+_flag_lock = locks.named_lock("storage.compaction")
+_running = False
+_last_pass = 0.0
+_log_once = False
 
 # fallback reasons a rewrite pass can actually fix; "disabled",
 # "decimal_exact", "join_key" etc. are structural and would only make
@@ -249,3 +266,64 @@ def run_compaction_pass(data, force: bool = False) -> dict:
     out["produced"] = len(new_views)
     out["reclaimed_bytes"] = max(0, old_bytes - new_bytes)
     return out
+
+
+# ---------------------------------------------------------------------
+# broker-kicked scheduler
+# ---------------------------------------------------------------------
+
+def maybe_kick(broker) -> bool:
+    """Admission-path hook (resource/broker.py): start ONE background
+    compaction sweep if none is running and the interval elapsed.  The
+    caller pays a flag check under a leaf lock, never the rewrite."""
+    global _running
+    props = config.global_properties()
+    if not props.compaction_enabled:
+        return False
+    now = time.monotonic()
+    with _flag_lock:
+        if _running or now - _last_pass < float(
+                props.compaction_interval_s):
+            return False
+        _running = True
+    threading.Thread(target=_sweep_body,
+                     args=(broker, config.current_device()),
+                     name="snappy-compaction", daemon=True).start()
+    return True
+
+
+def _sweep_body(broker, device=None) -> None:
+    global _running, _last_pass, _log_once
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    min_fb = int(config.global_properties().compaction_min_fallbacks)
+    try:
+        with config.device_scope(device):
+            global_registry().inc("compaction_sweeps")
+            for _nm, data in broker._iter_tables():
+                if foldable_fallbacks(data) >= max(1, min_fb):
+                    run_compaction_pass(data)
+    # the sweep is advisory hygiene: a failed background pass leaves every
+    # synchronous path (and the counted fallbacks that triggered it) in
+    # force
+    except Exception:
+        if not _log_once:
+            _log_once = True
+            log.warning("background compaction sweep failed",
+                        exc_info=True)
+    finally:
+        with _flag_lock:
+            _running = False
+            _last_pass = time.monotonic()
+
+
+def wait_idle(timeout_s: float = 30.0) -> bool:
+    """Block until no background sweep runs (tests and the chip smoke
+    read the table only after the kicked pass published)."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        with _flag_lock:
+            if not _running:
+                return True
+        time.sleep(0.005)
+    return False

@@ -34,6 +34,13 @@ skipping (ref: stats-row filter codegen, columnBatchesSkipped metric,
 ColumnTableScan.scala:115-130).  Plates are cached per (manifest
 version, device, scan window).
 
+Device memory is accounted (the resource broker's device ledger): an
+entry's bytes are its TENSORS' bytes, each storage counted once
+(`_entry_bytes`: views and plate tuples share storages), not what the
+caching allocator reports.  `device_cache_bytes` caps the cache with LRU
+eviction (`_DeviceCacheBudget`) that never drops a pinned epoch's entries
+or a window a live prefetch pass keeps.
+
 Tiled scans bind a WINDOW of the table's scan units (column batches,
 then row-buffer chunks of `capacity` rows): `scan_window` restricts
 `build_device_table` to units [lo, hi) of a pinned manifest, and the
@@ -45,6 +52,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import weakref
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -57,6 +65,7 @@ from snappydata_tpu_torch.storage import device_decode as _dd
 from snappydata_tpu_torch.storage import mvcc
 from snappydata_tpu_torch.storage.encoding import Encoding
 from snappydata_tpu_torch.storage.table_store import ColumnTableData
+from snappydata_tpu_torch.utils import locks
 
 
 def batch_bucket(n: int) -> int:
@@ -262,6 +271,7 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
               if k[1] == cache_key[1] and k[0] != manifest.version
               and k[0] not in pinned]:
         data._device_cache.pop(k, None)
+        _cache_budget.forget(data._device_cache, k)
     if window is not None:
         # a tile pass must not accumulate every window's plates (the
         # table is oversized by definition): keep only this window and
@@ -275,6 +285,7 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
                   if k != cache_key and k[1] == cache_key[1]
                   and k[2] is not None and k[2] not in kept]:
             data._device_cache.pop(k, None)
+            _cache_budget.forget(data._device_cache, k)
 
     def place(host_array: np.ndarray) -> torch.Tensor:
         return _dd.upload(host_array, device)
@@ -345,6 +356,9 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
         dom = cache.get(("dictdom", ci))
         if dom is not None:
             dict_domains[ci] = dom
+    if _cache_budget.enabled():
+        _cache_budget.touch(data._device_cache, cache_key,
+                            _entry_bytes(cache), data=data)
     return DeviceTable(schema, b, cap, cache["valid"], columns, dicts,
                        stats_min, stats_max,
                        cache["nrows"], nulls,
@@ -793,3 +807,157 @@ def _build_array_column(data, manifest, views, row_chunks, ci, f, b, cap,
     return ((place(vals), place(lengths), place(enul)),
             np.full(b, np.nan), np.full(b, np.nan),
             place(null_mask) if any_null else None)
+
+
+# --- device-cache budget and ledger -------------------------------------
+
+def _tensor_leaves(obj):
+    """Every tensor inside one device-cache value: plates, plate
+    NamedTuples (CodePlate, RlePlate, BitPlate, complex plates), null
+    masks, whole DeviceTables (row tables cache those).  Host arrays
+    (stats, dictionary domains) are not device bytes."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            yield from _tensor_leaves(x)
+    elif isinstance(obj, dict):
+        for x in list(obj.values()):
+            yield from _tensor_leaves(x)
+    elif isinstance(obj, DeviceTable):
+        yield from _tensor_leaves(obj.valid)
+        yield from _tensor_leaves(list(obj.columns.values()))
+        yield from _tensor_leaves(list(obj.nulls.values()))
+
+
+def _storage_bytes(tensors, seen=None) -> int:
+    """Bytes of the distinct storages under `tensors`: a view, a slice or
+    a plate shared by two tuples is one allocation, counted once (by
+    `untyped_storage().nbytes()`, as the allocator holds it)."""
+    seen = set() if seen is None else seen
+    total = 0
+    for t in tensors:
+        st = t.untyped_storage()
+        key = (t.device.type, t.device.index, st.data_ptr())
+        if key in seen:
+            continue
+        seen.add(key)
+        total += int(st.nbytes())
+    return total
+
+
+def _entry_bytes(entry) -> int:
+    """Device bytes of one cache entry (a column table's per-column dict
+    or a row table's DeviceTable).  list() snapshots: a prefetch worker
+    may still be filling the entry while a ledger walk measures it."""
+    return _storage_bytes(_tensor_leaves(entry))
+
+
+class _DeviceCacheBudget:
+    """Process-wide accounting of cached device tensors with LRU eviction
+    (ref: SnappyUnifiedMemoryManager evicting under memory pressure; here
+    eviction drops device copies back to the host batches they rebuild
+    from on the next bind)."""
+
+    def __init__(self):
+        self._lock = locks.named_lock("storage.device_cache")
+        # (id(table_cache_dict), repr(cache_key)) ->
+        #   (bytes, tick, cache dict, cache key, table weakref | None)
+        self._entries: Dict = {}
+        self._tick = 0
+
+    def _budget(self) -> int:
+        return int(config.global_properties().device_cache_bytes or 0)
+
+    def enabled(self) -> bool:
+        return self._budget() > 0
+
+    def forget(self, table_cache: Dict, cache_key) -> None:
+        """Version pruning dropped this entry: stop counting its bytes."""
+        if not self._entries:
+            return
+        with self._lock:
+            self._entries.pop((id(table_cache), repr(cache_key)), None)
+
+    def touch(self, table_cache: Dict, cache_key, nbytes: int,
+              data=None) -> None:
+        budget = self._budget()
+        if budget <= 0:
+            return
+        from snappydata_tpu_torch.observability.metrics import \
+            global_registry
+        from snappydata_tpu_torch.storage import prefetch as _prefetch
+
+        reg = global_registry()
+        with self._lock:
+            self._tick += 1
+            # the owning cache dict lives with its table anyway; the
+            # table itself is a weakref, consulted only to spare pinned
+            # epochs and live prefetch windows
+            self._entries[(id(table_cache), repr(cache_key))] = (
+                nbytes, self._tick, table_cache, cache_key,
+                weakref.ref(data) if data is not None else None)
+            total = sum(e[0] for e in self._entries.values())
+            if total <= budget:
+                return
+            for key, (b, _, owner, ck, dref) in sorted(
+                    self._entries.items(), key=lambda kv: kv[1][1]):
+                if total <= budget:
+                    break
+                d = dref() if dref is not None else None
+                if d is not None:
+                    # NEVER evict a pinned epoch's plates out from under a
+                    # live scan: the lock-free peek keeps the MVCC clock
+                    # out from under this lock
+                    pins = mvcc.pinned_versions_peek(d)
+                    if pins is None or ck[0] in pins:
+                        reg.inc("tier_pinned_skips")
+                        continue
+                    # ... nor the window a prefetch pass holds (the
+                    # look-ahead the worker just uploaded, or the tile
+                    # the consumer is running): the prefetch lock is a
+                    # leaf, so taking it here adds no cycle
+                    if ck[2] is not None \
+                            and ck[2] in _prefetch.keep_windows(d):
+                        reg.inc("device_cache_window_skips")
+                        continue
+                owner.pop(ck, None)  # device tensors released
+                self._entries.pop(key, None)
+                total -= b
+                reg.inc("device_cache_evictions")
+
+
+_cache_budget = _DeviceCacheBudget()
+
+
+def device_cache_bytes_by_table(tables) -> Dict[str, int]:
+    """Device-side ledger of the resource broker: cached plate bytes per
+    table, read off each table's `_device_cache` (pull-based: dropped
+    tables stop appearing).  `tables` is an iterable of (name, data).
+    Storages shared between a table's entries count once."""
+    out: Dict[str, int] = {}
+    for name, data in tables:
+        caches = getattr(data, "_device_cache", None)
+        if not caches:
+            continue
+        try:  # same-named tables of different catalogs sum
+            out[name] = out.get(name, 0) + _storage_bytes(
+                _tensor_leaves(list(caches.values())))
+        except Exception:
+            out.setdefault(name, 0)
+    return out
+
+
+def device_cache_bytes_by_device(tables) -> Dict[str, int]:
+    """Resident plate bytes per DEVICE (one card in this port; the mesh
+    slice will spread them)."""
+    out: Dict[str, int] = {}
+    seen: set = set()
+    for _name, data in tables:
+        caches = getattr(data, "_device_cache", None)
+        if not caches:
+            continue
+        for t in _tensor_leaves(list(caches.values())):
+            dev = str(t.device)
+            out[dev] = out.get(dev, 0) + _storage_bytes([t], seen)
+    return out

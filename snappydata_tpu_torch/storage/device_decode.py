@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import warnings
 import weakref
 from typing import Dict, NamedTuple, Optional
 
@@ -69,8 +70,26 @@ def upload(host_array: np.ndarray, device: torch.device) -> torch.Tensor:
     """One host array as a tensor on `device`.  Inside an upload_scope
     with a stream, the bytes stage through a pinned buffer of torch's
     caching host allocator (which keeps it alive until the copy has run)
-    and copy with non_blocking=True on that stream."""
-    t = torch.from_numpy(np.ascontiguousarray(host_array))
+    and copy with non_blocking=True on that stream.
+
+    A read-only array (a memmap view of a spill or disk-tier file) is
+    copied ONCE: for a CUDA target torch reads its pages directly (into
+    the pinned stage, or by the pageable copy), and only a CPU target,
+    whose tensor would alias the file's mapping, takes a private copy."""
+    a = np.ascontiguousarray(host_array)
+    if not a.flags.writeable:
+        if device.type != "cuda":
+            a = np.array(a)
+        else:
+            with warnings.catch_warnings():
+                # the tensor is only ever read: as a copy source
+                warnings.simplefilter("ignore", UserWarning)
+                t = torch.from_numpy(a)
+            return _to_device(t, device)
+    return _to_device(torch.from_numpy(a), device)
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     global_registry().inc("device_upload_bytes", t.numel() * t.element_size())
     if device.type == "cuda" and _upload_stream.get() is not None:
         return t.pin_memory().to(device, non_blocking=True)

@@ -33,17 +33,21 @@ DDL that would mutate state a pinned reader is traversing IN PLACE
 TRUNCATE / ADD COLUMN / DROP TABLE bump the epoch cleanly — pinned
 readers keep their immutable manifests.
 
-Not ported: the WAL commit seq stamped on manifests (`commit_scope`,
-`advance_to`: durability), the resource-broker ledger of retained bytes
-and the degradation ladder's trim (`retained_epoch_bytes`,
-`trim_unpinned`), and the matview re-pins (`repin`, `unpinned_scope`).
+- **Accounting**: the resource broker's ledger reads the host bytes
+  retained epochs hold beyond the current manifest
+  (``retained_epoch_bytes_by_table``), and its degradation ladder drops
+  every unpinned one with its stale device plates (``trim_unpinned``).
+
+Not ported: the matview re-pins (`repin`, `unpinned_scope`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from snappydata_tpu_torch.utils import locks
 
@@ -151,12 +155,13 @@ def retain_locked(data, old_manifest) -> None:
     _trim_retained_locked(data)
 
 
-def _trim_retained_locked(data) -> int:
+def _trim_retained_locked(data, keep_unpinned: Optional[int] = None
+                          ) -> int:
     retained = getattr(data, "_retained_epochs", None)
     if not retained:
         return 0
     pins = getattr(data, "_pin_counts", {})
-    cap = _retain_cap()
+    cap = _retain_cap() if keep_unpinned is None else keep_unpinned
     unpinned = sorted(v for v in retained if v not in pins)
     dropped = 0
     for v in unpinned[:max(0, len(unpinned) - cap)]:
@@ -253,6 +258,20 @@ def pinned_versions(data) -> frozenset:
         return frozenset()
     with _clock_lock:
         return frozenset(counts)
+
+
+def pinned_versions_peek(data):
+    """LOCK-FREE best-effort read of `pinned_versions` for callers that
+    hold a lock below the clock (the device-cache budget's eviction).
+    None when the racing snapshot fails: treat it as "assume pinned"
+    (a stale positive only delays one eviction)."""
+    counts = getattr(data, "_pin_counts", None)
+    if not counts:
+        return frozenset()
+    try:
+        return frozenset(counts)
+    except RuntimeError:   # dict mutated mid-iteration
+        return None
 
 
 def pinned_row_versions(data) -> frozenset:
@@ -470,3 +489,115 @@ def row_snapshot_of(data) -> Tuple[list, list, int, int]:
         return pin.row_snapshot(data)
     arrays, masks, n = data.to_arrays_with_nulls()
     return arrays, masks, n, int(data.version)
+
+
+# --------------------------------------------------------------------------
+# retained-epoch accounting (resource broker ledger + degradation)
+# --------------------------------------------------------------------------
+
+def _arr_bytes(a) -> int:
+    if a is None:
+        return 0
+    if isinstance(a, np.ndarray) and a.dtype == object:
+        return 8 * a.size          # pointer estimate, like the host ledger
+    return int(getattr(a, "nbytes", 0))
+
+
+def _manifest_extra_bytes(m, cur) -> int:
+    """Bytes a retained manifest holds beyond what the CURRENT one
+    shares: its row-buffer snapshot copies plus the delete masks and
+    update deltas of views that diverged.  Batch payloads are write-once
+    and shared across manifests: never double counted."""
+    total = sum(_arr_bytes(a) for a in m.row_arrays)
+    total += sum(_arr_bytes(a) for a in (m.row_nulls or ()))
+    cur_views = {v.batch.batch_id: v for v in cur.views} \
+        if cur is not None else {}
+    for v in m.views:
+        cv = cur_views.get(v.batch.batch_id)
+        if cv is v:
+            continue
+        if v.delete_mask is not None and (
+                cv is None or cv.delete_mask is not v.delete_mask):
+            total += _arr_bytes(v.delete_mask)
+        cur_deltas = set(map(id, cv.deltas)) if cv is not None else set()
+        for d in v.deltas:
+            if id(d) not in cur_deltas:
+                total += _arr_bytes(d[1]) + _arr_bytes(d[2]) \
+                    + _arr_bytes(d[3])
+    return total
+
+
+def retained_bytes_of(data) -> int:
+    retained = getattr(data, "_retained_epochs", None)
+    if not retained:
+        return 0
+    cur = data._manifest
+    with _clock_lock:
+        items = [(v, m) for v, m in retained.items() if v != cur.version]
+    return sum(_manifest_extra_bytes(m, cur) for _v, m in items)
+
+
+def retained_epoch_bytes_by_table(tables) -> Dict[str, int]:
+    """Per-table retained-epoch bytes for the broker ledger.  `tables`
+    is an iterable of (name, data)."""
+    out: Dict[str, int] = {}
+    for name, data in tables:
+        if not hasattr(data, "_manifest"):
+            continue
+        try:
+            b = retained_bytes_of(data)
+        except Exception:
+            b = 0
+        if b:
+            out[name] = out.get(name, 0) + b
+    return out
+
+
+def retained_epochs_of(data) -> List[dict]:
+    """Observability rows for one table's retained-epoch list."""
+    retained = getattr(data, "_retained_epochs", None)
+    if not retained:
+        return []
+    cur = data._manifest
+    pins = getattr(data, "_pin_counts", {})
+    with _clock_lock:
+        items = sorted(retained.items())
+    out = []
+    for v, m in items:
+        out.append({
+            "version": v,
+            "epoch": int(getattr(m, "epoch", 0)),
+            "wal_seq": int(getattr(m, "wal_seq", 0)),
+            "pins": int(pins.get(v, 0)),
+            "current": v == cur.version,
+            "bytes": 0 if v == cur.version
+            else _manifest_extra_bytes(m, cur),
+        })
+    return out
+
+
+def trim_unpinned(tables) -> int:
+    """Degradation-ladder step: drop every retained epoch no pin holds
+    (keeping only the current manifest) and the device-cache entries of
+    versions that are neither pinned nor current.  Returns how many
+    epochs and cache entries were trimmed."""
+    from snappydata_tpu_torch.storage.device import _cache_budget
+
+    trimmed = 0
+    for _nm, data in tables:
+        if not hasattr(data, "_manifest"):
+            continue
+        with _clock_lock:
+            trimmed += _trim_retained_locked(data, keep_unpinned=0)
+        pinned = pinned_versions(data)
+        cache = getattr(data, "_device_cache", None)
+        if cache:
+            cur_ver = data._manifest.version
+            for k in [k for k in list(cache)
+                      if k[0] != cur_ver and k[0] not in pinned]:
+                cache.pop(k, None)
+                _cache_budget.forget(cache, k)
+                trimmed += 1
+    if trimmed:
+        _reg().inc("mvcc_epoch_trims", trimmed)
+    return trimmed

@@ -4,8 +4,8 @@ Port of snappydata_tpu/storage/persistence.py.  The on-disk format is the
 reference's byte for byte (record framing, CRC, codec tags, schema JSON,
 manifests), so either package recovers a data directory the other wrote.
 Left out with the subsystems they serve: materialized-view state
-(`checkpoint_matview`, the view branches of recovery), the disk tier's
-`load_batch`, and the re-registration of views, policies, indexes,
+(`checkpoint_matview`, the view branches of recovery) and the
+re-registration of views, policies, indexes,
 deployed code, streams, grants and AQP samples on recovery — a data
 directory that records any of them raises NotImplementedError when it is
 recovered, never skipping it silently.
@@ -163,18 +163,24 @@ def _arr_from_parts(meta: dict, parts: List[bytes]) -> Optional[np.ndarray]:
         .reshape(meta["shape"]).copy()
 
 
-def frame_record(header: dict, arrays: List[Optional[np.ndarray]]
-                 ) -> bytes:
+def frame_record(header: dict, arrays: List[Optional[np.ndarray]],
+                 codec: Optional[str] = None) -> bytes:
     """Assemble one record as a single contiguous buffer: magic, head
     length, JSON head, parts, trailing CRC32. The CRC is computed in ONE
     pass over the assembled head+parts region (no per-part incremental
     loop) and callers issue ONE write for the whole record — the group
     commit drain concatenates these frames and syncs them with one
-    write+fsync per group."""
+    write+fsync per group.
+
+    `codec` overrides the global at-rest codec for THIS record: the disk
+    tier (storage/tier.py) frames demoted batches with codec="none", so
+    raw numeric parts land at computable offsets and memmap back without
+    a decompress pass."""
     from snappydata_tpu_torch import config
     from snappydata_tpu_torch.storage.encoding import compress_bytes
 
-    codec = config.global_properties().compression_codec
+    if codec is None:
+        codec = config.global_properties().compression_codec
     metas = []
     parts: List[bytes] = []
     codecs: List[str] = []
@@ -1454,6 +1460,33 @@ class DiskStore:
             with mvcc.commit_scope(int(manifest.get("wal_seq", 0))):
                 data._publish(tuple(views))
         return manifest.get("wal_seq", 0)
+
+    def load_batch(self, table: str, batch_id: int
+                   ) -> Optional[ColumnBatch]:
+        """Re-read ONE checkpointed batch by id: the tier quarantine's
+        rebuild source (storage/tier.py).  Batch files are write-once, so
+        a clean read IS the batch as of its last checkpoint; None when the
+        table or batch has no durable artifact, or that artifact is itself
+        damaged (the caller's typed-error path takes over)."""
+        tdir = os.path.join(self.path, "tables", table)
+        mpath = os.path.join(tdir, "manifest.json")
+        if not os.path.exists(mpath):
+            return None
+        try:
+            with open(mpath) as fh:
+                manifest = json.load(fh)
+        except (OSError, ValueError):
+            return None
+        for entry in manifest.get("batches", ()):
+            if int(entry.get("batch_id", -1)) != int(batch_id):
+                continue
+            fpath = os.path.join(tdir, entry["file"])
+            try:
+                batch, _names = self._read_batch(fpath, entry, None)
+            except (CorruptRecordError, OSError):
+                return None
+            return batch
+        return None
 
     def _read_batch(self, fpath: str, entry: dict, schema: T.Schema
                     ) -> Tuple[ColumnBatch, Optional[List[str]]]:

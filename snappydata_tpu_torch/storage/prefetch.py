@@ -24,7 +24,10 @@ outside; the build itself runs unlocked).  The keep-window registry it
 guards tells the device cache's window prune which tile entries are live
 look-ahead.  A worker death is counted (`prefetch_worker_deaths`) and the
 worker restarts up to `tier_prefetch_max_restarts` times; past that the
-pass carries on with inline binds.
+pass carries on with inline binds.  The `prefetch.worker` failpoint sits
+at the top of each window's build, inside that supervision
+(`kill_worker` there is the uncaught-death shape); `worker_snapshot()`
+reads the workers' health.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch.observability.metrics import global_registry
+from snappydata_tpu_torch.reliability import failpoints as rfail
 from snappydata_tpu_torch.utils import locks
 
 # one lock for every prefetcher AND the keep-window registry: prefetch
@@ -45,6 +49,23 @@ _pf_lock = locks.named_lock("storage.prefetch")
 _KEEP: Dict[int, Set[Tuple[int, int]]] = {}   # id(data) -> live windows
 
 _COL_KINDS = ("col", "ccol")
+
+# live worker threads; mutated only under _pf_lock
+_LIVE_WORKERS: Set[int] = set()
+
+
+def worker_snapshot() -> dict:
+    """Point-in-time prefetch-worker health: live workers plus the
+    lifetime death and restart counters (restarting through faults is
+    told apart from silently degrading to inline binds)."""
+    reg = global_registry()
+    with _pf_lock:
+        live = len(_LIVE_WORKERS)
+    return {"live_workers": live,
+            "worker_deaths": reg.counter("prefetch_worker_deaths"),
+            "worker_restarts": reg.counter("prefetch_worker_restarts"),
+            "errors": reg.counter("prefetch_errors"),
+            "windows_warmed": reg.counter("prefetch_windows_warmed")}
 
 
 def keep_windows(data) -> Set[Tuple[int, int]]:
@@ -185,9 +206,12 @@ class TilePrefetcher:
             _KEEP.pop(id(self._data), None)
         kept = keep_windows(self._data)   # concurrent passes, if any
         cache = self._data._device_cache
+        from snappydata_tpu_torch.storage.device import _cache_budget
+
         for k in [k for k in list(cache)
                   if k[2] is not None and k[2] not in kept]:
             cache.pop(k, None)
+            _cache_budget.forget(cache, k)
         if self._overlapped:
             global_registry().inc("prefetch_overlap_ms",
                                   max(1, int(self._overlap_ms)))
@@ -238,24 +262,31 @@ class TilePrefetcher:
         max_restarts = int(config.global_properties()
                            .tier_prefetch_max_restarts)
         reg = global_registry()
-        attempt = 0
-        while True:
-            try:
-                self._loop()
-                return                       # clean stop
-            except BaseException:
-                reg.inc("prefetch_errors")
-                reg.inc("prefetch_worker_deaths")
-                with self._cond:
-                    stopped = self._stop
-                if stopped or attempt >= max_restarts:
+        tid = threading.get_ident()
+        with _pf_lock:
+            _LIVE_WORKERS.add(tid)
+        try:
+            attempt = 0
+            while True:
+                try:
+                    self._loop()
+                    return                       # clean stop
+                except BaseException:
+                    reg.inc("prefetch_errors")
+                    reg.inc("prefetch_worker_deaths")
                     with self._cond:
-                        self._dead = True
-                        self._cond.notify_all()
-                    return
-                attempt += 1
-                reg.inc("prefetch_worker_restarts")
-                time.sleep(min(0.25, 0.02 * (2 ** (attempt - 1))))
+                        stopped = self._stop
+                    if stopped or attempt >= max_restarts:
+                        with self._cond:
+                            self._dead = True
+                            self._cond.notify_all()
+                        return
+                    attempt += 1
+                    reg.inc("prefetch_worker_restarts")
+                    time.sleep(min(0.25, 0.02 * (2 ** (attempt - 1))))
+        finally:
+            with _pf_lock:
+                _LIVE_WORKERS.discard(tid)
 
     def _loop(self) -> None:
         from snappydata_tpu_torch.storage import device as device_mod
@@ -279,6 +310,9 @@ class TilePrefetcher:
                 t0 = time.perf_counter()
                 ev = None
                 try:
+                    # the worker-body seam: kill_worker here escapes into
+                    # _run's supervision (restart with backoff)
+                    rfail.hit("prefetch.worker")
                     # the worker's scan_window contextvar is PER-THREAD:
                     # the consumer's window never sees this restriction
                     with device_mod.scan_window(self._data, lo, hi,

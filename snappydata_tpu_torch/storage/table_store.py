@@ -24,8 +24,10 @@ The same inserts produce the same encodings as the reference package
 are copied unchanged.  ARRAY / MAP / STRUCT columns store their cells
 as OBJECT and keep append-only dictionaries of their string parts
 (array elements, map keys and values, struct fields) for the device
-bind.  Host spill, tiered storage and secondary indexes on row tables
-are not ported.
+bind.  Inserts refuse work past `critical_host_bytes`, and a column
+table spills its oldest batches to memmaps past its host budget
+(storage/hoststore.py; the disk tier is storage/tier.py).  Secondary
+indexes on row tables are not ported.
 """
 
 from __future__ import annotations
@@ -389,6 +391,9 @@ class ColumnTableData:
 
         `nulls[i]` is an optional bool mask marking SQL NULLs in column i
         (values at those positions are fillers)."""
+        from snappydata_tpu_torch.storage import hoststore
+
+        hoststore.check_critical_memory()
         arrays = [np.asarray(a) for a in arrays]
         if len(arrays) != len(self.schema.fields):
             raise ValueError(
@@ -430,7 +435,20 @@ class ColumnTableData:
             if self._row_buffer.count >= self.max_delta_rows:
                 views.extend(self._rollover_locked())
             self._publish(tuple(views))
+        self._maybe_spill()
         return n
+
+    def _maybe_spill(self) -> None:
+        """Spill the coldest batches to disk when the host budget is
+        exceeded (ref: SnappyStorageEvictor region eviction).  The table's
+        own budget (OPTIONS eviction_bytes 'N', the EVICTION clause's
+        analogue) overrides the global `host_store_bytes`."""
+        budget = getattr(self, "eviction_bytes", None) \
+            or config.global_properties().host_store_bytes
+        if budget:
+            from snappydata_tpu_torch.storage import hoststore
+
+            hoststore.spill_to_budget(self, budget)
 
     # rows below which the pipelined cut isn't worth its thread overhead
     _PIPELINE_MIN_ROWS = 1 << 16
@@ -858,6 +876,9 @@ class RowTableData:
         return self._version
 
     def insert_arrays(self, arrays: Sequence[np.ndarray]) -> int:
+        from snappydata_tpu_torch.storage import hoststore
+
+        hoststore.check_critical_memory()
         arrays = [np.asarray(a) for a in arrays]
         n = int(arrays[0].shape[0])
         with self._lock:

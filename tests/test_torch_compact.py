@@ -200,3 +200,77 @@ def test_row_tables_and_clean_tables_are_skipped_itemized():
     config.global_properties().compaction_enabled = False
     out = compact.run_compaction_pass(pair.port.catalog.describe("e").data)
     assert out["skipped"] == {"disabled": 1}
+
+
+def test_rle_agg_reroute_tallied_per_table_like_the_reference():
+    """One run-space query whose filter leaves run space: both packages
+    count the same compressed_fallback_rle_agg, and both tally it on the
+    TABLE (the broker-kicked sweep's trigger)."""
+    from snappydata_tpu.storage import device_decode as ref_dd
+    from snappydata_tpu_torch.storage import device_decode as dd
+
+    pair = Pair("f64", routed=("compressed_fallback_rle_agg",
+                               "agg_rle_runs", "host_fallbacks"))
+    pair.sql("CREATE TABLE rt (r DOUBLE) USING column")
+    r = np.repeat(np.array([1.0, 2.0, 5.0, 9.0]), 5000)
+    pair.insert_arrays("rt", [r])
+    for s in (pair.port, pair.ref):
+        s.catalog.describe("rt").data.force_rollover()
+    rows, moved = pair.run("SELECT sum(r), count(r) FROM rt "
+                           "WHERE r < 9.0 OR r * 2.0 > 17.0")
+    assert rows == [(float(r.sum()), r.size)]
+    assert moved["compressed_fallback_rle_agg"] == 2
+    port_tally = dd.table_fallbacks(pair.port.catalog.describe("rt").data)
+    ref_tally = ref_dd.table_fallbacks(pair.ref.catalog.describe("rt").data)
+    assert port_tally.get("rle_agg") == ref_tally.get("rle_agg") == 2
+    assert compact.foldable_fallbacks(pair.port.catalog.describe("rt").data) \
+        == ref_compact.foldable_fallbacks(
+            pair.ref.catalog.describe("rt").data)
+
+
+def test_admission_kicks_one_background_sweep_in_the_device_scope(
+        monkeypatch):
+    """The broker's admission path starts one background sweep
+    (single-flight, interval-gated) that folds the tables whose foldable
+    tally crossed compaction_min_fallbacks, inside the admitting
+    statement's device scope."""
+    import torch
+
+    pair = _pair()
+    _debris(pair)
+    port_data = pair.port.catalog.describe("ct").data
+    pair.run(QUERIES[0])           # the deltas reroute: the tally moves
+    assert compact.foldable_fallbacks(port_data) > 0
+    props = config.global_properties()
+    seen = []
+    orig = compact.run_compaction_pass
+
+    def spy(data, force=False):
+        seen.append(config.current_device())
+        return orig(data, force=force)
+
+    monkeypatch.setattr(compact, "run_compaction_pass", spy)
+    monkeypatch.setattr(compact, "_last_pass", 0.0)
+    props.compaction_enabled = True
+    s0 = global_registry().counter("compaction_sweeps")
+    try:
+        pair.port.sql("SELECT count(*) FROM ct")   # admission kicks
+        assert compact.wait_idle(30.0)
+        # the interval gates a second kick
+        pair.port.sql("SELECT count(*) FROM ct")
+        assert compact.wait_idle(30.0)
+    finally:
+        props.compaction_enabled = False
+    assert global_registry().counter("compaction_sweeps") == s0 + 1
+    assert seen and all(d == torch.device("cpu") for d in seen)
+    assert compact.foldable_fallbacks(port_data) == 0
+    man = port_data.snapshot()
+    assert all(not v.deltas and v.delete_mask is None for v in man.views)
+    # the folded table answers as the reference's (which kept its deltas)
+    # with no delta reroute left on the port's side
+    for q in QUERIES:
+        want = [tuple(x) for x in pair.ref.sql(q).rows()]
+        d0 = global_registry().counter("compressed_fallback_deltas")
+        got = [tuple(x) for x in pair.port.sql(q).rows()]
+        assert global_registry().counter("compressed_fallback_deltas") == d0
+        assert_rows_equal(got, want, 1e-9)

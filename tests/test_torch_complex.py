@@ -27,13 +27,15 @@ from snappydata_tpu_torch.utils import tpch
 
 @pytest.fixture(autouse=True)
 def no_background_compaction():
-    """The reference's background compactor rewrites batches on its own
-    clock; a rewrite between two statements would change its plates."""
-    props = ref_config.global_properties()
-    saved = props.compaction_enabled
-    props.compaction_enabled = False
+    """Both packages' background compactors rewrite batches on their own
+    clock; a rewrite between two statements would change the plates."""
+    props = (ref_config.global_properties(), config.global_properties())
+    saved = [p.compaction_enabled for p in props]
+    for p in props:
+        p.compaction_enabled = False
     yield
-    props.compaction_enabled = saved
+    for p, c in zip(props, saved):
+        p.compaction_enabled = c
 
 
 @pytest.fixture(params=POLICIES)

@@ -1096,3 +1096,152 @@ def test_cuda_recovered_table_launches_both_kernels(cuda_device, tmp_path):
         props.pallas_reduce, props.pallas_group_reduce = knobs
     for got, want in zip(rows[str(cuda_device)], rows["cpu"]):
         _close_rows(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_ledger_device_bytes_equal_the_storage_bytes(cuda_device):
+    """The broker's device ledger of a table is the bytes of the distinct
+    storages of its cached plates: every tensor of every entry counted
+    once per storage, whatever views and plate tuples share them."""
+    from snappydata_tpu_torch.resource import global_broker
+    from snappydata_tpu_torch.storage.device import _tensor_leaves
+
+    s = _tiled_session(cuda_device, 1 << 20, 1 << 16)
+    s.sql(TILED_Q)
+    data = s.catalog.describe("tl").data
+    storages = {}
+    for t in _tensor_leaves(list(data._device_cache.values())):
+        assert t.is_cuda
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+    led = global_broker().ledger()
+    assert led["device"]["tl"] == sum(storages.values()) > 0
+    from snappydata_tpu_torch.storage.device import \
+        device_cache_bytes_by_device
+
+    by_dev = device_cache_bytes_by_device([("tl", data)])
+    assert by_dev == {str(cuda_device) if cuda_device.index is not None
+                      else "cuda:0": led["device"]["tl"]}
+
+
+@pytest.mark.cuda
+def test_cuda_demotion_lowers_memory_allocated(cuda_device):
+    """HBM -> host demotion drops the table's plates: once the query's
+    own references are gone, `memory_allocated` falls by at least the
+    ledger's device bytes of the table, and the next query rebinds and
+    answers the same."""
+    import gc
+
+    from snappydata_tpu_torch.resource import global_broker
+    from snappydata_tpu_torch.storage import tier
+
+    s = _tiled_session(cuda_device, 1 << 21, 1 << 16)
+    want = s.sql(TILED_Q).rows()
+    data = s.catalog.describe("tl").data
+    s.executor.clear_cache()      # compiled plans hold no plates past here
+    gc.collect()
+    torch.cuda.synchronize()
+    ledger = global_broker().ledger()["device"]["tl"]
+    before = torch.cuda.memory_allocated()
+    assert tier.demote_device([("tl", data)], 1 << 40) > 0
+    gc.collect()
+    torch.cuda.synchronize()
+    probe = torch.empty(1, device=cuda_device)
+    del probe
+    after = torch.cuda.memory_allocated()
+    assert global_broker().ledger()["device"].get("tl", 0) == 0
+    assert before - after >= ledger, (before, after, ledger)
+    got = s.sql(TILED_Q).rows()
+    assert [r[:2] for r in got] == [r[:2] for r in want]
+
+
+@pytest.mark.cuda
+def test_cuda_cancelled_tiled_pass_leaves_no_bytes(cuda_device):
+    """A tiled pass cancelled after its first tile raises XCL52 before
+    its last tile, stops its prefetcher, releases its pin, deregisters
+    the query, and leaves `memory_allocated` where it found it; the next
+    query answers."""
+    import contextlib
+    import gc
+    import threading
+
+    import snappydata_tpu_torch.session as session_mod
+    from snappydata_tpu_torch import config, resource
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.storage import mvcc, prefetch
+
+    s = _tiled_session(cuda_device, 1 << 21, 1 << 16)
+    data = s.catalog.describe("tl").data
+    props = config.global_properties()
+    saved = props.scan_tile_bytes
+    reg = global_registry()
+    first_tile = threading.Event()
+    orig = session_mod.scan_window
+
+    @contextlib.contextmanager
+    def slow_window(d, lo, hi, manifest=None, **kw):
+        with orig(d, lo, hi, manifest, **kw):
+            yield
+        first_tile.set()
+        time.sleep(0.05)
+
+    errs = []
+    try:
+        props.scan_tile_bytes = (1 << 21) * 25 // 16
+        # the reference run on a thread of its own as well: a thread's
+        # first cuBLAS call (the matmul lane) allocates a 32 MiB
+        # workspace for its handle, which torch keeps pooled; that is the
+        # thread's, not the pass's
+        got = []
+        warm = threading.Thread(target=lambda: got.append(
+            s.sql(TILED_Q).rows()))
+        warm.start()
+        warm.join(60)
+        want = got[0]
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        session_mod.scan_window = slow_window
+        t0 = reg.counter("scan_tiles")
+
+        def run():
+            try:
+                s.sql(TILED_Q)
+                errs.append(None)
+            except Exception as e:      # noqa: BLE001
+                errs.append(e)
+
+        th = threading.Thread(target=run)
+        th.start()
+        assert first_tile.wait(30)
+        qid = [q["id"] for q in resource.global_broker().queries()
+               if "FROM tl" in q["sql"]][0]
+        assert resource.global_broker().cancel(qid)
+        th.join(60)
+    finally:
+        session_mod.scan_window = orig
+        props.scan_tile_bytes = saved
+    assert isinstance(errs[0], resource.CancelException)
+    assert "XCL52" in str(errs[0])
+    assert reg.counter("scan_tiles") - t0 < 16
+    assert not s._in_tile and not mvcc.has_pins(data)
+    assert not prefetch.keep_windows(data)
+    assert all(q["id"] != qid for q in resource.global_broker().queries())
+    gc.collect()
+    torch.cuda.synchronize()
+    # one allocation lets the caching allocator retire blocks whose
+    # record_stream events have completed
+    probe = torch.empty(1, device=cuda_device)
+    del probe
+    after = torch.cuda.memory_allocated()
+    live = sorted((o.untyped_storage().nbytes(), tuple(o.shape), str(o.dtype))
+                  for o in gc.get_objects()
+                  if torch.is_tensor(o) and o.is_cuda) \
+        if after > before else []
+    assert after <= before, (before, after, live[-8:])
+    # float64 sums merge in no fixed order on the card: equal to rounding
+    got = s.sql(TILED_Q).rows()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a[0], a[1], a[3], a[4]) == (b[0], b[1], b[3], b[4])
+        assert a[2] == pytest.approx(b[2], rel=1e-12)

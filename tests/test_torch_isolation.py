@@ -103,3 +103,44 @@ def test_durability_fault_and_reliability_import_no_jax():
     out = _run(_DURABLE)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+_GOVERNED = r"""
+import sys, tempfile
+import numpy as np
+from snappydata_tpu_torch import SnappySession, config, resource
+from snappydata_tpu_torch.catalog import Catalog
+from snappydata_tpu_torch.reliability import faultstorm
+from snappydata_tpu_torch.storage import hoststore, tier
+
+props = config.global_properties()
+props.column_batch_rows = 256
+props.column_max_delta_rows = 256
+d = tempfile.mkdtemp()
+s = SnappySession(catalog=Catalog(), data_dir=d, recover=False, device="cpu")
+s.sql("CREATE TABLE t (k BIGINT, v DOUBLE) USING column")
+s.insert_arrays("t", [np.arange(2000, dtype=np.int64), np.ones(2000)])
+s.checkpoint()
+data = s.catalog.describe("t").data
+assert tier.demote([("t", data)], 1 << 40) > 0
+assert tier.promote_table(data) > 0
+assert hoststore.spill_to_budget(data, 0) > 0
+assert s.sql("SELECT count(*), sum(v) FROM t").rows() == [(2000, 2000.0)]
+assert "t" in resource.global_broker().ledger()["device"]
+res = faultstorm.run_storm(tempfile.mkdtemp(), seed=5, rounds=3,
+                           device="cpu")
+assert res["recovery_ratio"] == 1.0, res
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_governor_tier_and_storm_import_no_jax():
+    """The resource governor, host spill, the tier ladder with its
+    self-healing, and the fault storm run without JAX or the JAX
+    package."""
+    out = _run(_GOVERNED)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout

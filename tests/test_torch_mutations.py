@@ -36,19 +36,20 @@ N_TAIL = 100
 
 @pytest.fixture(autouse=True)
 def small_batches():
-    """Small batches in both packages, and the reference's background
-    compactor off: it folds deltas and row-buffer rows on its own clock,
-    which would change the reference's plates between two queries."""
+    """Small batches in both packages, and both packages' background
+    compactors off: they fold deltas and row-buffer rows on their own
+    clock, which would change the plates between two queries."""
     ref_props = ref_config.global_properties()
     props = (ref_props, config.global_properties())
     saved = [(p.column_batch_rows, p.column_max_delta_rows) for p in props]
-    saved_compaction = ref_props.compaction_enabled
-    ref_props.compaction_enabled = False
+    saved_compaction = [p.compaction_enabled for p in props]
     for p in props:
+        p.compaction_enabled = False
         p.column_batch_rows = 512
         p.column_max_delta_rows = 256
     yield
-    ref_props.compaction_enabled = saved_compaction
+    for p, c in zip(props, saved_compaction):
+        p.compaction_enabled = c
     for p, (rows, delta) in zip(props, saved):
         p.column_batch_rows = rows
         p.column_max_delta_rows = delta

@@ -27,7 +27,7 @@ from snappydata_tpu import config as ref_config
 from snappydata_tpu.catalog import Catalog as RefCatalog
 from snappydata_tpu.observability.metrics import \
     global_registry as ref_registry
-from snappydata_tpu_torch import SnappySession
+from snappydata_tpu_torch import SnappySession, config
 from snappydata_tpu_torch.catalog import Catalog
 from snappydata_tpu_torch.observability.metrics import global_registry
 
@@ -60,11 +60,13 @@ DEVICE_QS = (
 
 @pytest.fixture(autouse=True)
 def no_background_compaction():
-    props = ref_config.global_properties()
-    saved = props.compaction_enabled
-    props.compaction_enabled = False
+    props = (ref_config.global_properties(), config.global_properties())
+    saved = [p.compaction_enabled for p in props]
+    for p in props:
+        p.compaction_enabled = False
     yield
-    props.compaction_enabled = saved
+    for p, c in zip(props, saved):
+        p.compaction_enabled = c
 
 
 def _new(pkg, d):

@@ -70,6 +70,10 @@ class Pair:
     def __init__(self, name="f64", routed=ROUTED):
         self.policy = name
         self.routed = routed
+        # the port's broker-kicked compactor would rewrite the port's
+        # tables on its own clock between two compared queries; a test
+        # of the scheduler turns it on explicitly
+        config.global_properties().compaction_enabled = False
         self.ref = RefSession(catalog=RefCatalog())
         self.port = SnappySession(catalog=Catalog(), device="cpu")
 
