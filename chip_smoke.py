@@ -88,8 +88,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    last tile's inputs, and the Kahan kernel on the first (full) tile's
    too (phase 5's checks and timings); seconds, rows/s, bytes uploaded
    per pass and the pinned host-to-device rate;
-12. exact decimals: lineitem_dec (the first quarter of the --sf x 6M
-   generated rows, `DEC_DEPTH`, cut to leave phases 15 - 16 room, with
+12. exact decimals: lineitem_dec (the first eighth of the --sf x 6M
+   generated rows, `DEC_DEPTH`, cut to keep the run inside its limit, with
    l_quantity, l_extendedprice, l_discount and l_tax as DECIMAL(15,2))
    loaded, Q1 and Q6 through `session.sql`: the exact slots are
    `Decimal`s equal, digit for digit, to an int64-cents numpy oracle, the
@@ -214,9 +214,32 @@ Phases, in order; any failure exits non-zero before the result lines:
    (8 at SF 16).  The broker-kicked compactor stays off
    (`compaction_enabled`) from phase 3 until (h), so the earlier phases
    run as before;
-21. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+21. right after phase 16, on the main session as phase 16 leaves
+   lineitem: views, materialized views and SQL functions.  (a) TPC-H Q15:
+   supplier at --sf (160,000 rows at SF 16), `Q15_VIEW`, then `Q15` (first
+   and warm seconds, peak memory, the reference's routing: two host
+   fallbacks a run, no device join; the top supplier against numpy);
+   (b) `rev(p, d) = p * d` in Q6 (the Kahan kernel once a run, no host
+   fallback, Q6's oracle) and `capped(x) = jnp.clip(x, 10, 40)` in Q1's
+   GROUP BY (the grouped kernel), seconds beside phase 4's; (c)
+   `q1_mv`, a materialized Q1 (keys, three sums, count): the create's
+   seconds (one full refresh), the warm read's, the broker's
+   `matview_state_bytes` beside `state_nbytes()`, `memory_allocated`
+   and the ledger's device bytes per table before and after; (d) inserts of 1, 1,024 and 131,072 rows, each
+   insert's seconds and its fold's share, the view against numpy after
+   each; (e) a DELETE subtracts (the view stays fresh and exact), an
+   UPDATE of l_discount marks it stale and the next read refreshes in
+   full, and DROP MATERIALIZED VIEW leaves no device bytes under the
+   view, its backing table or its scratch tables; the grouped kernel on (c)'s refresh inputs and the Kahan kernel
+   on (b)'s Q6 inputs against their plain versions; (f) a durable
+   session of its own over the first 2,000,000 generated rows: q1_mv,
+   rev() and a plain view, a checkpoint, two inserts as the WAL tail, a
+   crash-shape reopen: the state reloads, the tail alone folds, and the
+   view, rev()'s Q6 and the plain view equal numpy (checkpoint and
+   recovery seconds);
+22. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
-   18, 19 and 20.
+   18, 19, 20 and 21.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -239,7 +262,7 @@ ORDERS_PER_SF = 1_500_000
 KERNELS = ("kahan_reduce", "group_reduce", "code_filter_sum",
            "group_code_reduce")
 RLE_PROBE_ROWS = (1 << 16, 1 << 22)
-DEC_DEPTH = 4        # lineitem_dec holds 1 / DEC_DEPTH of lineitem's rows
+DEC_DEPTH = 8        # lineitem_dec holds 1 / DEC_DEPTH of lineitem's rows
 
 
 def fail(msg: str) -> None:
@@ -1711,7 +1734,8 @@ def q10_oracle(li, orders, cust, tpch):
 
 
 def mutation_path(session, tpch, li, orders, cust, first, args):
-    """Phase 16 (a) - (h); returns the two kernels' launches over (e)."""
+    """Phase 16 (a) - (h); returns the two kernels' launches over (e) and
+    lineitem's columns that phase 21 reads, as the phase leaves them."""
     import threading
 
     import numpy as np
@@ -1891,6 +1915,10 @@ def mutation_path(session, tpch, li, orders, cust, first, args):
     check_rows("Q10 vs numpy", rows, q10_oracle(final, orders, cust, tpch))
     log(f"q10 {json.dumps(rows[:3], default=str)}")
     del final
+    # lineitem as the phase leaves it, for phase 21's oracles
+    post = {k: np.concatenate([mut[k]] + [
+        b[k].astype(np.float32) if k == "l_discount" else b[k]
+        for b in htap_batches]) for k in VIEW_COLUMNS}
 
     # PUT INTO the row table nation (one upsert, one insert), get(), and
     # PUT INTO a keyed column table
@@ -1919,7 +1947,476 @@ def mutation_path(session, tpch, li, orders, cust, first, args):
         f"{json.dumps(kv, default=str)}")
     log("answers ok: HTAP scans saw single epochs; Q10 over the row table "
         "nation matches numpy; PUT INTO and get() upsert on the key")
-    return launches
+    return launches, post
+
+
+# --------------------------------------------------------------------------
+# phase 21: views, materialized views and SQL functions, on the main
+# session as phase 16 leaves it
+# --------------------------------------------------------------------------
+
+VIEW_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+                "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
+                "l_suppkey", "l_orderkey")
+Q1_MV_SELECT = ("SELECT l_returnflag, l_linestatus, sum(l_quantity), "
+                "sum(l_extendedprice), "
+                "sum(l_extendedprice * (1 - l_discount)), count(*) "
+                "FROM lineitem "
+                "WHERE l_shipdate <= DATE '1998-12-01' - INTERVAL '90' DAY "
+                "GROUP BY l_returnflag, l_linestatus")
+Q1_MV = "CREATE MATERIALIZED VIEW q1_mv AS " + Q1_MV_SELECT
+Q1_MV_READ = "SELECT * FROM q1_mv ORDER BY l_returnflag, l_linestatus"
+REV_FUNCTION = "CREATE FUNCTION rev AS 'lambda p, d: p * d' RETURNS DOUBLE"
+CAPPED_FUNCTION = "CREATE FUNCTION capped AS 'lambda x: jnp.clip(x, 10, 40)'"
+CAPPED_Q1 = ("SELECT l_returnflag, l_linestatus, "
+             "sum(capped(l_quantity)), count(*) FROM lineitem "
+             "WHERE l_shipdate <= DATE '1998-12-01' - INTERVAL '90' DAY "
+             "GROUP BY l_returnflag, l_linestatus "
+             "ORDER BY l_returnflag, l_linestatus")
+FOLD_ROWS = (1, 1024, 131_072)
+VIEW_DELETE = "DELETE FROM lineitem WHERE l_shipdate > DATE '1998-11-01'"
+VIEW_UPDATE_KEYS = 2000       # UPDATE l_discount of orders 1 .. 2000
+DURABLE_VIEW_ROWS = 2_000_000
+CHEAP_VIEW = ("CREATE VIEW cheap AS SELECT l_returnflag, l_extendedprice "
+              "FROM lineitem WHERE l_discount < 0.025")
+CHEAP_READ = ("SELECT l_returnflag, sum(l_extendedprice), count(*) "
+              "FROM cheap GROUP BY l_returnflag ORDER BY l_returnflag")
+
+
+def rev_q6(tpch):
+    q = tpch.Q6.replace("sum(l_extendedprice * l_discount)",
+                        "sum(rev(l_extendedprice, l_discount))")
+    if q == tpch.Q6:
+        fail("Q6's revenue expression moved: rev() was not substituted")
+    return q
+
+
+def view_arrays(cols):
+    """The numeric columns phase 21's oracles read, with Q1's group as
+    one small code `g` = 2 * flag (A 0, N 1, R 2) + status (F 0, O 1):
+    the string compares over ~98M object cells are done once."""
+    import numpy as np
+
+    flag, status = cols["l_returnflag"], cols["l_linestatus"]
+    out = {k: v for k, v in cols.items()
+           if k not in ("l_returnflag", "l_linestatus")}
+    out["g"] = ((flag == "N").astype(np.int8) + 2 * (flag == "R")) * 2 \
+        + (status == "O")
+    return out
+
+
+def _per_group(arrs, tpch, weights):
+    import numpy as np
+
+    m = arrs["l_shipdate"] <= tpch._days("1998-12-01") - 90
+    g = arrs["g"][m]
+    cnt = np.bincount(g, minlength=6)
+    sums = [np.bincount(g, weights=w[m], minlength=6) for w in weights]
+    return [("ANR"[c // 2], "FO"[c % 2]) + tuple(float(x[c]) for x in sums)
+            + (int(cnt[c]),) for c in range(6) if cnt[c]]
+
+
+def mv_oracle(arrs, tpch):
+    """q1_mv's rows in float64 numpy: keys, three sums, count."""
+    price = arrs["l_extendedprice"]
+    return _per_group(arrs, tpch, [
+        arrs["l_quantity"], price,
+        price * (1 - arrs["l_discount"].astype("float64"))])
+
+
+def capped_oracle(arrs, tpch):
+    import numpy as np
+
+    return _per_group(arrs, tpch, [np.clip(arrs["l_quantity"], 10, 40)])
+
+
+def q6_oracle(arrs, tpch):
+    ship, disc = arrs["l_shipdate"], arrs["l_discount"]
+    m6 = (ship >= tpch._days("1994-01-01")) \
+        & (ship < tpch._days("1995-01-01")) \
+        & (disc >= 0.05) & (disc <= 0.07) & (arrs["l_quantity"] < 24)
+    return [(float((arrs["l_extendedprice"][m6] * disc[m6]).sum()),)]
+
+
+def cheap_oracle(arrs):
+    m = arrs["l_discount"] < 0.025
+    out = []
+    for i, f in enumerate("ANR"):
+        mf = m & (arrs["g"] // 2 == i)
+        if mf.any():
+            out.append((f, float(arrs["l_extendedprice"][mf].sum()),
+                        int(mf.sum())))
+    return out
+
+
+def q15_check(rows, arrs, supp):
+    """Q15's rows against float64 revenue per supplier computed from the
+    plates' float32 values: every row is a supplier within rel 1e-6 of
+    the top revenue, with its name and its revenue within rel 1e-6."""
+    import numpy as np
+
+    price = arrs["l_extendedprice"].astype(np.float32)
+    disc = arrs["l_discount"].astype(np.float32)
+    rev = (price * (np.float32(1) - disc)).astype(np.float64)
+    per = np.bincount(arrs["l_suppkey"], weights=rev)
+    top = per.max()
+    if not rows:
+        fail("Q15 returned no rows")
+    for k, name, total in rows:
+        if not (abs(per[k] - top) <= 1e-6 * top
+                and abs(total - per[k]) <= 1e-6 * per[k]
+                and name == supp["s_name"][k - 1]):
+            fail(f"Q15 row {(k, name, total)}: numpy top {top} at "
+                 f"{int(per.argmax())}, supplier {k} has {per[k]}")
+
+
+def _append(arrs, extra, f32_discount=True):
+    """`arrs` (`view_arrays` form) with the generated rows `extra`
+    appended; l_discount as float32 where the rows join a table whose
+    l_discount the phase updated at the plate width (phase 16's
+    convention), as generated otherwise."""
+    import numpy as np
+
+    more = view_arrays({k: extra[k] for k in VIEW_COLUMNS})
+    return {k: np.concatenate([arrs[k], more[k].astype(np.float32)
+                               if k == "l_discount" and f32_discount
+                               else more[k]])
+            for k in arrs}
+
+
+class FoldTimer:
+    """Sums the seconds every `MaterializedView.fold_delta` call takes
+    while installed."""
+
+    def __init__(self):
+        from snappydata_tpu_torch.views.matview import MaterializedView
+
+        self.cls = MaterializedView
+        self.real = MaterializedView.fold_delta
+        self.s = 0.0
+        timer = self
+
+        def timed(mv, *a, **kw):
+            import torch
+
+            t0 = time.perf_counter()
+            try:
+                return timer.real(mv, *a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                timer.s += time.perf_counter() - t0
+
+        MaterializedView.fold_delta = timed
+
+    def close(self):
+        self.cls.fold_delta = self.real
+
+
+def views_path(session, tpch, li, post, first, args):
+    """Phase 21 (a) - (f); returns the two kernels' launches.  `li` is the
+    generated lineitem, `post` its columns as phase 16 left the table,
+    `first` phase 4's Q1 / Q6 (rows, seconds)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from snappydata_tpu_torch import config, resource
+    from snappydata_tpu_torch.engine import executor
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.ops import group_reduce as gr
+    from snappydata_tpu_torch.ops import kahan_reduce as kr
+    from snappydata_tpu_torch.views import matview as mvmod
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    reg = global_registry()
+    arrs = view_arrays(post)
+    total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+
+    def drain():
+        # timed_query sets both counters to 0: fold them into the phase's
+        # total before and after each call
+        _launch_sum(total, {"grouped_reduce": gr.grouped_reduce.launches,
+                            "masked_kahan_sum": kr.masked_kahan_sum.launches})
+        gr.grouped_reduce.launches = 0
+        kr.masked_kahan_sum.launches = 0
+
+    drain()
+    total = dict.fromkeys(total, 0)
+
+    # (a) TPC-H Q15 through CREATE VIEW revenue_v
+    # supplier at TPC-H's 10,000 rows per SF, and at least the generated
+    # lineitem's l_suppkey range (1 .. 9,999) below SF 1
+    supp = tpch.gen_supplier(max(10_000, int(args.sf * 10_000)),
+                             args.seed + 3)
+    session.sql(tpch.SUPPLIER_DDL)
+    session.insert_arrays("supplier", list(supp.values()))
+    session.sql(tpch.Q15_VIEW)
+    drain()
+    rows, f_s, w_s, moved, _lc, _calls, peak, _res = \
+        timed_query(session, tpch.Q15, args.reps)
+    drain()
+    log(f"q15 first_s {f_s:.4f} warm_s {w_s:.4f} rows {len(rows)} "
+        f"counters {json.dumps(moved)} peak_device_bytes {peak}")
+    # the reference's routing (tests/test_torch_views.py): the supplier
+    # join over the aggregated view and the subquery's max run on the host
+    if (moved["host_fallbacks"], moved["join_device_joins"]) != \
+            (2 * (1 + args.reps), 0):
+        fail(f"Q15 routing {moved} is not the reference's (2 host "
+             "fallbacks a run, no device join)")
+    q15_check(rows, arrs, supp)
+    log(f"q15 {json.dumps(rows, default=str)}")
+    if args.profile:
+        log("profile q15 " + json.dumps(profile_run(
+            lambda: session.sql(tpch.Q15).rows())))
+
+    # (b) SQL functions on the device
+    session.sql(REV_FUNCTION)
+    session.sql(CAPPED_FUNCTION)
+    drain()
+    rows, f_s, w_s, moved, lc, q6_calls, _peak, _res = \
+        timed_query(session, rev_q6(tpch), args.reps)
+    drain()
+    log(f"rev_q6 first_s {f_s:.4f} warm_s {w_s:.4f} (phase 4 q6 first_s "
+        f"{first['q6'][1]:.4f}) counters {json.dumps(moved)} launches "
+        f"{json.dumps(lc)}")
+    if moved["host_fallbacks"]:
+        fail("Q6 through rev() left the device")
+    if lc["masked_kahan_sum"] != 1 + args.reps:
+        fail(f"masked_kahan_sum launched {lc['masked_kahan_sum']} times "
+             f"over rev() Q6's {1 + args.reps} runs")
+    check_rows("Q6 through rev() vs numpy", rows, q6_oracle(arrs, tpch))
+    rows, f_s, w_s, moved, lc, _calls, _peak, _res = \
+        timed_query(session, CAPPED_Q1, args.reps)
+    drain()
+    log(f"capped_q1 first_s {f_s:.4f} warm_s {w_s:.4f} (phase 4 q1 "
+        f"first_s {first['q1'][1]:.4f}) counters {json.dumps(moved)} "
+        f"launches {json.dumps(lc)}")
+    if moved["host_fallbacks"] or lc["grouped_reduce"] < 1 + args.reps:
+        fail(f"Q1 through capped() left the device or skipped the grouped "
+             f"kernel: {moved} {lc}")
+    check_rows("Q1 through capped() vs numpy", rows,
+               capped_oracle(arrs, tpch))
+
+    # (c) a materialized Q1 view: one full refresh over the table
+    broker = resource.global_broker()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    dev0 = broker.ledger()["device"]
+    rec = Recorder(executor.grouped_reduce, keep=1)
+    executor.grouped_reduce = rec
+    try:
+        t0 = time.perf_counter()
+        session.sql(Q1_MV)
+        torch.cuda.synchronize()
+        create_s = time.perf_counter() - t0
+    finally:
+        executor.grouped_reduce = rec.fn
+    mv_calls = rec.calls
+    mv = mvmod.matviews(session.catalog)["q1_mv"]
+    alloc1 = torch.cuda.memory_allocated()
+    dev1 = broker.ledger()["device"]
+    ledger = broker.ledger()["matview_state_bytes"]
+    # the refresh's grouped-kernel inputs this phase keeps for the kernel
+    # check below: each distinct storage once
+    held = {}
+    for a in mv_calls[0] if mv_calls else ():
+        for x in (a if isinstance(a, (list, tuple)) else (a,)):
+            for t in (x if isinstance(x, (list, tuple)) else (x,)):
+                if isinstance(t, torch.Tensor):
+                    st = t.untyped_storage()
+                    held[st.data_ptr()] = st.nbytes()
+    reads = []
+    for _ in range(1 + args.reps):
+        t0 = time.perf_counter()
+        rows = session.sql(Q1_MV_READ).rows()
+        reads.append(time.perf_counter() - t0)
+    log(f"q1_mv create_s {create_s:.4f} read_first_s {reads[0]:.4f} "
+        f"read_warm_s {sorted(reads[1:])[len(reads[1:]) // 2]:.4f} "
+        f"matview_state_bytes {ledger} state_nbytes {mv.state_nbytes()} "
+        f"groups {mv.snapshot()['groups']} capacity "
+        f"{mv.snapshot()['capacity']} memory_allocated {alloc0} -> {alloc1}")
+    log(f"q1_mv create device_bytes_by_table before {json.dumps(dev0)} "
+        f"after {json.dumps(dev1)} recorded_refresh_input_bytes "
+        f"{sum(held.values())}")
+    del held
+    if ledger != mvmod.matview_state_nbytes() or mv.state_nbytes() <= 0:
+        fail(f"ledger matview_state_bytes {ledger} != the views' "
+             f"state_nbytes {mvmod.matview_state_nbytes()}")
+    check_rows("q1_mv vs numpy", rows, mv_oracle(arrs, tpch))
+
+    # (d) folds of 1, 1,024 and 131,072 inserted rows
+    for i, n in enumerate(FOLD_ROWS):
+        extra = tpch.gen_lineitem(n, args.seed + 20 + i)
+        f0 = reg.counter("view_delta_folds")
+        r0 = reg.counter("view_full_refreshes")
+        timer = FoldTimer()
+        try:
+            t0 = time.perf_counter()
+            session.insert_arrays("lineitem", list(extra.values()))
+            torch.cuda.synchronize()
+            ins_s = time.perf_counter() - t0
+        finally:
+            timer.close()
+        arrs = _append(arrs, extra)
+        t0 = time.perf_counter()
+        rows = session.sql(Q1_MV_READ).rows()
+        read_s = time.perf_counter() - t0
+        log(f"q1_mv fold rows {n} insert_s {ins_s:.4f} fold_s "
+            f"{timer.s:.4f} fold_share {timer.s / ins_s:.3f} read_s "
+            f"{read_s:.4f}")
+        if reg.counter("view_delta_folds") - f0 != 1 or \
+                reg.counter("view_full_refreshes") != r0:
+            fail(f"the {n}-row insert did not fold exactly once")
+        check_rows(f"q1_mv after a {n}-row insert vs numpy", rows,
+                   mv_oracle(arrs, tpch))
+    if args.profile:
+        extra = tpch.gen_lineitem(1024, args.seed + 29)
+        log("profile q1_mv_fold " + json.dumps(profile_run(
+            lambda: session.insert_arrays("lineitem",
+                                          list(extra.values())))))
+        arrs = _append(arrs, extra)
+        log("profile q1_mv_read " + json.dumps(profile_run(
+            lambda: session.sql(Q1_MV_READ).rows())))
+
+    # (e) a DELETE subtracts; an UPDATE marks the view stale
+    s0 = reg.counter("view_subtract_folds")
+    t0 = time.perf_counter()
+    n_del = int(session.sql(VIEW_DELETE).rows()[0][0])
+    del_s = time.perf_counter() - t0
+    keep = ~(arrs["l_shipdate"] > tpch._days("1998-11-01"))
+    arrs = {k: v[keep] for k, v in arrs.items()}
+    rows = session.sql(Q1_MV_READ).rows()
+    log(f"q1_mv delete rows {n_del} s {del_s:.4f} stale {mv.stale}")
+    if n_del != int((~keep).sum()) or mv.stale \
+            or reg.counter("view_subtract_folds") - s0 != 1:
+        fail(f"DELETE of {n_del} rows (numpy {int((~keep).sum())}) did not "
+             "subtract from the fresh view")
+    check_rows("q1_mv after the DELETE vs numpy", rows,
+               mv_oracle(arrs, tpch))
+    session.sql(f"UPDATE lineitem SET l_discount = l_discount + 0.01 "
+                f"WHERE l_orderkey <= {VIEW_UPDATE_KEYS}")
+    hit = arrs["l_orderkey"] <= VIEW_UPDATE_KEYS
+    arrs["l_discount"] = np.where(hit, arrs["l_discount"] + np.float32(0.01),
+                                  arrs["l_discount"]).astype(np.float32)
+    if not mv.stale:
+        fail("an UPDATE of the base left the view fresh")
+    r0 = reg.counter("view_full_refreshes")
+    t0 = time.perf_counter()
+    rows = session.sql(Q1_MV_READ).rows()
+    refresh_s = time.perf_counter() - t0
+    log(f"q1_mv update rows {int(hit.sum())} stale read (full refresh) s "
+        f"{refresh_s:.4f}")
+    if reg.counter("view_full_refreshes") - r0 != 1:
+        fail("the stale view's read did not refresh in full")
+    check_rows("q1_mv after the UPDATE vs numpy", rows,
+               mv_oracle(arrs, tpch))
+    # the drop hands back the view's bytes: its state, its backing table
+    # and its scratch tables leave the device ledger
+    session.sql("DROP MATERIALIZED VIEW q1_mv")
+    del mv
+    gc.collect()
+    torch.cuda.synchronize()
+    dev2 = broker.ledger()["device"]
+    alloc2 = torch.cuda.memory_allocated()
+    state2 = broker.ledger()["matview_state_bytes"]
+    log(f"q1_mv drop device_bytes_by_table {json.dumps(dev2)} "
+        f"matview_state_bytes {state2} memory_allocated {alloc2}")
+    left = {k: v for k, v in dev2.items()
+            if k in ("q1_mv", "__mv_delta", "__mv_partials") and v}
+    if left or state2:
+        fail(f"DROP MATERIALIZED VIEW left device bytes behind: {left}, "
+             f"matview_state_bytes {state2}")
+    drain()
+    log("answers ok: Q15, rev() Q6, capped() Q1 and q1_mv through its "
+        "folds, subtraction and refresh match numpy")
+
+    # the kernels on the inputs (c)'s refresh and (b)'s Q6 handed them
+    log(f"kernel grouped_reduce on q1_mv refresh "
+        f"{json.dumps(grouped_phase(mv_calls, args.reps))}")
+    log(f"kernel masked_kahan_sum on rev() q6 "
+        f"{json.dumps(kahan_phase(q6_calls['masked_kahan_sum'], args.reps))}")
+    del mv_calls, q6_calls
+    gc.collect()
+    torch.cuda.synchronize()
+    log(f"memory_allocated once the recorded kernel inputs are released "
+        f"{torch.cuda.memory_allocated()}")
+
+    # (f) durable views, on a durable session of its own
+    _launch_sum(total, durable_views(tpch, {k: v[:DURABLE_VIEW_ROWS]
+                                            for k, v in li.items()}, args))
+    return total
+
+
+def durable_views(tpch, gen, args):
+    """Phase 21 (f): q1_mv, rev() and a plain view on a durable lineitem
+    (`gen`: the first DURABLE_VIEW_ROWS generated rows), a checkpoint, a
+    two-statement WAL tail, a crash-shape reopen; returns the two
+    kernels' launches."""
+    import shutil
+    import tempfile
+
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.ops import group_reduce as gr
+    from snappydata_tpu_torch.ops import kahan_reduce as kr
+    from snappydata_tpu_torch.views import matview as mvmod
+
+    reg = global_registry()
+    d = tempfile.mkdtemp(prefix="chip_smoke_views_")
+    gr.grouped_reduce.launches = 0
+    kr.masked_kahan_sum.launches = 0
+    try:
+        li = view_arrays({k: gen[k] for k in VIEW_COLUMNS})
+        names = list(gen.keys())
+        s1 = SnappySession(catalog=Catalog(), data_dir=d, recover=False)
+        s1.sql(tpch.LINEITEM_DDL)
+        for lo in range(0, DURABLE_VIEW_ROWS, DURABLE_STMT_ROWS):
+            s1.insert_arrays("lineitem", [gen[k][lo:lo + DURABLE_STMT_ROWS]
+                                          for k in names])
+        s1.sql(Q1_MV)
+        s1.sql(REV_FUNCTION)
+        s1.sql(CHEAP_VIEW)
+        t0 = time.perf_counter()
+        s1.checkpoint()
+        ck_s = time.perf_counter() - t0
+        tail = [tpch.gen_lineitem(n, args.seed + 40 + i)
+                for i, n in enumerate((1024, 4096))]
+        for extra in tail:
+            s1.insert_arrays("lineitem", list(extra.values()))
+            li = _append(li, extra, f32_discount=False)
+        rp0 = reg.counter("view_replay_folds")
+        rf0 = reg.counter("view_full_refreshes")
+        t0 = time.perf_counter()
+        s2 = SnappySession(data_dir=d)   # crash shape: s1 stays open
+        rec_s = time.perf_counter() - t0
+        mv = mvmod.matviews(s2.catalog)["q1_mv"]
+        replays = reg.counter("view_replay_folds") - rp0
+        log(f"durable_views rows {DURABLE_VIEW_ROWS} checkpoint_s {ck_s:.4f}"
+            f" recovery_s {rec_s:.4f} replay_folds {replays} stale "
+            f"{mv.stale}")
+        if mv.stale or replays != len(tail):
+            fail(f"the recovered q1_mv is stale ({mv.stale}) or folded "
+                 f"{replays} WAL records, not the {len(tail)} of the tail")
+        check_rows("recovered q1_mv vs numpy", s2.sql(Q1_MV_READ).rows(),
+                   mv_oracle(li, tpch))
+        if reg.counter("view_full_refreshes") != rf0:
+            fail("the recovered q1_mv re-aggregated in full")
+        check_rows("recovered rev() Q6 vs numpy",
+                   s2.sql(rev_q6(tpch)).rows(), q6_oracle(li, tpch))
+        check_rows("recovered plain view vs numpy", s2.sql(CHEAP_READ).rows(),
+                   cheap_oracle(li))
+        s1.disk_store.close()
+        s2.disk_store.close()
+        log("answers ok: the durable view state reloaded, only the WAL tail "
+            "folded; q1_mv, rev() Q6 and the plain view match numpy")
+        return {"grouped_reduce": gr.grouped_reduce.launches,
+                "masked_kahan_sum": kr.masked_kahan_sum.launches}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -3062,7 +3559,7 @@ def main() -> int:
     del tk_calls
     log("answers ok: tiled Q1 and Q6 match phase 4 and the oracle")
 
-    # 12. exact decimals on the card, over the first quarter of the rows:
+    # 12. exact decimals on the card, over the first eighth of the rows:
     # a second full-size ingest would leave phases 15 - 16 too little of
     # the run's time limit
     n_dec = n_rows // DEC_DEPTH
@@ -3122,13 +3619,28 @@ def main() -> int:
     # insert, Q1 / Q6 through both kernels, HTAP, row tables
     cust = tpch.gen_customer(n_orders // 10, args.seed + 2)
     try:
-        mut_launches = mutation_path(session, tpch, li, orders, cust, first,
-                                     args)
+        mut_launches, post = mutation_path(session, tpch, li, orders, cust,
+                                           first, args)
     except Exception as e:  # noqa: BLE001 - report the phase, then exit
         fail(f"mutation path: {type(e).__name__}: {e}")
     del cust
     log(f"mutation_path_launches {json.dumps(mut_launches)}")
     for name, count in mut_launches.items():
+        launches[name] += count
+
+    # 21. views, materialized views and SQL functions on the same session:
+    # Q15 through its view, rev() / capped() on the device, a
+    # materialized Q1 view through folds, a DELETE and a stale refresh,
+    # then durable views
+    try:
+        v_launches = views_path(session, tpch, li, post, first, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"views path: {type(e).__name__}: {e}")
+    del post
+    log(f"views_path_launches {json.dumps(v_launches)}")
+    for name, count in v_launches.items():
+        if count < 1:
+            fail(f"{name} did not launch on the views path")
         launches[name] += count
 
     # 17. the Kahan kernel under torch.profiler, in a child process whose
@@ -3169,7 +3681,7 @@ def main() -> int:
     for name, count in d_launches.items():
         launches[name] += count
 
-    # 21. result lines
+    # 22. result lines
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",

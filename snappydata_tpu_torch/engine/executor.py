@@ -2951,6 +2951,25 @@ class Executor:
             self._cache_put(key, hit)
         return hit or None
 
+    def try_device(self, node: ast.Plan, params: Tuple) -> Optional[Result]:
+        """Run `node` as a device program of its own when it lowers, else
+        None.  Nothing counts as a host fallback: the caller is a host
+        lane that carries on with the node itself when this declines."""
+        key = ("__host_lane__", _plan_key(node), self.catalog.generation)
+        compiled = self._cache_get(key)
+        if compiled is None:
+            try:
+                compiled = Compiler(self.catalog, self.props).compile(node)
+            except CompileError:
+                compiled = False
+            self._cache_put(key, compiled)
+        if not compiled:
+            return None
+        try:
+            return compiled.execute(params, self.device)
+        except CompileError:
+            return None
+
     def execute(self, plan: ast.Plan, params: Tuple = ()) -> Result:
         check_current()  # cancellation point: every (sub)plan execution
         if self._depth:  # nested calls (unions, host fallback) count once
@@ -2968,6 +2987,14 @@ class Executor:
     def _execute_with_host_ops(self, plan: ast.Plan, params: Tuple
                                ) -> Result:
         host_ops, node = peel_host_ops(plan)
+        # executeTake early stop (ref: CachedDataFrame.executeTake:766): a
+        # bare LIMIT over a scan chain decodes batches one at a time on
+        # the host and stops as soon as enough rows survive, never
+        # binding or materializing the whole table
+        if len(host_ops) == 1 and isinstance(host_ops[0], ast.Limit):
+            taken = self._try_take(node, host_ops[0].n, params)
+            if taken is not None:
+                return taken
         result = self._execute_core(node, params)
         for op in reversed(host_ops):
             result = self._apply_host_op(op, result, params)
@@ -3003,6 +3030,121 @@ class Executor:
         except CompileError:
             reg.inc("host_fallbacks")
             return self._host_fallback(node, params)
+
+    def _try_take(self, node: ast.Plan, n: int, params: Tuple
+                  ) -> Optional[Result]:
+        """LIMIT n over Project? / Filter? / Relation on a column table:
+        decode one batch at a time on the host, keep the qualifying rows,
+        stop at n (ref snappydata_tpu/engine/executor.py `_try_take`).
+        None when the shape does not qualify."""
+        proj = filt = None
+        cur = node
+        if isinstance(cur, ast.Project):
+            proj, cur = cur, cur.child
+        while isinstance(cur, ast.SubqueryAlias):
+            cur = cur.child
+        if isinstance(cur, ast.Filter):
+            filt, cur = cur, cur.child
+        while isinstance(cur, ast.SubqueryAlias):
+            cur = cur.child
+        if not isinstance(cur, ast.Relation) or n <= 0:
+            return None
+        info = self.catalog.lookup_table(cur.name)
+        if info is None or isinstance(info.data, RowTableData):
+            return None  # row tables answer from their key index / are small
+        checked = (list(proj.exprs) if proj else []) + \
+            ([filt.condition] if filt else [])
+        for e in checked:
+            for x in ast.walk(e):
+                if isinstance(x, (ast.WindowFunc, ast.ScalarSubquery,
+                                  ast.InSubquery, ast.ExistsSubquery)):
+                    return None
+                if isinstance(x, ast.Func) and x.name in ast.AGG_FUNCS:
+                    return None
+        data = info.data
+        m = mvcc.snapshot_of(data)
+        schema = info.schema
+        if proj is not None:
+            names = [_expr_name(e) for e in proj.exprs]
+            dtypes = [expr_type(e) or T.STRING for e in proj.exprs]
+        else:
+            names = schema.names()
+            dtypes = [f.dtype for f in schema.fields]
+        out_cols: List[List[np.ndarray]] = [[] for _ in names]
+        out_nulls: List[List[Optional[np.ndarray]]] = [[] for _ in names]
+        have = 0
+        decoded = 0
+
+        def consume(cols, nulls, cnt) -> None:
+            nonlocal have
+            if cnt == 0:
+                return
+            if filt is not None:
+                v, nl = hosteval.eval_expr(filt.condition, cols, nulls,
+                                           params, cnt)
+                keep = np.broadcast_to(v, (cnt,)).astype(bool)
+                if nl is not None:
+                    keep = keep & ~np.broadcast_to(nl, (cnt,))
+                idx = np.flatnonzero(keep)
+                if idx.size == 0:
+                    return
+                cols = [c[idx] for c in cols]
+                nulls = [nm[idx] if nm is not None else None
+                         for nm in nulls]
+                cnt = idx.size
+            take = min(cnt, n - have)
+            if proj is not None:
+                for j, e in enumerate(proj.exprs):
+                    v, nl = hosteval.eval_expr(e, cols, nulls, params, cnt)
+                    out_cols[j].append(np.broadcast_to(v, (cnt,))[:take])
+                    out_nulls[j].append(
+                        np.broadcast_to(nl, (cnt,))[:take]
+                        if nl is not None else None)
+            else:
+                for j in range(len(names)):
+                    out_cols[j].append(cols[j][:take])
+                    out_nulls[j].append(nulls[j][:take]
+                                        if nulls[j] is not None else None)
+            have += take
+
+        for view in m.views:
+            if have >= n:
+                break
+            check_current()  # batch boundary = cancellation point
+            decoded += 1
+            live = view.live_mask()
+            lazy = data._decode_all(view)
+            cols = [np.asarray(lazy[f.name])[live] for f in schema.fields]
+            nulls = []
+            for i in range(len(schema.fields)):
+                nm = view.null_mask(i)
+                nulls.append(nm[live] if nm is not None else None)
+            consume(cols, nulls, int(live.sum()))
+        if have < n and m.row_count:
+            cols = [np.asarray(a)[:m.row_count] for a in m.row_arrays]
+            nulls = [nm[:m.row_count] if nm is not None else None
+                     for nm in (m.row_nulls or [None] * len(cols))]
+            consume(cols, nulls, m.row_count)
+        reg = global_registry()
+        if decoded < len(m.views):
+            reg.inc("take_early_stops")
+        reg.inc("take_batches_decoded", decoded)
+        final_cols, final_nulls = [], []
+        for j, dt in enumerate(dtypes):
+            if out_cols[j]:
+                vals = np.concatenate(out_cols[j])
+            else:
+                vals = np.empty(0, dtype=object if dt.name == "string"
+                                else dt.np_dtype)
+            parts = out_nulls[j]
+            nm = None
+            if any(p is not None for p in parts):
+                nm = np.concatenate(
+                    [p if p is not None else np.zeros(len(c), dtype=bool)
+                     for p, c in zip(parts, out_cols[j])])
+            final_cols.append(vals)
+            final_nulls.append(nm)
+        return Result(names, final_cols, final_nulls, dtypes)
 
     def _try_point_lookup(self, node: ast.Plan, params: Tuple
                           ) -> Optional[Result]:

@@ -143,8 +143,21 @@ _FLIP_CMP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=",
 _CMP = {"=": torch.eq, "!=": torch.ne, "<": torch.lt, "<=": torch.le,
         ">": torch.gt, ">=": torch.ge}
 
-_ARITH = {"+": torch.add, "-": torch.sub, "*": torch.mul,
-          "%": torch.remainder}
+
+def _remainder(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SQL `%` with the reference's semantics (jnp `%`): the sign follows
+    the divisor, and an integer zero divisor gives 0 on every device (an
+    integer division by zero raises on the CPU and leaves an undefined
+    value on CUDA, so the divisor is guarded before it divides).  A float
+    zero divisor gives NaN, as jnp does."""
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.remainder(a, b)
+    zero = b == 0
+    safe = torch.where(zero, torch.ones_like(b), b)
+    return torch.where(zero, torch.zeros_like(a), torch.remainder(a, safe))
+
+
+_ARITH = {"+": torch.add, "-": torch.sub, "*": torch.mul, "%": _remainder}
 
 
 def _compressed_cmp(op: str, col: DVal, lit: DVal) -> Optional[DVal]:
@@ -340,6 +353,16 @@ def _dec_binop(op: str, fn, a: DVal, b: DVal, is_cmp: bool
 
 def float_dtype() -> torch.dtype:
     return torch.float64 if config.use_float64() else torch.float32
+
+
+def _udf_plate(v: torch.Tensor, ret: T.DataType) -> torch.Tensor:
+    """A UDF body's result follows torch promotion; cast it to the plate
+    dtype of its declared RETURNS type under the dtype policy (exact
+    decimals and strings keep what the body gave)."""
+    if ret.name in ("string", "array", "map", "struct") or \
+            getattr(ret, "is_exact", False):
+        return v
+    return v.to(T.torch_dtype(ret.device_dtype()))
 
 
 class Runtime:
@@ -1463,6 +1486,52 @@ class ExprBuilder:
         # upper(concat(s, '_x')), instr(lower(s), 'q'), ...)
         if name in STRING_VALUE_FUNCS or name in _STRING_INT_FUNCS:
             return self._emit_string_func(e)
+
+        # SQL-registered functions (CREATE FUNCTION): the python body
+        # runs on the plates' tensors inside the device program (ref:
+        # SnappyDDLParser.scala:765 createFunction).  String arguments
+        # stay on the host path: device values are dictionary codes the
+        # body must not see
+        from snappydata_tpu_torch.sql import udf as _udf
+
+        u = _udf.lookup(name)
+        if u is not None:
+            from snappydata_tpu_torch.sql.analyzer import expr_type
+
+            for a in e.args:
+                try:
+                    at = expr_type(a)
+                except Exception:
+                    at = None
+                if at is not None and at.name == "string":
+                    raise CompileError(
+                        f"UDF {name} over string arguments runs on host")
+            ret = u.returns or T.DOUBLE
+            fn = u.fn
+
+            def run_udf(rt: Runtime) -> DVal:
+                dvs = [a(rt) for a in args]
+                # eager execution: a body that fails here (a name outside
+                # the device namespace, a numpy call on a card tensor)
+                # takes the host lane, as a body failing under the
+                # reference's tracing does
+                try:
+                    with _udf.device_lane(rt.device):
+                        v = fn(*[d.value for d in dvs])
+                    if not isinstance(v, torch.Tensor):
+                        v = torch.as_tensor(np.asarray(v),
+                                            device=rt.device)
+                except Exception as ex:
+                    raise CompileError(f"UDF {name} failed on the device "
+                                       f"lane: {ex}")
+                out_null = None
+                for d in dvs:
+                    if d.null is not None:
+                        out_null = d.null if out_null is None \
+                            else (out_null | d.null)
+                return DVal(_udf_plate(v, ret), out_null, ret)
+
+            return run_udf
 
         raise CompileError(f"unsupported function on device: {name}")
 

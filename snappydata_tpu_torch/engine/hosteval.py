@@ -13,6 +13,7 @@ Three jobs:
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import re
 from typing import List, Optional, Sequence, Tuple
@@ -590,6 +591,22 @@ def _eval_func(e: ast.Func, cols, nulls, params, n):
             nl = _or_null(nl, a[1])
         return np.array(["".join(str(x) for x in row)
                          for row in zip(*vs)], dtype=object), nl
+
+    from snappydata_tpu_torch.sql import udf as _udf
+
+    u = _udf.lookup(name)
+    if u is not None:
+        vals = [np.broadcast_to(v, (n,)) for v, _ in args]
+        try:
+            out = np.asarray(u.fn(*vals))
+        except Exception as ex:
+            raise HostEvalError(f"UDF {name} failed: {ex}")
+        if out.shape != (n,):
+            out = np.broadcast_to(out, (n,))
+        nl = None
+        for _, a_nl in args:
+            nl = _or_null(nl, a_nl)
+        return out, nl
 
     raise HostEvalError(f"unsupported host function {name}")
 
@@ -1177,6 +1194,19 @@ def _eval_rel(plan: ast.Plan, params, executor):
     if isinstance(plan, ast.SubqueryAlias):
         return _eval_rel(plan.child, params, executor)
 
+    if isinstance(plan, ast.Filter) and isinstance(plan.child, ast.Join) \
+            and plan.child.how in ("inner", "cross"):
+        # a WHERE over an inner / cross join is its ON condition (same
+        # column ordinals): its equi conjuncts hash-join instead of
+        # filtering the whole cross product, and the pairs keep the cross
+        # product's order
+        j = plan.child
+        cond = plan.condition if j.condition is None \
+            else ast.BinOp("and", j.condition, plan.condition)
+        return _eval_join(dataclasses.replace(j, how="inner",
+                                              condition=cond),
+                          params, executor, cross_order=True)
+
     if isinstance(plan, ast.Filter):
         cols, nulls, names, dtypes, n = _eval_rel(plan.child, params, executor)
         v, nl = eval_expr(plan.condition, cols, nulls, params, n)
@@ -1203,6 +1233,9 @@ def _eval_rel(plan: ast.Plan, params, executor):
         return _eval_join(plan, params, executor)
 
     if isinstance(plan, ast.Aggregate):
+        got = _device_aggregate(plan, params, executor)
+        if got is not None:
+            return got
         return _eval_aggregate(plan, params, executor)
 
     if isinstance(plan, (ast.Sort, ast.Limit, ast.Distinct, ast.Union,
@@ -1217,7 +1250,92 @@ def _eval_rel(plan: ast.Plan, params, executor):
     raise HostEvalError(f"host fallback: {type(plan).__name__}")
 
 
-def _eval_join(plan: ast.Join, params, executor):
+# aggregates whose device answer is the host lane's (its first / last,
+# stddev / variance and distinct counts do not all agree, and neither
+# does arithmetic over an all-NULL group's min / max)
+_DEVICE_AGGS = ("sum", "count", "avg", "min", "max")
+
+
+def _device_aggregate(plan: ast.Aggregate, params, executor):
+    """(cols, nulls, names, dtypes, n) of a GROUP BY over one column table
+    (through Filter / Project / alias only) whose select list holds only
+    its keys and bare sum / count / avg / min / max, computed by the
+    device program when it lowers, in the host lane's row order (keys
+    ascending); None otherwise, and the host lane evaluates it.  The
+    host lane's own aggregate decodes every column and loops per group
+    in Python, which cannot finish at the card's scale.  A join below
+    stays on the host (its routing counts), as does a row table.
+
+    Where the device program's answer is not the host lane's, the host
+    lane's stands: a sum / min / max over a group with no non-NULL input
+    is NULL (the program adds a count of each such argument to find
+    those groups; alone it gives 0 / +inf / -inf), and a result with a
+    NULL or NaN key goes back to the host lane (the program keeps NULL
+    keys apart by the values under their masks, and NaN apart from
+    NULL, where the host lane merges them)."""
+    from snappydata_tpu_torch.storage.table_store import RowTableData
+
+    if not plan.group_exprs:
+        return None
+    node = plan.child
+    while isinstance(node, (ast.Filter, ast.Project, ast.SubqueryAlias)):
+        node = node.children()[0]
+    if not isinstance(node, ast.Relation):
+        return None
+    info = executor.catalog.lookup_table(node.name)
+    if info is None or isinstance(info.data, RowTableData):
+        return None
+    outs = [e.child if isinstance(e, ast.Alias) else e
+            for e in plan.agg_exprs]
+    if not all(e in plan.group_exprs
+               or (isinstance(e, ast.Func) and e.name in _DEVICE_AGGS
+                   and not e.distinct)
+               for e in outs):
+        return None
+    key_pos = []
+    for g in plan.group_exprs:
+        if g not in outs:
+            return None
+        key_pos.append(outs.index(g))
+    counted = []   # the arguments of sum / min / max, each counted once
+    for e in outs:
+        if e not in plan.group_exprs and e.name != "count" \
+                and e.name != "avg" and e.args not in counted:
+            counted.append(e.args)
+    width = len(outs)
+    r = executor.try_device(dataclasses.replace(
+        plan, agg_exprs=tuple(plan.agg_exprs)
+        + tuple(ast.Func("count", a) for a in counted)), params)
+    if r is None:
+        return None
+    cols = _float_domain_columns(r)[:width]
+    nulls = list(r.nulls[:width])
+    keys = []
+    for p in reversed(key_pos):
+        if nulls[p] is not None and np.asarray(nulls[p]).any():
+            return None
+        v = np.asarray(cols[p])
+        if v.dtype.kind == "f" and np.isnan(v).any():
+            return None
+        keys.append(v)
+    for i, e in enumerate(outs):
+        if e in plan.group_exprs or e.name in ("count", "avg"):
+            continue
+        empty = np.asarray(r.columns[width + counted.index(e.args)]) == 0
+        if empty.any():
+            nulls[i] = empty if nulls[i] is None \
+                else np.asarray(nulls[i], dtype=bool) | empty
+    order = np.lexsort(keys) if r.num_rows > 1 \
+        else np.arange(r.num_rows)
+    return ([np.asarray(c)[order] for c in cols],
+            [np.asarray(m)[order] if m is not None else None
+             for m in nulls],
+            list(r.names[:width]), list(r.dtypes[:width]), r.num_rows)
+
+
+def _eval_join(plan: ast.Join, params, executor, cross_order=False):
+    """`cross_order`: inner-join pairs in the order of the cross product
+    (left row, then right row), as a WHERE filter over it would give."""
     import pandas as pd
 
     lc, ln, lnames, lt, nl_ = _eval_rel(plan.left, params, executor)
@@ -1296,6 +1414,9 @@ def _eval_join(plan: ast.Join, params, executor):
                           right_on=[f"r{j}" for _, j in equi], how="inner")
         lpair = pairs["__lrow"].to_numpy()
         rpair = pairs["__rrow"].to_numpy()
+        if cross_order:
+            order = np.lexsort((rpair, lpair))
+            lpair, rpair = lpair[order], rpair[order]
     else:
         lpair = np.repeat(np.arange(nl_rows), nr_rows)
         rpair = np.tile(np.arange(nr_rows), nl_rows)
@@ -1398,12 +1519,13 @@ def _eval_aggregate(plan: ast.Aggregate, params, executor):
         group_keys = [()]
 
     out_names, out_cols, out_nulls, out_types = [], [], [], []
+    memo: dict = {}   # each aggregate argument evaluated once, not per group
     for e in plan.agg_exprs:
         out_names.append(_expr_name(e))
         out_types.append(expr_type(e))
         vals, nmask = [], []
         for key, idx in zip(group_keys, group_indices):
-            v = _agg_one(e, key, groups, idx, cols, nulls, params, n)
+            v = _agg_one(e, key, groups, idx, cols, nulls, params, n, memo)
             if isinstance(v, tuple):  # array group key: back to list form
                 v = list(v)
             nmask.append(v is None)
@@ -1423,12 +1545,17 @@ def _eval_aggregate(plan: ast.Aggregate, params, executor):
     return out_cols, out_nulls, out_names, out_types, len(group_indices)
 
 
-def _agg_one(e: ast.Expr, key, groups, idx, cols, nulls, params, n):
-    """Evaluate one select-list expression for one group (host, exact)."""
+def _agg_one(e: ast.Expr, key, groups, idx, cols, nulls, params, n,
+             memo=None):
+    """Evaluate one select-list expression for one group (host, exact).
+    `memo` keeps each aggregate argument's values over all rows across
+    the groups of one aggregate."""
     import pandas as pd
 
+    memo = {} if memo is None else memo
     if isinstance(e, ast.Alias):
-        return _agg_one(e.child, key, groups, idx, cols, nulls, params, n)
+        return _agg_one(e.child, key, groups, idx, cols, nulls, params, n,
+                        memo)
     for gi, g in enumerate(groups):
         if e == g:
             v = key[gi]
@@ -1443,7 +1570,11 @@ def _agg_one(e: ast.Expr, key, groups, idx, cols, nulls, params, n):
     if isinstance(e, ast.Func) and e.name in ast.AGG_FUNCS:
         if e.name == "count" and not e.args:
             return len(idx)
-        v, nl = eval_expr(e.args[0], cols, nulls, params, n)
+        got = memo.get(id(e.args[0]))
+        if got is None:
+            got = memo[id(e.args[0])] = (
+                e.args[0], eval_expr(e.args[0], cols, nulls, params, n))
+        v, nl = got[1]
         v = np.broadcast_to(v, (n,))[idx]
         if nl is not None:
             keep = ~np.broadcast_to(nl, (n,))[idx]
@@ -1476,15 +1607,16 @@ def _agg_one(e: ast.Expr, key, groups, idx, cols, nulls, params, n):
     if isinstance(e, (ast.ParamLiteral, ast.Param)):
         return params[e.pos]
     if isinstance(e, ast.BinOp):
-        a = _agg_one(e.left, key, groups, idx, cols, nulls, params, n)
-        b = _agg_one(e.right, key, groups, idx, cols, nulls, params, n)
+        a = _agg_one(e.left, key, groups, idx, cols, nulls, params, n, memo)
+        b = _agg_one(e.right, key, groups, idx, cols, nulls, params, n,
+                     memo)
         if a is None or b is None:
             return None
         return {"+": lambda: a + b, "-": lambda: a - b, "*": lambda: a * b,
                 "/": lambda: a / b if b else None,
                 "%": lambda: a % b}[e.op]()
     if isinstance(e, ast.Func):
-        a = [_agg_one(x, key, groups, idx, cols, nulls, params, n)
+        a = [_agg_one(x, key, groups, idx, cols, nulls, params, n, memo)
              for x in e.args]
         if e.name == "sqrt":
             return float(np.sqrt(a[0])) if a[0] is not None else None
@@ -1492,6 +1624,7 @@ def _agg_one(e: ast.Expr, key, groups, idx, cols, nulls, params, n):
             return round(a[0], int(a[1]) if len(a) > 1 else 0) \
                 if a[0] is not None else None
     if isinstance(e, ast.Cast):
-        v = _agg_one(e.child, key, groups, idx, cols, nulls, params, n)
+        v = _agg_one(e.child, key, groups, idx, cols, nulls, params, n,
+                     memo)
         return T.python_value(e.to, v)
     raise HostEvalError(f"post-agg expression {type(e).__name__}")

@@ -27,9 +27,12 @@ leaves the allocator's count only once nothing else (a compiled plan, a
 prefetch window, a pending `record_stream`) holds its tensors, and the
 caching allocator's reserved bytes do not fall without `empty_cache()`.
 
-The ledger keeps the reference's keys.  The lines of modules the port does
-not have yet (group-index cache, serving registry, materialized-view
-state, mesh layouts) read 0 until those modules are ported.
+The ledger keeps the reference's keys.  `matview_state_bytes` is the
+materialized views' [G] state (views/matview.py), and the degradation
+ladder's second rung evicts it (the views go stale and re-aggregate at
+their next read).  The lines of modules the port does not have yet
+(group-index cache, serving registry, mesh layouts) read 0 until those
+modules are ported.
 """
 
 from __future__ import annotations
@@ -81,10 +84,16 @@ def _host_table_bytes(data) -> int:
     return total
 
 
-def _unported_cache_bytes() -> Tuple[int, int, int, int]:
-    """(gidx cache, serving registry, matview state, mesh layouts): the
-    ledger lines of modules not ported yet, which hold nothing."""
-    return 0, 0, 0, 0
+def _unported_cache_bytes() -> Tuple[int, int, int]:
+    """(gidx cache, serving registry, mesh layouts): the ledger lines of
+    modules not ported yet, which hold nothing."""
+    return 0, 0, 0
+
+
+def _matview_bytes() -> int:
+    from snappydata_tpu_torch.views.matview import matview_state_nbytes
+
+    return matview_state_nbytes()
 
 
 _pressure_warned = [False]
@@ -241,8 +250,8 @@ class ResourceBroker:
         from snappydata_tpu_torch.storage import hoststore, tier
 
         host, device, retained, join_bytes = self._walk(self._iter_tables())
-        gidx_bytes, serving_bytes, view_bytes, mesh_bytes = \
-            _unported_cache_bytes()
+        gidx_bytes, serving_bytes, mesh_bytes = _unported_cache_bytes()
+        view_bytes = _matview_bytes()
         retained_total = sum(retained.values())
         with self._cond:
             queries = {qid: int(ctx.estimate_bytes)
@@ -281,8 +290,8 @@ class ResourceBroker:
             if time.monotonic() - ts <= max_age_s:
                 return h, d
         host, device, retained, join_bytes = self._walk(self._iter_tables())
-        gidx_bytes, serving_bytes, view_bytes, mesh_bytes = \
-            _unported_cache_bytes()
+        gidx_bytes, serving_bytes, mesh_bytes = _unported_cache_bytes()
+        view_bytes = _matview_bytes()
         h = sum(host.values()) + serving_bytes + sum(retained.values())
         d = sum(device.values()) + gidx_bytes + join_bytes + view_bytes \
             + mesh_bytes
@@ -438,10 +447,9 @@ class ResourceBroker:
                  requester: Optional[QueryContext] = None) -> None:
         """Graceful pressure relief, cheapest first (ref: the evict ->
         spill -> cancel order of SnappyStorageEvictor + CancelException):
-        plan caches, unpinned retained epochs, the tier ladder, host
-        spill, then cancel the hungriest admitted query (never the
-        requester).  The reference's materialized-view rung comes with
-        the views."""
+        plan caches, materialized-view states, unpinned retained epochs,
+        the tier ladder, host spill, then cancel the hungriest admitted
+        query (never the requester)."""
         reg = global_registry()
         host, device = self.measured_bytes()
         if host + device <= target_bytes:
@@ -452,6 +460,16 @@ class ResourceBroker:
             except Exception:
                 pass
         reg.inc("governor_degrade_plan_evictions")
+        host, device = self.measured_bytes()
+        if host + device <= target_bytes:
+            return
+        # materialized-view [G] states are caches too: evictable to STALE
+        # (rebuilt by one re-aggregation at the next read), cheaper than
+        # demoting hot batches every scan re-reads
+        from snappydata_tpu_torch.views.matview import evict_all_states
+
+        if evict_all_states():
+            reg.inc("governor_degrade_view_evictions")
         host, device = self.measured_bytes()
         if host + device <= target_bytes:
             return

@@ -3,8 +3,15 @@
 Port of snappydata_tpu/session.py, cut to the analytic store: `sql()`
 for CREATE TABLE ... USING column | row, INSERT / PUT INTO ... VALUES /
 SELECT, UPDATE, DELETE, ALTER TABLE ADD / DROP COLUMN, DROP, TRUNCATE,
-SHOW / DESCRIBE, SET and queries; `insert` / `insert_arrays` for bulk
-ingest and `put` / `update` / `delete` / `get` for point operations.
+CREATE [OR REPLACE] / DROP VIEW, CREATE / DROP / REFRESH MATERIALIZED
+VIEW, CREATE [OR REPLACE] / DROP FUNCTION, SHOW / DESCRIBE, SET and
+queries; `insert` / `insert_arrays` for bulk ingest and `put` /
+`update` / `delete` / `get` for point operations.  A plain view is
+stored unresolved and re-analyzed per query; a materialized aggregate
+view (views/matview.py) folds every insert into its [G] state on the
+device, subtracts deletes exactly, goes stale on updates, and re-merges
+into its backing table when a statement reads it.  A SQL function's
+body runs inside the device program (sql/udf.py).
 Every statement whose reads are scan-shaped pins ONE snapshot epoch for
 its whole run (`execute_statement`, storage/mvcc.py): the device bind,
 the host fallback, join key encodes, subquery rewrites, CTAS sources and
@@ -27,9 +34,10 @@ statements are journaled to the store's WAL before they apply and acked
 after the covering fsync (`_sql_statement`), the bulk paths journal their
 arrays (`_journal_then`), `checkpoint()` folds the WAL into batch files,
 and a session opened on an existing directory recovers into itself, on
-its device.  Mesh execution, views, samples and streams are not ported
-and raise NotImplementedError; UPDATE / DELETE / PUT leave out the
-reference's materialized-view maintenance hooks with the views.
+its device, views, materialized views (their checkpointed state, then
+the WAL tail past each view's watermark) and functions included.  Mesh
+execution, samples and streams are not ported and raise
+NotImplementedError.
 
 Every query runs governed (resource/): `_governed_query` estimates its
 memory (a tilable aggregate is charged one tile plus its join build
@@ -80,6 +88,7 @@ from snappydata_tpu_torch.sql.analyzer import (Analyzer, AnalysisError,
                                                tokenize_plan)
 from snappydata_tpu_torch.sql.optimizer import optimize
 from snappydata_tpu_torch.sql.parser import parse
+from snappydata_tpu_torch.sql import udf as _udf
 from snappydata_tpu_torch.sql.render import (RenderError, render_expr,
                                              render_plan)
 from snappydata_tpu_torch.storage import mvcc
@@ -89,6 +98,7 @@ from snappydata_tpu_torch.storage.prefetch import TilePrefetcher
 from snappydata_tpu_torch.storage.table_store import (ColumnTableData,
                                                       RowTableData)
 from snappydata_tpu_torch.utils import locks
+from snappydata_tpu_torch.views import matview as _mv
 
 
 def resolve_device(device=None) -> torch.device:
@@ -291,6 +301,45 @@ class SnappySession:
             elif isinstance(stmt, ast.DropTable):
                 ds.drop_table_dir(_norm(stmt.name))
                 ds.save_catalog(self.catalog)
+            elif isinstance(stmt, ast.CreateView):
+                if not hasattr(self.catalog, "_view_ddl"):
+                    self.catalog._view_ddl = {}
+                self.catalog._view_ddl[_norm(stmt.name)] = sql_text
+                ds.save_catalog(self.catalog)
+            elif isinstance(stmt, ast.CreateMaterializedView):
+                if not hasattr(self.catalog, "_matview_ddl"):
+                    self.catalog._matview_ddl = {}
+                self.catalog._matview_ddl.setdefault(_norm(stmt.name),
+                                                     sql_text)
+                ds.save_catalog(self.catalog)
+                # first durable image of the fresh state (watermark =
+                # everything journaled so far, which the initial refresh
+                # just aggregated)
+                mv = getattr(self.catalog, "_matviews", {}).get(
+                    _norm(stmt.name))
+                if mv is not None:
+                    with ds.mutation_lock:
+                        ds.checkpoint_matview(mv, mv.wal_seq,
+                                              catalog=self.catalog)
+            elif isinstance(stmt, ast.DropMaterializedView):
+                getattr(self.catalog, "_matview_ddl", {}).pop(
+                    _norm(stmt.name), None)
+                ds.drop_matview_state(_norm(stmt.name))
+                ds.save_catalog(self.catalog)
+            elif isinstance(stmt, ast.DropView):
+                getattr(self.catalog, "_view_ddl", {}).pop(
+                    _norm(stmt.name), None)
+                ds.save_catalog(self.catalog)
+            elif isinstance(stmt, ast.CreateFunction):
+                if not hasattr(self.catalog, "_aux_ddl"):
+                    self.catalog._aux_ddl = {}
+                self.catalog._aux_ddl[
+                    f"function:{stmt.name.lower()}"] = sql_text
+                ds.save_catalog(self.catalog)
+            elif isinstance(stmt, ast.DropFunction):
+                getattr(self.catalog, "_aux_ddl", {}).pop(
+                    f"function:{stmt.name.lower()}", None)
+                ds.save_catalog(self.catalog)
         return result
 
     def _snapshot_tables_for(self, stmt: ast.Statement):
@@ -344,14 +393,67 @@ class SnappySession:
             if stmt.with_error is not None:
                 raise NotImplementedError(
                     "WITH ERROR (approximate queries) is not ported")
+            # materialized views the query reads re-merge their [G] state
+            # into the backing rows when dirty: O(G), never a base-table
+            # rescan unless the view is stale
+            self._sync_referenced_matviews(stmt.plan)
             return finalize_decimals(self._run_query(stmt.plan, params))
         if isinstance(stmt, ast.CreateTable):
             return self._create_table(stmt)
         if isinstance(stmt, ast.DropTable):
-            self.catalog.drop_table(stmt.name, stmt.if_exists)
-            return _status()
+            return self._drop_table(stmt)
         if isinstance(stmt, ast.TruncateTable):
-            self.catalog.describe(stmt.name).data.truncate()
+            info = self.catalog.describe(stmt.name)
+            if info.options.get("materialized_view"):
+                raise ValueError(
+                    f"{stmt.name} is a materialized view; it is "
+                    "maintained automatically (DROP MATERIALIZED VIEW to "
+                    "remove it)")
+            info.data.truncate()
+            _mv.on_truncate(self.catalog, info.name,
+                            self.disk_store.current_wal_seq()
+                            if self.disk_store else 0)
+            return _status()
+        if isinstance(stmt, ast.CreateFunction):
+            # UDF bodies are python code: the gate of EXEC PYTHON
+            self._gate_code_surface("CREATE FUNCTION")
+            if not stmt.or_replace and stmt.name.lower() in \
+                    getattr(self.catalog, "_functions", {}):
+                raise ValueError(f"function already exists: {stmt.name}")
+            _udf.register(self.catalog, stmt.name, stmt.body,
+                          stmt.returns)
+            return _status()
+        if isinstance(stmt, ast.DropFunction):
+            _udf.unregister(self.catalog, stmt.name, stmt.if_exists)
+            return _status()
+        if isinstance(stmt, ast.CreateView):
+            if _contains_subquery(stmt.query):
+                raise AnalysisError(
+                    "subqueries in view definitions are not supported yet")
+            if _contains_window(stmt.query):
+                raise AnalysisError(
+                    "WINDOW (DURATION ...) is not supported inside views "
+                    "yet — query the stream table with the window directly")
+            self.analyzer.analyze_plan(stmt.query)  # validate now
+            # stored UNRESOLVED: views re-analyze per query
+            self.catalog.create_view(stmt.name, stmt.query, stmt.or_replace)
+            return _status()
+        if isinstance(stmt, ast.DropView):
+            self.catalog.drop_view(stmt.name, stmt.if_exists)
+            return _status()
+        if isinstance(stmt, ast.CreateMaterializedView):
+            return self._create_matview(stmt)
+        if isinstance(stmt, ast.DropMaterializedView):
+            return self._drop_matview(stmt)
+        if isinstance(stmt, ast.RefreshMaterializedView):
+            from snappydata_tpu_torch.catalog.catalog import _norm
+
+            mv = _mv.matviews(self.catalog).get(_norm(stmt.name))
+            if mv is None:
+                raise ValueError(
+                    f"materialized view not found: {stmt.name}")
+            mv.refresh_full(self)
+            mv.sync(self)
             return _status()
         if isinstance(stmt, ast.InsertInto):
             return _count_result(self._insert(stmt, params))
@@ -386,24 +488,27 @@ class SnappySession:
 
     def _run_query(self, plan: ast.Plan, user_params=()) -> Result:
         """Query entry (ref SnappySession._run_query_inner, without the
-        mesh, UDF, sample and stream hooks): the tiled lane first (a plan
-        that holds a subquery never tiles), then the correlated
-        subqueries become joins, the uncorrelated ones run as queries of
-        their own and substitute literals, then optimize, analyze and
-        tokenize."""
-        tiled = self._maybe_tiled_aggregate(plan, user_params)
-        if tiled is not None:
-            return tiled
-        plan = self._decorrelate(plan)
-        plan = self._rewrite_subqueries(plan, user_params)
-        plan = optimize(plan, self.catalog)
-        resolved, _ = self.analyzer.analyze_plan(plan)
-        if self.conf.tokenize and self.conf.plan_caching:
-            tokenized, lit_params = tokenize_plan(resolved)
-        else:
-            tokenized, lit_params = assign_param_positions(resolved, 0), ()
-        return self.executor.execute(tokenized,
-                                     tuple(lit_params) + tuple(user_params))
+        mesh, sample and stream hooks), with this catalog's SQL functions
+        exposed to the analyzer, the lowering and the host evaluator: the
+        tiled lane first (a plan that holds a subquery never tiles), then
+        the correlated subqueries become joins, the uncorrelated ones run
+        as queries of their own and substitute literals, then optimize,
+        analyze and tokenize."""
+        with _udf.using(self.catalog):
+            tiled = self._maybe_tiled_aggregate(plan, user_params)
+            if tiled is not None:
+                return tiled
+            plan = self._decorrelate(plan)
+            plan = self._rewrite_subqueries(plan, user_params)
+            plan = optimize(plan, self.catalog)
+            resolved, _ = self.analyzer.analyze_plan(plan)
+            if self.conf.tokenize and self.conf.plan_caching:
+                tokenized, lit_params = tokenize_plan(resolved)
+            else:
+                tokenized, lit_params = \
+                    assign_param_positions(resolved, 0), ()
+            return self.executor.execute(
+                tokenized, tuple(lit_params) + tuple(user_params))
 
     def _decorrelate(self, plan: ast.Plan) -> ast.Plan:
         """Rewrite correlated [NOT] EXISTS filters into semi/anti joins —
@@ -1172,7 +1277,8 @@ class SnappySession:
         with config.device_scope(self.device):
             ds = self.disk_store
             if ds is None:
-                return apply_fn()
+                with _mv.managed_base_write():
+                    return apply_fn()
             from snappydata_tpu_torch.reliability import current_stmt_id
 
             extra = dict(extra or {})
@@ -1181,28 +1287,35 @@ class SnappySession:
             with ds.mutation_lock:
                 seq = ds.wal_append(info.name, kind, arrays=arrays,
                                     nulls=nulls, extra=extra or None)
-                with mvcc.commit_scope(seq):
+                with mvcc.commit_scope(seq), _mv.managed_base_write():
                     out = apply_fn()
             ds.wal_sync(seq)
             return out
 
     def insert(self, table: str, *rows) -> int:
         info = self.catalog.describe(table)
+        self._reject_matview_write(info)
         arrays, nulls = _rows_to_arrays(info.schema, rows)
         if isinstance(info.data, RowTableData):
             raw = _restore_none_arrays(arrays, nulls)
             return self._journal_then(
                 info, "insert", raw, None,
-                lambda: info.data.insert_arrays(raw))
+                lambda: self._fold_views(info, raw, None,
+                                         info.data.insert_arrays(raw)))
         return self._journal_then(
             info, "insert", arrays, nulls,
-            lambda: info.data.insert_arrays(arrays, nulls=nulls))
+            lambda: self._fold_views(
+                info, arrays, nulls,
+                info.data.insert_arrays(arrays, nulls=nulls)))
 
     def insert_arrays(self, table: str, arrays: Sequence[np.ndarray]) -> int:
         info = self.catalog.describe(table)
+        self._reject_matview_write(info)
         arrays = [np.asarray(a) for a in arrays]
-        return self._journal_then(info, "insert", arrays, None,
-                                  lambda: info.data.insert_arrays(arrays))
+        return self._journal_then(
+            info, "insert", arrays, None,
+            lambda: self._fold_views(info, arrays, None,
+                                     info.data.insert_arrays(arrays)))
 
     def put(self, table: str, *rows) -> int:
         """PUT INTO by rows: an upsert on the table's key columns."""
@@ -1214,11 +1327,14 @@ class SnappySession:
 
     def put_arrays(self, table: str, arrays: Sequence[np.ndarray]) -> int:
         info = self.catalog.describe(table)
+        self._reject_matview_write(info)
         arrays = [np.asarray(a) for a in arrays]
 
         def apply():
             if isinstance(info.data, RowTableData):
-                return info.data.put_arrays(arrays)
+                out = info.data.put_arrays(arrays)
+                self._fold_row_put(info, arrays)
+                return out
             return self._column_put(info, arrays)
 
         return self._journal_then(info, "put", arrays, None, apply)
@@ -1230,13 +1346,22 @@ class SnappySession:
         from snappydata_tpu_torch.storage.persistence import _key_predicate
 
         info = self.catalog.describe(table)
+        self._reject_matview_write(info)
         key_arrays = [np.asarray(a) for a in key_arrays]
         keys = {tuple(c[i] for c in key_arrays)
                 for i in range(len(key_arrays[0]))}
         pred = _key_predicate(list(key_columns), keys)
+
+        def apply():
+            wrapped, captured = _mv.wrap_delete_predicate(
+                self.catalog, info.name, pred)
+            out = info.data.delete(wrapped)
+            if captured:
+                _mv.fold_deleted(self.catalog, info.name, captured)
+            return out
+
         return self._journal_then(
-            info, "delete_keys", key_arrays, None,
-            lambda: info.data.delete(pred),
+            info, "delete_keys", key_arrays, None, apply,
             extra={"key_columns": list(key_columns)})
 
     def update(self, table: str, where_sql: str, new_values: Dict[str, Any]
@@ -1272,6 +1397,154 @@ class SnappySession:
     def clear_plan_cache(self) -> None:
         self.executor.clear_cache()
 
+    def _gate_code_surface(self, what: str) -> None:
+        """Code-execution surfaces (CREATE FUNCTION now; EXEC PYTHON and
+        DEPLOY with the front doors) on network-derived sessions require
+        an AUTHENTICATED admin principal: an unauthenticated network
+        caller must never reach them."""
+        if getattr(self, "remote", False) and not (
+                getattr(self, "authenticated", False)
+                and self.user == "admin"):
+            raise PermissionError(
+                f"{what} is refused on network surfaces unless an "
+                "authenticated admin principal is established "
+                "(configure auth_tokens and pass the admin token)")
+
+    def _drop_table(self, stmt: ast.DropTable) -> Result:
+        pre = self.catalog.lookup_table(stmt.name)
+        if pre is not None and pre.options.get("materialized_view"):
+            raise ValueError(
+                f"{stmt.name} is a materialized view — use DROP "
+                "MATERIALIZED VIEW")
+        if self.catalog.drop_table(stmt.name, stmt.if_exists):
+            from snappydata_tpu_torch.catalog.catalog import _norm
+
+            # materialized views over the dropped table go with it (a
+            # namesake recreate must not resurrect folds against another
+            # table); their DDL and durable state go too, or recovery
+            # replays orphans
+            tname = _norm(stmt.name)
+            mvs = getattr(self.catalog, "_matviews", {})
+            for vn in [v for v, m in mvs.items() if m.base_table == tname]:
+                mv = mvs.pop(vn)
+                mv.dispose()
+                self.catalog.drop_table(vn, if_exists=True)
+                getattr(self.catalog, "_matview_ddl", {}).pop(vn, None)
+                if self.disk_store is not None:
+                    self.disk_store.drop_matview_state(vn)
+        return _status()
+
+    # ------------------------------------------------------------------
+    # Materialized views (views/matview.py: delta-folded aggregates)
+    # ------------------------------------------------------------------
+
+    def _sync_referenced_matviews(self, plan: ast.Plan) -> None:
+        self._sync_matviews_by_name(_referenced_tables(plan))
+
+    def _sync_expr_matviews(self, exprs) -> None:
+        """Sync the matviews read through subqueries inside expressions
+        (the UPDATE / DELETE WHERE path)."""
+        names = []
+        for e in exprs:
+            if e is not None:
+                names.extend(_expr_subquery_tables(e))
+        if names:
+            self._sync_matviews_by_name(names)
+
+    def _sync_matviews_by_name(self, names) -> None:
+        mvs = getattr(self.catalog, "_matviews", None)
+        if not mvs or getattr(self, "_in_mv_sync", False):
+            return
+        from snappydata_tpu_torch.catalog.catalog import _norm
+
+        hit = [mvs[n] for n in {_norm(n) for n in names} if n in mvs]
+        if not hit:
+            return
+        self._in_mv_sync = True
+        try:
+            for mv in hit:
+                mv.sync(self)
+                global_registry().inc("view_reads")
+        finally:
+            self._in_mv_sync = False
+
+    def _create_matview(self, stmt: ast.CreateMaterializedView) -> Result:
+        from snappydata_tpu_torch.catalog.catalog import _norm
+
+        name = _norm(stmt.name)
+        if not hasattr(self.catalog, "_matviews"):
+            self.catalog._matviews = {}
+        if name in self.catalog._matviews:
+            if stmt.if_not_exists:
+                return _status()
+            raise ValueError(
+                f"materialized view already exists: {stmt.name}")
+        if self.catalog.lookup_table(name) is not None or \
+                self.catalog.lookup_view(name) is not None:
+            raise ValueError(f"table or view already exists: {stmt.name}")
+        mv = _mv.MaterializedView.define(self, name, stmt.query, "")
+        # backing table: queryable through the normal engine (filters,
+        # joins, sorts over the view); writes are refused
+        self.catalog.create_table(name, mv.output_schema, "column",
+                                  {"materialized_view": "true"})
+        self.catalog._matviews[name] = mv
+        self.catalog.generation += 1
+        _mv.ledger_catalog(self.catalog)
+        base_info = self.catalog.lookup_table(mv.base_table)
+        if base_info is not None:
+            _mv.register_unmanaged_write_guard(self.catalog, base_info)
+        if not getattr(self, "_mv_recovering", False):
+            try:
+                mv.refresh_full(self)
+                mv.sync(self)
+            except BaseException:
+                # a failed initial refresh (timeout, admission reject,
+                # injected fault) must not leave a half-created view
+                self.catalog._matviews.pop(name, None)
+                mv.dispose()
+                self.catalog.drop_table(name, if_exists=True)
+                self.catalog.generation += 1
+                raise
+        return _status()
+
+    def _drop_matview(self, stmt: ast.DropMaterializedView) -> Result:
+        from snappydata_tpu_torch.catalog.catalog import _norm
+
+        name = _norm(stmt.name)
+        mvs = getattr(self.catalog, "_matviews", {})
+        mv = mvs.get(name)
+        if mv is None:
+            if stmt.if_exists:
+                return _status()
+            raise ValueError(f"materialized view not found: {stmt.name}")
+        mvs.pop(name)
+        mv.dispose()   # frees the broker-ledgered state bytes
+        self.catalog.drop_table(name, if_exists=True)
+        self.catalog.generation += 1
+        return _status()
+
+    def _reject_matview_write(self, info) -> None:
+        if info.options.get("materialized_view"):
+            raise ValueError(
+                f"{info.name} is a materialized view; it is maintained "
+                "automatically from its base table")
+
+    def _fold_views(self, info, arrays, nulls, out):
+        """Post-apply ingest hook: fold the delta into every dependent
+        view (inside the journal's mutation scope, so a checkpoint sees
+        view state consistent with table state)."""
+        _mv.fold_ingest(self.catalog, info.name, arrays, nulls)
+        return out
+
+    def _fold_row_put(self, info, arrays, nulls=None) -> None:
+        """View maintenance of a row-table PUT: a keyed upsert may have
+        REPLACED rows whose old image is not visible here, so dependent
+        views go stale; a keyless put is a plain insert and folds."""
+        if info.key_columns:
+            _mv.mark_stale(self.catalog, info.name, "keyed put")
+        else:
+            _mv.fold_ingest(self.catalog, info.name, arrays, nulls)
+
     def _create_table(self, stmt: ast.CreateTable) -> Result:
         if stmt.stream or stmt.provider not in ("column", "row"):
             raise NotImplementedError(
@@ -1280,6 +1553,9 @@ class SnappySession:
             if stmt.if_not_exists and \
                     self.catalog.lookup_table(stmt.name) is not None:
                 return _status()
+            # CTAS reads like a query: the matviews it reads re-merge
+            # first, or the copy takes pre-fold backing rows
+            self._sync_referenced_matviews(stmt.as_select)
             result = to_host_domain(self._run_query(stmt.as_select))
             schema = T.Schema([T.Field(n, dt) for n, dt in
                                zip(result.names, result.dtypes)])
@@ -1304,7 +1580,11 @@ class SnappySession:
 
     def _insert(self, stmt: ast.InsertInto, user_params) -> int:
         info = self.catalog.describe(stmt.table)
+        self._reject_matview_write(info)
         schema = info.schema
+        if not isinstance(stmt.source, ast.Values):
+            # INSERT INTO t SELECT ... FROM some_matview reads a synced view
+            self._sync_referenced_matviews(stmt.source)
         if isinstance(stmt.source, ast.Values):
             resolved, _ = self.analyzer.analyze_plan(stmt.source)
             src = hosteval.eval_values(resolved, user_params)
@@ -1336,13 +1616,23 @@ class SnappySession:
             null_masks.append(nmask)
         if stmt.overwrite:
             info.data.truncate()
+            _mv.on_truncate(self.catalog, info.name,
+                            self.disk_store.current_wal_seq()
+                            if self.disk_store else 0)
         if isinstance(info.data, RowTableData):
             raw = _restore_none_arrays(arrays, null_masks)
-            return info.data.put_arrays(raw) if stmt.put \
-                else info.data.insert_arrays(raw)
+            if stmt.put:
+                out = info.data.put_arrays(raw)
+                self._fold_row_put(info, raw)
+                return out
+            out = info.data.insert_arrays(raw)
+            _mv.fold_ingest(self.catalog, info.name, raw, None)
+            return out
         if stmt.put:
             return self._column_put(info, arrays, null_masks)
-        return info.data.insert_arrays(arrays, nulls=null_masks)
+        out = info.data.insert_arrays(arrays, nulls=null_masks)
+        _mv.fold_ingest(self.catalog, info.name, arrays, null_masks)
+        return out
 
     # ------------------------------------------------------------------
     # Mutations (ref session.py:3201-3408)
@@ -1356,7 +1646,9 @@ class SnappySession:
         is a plain insert."""
         keys = info.key_columns
         if not keys:
-            return info.data.insert_arrays(arrays, nulls=nulls)
+            out = info.data.insert_arrays(arrays, nulls=nulls)
+            _mv.fold_ingest(self.catalog, info.name, arrays, nulls)
+            return out
         key_idx = [info.schema.index(k) for k in keys]
         incoming = {tuple(np.asarray(arrays[i])[r] for i in key_idx)
                     for r in range(len(np.asarray(arrays[0])))}
@@ -1367,8 +1659,17 @@ class SnappySession:
             return np.fromiter((k in incoming for k in zip(*stacked)),
                                dtype=np.bool_, count=len(stacked[0]))
 
-        info.data.delete(pred)
-        return info.data.insert_arrays(arrays, nulls=nulls)
+        # dependent views see the put as subtract-matched plus
+        # fold-incoming: exact for sum / count families, stale for
+        # min / max (through fold_deleted)
+        wrapped, captured = _mv.wrap_delete_predicate(
+            self.catalog, info.name, pred)
+        info.data.delete(wrapped)
+        if captured:
+            _mv.fold_deleted(self.catalog, info.name, captured)
+        out = info.data.insert_arrays(arrays, nulls=nulls)
+        _mv.fold_ingest(self.catalog, info.name, arrays, nulls)
+        return out
 
     def _resolve_where(self, table_info, where, user_params):
         # UPDATE / DELETE expressions may carry subqueries: pre-evaluate
@@ -1395,6 +1696,9 @@ class SnappySession:
 
     def _update(self, stmt: ast.UpdateStmt, user_params) -> int:
         info = self.catalog.describe(stmt.table)
+        self._reject_matview_write(info)
+        self._sync_expr_matviews(
+            [stmt.where] + [e for _, e in stmt.assignments])
         # '?' positions follow SQL text order: SET expressions, then WHERE
         counter = [0]
         assignments = [(name, self._assign_expr_params(e, counter))
@@ -1408,16 +1712,28 @@ class SnappySession:
             resolved = self._resolve_where(info, e, user_params)
             assigns[name] = self._host_value_fn(info, resolved, user_params)
         pred = self._host_pred_fn(info, where, user_params)
-        return info.data.update(pred, assigns)
+        touched = info.data.update(pred, assigns)
+        if touched:
+            # the old image is gone by the time the update returns: every
+            # dependent view re-aggregates at its next read
+            _mv.mark_stale(self.catalog, info.name, "update")
+        return touched
 
     def _delete(self, stmt: ast.DeleteStmt, user_params) -> int:
         info = self.catalog.describe(stmt.table)
+        self._reject_matview_write(info)
+        self._sync_expr_matviews([stmt.where])
         raw_where = self._assign_expr_params(stmt.where, [0]) \
             if stmt.where is not None else None
         where = self._resolve_where(info, raw_where, user_params) \
             if raw_where is not None else ast.Lit(True, T.BOOLEAN)
-        return info.data.delete(
-            self._host_pred_fn(info, where, user_params))
+        pred = self._host_pred_fn(info, where, user_params)
+        wrapped, captured = _mv.wrap_delete_predicate(
+            self.catalog, info.name, pred)
+        out = info.data.delete(wrapped)
+        if captured:
+            _mv.fold_deleted(self.catalog, info.name, captured)
+        return out
 
     def _host_pred_fn(self, info, resolved_where, user_params):
         names = info.schema.names()
@@ -1454,6 +1770,15 @@ class SnappySession:
         NULL.  DROP COLUMN shifts ordinals in place, so it refuses with
         SQLSTATE 40001 while a snapshot pin holds the table."""
         info = self.catalog.describe(stmt.table)
+        if info.options.get("materialized_view"):
+            raise ValueError(
+                f"{stmt.table} is a materialized view; its schema follows "
+                "the view definition")
+        # a schema change invalidates the compiled maintenance programs:
+        # dependent views re-derive them at the stale-exit refresh
+        for mv in _mv.matviews_on(self.catalog, info.name):
+            mv.mark_stale("alter table")
+            mv.invalidate_scratch()
         if stmt.add:
             cd = stmt.column
             if any(f.name.lower() == cd.name.lower()
@@ -1514,6 +1839,55 @@ def _expr_subquery_tables(e: ast.Expr):
                              ast.ExistsSubquery)):
             out.extend(_referenced_tables(node.plan))
     return out
+
+
+def _output_schema(plan: ast.Plan) -> T.Schema:
+    """Output fields of a RESOLVED plan (schema without execution)."""
+    from snappydata_tpu_torch.sql.analyzer import expr_type as _et
+
+    if isinstance(plan, (ast.Project, ast.WindowProject)):
+        return T.Schema([T.Field(_expr_name(e), _et(e) or T.STRING)
+                         for e in plan.exprs])
+    if isinstance(plan, ast.Aggregate):
+        return T.Schema([T.Field(_expr_name(e), _et(e) or T.DOUBLE)
+                         for e in plan.agg_exprs])
+    if isinstance(plan, (ast.Sort, ast.Limit, ast.Distinct, ast.Filter,
+                         ast.SubqueryAlias)):
+        return _output_schema(plan.children()[0])
+    if isinstance(plan, ast.Relation):
+        return plan.schema
+    if isinstance(plan, ast.Join):
+        if plan.how in ("semi", "anti"):
+            return _output_schema(plan.left)
+        left = _output_schema(plan.left)
+        right = _output_schema(plan.right)
+        return T.Schema(list(left.fields) + list(right.fields))
+    if isinstance(plan, (ast.Union, ast.SetOp)):
+        return _output_schema(plan.left)
+    if isinstance(plan, ast.Values):
+        row = plan.rows[0]
+        return T.Schema([T.Field(f"c{i}", _et(e) or T.STRING)
+                         for i, e in enumerate(row)])
+    raise ValueError(f"no output schema for {type(plan).__name__}")
+
+
+def _contains_subquery(plan: ast.Plan) -> bool:
+    found = [False]
+
+    def fn(e: ast.Expr) -> ast.Expr:
+        if isinstance(e, (ast.ScalarSubquery, ast.InSubquery,
+                          ast.ExistsSubquery)):
+            found[0] = True
+        return e
+
+    ast.transform_plan_exprs(plan, fn)
+    return found[0]
+
+
+def _contains_window(plan: ast.Plan) -> bool:
+    if isinstance(plan, ast.WindowedRelation):
+        return True
+    return any(_contains_window(k) for k in plan.children())
 
 
 def _referenced_tables(plan: ast.Plan):

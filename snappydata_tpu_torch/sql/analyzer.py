@@ -582,9 +582,17 @@ class Analyzer:
                 if node.name == "current_date":
                     return ast.Lit(int(now // 86400), T.DATE)
                 return ast.Lit(int(now * 1_000_000), T.TIMESTAMP)
-            # SQL-registered functions (CREATE FUNCTION) are not ported:
-            # no function registry stamps a return type here
-            return node.map_children(rec)
+            out = node.map_children(rec)
+            if isinstance(out, ast.Func) and out.dtype is None:
+                from snappydata_tpu_torch.sql import udf as _udf
+
+                u = _udf.lookup(out.name)
+                if u is not None:
+                    # SQL-registered function: stamp its return type so
+                    # expr_type resolves without a registry lookup
+                    out = dataclasses.replace(
+                        out, dtype=u.returns or T.DOUBLE)
+            return out
 
         return rec(e)
 

@@ -38,7 +38,10 @@ readers keep their immutable manifests.
   (``retained_epoch_bytes_by_table``), and its degradation ladder drops
   every unpinned one with its stale device plates (``trim_unpinned``).
 
-Not ported: the matview re-pins (`repin`, `unpinned_scope`).
+- **Materialized views** (views/matview.py): a view's sync re-pins the
+  base table at its current manifest (``SnapshotPin.repin`` / ``repin_row``)
+  so base and view agree to the row within one statement, and the view's
+  statement-private scratch tables read live (``unpinned_scope``).
 """
 
 from __future__ import annotations
@@ -387,6 +390,38 @@ class SnapshotPin:
                 _ref_locked(data, got)
         return got
 
+    def repin(self, data):
+        """Re-capture `data` at its CURRENT manifest.  Matview sync uses
+        this (briefly under ``mutation_lock``) so the base table's pinned
+        epoch lands exactly where the view's folded state is: base and
+        view then agree to the row."""
+        with _clock_lock:
+            cur = data._manifest
+            if self.released:
+                return cur
+            old = self._manifests.get(id(data))
+            if old is cur:
+                return cur
+            self._manifests[id(data)] = cur
+            self._datas[id(data)] = data
+            _ref_locked(data, cur)
+        if old is not None:
+            _unref(data, old)
+        _reg().inc("mvcc_repins")
+        return cur
+
+    def repin_row(self, data) -> None:
+        """Drop the captured host snapshot of a ROW table, so the next
+        read re-captures at the CURRENT version: the row-table analogue
+        of ``repin`` (a matview refresh under ``mutation_lock`` uses it:
+        the pin's earlier capture may predate the refresh fence)."""
+        key = id(data)
+        with self._lock:
+            got = self._rows.pop(key, None)
+        if got is not None:
+            _unref_row(data, got[3])
+            _reg().inc("mvcc_repins")
+
     def row_snapshot(self, data) -> tuple:
         key = id(data)
         got = self._rows.get(key)
@@ -418,6 +453,7 @@ class SnapshotPin:
             self._manifests.clear()
             self._rows.clear()
             self._datas.clear()
+            _ACTIVE_PINS.discard(self)
         for data, m in manifests:
             _unref(data, m)
         for data, ver in rows:
@@ -427,17 +463,26 @@ class SnapshotPin:
 
 _pin_var: contextvars.ContextVar = contextvars.ContextVar(
     "mvcc_pin", default=None)
+_ACTIVE_PINS: set = set()
 
 
 def current_pin() -> Optional[SnapshotPin]:
     return _pin_var.get()
 
 
+def active_pin_count() -> int:
+    with _clock_lock:
+        return len(_ACTIVE_PINS)
+
+
 @contextlib.contextmanager
 def pinned_scope(catalog, table_names=()):
     """Pin one consistent snapshot for the duration of a statement.
-    No-op (yields the ambient pin) when nested — tile passes, subquery
-    rewrites and scratch merges read the OUTER statement's epoch."""
+    No-op (yields the ambient pin) when nested — tile passes, matview
+    syncs, subquery rewrites and scratch merges read the OUTER
+    statement's epoch.  Matview backing tables are left out of the eager
+    cut: sync() rewrites them under this very pin, and the query must
+    read the post-sync rows (they pin at first read instead)."""
     ambient = _pin_var.get()
     if ambient is not None or not enabled():
         yield ambient
@@ -445,19 +490,40 @@ def pinned_scope(catalog, table_names=()):
     pin = SnapshotPin()
     datas = []
     seen = set()
-    for nm in table_names or ():
+    names = list(table_names or ())
+    while names:
+        nm = names.pop()
         low = str(nm).lower()
         if low in seen:
             continue
         seen.add(low)
         info = catalog.lookup_table(nm) if catalog is not None else None
-        if info is not None and hasattr(info.data, "_manifest"):
+        if info is None:
+            # plain views: expand one level so the cut covers the tables
+            # a later analysis touches
+            view = catalog.lookup_view(nm) if catalog is not None else None
+            if view is not None:
+                try:
+                    from snappydata_tpu_torch.session import \
+                        _referenced_tables
+
+                    names.extend(_referenced_tables(view))
+                except Exception:
+                    # widening is best effort: the table still pins at
+                    # first read; count it so a broken expansion shows
+                    _reg().inc("mvcc_cut_expand_errors")
+            continue
+        if info.options.get("materialized_view"):
+            continue   # pinned at first read, AFTER sync rewrites it
+        if hasattr(info.data, "_manifest"):
             datas.append(info.data)
     try:
         pin.pin_many(datas)
     except SnapshotConflictError:
         pin.release()
         raise
+    with _clock_lock:
+        _ACTIVE_PINS.add(pin)
     _reg().inc("mvcc_pins")
     tok = _pin_var.set(pin)
     try:
@@ -465,6 +531,21 @@ def pinned_scope(catalog, table_names=()):
     finally:
         _pin_var.reset(tok)
         pin.release()
+
+
+@contextlib.contextmanager
+def unpinned_scope():
+    """Suspend the ambient pin for statement-PRIVATE storage: matview
+    scratch tables (``__mv_delta`` / ``__mv_partials``) are truncated,
+    re-filled and re-read many times within one outer statement, so
+    capturing them into the outer cut would serve the first rewrite's
+    manifest to every later read.  Reads inside resolve live manifests;
+    the outer pin resumes on exit."""
+    tok = _pin_var.set(None)
+    try:
+        yield
+    finally:
+        _pin_var.reset(tok)
 
 
 # --------------------------------------------------------------------------

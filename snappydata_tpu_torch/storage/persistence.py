@@ -3,10 +3,11 @@
 Port of snappydata_tpu/storage/persistence.py.  The on-disk format is the
 reference's byte for byte (record framing, CRC, codec tags, schema JSON,
 manifests), so either package recovers a data directory the other wrote.
-Left out with the subsystems they serve: materialized-view state
-(`checkpoint_matview`, the view branches of recovery) and the
-re-registration of views, policies, indexes,
-deployed code, streams, grants and AQP samples on recovery — a data
+Views, materialized views (their [G] state checkpoints under
+`views/<name>.state` with its WAL fence, `checkpoint_matview`) and SQL
+functions persist and recover as the reference's do.  Left out with the
+subsystems they serve: the re-registration of policies, indexes,
+deployed code, streams, grants and AQP TopKs on recovery — a data
 directory that records any of them raises NotImplementedError when it is
 recovered, never skipping it silently.
 
@@ -39,6 +40,7 @@ import json
 import logging
 import os
 import struct
+import sys
 import threading
 from snappydata_tpu_torch.utils import locks
 import time
@@ -645,6 +647,11 @@ class DiskStore:
     def save_catalog(self, catalog) -> None:
         tables = []
         for info in catalog.list_tables():
+            if info.options.get("materialized_view"):
+                # a view's backing table rebuilds from its state record
+                # and DDL; persisted as a table it would collide with the
+                # DDL replay that recreates it
+                continue
             tables.append({
                 "name": info.name, "provider": info.provider,
                 "schema": schema_to_json(info.schema),
@@ -656,20 +663,69 @@ class DiskStore:
                 "redundancy": info.redundancy,
                 "base_table": info.base_table,
             })
-        # the reference's catalog keys of the subsystems the port does
-        # not hold stay in the format, empty
+        # views persist as their DDL text, re-executed on recovery; the
+        # keys of the subsystems the port does not hold stay empty
+        views = dict(getattr(catalog, "_view_ddl", {}))
+        matviews = dict(getattr(catalog, "_matview_ddl", {}))
+        aux = dict(getattr(catalog, "_aux_ddl", {}))   # functions
         tmp = os.path.join(self.path, "catalog.json.tmp")
         with open(tmp, "w") as fh:
-            json.dump({"version": 1, "tables": tables, "views": {},
-                       "matviews": {}, "topks": {}, "aux_ddl": {},
+            json.dump({"version": 1, "tables": tables, "views": views,
+                       "matviews": matviews, "topks": {}, "aux_ddl": aux,
                        "grants": []}, fh, indent=1)
         self._durable_replace(tmp, os.path.join(self.path, "catalog.json"))
+
+    # -- materialized-view state ------------------------------------------
+
+    @staticmethod
+    def _live_row_count_of(data) -> int:
+        if hasattr(data, "snapshot"):          # column table: manifest sum
+            return int(data.snapshot().total_rows())
+        return int(data.count())               # row table
+
+    def _views_dir(self) -> str:
+        return os.path.join(self.path, "views")
+
+    def _view_state_path(self, name: str) -> str:
+        return os.path.join(self._views_dir(), f"{name}.state")
+
+    def checkpoint_matview(self, mv, wal_seq: int, catalog=None) -> None:
+        """Persist one view's [G] partial state with its WAL fence: a
+        CRC-framed record, durable-replaced so a crash mid-write keeps
+        the previous state authoritative.  The caller holds
+        mutation_lock: the state is consistent with everything journaled
+        up to `wal_seq`.  With a catalog, the base table's live row count
+        rides the header, so recovery can detect a base that lost
+        unjournaled rows (such a state degrades to STALE)."""
+        mv.wal_seq = wal_seq
+        base_rows = None
+        if catalog is not None:
+            base = catalog.lookup_table(mv.base_table)
+            if base is not None:
+                base_rows = self._live_row_count_of(base.data)
+        header, arrays = mv.state_record(base_rows=base_rows)
+        os.makedirs(self._views_dir(), exist_ok=True)
+        tmp = os.path.join(self._views_dir(), f"{mv.name}.tmp")
+        with open(tmp, "wb") as fh:
+            write_record(fh, header, arrays)
+        self._durable_replace(tmp, self._view_state_path(mv.name))
+
+    def drop_matview_state(self, name: str) -> None:
+        try:
+            os.remove(self._view_state_path(name))
+        except FileNotFoundError:
+            pass
 
     # -- checkpoint ------------------------------------------------------
 
     def checkpoint_table(self, info, wal_seq: int) -> None:
         tdir = os.path.join(self.path, "tables", info.name)
         os.makedirs(tdir, exist_ok=True)
+        from snappydata_tpu_torch.storage import tier
+
+        # this store's batch files are the table's quarantine-rebuild
+        # source from now on
+        tier.bind_store(info.data, self)
         if isinstance(info.data, RowTableData):
             arrays, masks, n = info.data.to_arrays_with_nulls()
             with open(os.path.join(tdir, "rows.tmp"), "wb") as fh:
@@ -765,8 +821,14 @@ class DiskStore:
             seq = self.current_wal_seq()
             folded = {}
             for info in catalog.list_tables():
+                if info.options.get("materialized_view"):
+                    continue   # rebuilt from the view state below
                 self.checkpoint_table(info, seq)
                 folded[info.name] = seq
+            from snappydata_tpu_torch.views.matview import matviews
+
+            for mv in matviews(catalog).values():
+                self.checkpoint_matview(mv, seq, catalog=catalog)
             self._rotate_wal(folded)
 
     def _write_batch(self, fpath: str, batch: ColumnBatch,
@@ -1277,9 +1339,11 @@ class DiskStore:
         """Rebuild the catalog and table data from disk into `session`
         (on its device): checkpointed batches and row buffers, then ONE
         ordered replay of the global WAL fenced per table on the
-        checkpoint's wal_seq.  A directory that records views, policies,
-        indexes, functions, deployed code, streams, grants or AQP state
-        raises NotImplementedError: those are not ported."""
+        checkpoint's wal_seq, then views, materialized views (their
+        checkpointed state, then the WAL tail past each one's watermark)
+        and functions.  A directory that records policies, indexes,
+        deployed code, streams, grants or AQP TopKs raises
+        NotImplementedError: those are not ported."""
         from snappydata_tpu_torch import config
         from snappydata_tpu_torch.catalog import Catalog
         from snappydata_tpu_torch.engine.executor import Executor
@@ -1296,8 +1360,9 @@ class DiskStore:
         if os.path.exists(cat_path):
             with open(cat_path) as fh:
                 meta = json.load(fh)
-        unported = [k for k in ("views", "matviews", "topks", "aux_ddl",
-                                "grants") if meta.get(k)]
+        unported = [k for k in ("topks", "grants") if meta.get(k)]
+        unported += sorted(k for k in (meta.get("aux_ddl") or {})
+                           if not k.startswith("function:"))
         if unported:
             raise NotImplementedError(
                 f"{self.path}: the catalog records {', '.join(unported)}, "
@@ -1317,13 +1382,93 @@ class DiskStore:
                     t["name"], schema, t["provider"], t.get("options", {}),
                     key_columns=t.get("key_columns", ()))
                 folded[info.name] = self._load_table_data(info)
-            self._replay_wal(catalog, session, folded)
+            self._recover_views(catalog, session, meta, folded)
         return catalog
+
+    def _recover_views(self, catalog, session, meta, folded) -> None:
+        """Views, then materialized views (state reload, fence checks),
+        then the WAL replay (which folds only each view's tail), then the
+        views that could not restore before it, then functions."""
+        # views come BEFORE the replay: a journaled statement may read
+        # one (INSERT INTO t SELECT ... FROM some_view), and a view over
+        # a table only created later in the WAL retries after it
+        pending_views = {}
+        with _no_journal(session):
+            for name, ddl in (meta.get("views") or {}).items():
+                try:
+                    session.sql(ddl)
+                except Exception:
+                    pending_views[name] = ddl
+        # materialized views restore BEFORE the replay, so the tail past
+        # each view's checkpointed watermark folds exactly once: a state
+        # loaded at fence W skips records <= W; a missing or damaged
+        # state, or a fence that does not match the base table's, brings
+        # the view up STALE (it re-aggregates at its first read)
+        matview_ddl = dict(meta.get("matviews") or {})
+        if matview_ddl:
+            session._mv_recovering = True
+            try:
+                with _no_journal(session):
+                    for name, ddl in matview_ddl.items():
+                        try:
+                            session.sql(ddl)
+                        except Exception:
+                            continue
+                        mv = getattr(catalog, "_matviews", {}).get(name)
+                        if mv is not None:
+                            self._load_matview_state(catalog, mv, folded)
+            finally:
+                session._mv_recovering = False
+            catalog._matview_ddl = matview_ddl
+        self._replay_wal(catalog, session, folded)
+        with _no_journal(session):
+            for ddl in pending_views.values():
+                try:
+                    session.sql(ddl)
+                except Exception:
+                    pass  # a view over a dropped table: skipped
+        catalog._view_ddl = dict(meta.get("views") or {})
+        for name, ddl in (meta.get("aux_ddl") or {}).items():
+            try:
+                session.sql(ddl)
+            except Exception as e:
+                print(f"warning: recovery skipped {name!r}: {e}",
+                      file=sys.stderr)
+        catalog._aux_ddl = dict(meta.get("aux_ddl") or {})
+
+    def _load_matview_state(self, catalog, mv, folded) -> None:
+        loaded = False
+        ckpt_base_rows = None
+        spath = self._view_state_path(mv.name)
+        if os.path.exists(spath):
+            try:
+                salvage_file(spath, counter="batch_corrupt_records")
+                with open(spath, "rb") as fh:
+                    for header, arrays in read_records(fh):
+                        mv.load_state(header, arrays)
+                        ckpt_base_rows = header.get("base_rows")
+                        loaded = True
+            except Exception:
+                loaded = False
+        base = catalog.lookup_table(mv.base_table)
+        if not loaded:
+            mv.stale = True
+        elif mv.wal_seq != folded.get(mv.base_table, 0):
+            mv.mark_stale("recovery fence mismatch")
+        elif (ckpt_base_rows is not None and base is not None
+              and self._live_row_count_of(base.data) != ckpt_base_rows):
+            # the restored base holds another row set than the one the
+            # state aggregated (unjournaled writes are gone and the WAL
+            # can never replay them): serving the state would be wrong
+            mv.mark_stale("recovery base-rows mismatch")
 
     def _load_table_data(self, info) -> int:
         """Load checkpointed state; returns the folded wal_seq (0 = no
         checkpoint on disk)."""
         tdir = os.path.join(self.path, "tables", info.name)
+        from snappydata_tpu_torch.storage import tier
+
+        tier.bind_store(info.data, self)
         if isinstance(info.data, RowTableData):
             rpath = os.path.join(tdir, "rows.dat")
             seq = 0
@@ -1544,8 +1689,12 @@ class DiskStore:
         if not getattr(self, "_wal_clean", False):
             salvage_file(wal)
             self._wal_clean = True
-        # replay must not re-journal (records already ARE the journal)
-        with _no_journal(session):
+        # replay must not re-journal (records already ARE the journal);
+        # the managed scope keeps the unmanaged-write guard from marking
+        # views stale for the replay's own data-layer applies
+        from snappydata_tpu_torch.views import matview as _mv
+
+        with _no_journal(session), _mv.managed_base_write():
             self._replay_wal_inner(catalog, session, folded, wal)
 
     def _replay_wal_inner(self, catalog, session, folded: Dict[str, int],
@@ -1619,6 +1768,8 @@ class DiskStore:
                         pass
                     reseed_dedup(header, n)
                     continue
+                from snappydata_tpu_torch.views import matview as _mv
+
                 ncols = header["ncols"]
                 _h, arrays = _decode_frame(frame)
                 cols, nulls = arrays[:ncols], arrays[ncols:]
@@ -1626,8 +1777,12 @@ class DiskStore:
                     key_cols = header["key_columns"]
                     keys = {tuple(c[i] for c in cols)
                             for i in range(len(cols[0]))}
-                    deleted = info.data.delete(
-                        _key_predicate(key_cols, keys))
+                    wrapped, captured = _mv.wrap_delete_predicate(
+                        catalog, table, _key_predicate(key_cols, keys))
+                    deleted = info.data.delete(wrapped)
+                    if captured:
+                        _mv.replay_fold_deleted(catalog, table, captured,
+                                                seq)
                     reseed_dedup(header, deleted)
                     continue
                 reseed_dedup(header,
@@ -1636,13 +1791,24 @@ class DiskStore:
                 if isinstance(info.data, RowTableData):
                     if kind == "put":
                         info.data.put_arrays(cols)
+                        if info.key_columns:
+                            _mv.mark_stale(catalog, table, "replay put")
+                        else:
+                            _mv.replay_fold(catalog, table, cols, None,
+                                            seq)
                     else:
                         info.data.insert_arrays(cols)
+                        _mv.replay_fold(catalog, table, cols, None, seq)
                 elif kind == "put":
+                    # _column_put subtracts and folds through the live
+                    # hooks; replayed records sit past every fence by the
+                    # replay filter, so those folds are the tail folds
                     session._column_put(info, cols)
                 else:
                     info.data.insert_arrays(
                         cols, nulls=nulls if any_nulls else None)
+                    _mv.replay_fold(catalog, table, cols,
+                                    nulls if any_nulls else None, seq)
 
 
 def _key_predicate(key_columns, keys):

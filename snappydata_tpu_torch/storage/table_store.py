@@ -213,6 +213,9 @@ class ColumnTableData:
         self.max_delta_rows = max_delta_rows or props.column_max_delta_rows
         self._lock = locks.named_lock("storage.column_table")
         self._batch_ids = itertools.count()
+        # post-insert observers (the materialized views' unmanaged-write
+        # guard; ref: SampleInsertExec keeps samples in sync with inserts)
+        self.on_insert = []
         self._row_buffer = RowBuffer(schema, max(self.max_delta_rows * 2,
                                                  self.capacity))
         # table-level shared dictionaries for string columns: codes stay
@@ -436,6 +439,8 @@ class ColumnTableData:
                 views.extend(self._rollover_locked())
             self._publish(tuple(views))
         self._maybe_spill()
+        for cb in self.on_insert:
+            cb(arrays, nulls)
         return n
 
     def _maybe_spill(self) -> None:
@@ -780,12 +785,15 @@ class ColumnTableData:
         dictionary."""
         return LazyBatchColumns(self, view)
 
-    def _row_buffer_dict(self) -> Optional[Dict[str, np.ndarray]]:
+    def _row_buffer_dict(self) -> Optional["_RowBufferCols"]:
         rb = self._row_buffer
         if rb.count == 0:
             return None
-        return {f.name: rb._cols[i][:rb.count]
-                for i, f in enumerate(self.schema.fields)}
+        out = _RowBufferCols({f.name: rb._cols[i][:rb.count]
+                              for i, f in enumerate(self.schema.fields)})
+        out._rb = rb
+        out._schema = self.schema
+        return out
 
     def _to_device_domain(self, col_idx: int, values, like: np.ndarray
                           ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -851,6 +859,56 @@ class LazyBatchColumns:
     def keys(self):
         return self._data.schema.names()
 
+    def null_mask(self, name: str) -> Optional[np.ndarray]:
+        """Delta-aware SQL-NULL mask of one column (the delete capture
+        needs it: a view's subtraction must skip the values its fold
+        skipped)."""
+        return self._view.null_mask(self._data.schema.index(name))
+
+    def live_mask(self) -> np.ndarray:
+        """Rows a DELETE can remove (no capacity padding, no row deleted
+        before): the delete capture intersects with it, or a re-matching
+        predicate would subtract dead rows from a view a second time."""
+        return self._view.live_mask()
+
+
+class _RowBufferCols(dict):
+    """Row-buffer column mapping for mutation predicates, carrying the
+    buffer's null masks and live rows for the delete capture."""
+
+    _rb = None
+    _schema = None
+
+    def null_mask(self, name: str) -> Optional[np.ndarray]:
+        if self._rb is None:
+            return None
+        m = self._rb._nulls[self._schema.index(name)]
+        return m[:self._rb.count] if m is not None else None
+
+    def live_mask(self) -> Optional[np.ndarray]:
+        if self._rb is None:
+            return None
+        return self._rb._valid[:self._rb.count]
+
+
+class _LiveRowCols(dict):
+    """Row-table column mapping for DELETE predicates, carrying the live
+    rows (the delete capture skips rows deleted before) and the SQL-NULL
+    masks (a captured subtraction skips exactly the values the fold
+    skipped: a NULL fills as NaN or 0 in the typed arrays, and without
+    the mask a view would subtract a contribution that never was)."""
+
+    _live = None
+    _nulls = None
+
+    def live_mask(self) -> Optional[np.ndarray]:
+        return self._live
+
+    def null_mask(self, name: str) -> Optional[np.ndarray]:
+        if self._nulls is None:
+            return None
+        return self._nulls.get(name)
+
 
 class RowTableData:
     """Storage for a ROW table: host rows with an optional primary-key
@@ -870,6 +928,7 @@ class RowTableData:
         self._live: List[bool] = []
         self._pk: Dict[tuple, int] = {}
         self._version = 0
+        self.on_insert = []
 
     @property
     def version(self) -> int:
@@ -895,6 +954,8 @@ class RowTableData:
             for i in range(n):
                 self._append_row(tuple(a[i] for a in arrays), upsert=False)
             self._version += 1
+        for cb in self.on_insert:
+            cb(arrays, None)
         return n
 
     def put_arrays(self, arrays: Sequence[np.ndarray]) -> int:
@@ -1001,8 +1062,15 @@ class RowTableData:
         with self._lock:
             if not self._live:
                 return 0
-            cols = self._typed_cols_locked()
-            hit = np.asarray(predicate(cols)) & np.array(self._live)
+            cols = _LiveRowCols(self._typed_cols_locked())
+            cols._live = np.array(self._live)
+            nmasks = {}
+            for f, c in zip(self.schema.fields, self._cols):
+                if any(v is None for v in c):
+                    nmasks[f.name] = np.fromiter(
+                        (v is None for v in c), dtype=np.bool_, count=len(c))
+            cols._nulls = nmasks or None
+            hit = np.asarray(predicate(cols)) & cols._live
             for ordinal in np.flatnonzero(hit):
                 self._live[ordinal] = False
                 if self._key_idx:

@@ -97,6 +97,23 @@ def attach_store(store) -> None:
     whose CRC-framed spill record rotted on disk."""
     _STORES.add(store)
 
+
+def bind_store(data, store) -> None:
+    """Record `store` as the one whose checkpointed batch files hold
+    `data`'s batches (the store checkpointed or recovered this very
+    table).  A quarantine rebuild reads that store alone: another
+    session's same-named table with the same batch ids is a different
+    table, and grafting its batch would serve its rows."""
+    data._tier_store = weakref.ref(store)
+
+
+def _own_store(data):
+    """The attached store that holds `data`'s checkpointed batches, or
+    None."""
+    ref = getattr(data, "_tier_store", None)
+    store = ref() if ref is not None else None
+    return store if store is not None and store in _STORES else None
+
 # column arrays a batch spills, in frame order (hoststore's spill set:
 # dictionaries and object-dtype arrays stay resident — small, and not
 # memmappable)
@@ -410,16 +427,16 @@ def _rebuild_batch(data, batch, table_name: Optional[str]):
             healed = _graft(v.batch)
             if healed is not None:
                 return healed
-    # 2. checkpointed batch file through an attached disk store
-    if table_name:
-        for store in list(_STORES):
-            try:
-                healed = _graft(store.load_batch(table_name,
-                                                 batch.batch_id))
-            except Exception:
-                healed = None
-            if healed is not None:
-                return healed
+    # 2. the table's own checkpointed batch file, through the attached
+    #    disk store that wrote it (never another session's namesake)
+    store = _own_store(data)
+    if table_name and store is not None:
+        try:
+            healed = _graft(store.load_batch(table_name, batch.batch_id))
+        except Exception:
+            healed = None
+        if healed is not None:
+            return healed
     return None
 
 

@@ -1245,3 +1245,170 @@ def test_cuda_cancelled_tiled_pass_leaves_no_bytes(cuda_device):
     for a, b in zip(got, want):
         assert (a[0], a[1], a[3], a[4]) == (b[0], b[1], b[3], b[4])
         assert a[2] == pytest.approx(b[2], rel=1e-12)
+
+
+# --- views, materialized views and SQL functions on the card ----------------
+
+@pytest.mark.cuda
+def test_cuda_modulo_by_zero_gives_zero(cuda_device):
+    """Fault C3 on CUDA: an integer zero divisor gives 0 (the reference's
+    jnp `%`), never the undefined value of an unguarded division; NULL
+    stays NULL, and nothing leaves the device."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    s = SnappySession(catalog=Catalog())
+    s.sql("CREATE TABLE z (b BIGINT, g INT, m DECIMAL(10,2)) USING column")
+    s.sql("INSERT INTO z VALUES (7, 0, 2.50), (-7, 2, 0.00), "
+          "(NULL, 3, NULL)")
+    reg = global_registry()
+    h0 = reg.counter("host_fallbacks")
+    assert s.sql("SELECT b % g FROM z ORDER BY g").rows() == \
+        [(0,), (1,), (None,)]
+    assert s.sql("SELECT b % 0 FROM z ORDER BY g").rows() == \
+        [(0,), (0,), (None,)]
+    assert [r[0] for r in s.sql("SELECT m % m FROM z ORDER BY g").rows()] \
+        == [0, 0, None]
+    assert s.sql("SELECT sum(b % g) FROM z").rows() == [(1,)]
+    assert s.sql("SELECT b FROM z WHERE b % g = 1").rows() == [(-7,)]
+    assert reg.counter("host_fallbacks") == h0
+
+
+@pytest.mark.cuda
+def test_cuda_udf_runs_on_card_tensors(cuda_device):
+    """A SQL function's body runs on the plates' CUDA tensors inside the
+    device program (no host fallback), its result cast to the float32
+    plate of RETURNS DOUBLE; the global sum launches the Kahan kernel."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.sql import udf
+
+    s = SnappySession(catalog=Catalog())
+    s.sql("CREATE TABLE u (p DOUBLE, d DOUBLE) USING column")
+    rng = np.random.default_rng(3)
+    p = np.round(rng.random(100_000) * 1000, 2)
+    d = np.round(rng.random(100_000) * 0.1, 2)
+    s.insert_arrays("u", [p, d])
+    s.sql("CREATE FUNCTION rev AS 'lambda p, d: p * d' RETURNS DOUBLE")
+    s.sql("CREATE FUNCTION capped AS 'lambda x: jnp.clip(x, 10, 40)'")
+    seen = []
+    real = udf.device_lane
+
+    def spy(device):
+        seen.append(device)
+        return real(device)
+
+    udf.device_lane = spy
+    props = __import__("snappydata_tpu_torch.config",
+                       fromlist=["x"]).global_properties()
+    old = props.pallas_reduce
+    props.pallas_reduce = True
+    try:
+        reg = global_registry()
+        h0 = reg.counter("host_fallbacks")
+        k0 = masked_kahan_sum.launches
+        got = s.sql("SELECT sum(rev(p, d)), sum(capped(p)) FROM u").rows()[0]
+        assert reg.counter("host_fallbacks") == h0
+        assert masked_kahan_sum.launches > k0
+    finally:
+        udf.device_lane = real
+        props.pallas_reduce = old
+    assert seen and all(dv.type == "cuda" for dv in seen)
+    pf, df = p.astype(np.float32), d.astype(np.float32)
+    assert got[0] == pytest.approx(float((pf * df).astype(np.float64).sum()),
+                                   rel=1e-6)
+    assert got[1] == pytest.approx(float(np.clip(pf, 10, 40).sum()),
+                                   rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_matview_state_on_the_card(cuda_device):
+    """A materialized view's [G] state lives on the card in float64 /
+    int64, a fold merges there (index_add_ and scatter_reduce_), the
+    broker ledgers exactly `state_nbytes()`, and DROP frees it."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.resource import global_broker
+    from snappydata_tpu_torch.views import matview
+
+    s = SnappySession(catalog=Catalog())
+    s.sql("CREATE TABLE b (k INT, v DOUBLE, n BIGINT) USING column")
+    rng = np.random.default_rng(5)
+    k = rng.integers(0, 300, 50_000).astype(np.int32)
+    v = np.round(rng.random(50_000) * 100, 2)
+    n = rng.integers(0, 1000, 50_000)
+    s.insert_arrays("b", [k, v, n])
+    led0 = global_broker().ledger()["matview_state_bytes"]
+    s.sql("CREATE MATERIALIZED VIEW mv AS SELECT k, sum(v) AS sv, "
+          "sum(n) AS sn, max(v) AS mx, count(*) AS c FROM b GROUP BY k")
+    mv = matview.matviews(s.catalog)["mv"]
+    assert [t.dtype for t in mv._vals] == [torch.float64, torch.int64,
+                                           torch.float64, torch.int64]
+    assert all(t.is_cuda for t in mv._vals) and mv._rowcount.is_cuda
+    assert global_broker().ledger()["matview_state_bytes"] - led0 == \
+        mv.state_nbytes() > 0
+    k2 = np.array([1, 1, 299, 400], dtype=np.int32)
+    v2 = np.array([500.0, 1.0, 2.0, 3.0])
+    n2 = np.array([1, 2, 3, 4])
+    s.insert_arrays("b", [k2, v2, n2])
+    assert mv.folds >= 1
+    kk, vv, nn = np.concatenate([k, k2]), np.concatenate([v, v2]), \
+        np.concatenate([n, n2])
+    rows = s.sql("SELECT * FROM mv ORDER BY k").rows()
+    assert len(rows) == len(np.unique(kk))
+    for key, sv, sn, mx, c in rows:
+        g = kk == key
+        assert c == int(g.sum()) and sn == int(nn[g].sum())
+        assert sv == pytest.approx(float(vv[g].astype(np.float32)
+                                         .astype(np.float64).sum()),
+                                   rel=1e-6)
+        assert mx == pytest.approx(float(vv[g].max()), rel=1e-6)
+    s.sql("DROP MATERIALIZED VIEW mv")
+    assert global_broker().ledger()["matview_state_bytes"] <= led0
+
+
+@pytest.mark.cuda
+def test_cuda_fold_under_one_query_limit(cuda_device, monkeypatch):
+    """Folds inside INSERT ... SELECT and a stale view's refresh inside a
+    query run under the statement's own query context: under a memory
+    limit that admits one query at a time they must not queue behind
+    their own statement."""
+    import threading
+
+    from snappydata_tpu_torch import SnappySession, config, resource
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.views import matview
+
+    props = config.global_properties()
+    old = (props.memory_limit_bytes, props.query_timeout_s)
+    props.memory_limit_bytes = 1 << 20
+    props.query_timeout_s = 20.0
+    monkeypatch.setattr(resource, "estimate_statement_bytes",
+                        lambda catalog, stmt: 1 << 20)
+    out = []
+    try:
+        s = SnappySession(catalog=Catalog())
+        s.sql("CREATE TABLE b (k INT, v DOUBLE) USING column")
+        s.sql("CREATE TABLE src (k INT, v DOUBLE) USING column")
+        s.sql("INSERT INTO b VALUES (1, 1.0), (2, 2.0)")
+        s.sql("INSERT INTO src VALUES (1, 10.0), (3, 30.0)")
+        s.sql("CREATE MATERIALIZED VIEW mv AS SELECT k, sum(v) AS sv "
+              "FROM b GROUP BY k")
+
+        def work():
+            try:
+                s.sql("INSERT INTO b SELECT * FROM src")
+                matview.matviews(s.catalog)["mv"].mark_stale("test")
+                out.append(s.sql("SELECT * FROM mv ORDER BY k").rows())
+            except Exception as e:  # pragma: no cover - reported below
+                out.append(e)
+
+        th = threading.Thread(target=work, daemon=True)
+        th.start()
+        th.join(60)
+        assert not th.is_alive(), "a fold or refresh queued behind itself"
+    finally:
+        props.memory_limit_bytes, props.query_timeout_s = old
+    assert out == [[(1, 11.0), (2, 2.0), (3, 30.0)]], out

@@ -450,3 +450,33 @@ def test_non_injective_derived_group_key_takes_the_host_path(pair):
     assert sum(r[3] for r in rows1) == sum(r[3] for r in rows2) == n
     assert {r[1] for r in rows2} == {"AI", "FO", "MA", "RA", "RE", "SH",
                                      "TR"}
+
+
+# --- fault C3: `%` with a zero divisor ---------------------------------------
+
+MOD_QUERIES = [
+    ("SELECT b % g FROM z ORDER BY g", [(0,), (1,), (None,)]),
+    ("SELECT b % 0 FROM z ORDER BY g", [(0,), (0,), (None,)]),
+    ("SELECT m % m FROM z ORDER BY g", None),
+    ("SELECT sum(b % g) FROM z", [(1,)]),
+    ("SELECT b % g AS r, count(*) FROM z GROUP BY b % g ORDER BY r", None),
+    ("SELECT b FROM z WHERE b % g = 1", [(-7,)]),
+]
+
+
+@pytest.mark.parametrize("policy_name", ["f64", "f32"])
+@pytest.mark.parametrize("q,want", MOD_QUERIES)
+def test_modulo_by_zero_gives_the_references_zero(policy_name, q, want):
+    """ROADMAP C3: an integer (BIGINT, INT, exact DECIMAL) zero divisor
+    gives 0 as the reference's jnp `%` does, on the device, never a
+    raise; NULL stays NULL; the routing equals the reference's (no host
+    fallback)."""
+    from torch_parity import Pair as PolicyPair
+
+    p = PolicyPair(policy_name)
+    p.sql("CREATE TABLE z (b BIGINT, g INT, m DECIMAL(10,2)) USING column")
+    p.sql("INSERT INTO z VALUES (7, 0, 2.50), (-7, 2, 0.00), "
+          "(NULL, 3, NULL)")
+    rows = p.device(q)
+    if want is not None:
+        assert rows == want

@@ -372,12 +372,15 @@ def test_storage_format_parity(tmp_path, writer):
 
 
 def test_unported_catalog_state_raises(tmp_path):
-    """A directory recording a view cannot be recovered by the port, and
-    says so instead of skipping the view."""
+    """A directory recording a row-level policy cannot be recovered by the
+    port (policies are not ported), and says so instead of skipping the
+    policy.  Views, materialized views and functions recover
+    (tests/test_torch_matviews.py)."""
     d = str(tmp_path)
     s = RefSession(catalog=RefCatalog(), data_dir=d, recover=False)
     s.sql("CREATE TABLE t (a INT) USING column")
     s.sql("CREATE VIEW v AS SELECT a FROM t")
+    s.sql("CREATE POLICY p1 ON t USING a > 2")
     s.disk_store.close()
-    with pytest.raises(NotImplementedError, match="views"):
+    with pytest.raises(NotImplementedError, match="policy:p1"):
         SnappySession(data_dir=d, device="cpu")

@@ -118,3 +118,72 @@ def test_query_matches_reference(sessions, query, on_device):
     assert len(got) == len(want), (got, want)
     for g, w in zip(got, want):
         assert all(_close(a, b, mode == "on") for a, b in zip(g, w)), (g, w)
+
+
+# --- fault C6: the bare LIMIT early stop (executeTake) ----------------------
+
+def test_bare_limit_over_string_compare_matches_reference():
+    """ROADMAP C6: `WHERE k = 1 LIMIT 3` over a STRING k takes the
+    executeTake lane in both packages and returns the reference's []
+    (the port raised numpy's UFuncTypeError before); without LIMIT both
+    packages raise."""
+    from torch_parity import Pair as PolicyPair
+
+    p = PolicyPair("f64")
+    p.sql("CREATE TABLE z (id INT, k STRING) USING column "
+          "OPTIONS (column_batch_rows '4', column_max_delta_rows '4')")
+    p.insert_arrays("z", [np.arange(10, dtype=np.int32),
+                          np.array(list("abcdefghij"), dtype=object)])
+    rows, _ = p.run("SELECT id FROM z WHERE k = 1 LIMIT 3")
+    assert rows == []
+    for s in (p.port, p.ref):
+        with pytest.raises(Exception):
+            s.sql("SELECT id FROM z WHERE k = 1")
+
+
+def test_limit_decodes_only_the_batches_it_needs(monkeypatch):
+    """A LIMIT over a multi-batch column table returns after decoding its
+    first batch (a spy counts the decodes), with the reference's rows and
+    its `take_*` counters; a LIMIT over an aggregate does not take the
+    early stop."""
+    from torch_parity import Pair as PolicyPair, counters
+    from snappydata_tpu.observability.metrics import \
+        global_registry as ref_registry
+    from snappydata_tpu_torch.storage.table_store import ColumnTableData
+
+    p = PolicyPair("f64")
+    p.sql("CREATE TABLE big (id BIGINT, x DOUBLE, s STRING) USING column "
+          "OPTIONS (column_batch_rows '256', column_max_delta_rows '256')")
+    n = 2048
+    p.insert_arrays("big", [np.arange(n, dtype=np.int64),
+                            np.arange(n, dtype=np.float64) * 0.5,
+                            np.array([f"s{i % 9}" for i in range(n)],
+                                     dtype=object)])
+    data = p.port.catalog.describe("big").data
+    assert len(data.snapshot().views) == n // 256
+    decodes = []
+    real = ColumnTableData._decode_all
+
+    def spy(self, view):
+        decodes.append(view.batch.batch_id)
+        return real(self, view)
+
+    monkeypatch.setattr(ColumnTableData, "_decode_all", spy)
+    keys = ("take_early_stops", "take_batches_decoded", "host_fallbacks")
+    moved = []
+    for s, reg in ((p.port, global_registry()), (p.ref, ref_registry())):
+        before = counters(reg)
+        rows = [tuple(r) for r in s.sql(
+            "SELECT id, s FROM big WHERE x >= 10 LIMIT 5").rows()]
+        after = counters(reg)
+        moved.append(({k: after.get(k, 0) - before.get(k, 0)
+                       for k in keys}, rows))
+    (pm, prows), (rm, rrows) = moved
+    assert prows == rrows == [(i, f"s{i % 9}") for i in range(20, 25)]
+    assert pm == rm == {"take_early_stops": 1, "take_batches_decoded": 1,
+                        "host_fallbacks": 0}, (pm, rm)
+    assert len(decodes) == 1
+    decodes.clear()
+    rows, moved2 = p.run("SELECT count(*), sum(x) FROM big LIMIT 1")
+    assert rows == [(n, float(np.arange(n).sum() * 0.5))]
+    assert decodes == []   # the aggregate ran on the device, no take

@@ -379,6 +379,38 @@ def test_corruption_heals_from_durable_store(tmp_path, small_batches):
     sess.disk_store.close()
 
 
+def test_rebuild_reads_only_the_tables_own_store(tmp_path, small_batches,
+                                                  monkeypatch):
+    """Fault C5: two durable sessions each hold a table `big` with the
+    same batch ids.  With the OTHER session's store first in the walk, the
+    quarantine rebuild of A's batch must still read A's own checkpointed
+    file: A's sum(v) stays A's oracle, never B's rows."""
+    sa = SnappySession(catalog=Catalog(), data_dir=str(tmp_path / "a"),
+                       recover=False, device="cpu")
+    sb = SnappySession(catalog=Catalog(), data_dir=str(tmp_path / "b"),
+                       recover=False, device="cpu")
+    _k, va, _w = _load(sa, n=1200, seed=7)
+    _load(sb, n=1200, seed=99)
+    sa.checkpoint()
+    sb.checkpoint()
+    # the hazard made certain: B's store is consulted first
+    monkeypatch.setattr(tier, "_STORES", [sb.disk_store, sa.disk_store])
+    data = sa.catalog.describe("big").data
+    assert tier.demote_host([("big", data)], 1 << 40) > 0
+    mvcc.trim_unpinned([("big", data)])
+    _corrupt_first_batch(data)
+    r0 = _c("tier_rebuilds")
+    assert tier.promote_table(data) > 0
+    assert _c("tier_rebuilds") == r0 + 1
+    got = sa.sql("SELECT count(*), sum(v) FROM big").rows()[0]
+    assert int(got[0]) == 1200
+    assert float(got[1]) == pytest.approx(float(va.sum()), rel=1e-12), \
+        (float(got[1]), float(va.sum()))
+    assert round(float(va.sum()), 2) == 119925.97
+    sa.disk_store.close()
+    sb.disk_store.close()
+
+
 def test_corruption_without_source_raises_typed(small_batches):
     """No retained epoch, no durable store: the quarantine still
     happens, but the failure surfaces as the TYPED TierQuarantinedError
