@@ -16,7 +16,10 @@ MAP / STRUCT columns, then a durable lineitem through the WAL, a
 checkpoint, crash-shape recovery and the compactor, then, on that
 durable lineitem, the resource governor (ledger, admission, degradation,
 cancellation), the HBM -> host -> disk tier ladder with a healed tier
-file, a seeded fault storm and the broker-kicked compactor.
+file, a seeded fault storm and the broker-kicked compactor; on the main
+session, prepared statements and the micro-batcher, the group-index
+cache, a secondary index and a row-level policy, then AQP over a sample
+table.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
@@ -88,7 +91,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    last tile's inputs, and the Kahan kernel on the first (full) tile's
    too (phase 5's checks and timings); seconds, rows/s, bytes uploaded
    per pass and the pinned host-to-device rate;
-12. exact decimals: lineitem_dec (the first eighth of the --sf x 6M
+12. exact decimals: lineitem_dec (the first twelfth of the --sf x 6M
    generated rows, `DEC_DEPTH`, cut to keep the run inside its limit, with
    l_quantity, l_extendedprice, l_discount and l_tax as DECIMAL(15,2))
    loaded, Q1 and Q6 through `session.sql`: the exact slots are
@@ -153,11 +156,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    and the host's CUDA runtime records each hold exactly one kernel
    launch per call, and there is no copy, memset or torch op but the
    output's allocation; its mean device time (`device_ms`);
-18. nested orders: `gen_orders(1,500,000)` with `gen_lineitem(6,000,000,
+18. nested orders: `gen_orders(1,000,000)` with `gen_lineitem(4,000,000,
    seed 7)` nested by l_orderkey (`tpch.gen_orders_nested`: an `info`
    STRUCT, `modes` ARRAY<STRING>, `prices` ARRAY<DOUBLE>, `qty_by_mode`
-   MAP<STRING, DOUBLE>; SF 1, `reduced`: the cells are Python objects on
-   the host), ingested through `insert_arrays`; `NESTED_N1` (GROUP BY
+   MAP<STRING, DOUBLE>; SF 2/3, `reduced`: the cells are Python objects
+   on the host), ingested through `insert_arrays`; `NESTED_N1` (GROUP BY
    the two BOOLEAN keys array_contains(modes, 'AIR') and size(modes) >=
    4: the reference has no device dictionary for a GROUP BY over a
    struct's STRING field) and `NESTED_N2` once and --reps times
@@ -237,9 +240,42 @@ Phases, in order; any failure exits non-zero before the result lines:
    crash-shape reopen: the state reloads, the tail alone folds, and the
    view, rev()'s Q6 and the plain view equal numpy (checkpoint and
    recovery seconds);
-22. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+22. right after phase 21, on the main session as phase 21 leaves
+   lineitem (not cut): (a) SQL `PREPARE q6p AS` Q6 with `?` for the two
+   ship-date bounds, the discount band and the quantity, `EXECUTE` with
+   three bind vectors once and --reps times warm: each answer equal to
+   the literal `session.sql` query and to numpy, no plan-cache miss of an
+   EXECUTE, the registry's hits, one Kahan launch per execute; (b) the
+   micro-batcher at `serving_batch_max` 16 and `serving_batch_wait_us`
+   200: 1, 4 and 16 client threads x 8 `handle.execute` calls with
+   distinct binds (years 1993 - 1997 x four discount bands), requests/s,
+   per-request p50 / p99, fused dispatches and their occupancy, the
+   Kahan kernel launched once per request, no batch fallback, every
+   answer equal to its solo answer; then the same with a Q1 whose ship
+   date is a `?` (the grouped kernel); (c) the group-index cache: the
+   prepared Q1 three times with one bind (1 miss, 2 hits, miss and hit
+   seconds, the ledger's `gidx_cache_bytes` equal to the cache's bytes,
+   `memory_allocated` before and after), a 1-row insert, then a miss;
+   (d) a row table of 150,000 SF 1 customer rows (`reduced`: row-table
+   inserts are host rows) with `CREATE INDEX` on c_name, 500 lookups
+   through `session.sql` and 500 through a prepared handle's point
+   lane: lookups/s, `point_lookups`, no kernel launch; (e) `CREATE
+   POLICY` on lineitem (l_tax < 0.05) under the held Q6 handle: one
+   re-prepare, the answer equal to numpy over the filtered rows, then
+   `DROP POLICY`.  With --profile: one fused 16-request Q6 dispatch and
+   one group-index cache hit of the prepared Q1;
+23. AQP (`reduced`): a lineitem of 2,097,152 rows (seed 7) on a session
+   of its own, `CREATE SAMPLE TABLE` with qcs (l_returnflag,
+   l_linestatus) and 10,000 rows a stratum (build seconds), a Q1-shaped
+   GROUP BY `WITH ERROR 0.1 CONFIDENCE 0.95` (the grouped kernel; each
+   group's estimate, bounds and whether the exact value lies inside), a
+   global avg `WITH ERROR` (its moments group by stratum: the grouped
+   kernel) and the same avg through `approx_sql` (weighted global sums:
+   the Kahan kernel), then a TopK over l_suppkey (build seconds; no
+   reported count below the true count);
+24. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
-   18, 19, 20 and 21.
+   18 - 23.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -262,7 +298,7 @@ ORDERS_PER_SF = 1_500_000
 KERNELS = ("kahan_reduce", "group_reduce", "code_filter_sum",
            "group_code_reduce")
 RLE_PROBE_ROWS = (1 << 16, 1 << 22)
-DEC_DEPTH = 8        # lineitem_dec holds 1 / DEC_DEPTH of lineitem's rows
+DEC_DEPTH = 12       # lineitem_dec holds 1 / DEC_DEPTH of lineitem's rows
 
 
 def fail(msg: str) -> None:
@@ -2113,7 +2149,9 @@ class FoldTimer:
 
 
 def views_path(session, tpch, li, post, first, args):
-    """Phase 21 (a) - (f); returns the two kernels' launches.  `li` is the
+    """Phase 21 (a) - (f); returns the two kernels' launches and the
+    columns phase 22's oracles read (`view_arrays` form) as the phase
+    leaves lineitem.  `li` is the
     generated lineitem, `post` its columns as phase 16 left the table,
     `first` phase 4's Q1 / Q6 (rows, seconds)."""
     import gc
@@ -2299,8 +2337,11 @@ def views_path(session, tpch, li, post, first, args):
     session.sql(f"UPDATE lineitem SET l_discount = l_discount + 0.01 "
                 f"WHERE l_orderkey <= {VIEW_UPDATE_KEYS}")
     hit = arrs["l_orderkey"] <= VIEW_UPDATE_KEYS
-    arrs["l_discount"] = np.where(hit, arrs["l_discount"] + np.float32(0.01),
-                                  arrs["l_discount"]).astype(np.float32)
+    # the store adds in float64 to the plate's float32 value, then rounds
+    # to the plate width: 0.04 + 0.01 lands on float32(0.05)
+    arrs["l_discount"] = np.where(
+        hit, (arrs["l_discount"].astype(np.float64) + 0.01)
+        .astype(np.float32), arrs["l_discount"]).astype(np.float32)
     if not mv.stale:
         fail("an UPDATE of the base left the view fresh")
     r0 = reg.counter("view_full_refreshes")
@@ -2347,7 +2388,7 @@ def views_path(session, tpch, li, post, first, args):
     # (f) durable views, on a durable session of its own
     _launch_sum(total, durable_views(tpch, {k: v[:DURABLE_VIEW_ROWS]
                                             for k, v in li.items()}, args))
-    return total
+    return total, arrs
 
 
 def durable_views(tpch, gen, args):
@@ -2420,11 +2461,555 @@ def durable_views(tpch, gen, args):
 
 
 # --------------------------------------------------------------------------
+# phase 22: prepared statements, the micro-batcher, the group-index cache,
+# secondary indexes and row-level policies, on the main session as phase
+# 21 leaves lineitem
+# --------------------------------------------------------------------------
+
+SERVING_Q6 = ("SELECT sum(l_extendedprice * l_discount) AS revenue "
+              "FROM lineitem WHERE l_shipdate >= ? AND l_shipdate < ? "
+              "AND l_discount BETWEEN ? AND ? AND l_quantity < ?")
+SERVING_Q1 = ("SELECT l_returnflag, l_linestatus, sum(l_quantity), "
+              "sum(l_extendedprice), "
+              "sum(l_extendedprice * (1 - l_discount)), count(*) "
+              "FROM lineitem WHERE l_shipdate <= ? "
+              "GROUP BY l_returnflag, l_linestatus "
+              "ORDER BY l_returnflag, l_linestatus")
+SERVING_CLIENTS = (1, 4, 16)
+SERVING_CALLS = 8             # executes per client thread
+SERVING_BANDS = ((0.02, 0.04), (0.03, 0.05), (0.05, 0.07), (0.06, 0.08))
+INDEX_ROWS = 150_000          # SF 1 customer rows in a row table
+INDEX_LOOKUPS = 500
+POLICY = "CREATE POLICY li_tax ON lineitem USING l_tax < 0.05"
+SERVING_COUNTERS = ("serving_prepared_hits", "serving_prepared_misses",
+                    "serving_reprepares", "serving_passthrough",
+                    "serving_batched_dispatches", "serving_batch_requests",
+                    "serving_straight_through", "serving_batch_fallbacks",
+                    "serving_vmap_compiles", "serving_bulk_transfers",
+                    "plan_cache_misses", "host_fallbacks", "point_lookups",
+                    "gidx_cache_hits", "gidx_cache_misses")
+
+
+def q6_bind(tpch, year, band, qty=24):
+    return (tpch._days(f"{year}-01-01"), tpch._days(f"{year + 1}-01-01"),
+            band[0], band[1], qty)
+
+
+def q6_literal(tpch, year, band, qty=24):
+    return ("SELECT sum(l_extendedprice * l_discount) AS revenue "
+            f"FROM lineitem WHERE l_shipdate >= DATE '{year}-01-01' "
+            f"AND l_shipdate < DATE '{year + 1}-01-01' "
+            f"AND l_discount BETWEEN {band[0]} AND {band[1]} "
+            f"AND l_quantity < {qty}")
+
+
+def q6_bound_oracle(arrs, bind, extra=None):
+    """Prepared Q6's answer in float64 numpy over `arrs` (phase 21's
+    `view_arrays` form); `extra` an additional row mask (a policy)."""
+    lo, hi, dlo, dhi, qty = bind
+    ship, disc = arrs["l_shipdate"], arrs["l_discount"]
+    m = (ship >= lo) & (ship < hi) & (disc >= dlo) & (disc <= dhi) \
+        & (arrs["l_quantity"] < qty)
+    if extra is not None:
+        m &= extra
+    return [(float((arrs["l_extendedprice"][m] * disc[m]).sum()),)]
+
+
+def q1_bound_oracle(arrs, ship_max):
+    """Prepared Q1's rows (keys, three sums, count) in float64 numpy."""
+    import numpy as np
+
+    m = arrs["l_shipdate"] <= ship_max
+    g = arrs["g"][m]
+    price = arrs["l_extendedprice"][m]
+    ws = [arrs["l_quantity"][m], price,
+          price * (1 - arrs["l_discount"][m].astype(np.float64))]
+    cnt = np.bincount(g, minlength=6)
+    sums = [np.bincount(g, weights=w, minlength=6) for w in ws]
+    return [("ANR"[c // 2], "FO"[c % 2]) + tuple(float(x[c]) for x in sums)
+            + (int(cnt[c]),) for c in range(6) if cnt[c]]
+
+
+def _counters(reg):
+    return {k: reg.counter(k) for k in SERVING_COUNTERS}
+
+
+def _moved(reg, before):
+    return {k: reg.counter(k) - before[k] for k in SERVING_COUNTERS}
+
+
+def _kernel_counts():
+    from snappydata_tpu_torch.ops import group_reduce as gr
+    from snappydata_tpu_torch.ops import kahan_reduce as kr
+
+    return {"grouped_reduce": gr.grouped_reduce.launches,
+            "masked_kahan_sum": kr.masked_kahan_sum.launches}
+
+
+def _reset_kernel_counts():
+    from snappydata_tpu_torch.ops import group_reduce as gr
+    from snappydata_tpu_torch.ops import kahan_reduce as kr
+
+    gr.grouped_reduce.launches = 0
+    kr.masked_kahan_sum.launches = 0
+
+
+def serve_clients(handle, binds, n_clients):
+    """`n_clients` threads, client c executing binds[c] one after the
+    other through `handle.execute`: (answers {(c, i): rows}, per-request
+    seconds, wall seconds)."""
+    import threading
+
+    answers, lat, errors = {}, [], []
+    barrier = threading.Barrier(n_clients)
+
+    def client(c):
+        try:
+            barrier.wait(timeout=120)
+            for i, b in enumerate(binds[c]):
+                t0 = time.perf_counter()
+                answers[(c, i)] = handle.execute(b).rows()
+                lat.append(time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    ts = [threading.Thread(target=client, args=(c,), daemon=True)
+          for c in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in ts):
+        fail(f"a serving client of {n_clients} hung")
+    if errors:
+        fail(f"serving clients raised: {errors[:3]}")
+    return answers, lat, wall
+
+
+def batcher_run(session, handle, label, binds_of, solo, kernel, reg):
+    """(b): 1, 4 and 16 clients x SERVING_CALLS executes each; every
+    answer equal to its bind's solo answer, `kernel` launched once per
+    request, no batch fallback."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for n in SERVING_CLIENTS:
+        binds = [[binds_of[(c * SERVING_CALLS + i) % len(binds_of)]
+                  for i in range(SERVING_CALLS)] for c in range(n)]
+        before = _counters(reg)
+        torch.cuda.synchronize()
+        _reset_kernel_counts()
+        answers, lat, wall = serve_clients(handle, binds, n)
+        torch.cuda.synchronize()
+        lc = _kernel_counts()
+        moved = _moved(reg, before)
+        total = n * SERVING_CALLS
+        for (c, i), rows in answers.items():
+            if rows != solo[binds[c][i]]:
+                fail(f"{label} with {n} clients: bind {binds[c][i]} gave "
+                     f"{rows}, solo {solo[binds[c][i]]}")
+        if len(answers) != total:
+            fail(f"{label} with {n} clients: {len(answers)} answers of "
+                 f"{total}")
+        if moved["serving_batch_fallbacks"]:
+            fail(f"{label} with {n} clients fell back "
+                 f"{moved['serving_batch_fallbacks']} times")
+        if lc[kernel] != total:
+            fail(f"{label} with {n} clients: {kernel} launched "
+                 f"{lc[kernel]} times for {total} requests")
+        lat_ms = np.array(lat) * 1e3
+        disp = moved["serving_batched_dispatches"]
+        occ = moved["serving_batch_requests"] / disp if disp else None
+        out[n] = {"requests": total, "wall_s": round(wall, 4),
+                  "requests_per_s": round(total / wall, 1),
+                  "p50_ms": round(float(np.percentile(lat_ms, 50)), 3),
+                  "p99_ms": round(float(np.percentile(lat_ms, 99)), 3),
+                  "batched_dispatches": disp, "occupancy": occ,
+                  "straight_through": moved["serving_straight_through"],
+                  "bulk_transfers": moved["serving_bulk_transfers"],
+                  "launches": lc}
+        log(f"serving {label} clients {n} {json.dumps(out[n])}")
+    return out
+
+
+def serving_path(session, tpch, arrs, args):
+    """Phase 22 (a) - (e) on the main session; returns (the two
+    kernels' launches, arrs after (c)'s one-row insert)."""
+    import numpy as np
+    import torch
+
+    from snappydata_tpu_torch import config, resource
+    from snappydata_tpu_torch.engine import executor
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    props.serving_batch_max = 16
+    props.serving_batch_wait_us = 200.0
+    reg = global_registry()
+    total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    t_phase = time.perf_counter()
+    # the counters still hold the earlier phases' last launches (and the
+    # plain-version comparisons'): this phase counts from 0
+    _reset_kernel_counts()
+
+    # (a) SQL PREPARE / EXECUTE of Q6 with three bind vectors
+    vectors = [(1994, (0.05, 0.07), 24), (1995, (0.02, 0.04), 30),
+               (1997, (0.06, 0.08), 12)]
+    lits = {}
+    for year, band, qty in vectors:
+        lits[(year, band, qty)] = session.sql(
+            q6_literal(tpch, year, band, qty)).rows()
+    _launch_sum(total, _kernel_counts())
+    t0 = time.perf_counter()
+    session.sql("PREPARE q6p AS " + SERVING_Q6)
+    prep_s = time.perf_counter() - t0
+    before = _counters(reg)
+    _reset_kernel_counts()
+    for year, band, qty in vectors:
+        bind = q6_bind(tpch, year, band, qty)
+        times = []
+        for _ in range(1 + args.reps):
+            t0 = time.perf_counter()
+            rows = session.sql("EXECUTE q6p (%d, %d, %r, %r, %d)"
+                               % bind).rows()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        lit = lits[(year, band, qty)]
+        check_rows(f"EXECUTE q6p {bind} vs the literal query", rows, lit)
+        check_rows(f"EXECUTE q6p {bind} vs numpy", rows,
+                   q6_bound_oracle(arrs, bind))
+        log(f"serving prepared_q6 bind {list(bind)} first_s "
+            f"{times[0]:.4f} warm_s "
+            f"{sorted(times[1:])[len(times[1:]) // 2]:.4f} revenue "
+            f"{rows[0][0]!r} literal_equal {rows == lit}")
+    lc = _kernel_counts()
+    moved = _moved(reg, before)
+    execs = len(vectors) * (1 + args.reps)
+    log(f"serving prepared_q6 prepare_s {prep_s:.4f} counters "
+        f"{json.dumps(moved)} launches {json.dumps(lc)}")
+    if moved["plan_cache_misses"] or moved["host_fallbacks"]:
+        fail(f"prepared Q6: plan-cache misses or host fallbacks {moved}")
+    if moved["serving_prepared_hits"] < execs - 1:
+        fail(f"prepared Q6: {moved['serving_prepared_hits']} registry hits "
+             f"over {execs} executes")
+    if lc["masked_kahan_sum"] != execs:
+        fail(f"masked_kahan_sum launched {lc['masked_kahan_sum']} times "
+             f"over {execs} executes")
+    _launch_sum(total, lc)
+
+    # (b) the micro-batcher: Q6 (Kahan kernel), then Q1 (grouped kernel)
+    q6h = session.prepare(SERVING_Q6)
+    q1h = session.prepare(SERVING_Q1)
+    q6_binds = [q6_bind(tpch, y, b) for y in range(1993, 1998)
+                for b in SERVING_BANDS]
+    q1_binds = [(tpch._days("1992-06-01") + 120 * i,) for i in range(20)]
+    batch_out = {}
+    for label, h, binds, kernel in (
+            ("q6", q6h, q6_binds, "masked_kahan_sum"),
+            ("q1", q1h, q1_binds, "grouped_reduce")):
+        entry = h._entry
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        with config.device_scope(session.device):
+            solo = {b: session.executor.execute(
+                entry.tokenized, entry.lit_params + b).rows()
+                for b in binds}
+        torch.cuda.synchronize()
+        _launch_sum(total, _kernel_counts())
+        log(f"serving {label} solo answers {len(binds)} binds s "
+            f"{time.perf_counter() - t0:.3f}")
+        # the solo answers against numpy: the first and the last bind
+        for b in binds[:1] + binds[-1:]:
+            want = q6_bound_oracle(arrs, b) if label == "q6" \
+                else q1_bound_oracle(arrs, b[0])
+            check_rows(f"solo {label} {b} vs numpy", solo[b], want)
+        batch_out[label] = batcher_run(session, h, label, binds, solo,
+                                       kernel, reg)
+        for r in batch_out[label].values():
+            _launch_sum(total, r["launches"])
+        if batch_out[label][16]["batched_dispatches"] < 1:
+            fail(f"{label}: 16 clients never shared a fused dispatch")
+
+    # (c) the group-index cache: a prepared Q1, one bind, three executes
+    executor.clear_gidx_cache()
+    bind = (tpch._days("1998-09-02"),)
+    broker = resource.global_broker()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    before = _counters(reg)
+    _reset_kernel_counts()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rows = q1h.execute(bind).rows()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    lc = _kernel_counts()
+    moved = _moved(reg, before)
+    alloc1 = torch.cuda.memory_allocated()
+    ledger = broker.ledger()["gidx_cache_bytes"]
+    log(f"gidx_cache miss_s {secs[0]:.4f} hit_s {secs[1]:.4f} "
+        f"{secs[2]:.4f} hits {moved['gidx_cache_hits']} misses "
+        f"{moved['gidx_cache_misses']} entry_bytes "
+        f"{executor.gidx_cache_nbytes()} ledger {ledger} memory_allocated "
+        f"{alloc0} -> {alloc1} launches {json.dumps(lc)}")
+    if (moved["gidx_cache_misses"], moved["gidx_cache_hits"]) != (1, 2):
+        fail(f"gidx cache: {moved['gidx_cache_misses']} misses and "
+             f"{moved['gidx_cache_hits']} hits, expected 1 and 2")
+    if ledger != executor.gidx_cache_nbytes() or ledger <= 0:
+        fail(f"ledger gidx_cache_bytes {ledger} != the cache's "
+             f"{executor.gidx_cache_nbytes()}")
+    if lc["grouped_reduce"] != 3:
+        fail(f"grouped_reduce launched {lc['grouped_reduce']} times over "
+             "the 3 cached executes")
+    check_rows("cached Q1 vs numpy", rows, q1_bound_oracle(arrs, bind[0]))
+    extra = tpch.gen_lineitem(1, args.seed + 40)
+    session.insert_arrays("lineitem", list(extra.values()))
+    arrs = _append(arrs, extra)
+    before = _counters(reg)
+    t0 = time.perf_counter()
+    rows = q1h.execute(bind).rows()
+    torch.cuda.synchronize()
+    ins_s = time.perf_counter() - t0
+    _launch_sum(total, _kernel_counts())     # (c)'s four executes
+    moved = _moved(reg, before)
+    log(f"gidx_cache after a 1-row insert s {ins_s:.4f} misses "
+        f"{moved['gidx_cache_misses']} hits {moved['gidx_cache_hits']}")
+    if moved["gidx_cache_misses"] != 1 or moved["gidx_cache_hits"]:
+        fail(f"the 1-row insert did not rotate the gidx entry: {moved}")
+    check_rows("Q1 after the 1-row insert vs numpy", rows,
+               q1_bound_oracle(arrs, bind[0]))
+    executor.clear_gidx_cache()
+    torch.cuda.synchronize()
+    log(f"gidx_cache cleared bytes {executor.gidx_cache_nbytes()} "
+        f"memory_allocated {torch.cuda.memory_allocated()}")
+
+    # (d) a secondary index on a row table of SF 1 customer rows
+    cust = tpch.gen_customer(INDEX_ROWS, args.seed + 50)
+    session.sql("CREATE TABLE cust_row (c_custkey BIGINT PRIMARY KEY, "
+                "c_name STRING, c_nationkey INT, c_acctbal DOUBLE, "
+                "c_mktsegment STRING) USING row")
+    t0 = time.perf_counter()
+    session.insert_arrays("cust_row", list(cust.values()))
+    load_s = time.perf_counter() - t0
+    session.sql("CREATE INDEX cust_by_name ON cust_row (c_name)")
+    rng = np.random.default_rng(args.seed + 51)
+    keys = rng.integers(1, INDEX_ROWS + 1, INDEX_LOOKUPS)
+    ph = session.prepare("SELECT c_custkey, c_acctbal FROM cust_row "
+                         "WHERE c_name = ?")
+    before = _counters(reg)
+    _reset_kernel_counts()
+    rates = {}
+    for lane in ("sql", "prepared"):
+        t0 = time.perf_counter()
+        for k in keys:
+            name = f"Customer#{int(k):09d}"
+            rows = session.sql(
+                "SELECT c_custkey, c_acctbal FROM cust_row WHERE "
+                f"c_name = '{name}'").rows() if lane == "sql" \
+                else ph.execute((name,)).rows()
+            if rows != [(int(k), float(cust["c_acctbal"][k - 1]))]:
+                fail(f"index lookup ({lane}) of {name}: {rows}")
+        rates[lane] = len(keys) / (time.perf_counter() - t0)
+    moved = _moved(reg, before)
+    lc = _kernel_counts()
+    log(f"index load_s {load_s:.3f} rows {INDEX_ROWS} lookups_per_s "
+        f"{json.dumps({k: round(v, 1) for k, v in rates.items()})} "
+        f"point_lookups {moved['point_lookups']} launches {json.dumps(lc)}")
+    if moved["point_lookups"] != 2 * len(keys) or any(lc.values()):
+        fail(f"index lookups: {moved['point_lookups']} point lookups for "
+             f"{2 * len(keys)}, launches {lc}")
+    session.sql("DROP TABLE cust_row")
+    del cust
+
+    # (e) a row-level policy under the held Q6 handle
+    bind = q6_bind(tpch, 1994, (0.05, 0.07))
+    before = _counters(reg)
+    session.sql(POLICY)
+    t0 = time.perf_counter()
+    rows = q6h.execute(bind).rows()
+    torch.cuda.synchronize()
+    pol_s = time.perf_counter() - t0
+    moved = _moved(reg, before)
+    taxed = arrs["l_tax"] < 0.05
+    check_rows("Q6 under the policy vs numpy", rows,
+               q6_bound_oracle(arrs, bind, taxed))
+    if moved["serving_reprepares"] != 1:
+        fail(f"CREATE POLICY re-prepared the held handle "
+             f"{moved['serving_reprepares']} times")
+    session.sql("DROP POLICY li_tax")
+    rows2 = q6h.execute(bind).rows()
+    check_rows("Q6 after DROP POLICY vs numpy", rows2,
+               q6_bound_oracle(arrs, bind))
+    log(f"policy q6 s {pol_s:.4f} revenue {rows[0][0]!r} (unfiltered "
+        f"{rows2[0][0]!r}) reprepares {moved['serving_reprepares']}")
+    _launch_sum(total, _kernel_counts())
+    props.serving_batch_wait_us = 200.0
+    log(f"serving_path_s {time.perf_counter() - t_phase:.3f}")
+    return total, arrs, batch_out
+
+
+def serving_profiles(session, tpch):
+    """--profile rows of phase 22: one fused 16-request Q6 dispatch (the
+    relations bound once, 16 Kahan launches, one host copy) and one
+    group-index cache hit of the prepared Q1 (phase B alone)."""
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.engine import executor
+
+    h6 = session.prepare(SERVING_Q6)
+    e6 = h6._entry
+    binds = [e6.lit_params + q6_bind(tpch, y, b) for y in range(1993, 1997)
+             for b in SERVING_BANDS]
+    h1 = session.prepare(SERVING_Q1)
+    bind = (tpch._days("1998-09-02"),)
+    with config.device_scope(session.device):
+        compiled = e6.compiled_for(session)
+        compiled.execute_batched(binds, session.device, bucket=16)
+        log("profile fused_q6_16 " + json.dumps(profile_run(
+            lambda: compiled.execute_batched(binds, session.device,
+                                             bucket=16))))
+        h1.execute(bind)          # the miss fills the entry
+        log("profile gidx_hit_q1 " + json.dumps(profile_run(
+            lambda: h1.execute(bind).rows())))
+    executor.clear_gidx_cache()
+
+
+# --------------------------------------------------------------------------
+# phase 23: AQP — a sample table, WITH ERROR and TopK (reduced)
+# --------------------------------------------------------------------------
+
+AQP_ROWS = 2_097_152
+AQP_SAMPLE = ("CREATE SAMPLE TABLE lineitem_s ON lineitem_aqp OPTIONS "
+              "(qcs 'l_returnflag, l_linestatus', reservoir_size '10000', "
+              "seed '7')")
+AQP_Q1 = ("SELECT l_returnflag, l_linestatus, sum(l_quantity) AS sq, "
+          "absolute_error(sq), lower_bound(sq), upper_bound(sq), "
+          "avg(l_extendedprice) AS ap, lower_bound(ap), upper_bound(ap), "
+          "count(*) AS c FROM lineitem_aqp "
+          "GROUP BY l_returnflag, l_linestatus "
+          "ORDER BY l_returnflag, l_linestatus "
+          "WITH ERROR 0.1 CONFIDENCE 0.95")
+AQP_AVG = ("SELECT avg(l_extendedprice) AS ap, absolute_error(ap), "
+           "lower_bound(ap), upper_bound(ap) FROM lineitem_aqp "
+           "WITH ERROR 0.1 CONFIDENCE 0.95")
+
+
+def aqp_path(tpch, args):
+    """Phase 23 on a session of its own; returns the two kernels'
+    launches."""
+    import numpy as np
+    import torch
+
+    from snappydata_tpu_torch import SnappySession, config
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    reg = global_registry()
+    total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    t_phase = time.perf_counter()
+    _reset_kernel_counts()
+    s = SnappySession(catalog=Catalog())
+    s.sql(tpch.LINEITEM_DDL.replace("lineitem", "lineitem_aqp", 1))
+    li = tpch.gen_lineitem(AQP_ROWS, 7)
+    s.insert_arrays("lineitem_aqp", list(li.values()))
+    t0 = time.perf_counter()
+    s.sql(AQP_SAMPLE)
+    build_s = time.perf_counter() - t0
+    n_sample = s.sql("SELECT count(*) FROM lineitem_s").rows()[0][0]
+    log(f"aqp sample build_s {build_s:.3f} base_rows {AQP_ROWS} "
+        f"sample_rows {n_sample}")
+    # exact answers
+    flag, status = li["l_returnflag"], li["l_linestatus"]
+    exact = {}
+    for f in "ANR":
+        for st in "FO":
+            m = (flag == f) & (status == st)
+            if m.any():
+                exact[(f, st)] = (float(li["l_quantity"][m].sum()),
+                                  float(li["l_extendedprice"][m].mean()),
+                                  int(m.sum()))
+    fb0 = reg.counter("host_fallbacks")
+    for label, run in (("q1_with_error", lambda: s.sql(AQP_Q1).rows()),
+                       ("avg_with_error", lambda: s.sql(AQP_AVG).rows()),
+                       ("approx_avg", lambda: s.approx_sql(
+                           "SELECT avg(l_extendedprice) FROM lineitem_aqp"
+                       ).rows())):
+        _reset_kernel_counts()
+        times = []
+        for _ in range(1 + args.reps):
+            t0 = time.perf_counter()
+            rows = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        lc = _kernel_counts()
+        _launch_sum(total, lc)
+        log(f"aqp {label} first_s {times[0]:.4f} warm_s "
+            f"{sorted(times[1:])[len(times[1:]) // 2]:.4f} launches "
+            f"{json.dumps(lc)}")
+        if label == "q1_with_error":
+            if lc["grouped_reduce"] < 1 + args.reps:
+                fail(f"WITH ERROR GROUP BY skipped the grouped kernel: {lc}")
+            if len(rows) != len(exact):
+                fail(f"WITH ERROR Q1: {len(rows)} groups of {len(exact)}")
+            for r in rows:
+                f, st, sq, ae, lb, ub, ap, alb, aub, c = r
+                xs, xa, xc = exact[(f, st)]
+                inside = lb <= xs <= ub and alb <= xa <= aub
+                log(f"aqp group {f}{st} sum_qty {sq!r} +- {ae!r} "
+                    f"[{lb!r}, {ub!r}] exact {xs!r} avg_price {ap!r} "
+                    f"[{alb!r}, {aub!r}] exact {xa!r} count {c} exact {xc} "
+                    f"inside {inside}")
+                # the groups ARE the strata: counts are known exactly; an
+                # estimate five half-widths off is a wrong estimator, not
+                # sampling noise
+                if c != xc or abs(sq - xs) > 5 * max(ae, 1e-9) \
+                        or not np.isfinite(sq):
+                    fail(f"WITH ERROR Q1 group {f}{st}: {r} vs exact "
+                         f"{exact[(f, st)]}")
+        elif label == "avg_with_error":
+            ap, ae, lb, ub = rows[0]
+            xa = float(li["l_extendedprice"].mean())
+            log(f"aqp avg {ap!r} +- {ae!r} [{lb!r}, {ub!r}] exact {xa!r} "
+                f"inside {lb <= xa <= ub}")
+            if abs(ap - xa) > 5 * ae or lc["grouped_reduce"] < 1:
+                fail(f"global avg WITH ERROR {rows} vs exact {xa}: {lc}")
+        else:
+            xa = float(li["l_extendedprice"].mean())
+            log(f"aqp approx_sql avg {rows[0][0]!r} exact {xa!r}")
+            if lc["masked_kahan_sum"] < 1 + args.reps \
+                    or abs(rows[0][0] - xa) > 0.01 * xa:
+                fail(f"approx_sql avg {rows} vs exact {xa}: {lc}")
+    if reg.counter("host_fallbacks") != fb0:
+        fail("an AQP query left the device")
+    t0 = time.perf_counter()
+    s.create_topk("top_supp", "lineitem_aqp", "l_suppkey", k=10)
+    topk_s = time.perf_counter() - t0
+    top = s.query_topk("top_supp", 5).rows()
+    truth = np.bincount(li["l_suppkey"])
+    log(f"aqp topk build_s {topk_s:.3f} top {json.dumps(top)} true counts "
+        f"{[int(truth[int(k)]) for k, _ in top]} true max "
+        f"{int(truth.max())}")
+    if len(top) != 5 or any(c < truth[int(k)] for k, c in top):
+        fail(f"TopK undercounted: {top}")
+    del s, li
+    log(f"aqp_path_s {time.perf_counter() - t_phase:.3f}")
+    return total
+
+
+# --------------------------------------------------------------------------
 # phase 18: nested orders (ARRAY / MAP / STRUCT plates)
 # --------------------------------------------------------------------------
 
-NESTED_ORDERS = 1_500_000     # SF 1: the cells are Python objects
-NESTED_LINES = 6_000_000
+NESTED_ORDERS = 1_000_000     # SF 2/3: the cells are Python objects
+NESTED_LINES = 4_000_000
 NESTED_COLS = ("o_orderkey", "o_orderdate", "info", "modes", "prices",
                "qty_by_mode")
 
@@ -3213,6 +3798,21 @@ def governed_path(s, tpch, want, args, clean_ops):
     return total
 
 
+class PhaseClock:
+    """Logs each phase's wall seconds (`phase_s <n> <s>`) when the next
+    one starts, so a run's time budget reads per phase."""
+
+    def __init__(self):
+        self.phase = None
+        self.t0 = time.perf_counter()
+
+    def next(self, phase) -> None:
+        now = time.perf_counter()
+        if self.phase is not None:
+            log(f"phase_s {self.phase} {now - self.t0:.1f}")
+        self.phase, self.t0 = phase, now
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=16.0,
@@ -3261,7 +3861,9 @@ def main() -> int:
                                    for m in sys.modules):
         fail("the port imported JAX or the JAX package")
 
+    phase_clock = PhaseClock()
     # 1. the card
+    phase_clock.next(1)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3273,6 +3875,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # 2. build
+    phase_clock.next(2)
     t0 = time.perf_counter()
     ptxas = ("-Xptxas", "-v") if args.ptxas else ()
     try:
@@ -3287,6 +3890,7 @@ def main() -> int:
                     log(f"ptxas {name}: {line.strip()}")
 
     # 3. data
+    phase_clock.next(3)
     n_rows = int(args.sf * ROWS_PER_SF)
     t0 = time.perf_counter()
     li = tpch.gen_lineitem(n_rows, args.seed)
@@ -3303,6 +3907,7 @@ def main() -> int:
     log(f"load_s {load_s:.3f} rows_per_s {n_rows / load_s:.0f}")
 
     # 4. the main path, kernel lanes on
+    phase_clock.next(4)
     props.pallas_reduce = True
     props.pallas_group_reduce = True
     # the executor's references to the two wrappers record the inputs
@@ -3340,12 +3945,14 @@ def main() -> int:
                 lambda q=q: session.sql(getattr(tpch, q.upper())).rows())))
 
     # 5. kernels against their plain versions, on the main path's inputs
+    phase_clock.next(5)
     kres = {"masked_kahan_sum": kahan_phase(rec_k.calls, args.reps),
             "grouped_reduce": grouped_phase(rec_g.calls, args.reps)}
     for name, r in kres.items():
         log(f"kernel {name} " + json.dumps(r))
 
     # 6. the answers
+    phase_clock.next(6)
     want = oracle(li, tpch)
     for q in ("q1", "q6"):
         check_rows(f"{q} vs numpy oracle", first[q][0], want[q])
@@ -3359,6 +3966,7 @@ def main() -> int:
         "knobs-off lanes" % len(first["q1"][0]))
 
     # 7. the compressed-domain path: Q6 / Q1 over code plates
+    phase_clock.next(7)
     data = session.catalog.lookup_table("lineitem").data
     if data.snapshot().row_count:
         data.force_rollover()   # row-buffer rows would bind decoded
@@ -3408,6 +4016,7 @@ def main() -> int:
         "the oracle")
 
     # 8. the code kernels against their plain versions, on phase 7's inputs
+    phase_clock.next(8)
     kres["fused_code_filter_sum"] = code_filter_phase(rec_f.calls,
                                                       args.reps)
     kres["grouped_code_reduce"] = code_grouped_phase(rec_c.calls, args.reps)
@@ -3415,6 +4024,7 @@ def main() -> int:
         log(f"kernel {name} " + json.dumps(kres[name]))
 
     # 9. the run-space RLE probe
+    phase_clock.next(9)
     try:
         n_rle, rle_rows, rle_first, rle_warm = rle_probe(session, n_rows,
                                                          args.reps)
@@ -3425,6 +4035,7 @@ def main() -> int:
 
     # 10. the join path: orders LEFT JOIN lineitem (Q3C), then a
     # generic-key join, through the device join engine
+    phase_clock.next(10)
     n_orders = int(args.sf * ORDERS_PER_SF)
     t0 = time.perf_counter()
     orders = tpch.gen_orders(n_orders, n_orders // 10, args.seed + 1)
@@ -3489,6 +4100,7 @@ def main() -> int:
     log("answers ok: Q3C and the generic-key join match numpy")
 
     # 11. the tiled lane over lineitem at a tenth of Q1's decoded bind
+    phase_clock.next(11)
     units1, ub1, tu1, tiles_q1 = tile_plan(session, "lineitem", Q1_COLS, 1)
     budget = units1 * ub1 // 10
     _u, _b, tu1, tiles_q1 = tile_plan(session, "lineitem", Q1_COLS, budget)
@@ -3559,9 +4171,10 @@ def main() -> int:
     del tk_calls
     log("answers ok: tiled Q1 and Q6 match phase 4 and the oracle")
 
-    # 12. exact decimals on the card, over the first eighth of the rows:
+    # 12. exact decimals on the card, over the first twelfth of the rows:
     # a second full-size ingest would leave phases 15 - 16 too little of
     # the run's time limit
+    phase_clock.next(12)
     n_dec = n_rows // DEC_DEPTH
     try:
         dec = decimal_path(session, tpch,
@@ -3586,6 +4199,7 @@ def main() -> int:
         "untiled")
 
     # 13. count(DISTINCT) and the matmul strategy
+    phase_clock.next(13)
     try:
         d_rows, d_first, d_warm = distinct_path(session, li, args.reps)
         strat = strategy_timing(tg_calls, args.reps)
@@ -3599,6 +4213,7 @@ def main() -> int:
 
     # 14. subqueries and functions on the card: Q4, Q22 and the functions
     # query at --sf, Q18 at SF 1
+    phase_clock.next(14)
     try:
         sub_launches = subquery_path(session, tpch, li, orders, args)
     except Exception as e:  # noqa: BLE001 - report the phase, then exit
@@ -3610,6 +4225,7 @@ def main() -> int:
         launches[name] += count
 
     # 15. window functions over orders, on the device
+    phase_clock.next(15)
     try:
         window_path(session, tpch, orders, args)
     except Exception as e:  # noqa: BLE001 - report the phase, then exit
@@ -3617,6 +4233,7 @@ def main() -> int:
 
     # 16. mutations at --sf on lineitem: a pinned reader, UPDATE, DELETE,
     # insert, Q1 / Q6 through both kernels, HTAP, row tables
+    phase_clock.next(16)
     cust = tpch.gen_customer(n_orders // 10, args.seed + 2)
     try:
         mut_launches, post = mutation_path(session, tpch, li, orders, cust,
@@ -3632,8 +4249,9 @@ def main() -> int:
     # Q15 through its view, rev() / capped() on the device, a
     # materialized Q1 view through folds, a DELETE and a stale refresh,
     # then durable views
+    phase_clock.next(21)
     try:
-        v_launches = views_path(session, tpch, li, post, first, args)
+        v_launches, arrs = views_path(session, tpch, li, post, first, args)
     except Exception as e:  # noqa: BLE001 - report the phase, then exit
         fail(f"views path: {type(e).__name__}: {e}")
     del post
@@ -3643,8 +4261,38 @@ def main() -> int:
             fail(f"{name} did not launch on the views path")
         launches[name] += count
 
+    # 22. prepared statements, the micro-batcher, the group-index cache,
+    # a secondary index and a row-level policy on the same session
+    phase_clock.next(22)
+    try:
+        s_launches, arrs, _batch = serving_path(session, tpch, arrs, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"serving path: {type(e).__name__}: {e}")
+    del arrs
+    log(f"serving_path_launches {json.dumps(s_launches)}")
+    for name, count in s_launches.items():
+        if count < 1:
+            fail(f"{name} did not launch on the serving path")
+        launches[name] += count
+    if args.profile:
+        serving_profiles(session, tpch)
+
+    # 23. AQP: a stratified sample of a 2M-row lineitem, WITH ERROR,
+    # approx_sql and TopK, on a session of its own
+    phase_clock.next(23)
+    try:
+        a_launches = aqp_path(tpch, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"AQP path: {type(e).__name__}: {e}")
+    log(f"aqp_path_launches {json.dumps(a_launches)}")
+    for name, count in a_launches.items():
+        if count < 1:
+            fail(f"{name} did not launch on the AQP path")
+        launches[name] += count
+
     # 17. the Kahan kernel under torch.profiler, in a child process whose
     # profiler starts fresh
+    phase_clock.next(17)
     for label, r in kahan_profile_child(kahan_shapes, args.reps, root):
         log(f"kernel masked_kahan_sum profile on the {label} "
             f"{json.dumps(r)}")
@@ -3652,6 +4300,7 @@ def main() -> int:
 
     # 18. nested orders: ARRAY / MAP / STRUCT plates on the card
     # the main session's plates are not read again: free the card first
+    phase_clock.next(18)
     for info in session.catalog.list_tables():
         getattr(info.data, "_device_cache", {}).clear()
     del session
@@ -3671,6 +4320,7 @@ def main() -> int:
 
     # 19. a durable lineitem: WAL, checkpoint, crash-shape recovery and
     # the compactor, over the first 1 / DEC_DEPTH of the rows
+    phase_clock.next(19)
     try:
         d_launches = durable_path(tpch, {k: v[:n_dec] for k, v in li.items()},
                                   args,
@@ -3681,7 +4331,8 @@ def main() -> int:
     for name, count in d_launches.items():
         launches[name] += count
 
-    # 22. result lines
+    # 24. result lines
+    phase_clock.next(None)
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),
            "grouped_reduce": ("snappydata_tpu_torch/csrc/group_reduce.cu",

@@ -76,7 +76,7 @@ class Catalog:
             key_columns = tuple(k.lower() for k in key_columns) or tuple(
                 c.strip().lower() for c in opts.get("key_columns", "").split(",")
                 if c.strip())
-            if provider not in ("column", "row"):
+            if provider not in ("column", "row", "sample"):
                 raise NotImplementedError(
                     f"{provider} tables are not ported; use USING column "
                     f"or USING row")

@@ -87,12 +87,14 @@ from snappydata_tpu_torch.storage.device import (DeviceTable,
                                                  current_scan_scale,
                                                  map_device_eligible,
                                                  numeric_key_domain,
+                                                 scan_window_active,
                                                  struct_device_eligible)
 from snappydata_tpu_torch.storage.device_decode import (BitPlate, CodePlate,
                                                         RlePlate, bit_values,
                                                         compressed_fallback,
                                                         rle_values)
 from snappydata_tpu_torch.storage.table_store import RowTableData
+from snappydata_tpu_torch.utils import locks
 
 
 # aggregates whose argument may be a string (dictionary codes count and
@@ -246,7 +248,8 @@ class CompiledPlan:
                  is_aggregate: bool,
                  agg_notes: Optional[Dict] = None,
                  bind_checks: Optional[List[Callable]] = None,
-                 tile_merge: Optional[Dict] = None):
+                 tile_merge: Optional[Dict] = None,
+                 pre_emit: Optional[Callable] = None):
         self.relations = relations
         self.aux_builders = aux_builders
         self.static_providers = static_providers
@@ -262,6 +265,11 @@ class CompiledPlan:
         # partial-raw merge metadata: per-output merge ops + the group-card
         # check of the tiled scan's on-device partial merge
         self.tile_merge = tile_merge
+        # phase A of a cacheable aggregate (its emitter `run_agg` is
+        # phase B when handed the entry), None elsewhere
+        self.pre_emit = pre_emit
+        # (static, batch bucket) keys of the fused dispatches run so far
+        self._batched_keys: set = set()
 
     def _bind(self, params: Tuple, device: torch.device):
         # one bind and its launches are the atomic unit of work: the
@@ -320,7 +328,7 @@ class CompiledPlan:
         try:
             rels, aux, static, pvals = self._bind(params, device)
             ctx = _RunCtx(self.relations, rels, aux, pvals, static, device)
-            outs = self.emitter(ctx)
+            outs = self._run_phases(ctx, params)
         finally:
             # the bind's DeviceTables serve this run only: a cached plan
             # must not keep a table's plates alive past a demotion or an
@@ -329,6 +337,33 @@ class CompiledPlan:
                 r.unbind()
         self._count_agg_notes(static)
         return outs, ctx.overflow
+
+    def _run_phases(self, ctx, params: Tuple):
+        """The emitter over one bind.  A cacheable aggregate splits in two
+        phases while `gidx_cache_bytes` > 0 and no tile window is bound
+        (a window rotates the bind identity every tile, so the cache could
+        never hit): phase A (validity + group index) comes from the
+        group-index cache when this plan, static key and params ran over
+        the same bound tables before, and only phase B runs."""
+        use_pre = self.pre_emit is not None \
+            and (config.global_properties().gidx_cache_bytes or 0) > 0 \
+            and not scan_window_active()
+        if not use_pre:
+            return self.emitter(ctx)
+        try:
+            hash(params)
+        except TypeError:      # an unhashable literal: no caching
+            return self.emitter(ctx)
+        reg = global_registry()
+        tables = [r.bound() for r in self.relations]
+        pre = _pre_cache_get(self, ctx.static, params, tables)
+        if pre is None:
+            reg.inc("gidx_cache_misses")
+            pre = self.pre_emit(ctx)
+            _pre_cache_put(self, ctx.static, params, tables, pre)
+        else:
+            reg.inc("gidx_cache_hits")
+        return self.emitter(ctx, pre)
 
     def _count_agg_notes(self, static) -> None:
         """Per-execution metrics from the aggregate's notes: reduction
@@ -367,6 +402,71 @@ class CompiledPlan:
         reduces, and the tile partials merge on the device."""
         (mask, pairs), overflow = self.run(params, device)
         return mask, pairs, overflow
+
+    def execute_batched(self, params_list, device: torch.device,
+                        bucket: Optional[int] = None):
+        """Fused dispatch over a stack of bind vectors (the serving
+        micro-batcher; ref snappydata_tpu/engine/executor.py
+        `execute_batched`).  The relations bind ONCE; the emitter then
+        runs once per request on that one bind, with the request's own
+        aux builds and literals, so every kernel launches once per
+        request.  Each output stacks along a new leading batch axis on the
+        device (outputs whose group count depends on the data pad to the
+        longest, mask False on the padding), and the whole batch comes
+        home in ONE device-to-host copy.  `bucket` is the batcher's padded
+        batch size (the reference pads the binds to it; only the live
+        requests run here), the size half of the `serving_vmap_compiles`
+        key.  Returns (tables, outs), outs =
+        (mask [B, G], [(value [B, ...], null [B, ...] | None)], overflow
+        [B]) as host arrays; `assemble_batched` slices request i.
+
+        Batch skipping is off, as in the reference (different binds could
+        keep different batch subsets), and so is the group-index cache
+        (its key is per-params).  Raises ValueError when the requests'
+        aux builds differ in shape (value-dependent LUTs, which the
+        reference cannot stack either) and CompileError on a bind-check
+        failure: the caller re-executes each request on its own."""
+        reg = global_registry()
+        # the plate width and the literals' dtypes follow the device
+        # scope: a fused dispatch runs in its device's scope whatever
+        # thread leads it
+        with config.device_scope(device):
+            for check in self.bind_checks:
+                check()
+            try:
+                tables = [r.bind(device) for r in self.relations]
+                rels = [({ci: (dt.columns[ci], dt.nulls.get(ci))
+                          for ci in r.used}, dt.valid)
+                        for r, dt in zip(self.relations, tables)]
+                per_req_aux = [[b(p) for b in self.aux_builders]
+                               for p in params_list]
+                shapes = {tuple(_aux_shape(a) for a in aux)
+                          for aux in per_req_aux}
+                if len(shapes) > 1:
+                    raise ValueError("aux builds of the batch do not stack "
+                                     "(value-dependent shapes)")
+                static = tuple(p() for p in self.static_providers)
+                key = (static, bucket or len(params_list))
+                if key not in self._batched_keys:
+                    # the reference compiles one vmapped program per
+                    # (static key, bucket); counted alike, though nothing
+                    # compiles here
+                    reg.inc("serving_vmap_compiles")
+                    self._batched_keys.add(key)
+                outs = []
+                for p, aux in zip(params_list, per_req_aux):
+                    ctx = _RunCtx(self.relations, rels,
+                                  [_upload(a, device) for a in aux],
+                                  _DeviceParams(p, device), static, device)
+                    mask, pairs = self.emitter(ctx)
+                    outs.append((mask, pairs, ctx.overflow))
+            finally:
+                for r in self.relations:
+                    r.unbind()
+            self._count_agg_notes(static)
+            host = _stack_home(outs, device)
+        reg.inc("serving_bulk_transfers")
+        return tables, host
 
     def tile_merge_ok(self) -> bool:
         """Bind-time check that a partial-raw compile's group-index space
@@ -412,6 +512,193 @@ class CompiledPlan:
 
 def data_needs_mask(v, mask) -> bool:
     return int(np.prod(np.shape(v))) == mask.shape[0]
+
+
+# --- group-index (phase A) cache ------------------------------------------
+# Cacheable aggregates split into phase A (filtered validity, group index,
+# the one-hot on the matmul strategy) and phase B.  Entries key on (plan
+# identity, static key, params) and hold weak references to the bound
+# tables' `valid` tensors, which the device cache (storage/device.py)
+# hands back unchanged while a table's snapshot is current: a mutation,
+# a demotion or an eviction rotates them, which invalidates the entry
+# with no version plumbing.  An entry holds only its own tensors, never a
+# table's plates.  LRU, byte-capped by `gidx_cache_bytes` (ref
+# snappydata_tpu/engine/executor.py, the group-index cache).
+
+_PRE_CACHE: Dict[tuple, dict] = {}
+_PRE_CACHE_BYTES = [0]
+_PRE_CACHE_LOCK = locks.named_lock("executor.pre_cache")
+_pre_tick = [0]
+
+
+def gidx_cache_nbytes() -> int:
+    """Device bytes held by the group-index cache: a line of the resource
+    broker's ledger."""
+    return int(_PRE_CACHE_BYTES[0])
+
+
+def _bind_identity(tables):
+    """Per-bind identity tokens: the `valid` tensors of the device
+    cache's entry, reused across binds while the snapshot is current (the
+    DeviceTable wrapper is rebuilt per bind, so it cannot serve)."""
+    return [t.valid for t in tables]
+
+
+def _pre_cache_tick() -> int:
+    _pre_tick[0] += 1
+    return _pre_tick[0]
+
+
+def _pre_cache_get(plan, static, pkey, tables):
+    key = (id(plan), static, pkey)
+    ident = _bind_identity(tables)
+    with _PRE_CACHE_LOCK:
+        entry = _PRE_CACHE.get(key)
+        if entry is None:
+            return None
+        if entry["plan"]() is not plan \
+                or len(entry["binds"]) != len(ident) \
+                or any(r() is not t for r, t in zip(entry["binds"], ident)):
+            _PRE_CACHE.pop(key, None)
+            _PRE_CACHE_BYTES[0] -= entry["nbytes"]
+            return None
+        entry["tick"] = _pre_cache_tick()
+        return entry["pre"]
+
+
+def _pre_cache_put(plan, static, pkey, tables, pre) -> None:
+    budget = int(config.global_properties().gidx_cache_bytes or 0)
+    nbytes = pre.nbytes()
+    if nbytes > budget:
+        return  # one oversized entry would evict everything for nothing
+    binds = tuple(weakref.ref(t) for t in _bind_identity(tables))
+    with _PRE_CACHE_LOCK:
+        # entries of collected plans or rotated binds are dead weight
+        # until LRU pressure: purge them now
+        for k in [k for k, e in _PRE_CACHE.items()
+                  if e["plan"]() is None
+                  or any(r() is None for r in e["binds"])]:
+            _PRE_CACHE_BYTES[0] -= _PRE_CACHE.pop(k)["nbytes"]
+        while _PRE_CACHE and _PRE_CACHE_BYTES[0] + nbytes > budget:
+            victim = min(_PRE_CACHE, key=lambda k: _PRE_CACHE[k]["tick"])
+            _PRE_CACHE_BYTES[0] -= _PRE_CACHE.pop(victim)["nbytes"]
+        old = _PRE_CACHE.pop((id(plan), static, pkey), None)
+        if old is not None:  # concurrent misses on one key: replace once
+            _PRE_CACHE_BYTES[0] -= old["nbytes"]
+        _PRE_CACHE[(id(plan), static, pkey)] = {
+            "plan": weakref.ref(plan), "binds": binds, "pre": pre,
+            "nbytes": nbytes, "tick": _pre_cache_tick()}
+        _PRE_CACHE_BYTES[0] += nbytes
+
+
+def _pre_cache_attach(pre, onehot) -> None:
+    """Add phase B's one-hot to a cached entry, within the budget (LRU
+    eviction of other entries first; an entry that would not fit keeps
+    going without it)."""
+    extra = int(onehot.numel()) * onehot.element_size()
+    budget = int(config.global_properties().gidx_cache_bytes or 0)
+    with _PRE_CACHE_LOCK:
+        key = next((k for k, e in _PRE_CACHE.items() if e["pre"] is pre),
+                   None)
+        if key is None or _PRE_CACHE[key]["nbytes"] + extra > budget:
+            return
+        while _PRE_CACHE_BYTES[0] + extra > budget:
+            victim = min((k for k in _PRE_CACHE if k != key),
+                         key=lambda k: _PRE_CACHE[k]["tick"])
+            _PRE_CACHE_BYTES[0] -= _PRE_CACHE.pop(victim)["nbytes"]
+        pre.onehot = onehot
+        _PRE_CACHE[key]["nbytes"] += extra
+        _PRE_CACHE_BYTES[0] += extra
+
+
+def clear_gidx_cache() -> None:
+    with _PRE_CACHE_LOCK:
+        _PRE_CACHE.clear()
+        _PRE_CACHE_BYTES[0] = 0
+
+
+def _aux_shape(x):
+    """Shape signature of one aux build: stacked requests must agree."""
+    if isinstance(x, tuple):
+        return tuple(_aux_shape(e) for e in x)
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else np.shape(x)
+
+
+def _stack_home(outs, device: torch.device):
+    """Stack B requests' (mask, pairs, overflow) along a new leading axis
+    on the device and copy the whole batch to the host in ONE transfer:
+    every stacked tensor is laid out byte-wise, 8-byte aligned, in one
+    uint8 buffer that crosses once, then is split and re-typed on the
+    host.  A request's row-shaped outputs (one value per mask row) pad
+    to the batch's longest mask with the mask False."""
+    g = max(int(m.numel()) for m, _p, _o in outs)
+
+    def rows_of(t, rows: int, fill):
+        """A row-shaped output (one value per mask row) flat and padded
+        to g rows; anything else flat as it is."""
+        t = torch.as_tensor(t, device=device).reshape(-1)
+        if t.shape[0] == rows and rows < g:
+            t = torch.cat([t, torch.full((g - rows,), fill, dtype=t.dtype,
+                                         device=t.device)])
+        return t
+
+    masks, cols = [], None
+    for mask, pairs, _ov in outs:
+        rows = int(mask.numel())
+        masks.append(rows_of(mask, rows, False))
+        if cols is None:
+            cols = [[] for _ in pairs]
+        for j, (v, nl) in enumerate(pairs):
+            cols[j].append((rows_of(v, rows, 0),
+                            rows_of(nl, rows, False)
+                            if nl is not None else None))
+    stacked = [torch.stack(masks)]
+    has_null = []
+    for col in cols or []:
+        stacked.append(torch.stack([v for v, _ in col]))
+        if any(nl is not None for _, nl in col):
+            stacked.append(torch.stack([
+                nl if nl is not None else torch.zeros_like(
+                    v, dtype=torch.bool) for v, nl in col]))
+            has_null.append(True)
+        else:
+            has_null.append(False)
+    ovs = [o.reshape(()).to(torch.bool) if isinstance(o, torch.Tensor)
+           else torch.tensor(bool(o), device=device) for _m, _p, o in outs]
+    stacked.append(torch.stack(ovs))
+    # one byte buffer, each piece at an 8-byte aligned offset
+    parts, layout, off = [], [], 0
+    for t in stacked:
+        raw = t.contiguous().reshape(-1).view(torch.uint8)
+        n = int(raw.shape[0])
+        padn = (-n) % 8
+        parts.append(raw)
+        if padn:
+            parts.append(torch.zeros(padn, dtype=torch.uint8,
+                                     device=t.device))
+        layout.append((off, n, t.dtype, tuple(t.shape)))
+        off += n + padn
+    buf = torch.cat(parts).cpu().numpy()
+    arrays = [buf[o:o + n].view(_NP_DTYPES[dt]).reshape(shape)
+              for o, n, dt, shape in layout]
+    mask = arrays[0]
+    pairs, i = [], 1
+    for hn in has_null:
+        v = arrays[i]
+        i += 1
+        nl = None
+        if hn:
+            nl = arrays[i]
+            i += 1
+        pairs.append((v, nl))
+    return mask, pairs, arrays[i]
+
+
+_NP_DTYPES = {torch.bool: np.bool_, torch.uint8: np.uint8,
+              torch.int8: np.int8, torch.int16: np.int16,
+              torch.int32: np.int32, torch.int64: np.int64,
+              torch.float16: np.float16, torch.float32: np.float32,
+              torch.float64: np.float64}
 
 
 def _compressed_token() -> int:
@@ -487,17 +774,27 @@ def _upload(x, device: torch.device):
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def _param_dtype(v) -> torch.dtype:
+    """The dtype a tokenized literal uploads as (the micro-batcher's bind
+    signature reads it without an upload)."""
+    if isinstance(v, (bool, np.bool_)):
+        return torch.bool
+    if isinstance(v, (int, np.integer)):
+        return torch.int64
+    if isinstance(v, (float, np.floating)):
+        return torch.float64 if config.use_float64() else torch.float32
+    # strings ride only through LUT aux builders; position still needs a slot
+    return torch.int32
+
+
 def _param_scalar(v, device: torch.device) -> torch.Tensor:
     """One tokenized literal as a 0-dim tensor on `device`."""
-    if isinstance(v, (bool, np.bool_)):
-        return torch.tensor(bool(v), device=device)
-    if isinstance(v, (int, np.integer)):
-        return torch.tensor(int(v), dtype=torch.int64, device=device)
-    if isinstance(v, (float, np.floating)):
-        dt = torch.float64 if config.use_float64() else torch.float32
-        return torch.tensor(float(v), dtype=dt, device=device)
-    # strings ride only through LUT aux builders; position still needs a slot
-    return torch.zeros((), dtype=torch.int32, device=device)
+    dt = _param_dtype(v)
+    if dt is torch.int32:
+        return torch.zeros((), dtype=dt, device=device)
+    value = bool(v) if dt is torch.bool else \
+        int(v) if dt is torch.int64 else float(v)
+    return torch.tensor(value, dtype=dt, device=device)
 
 
 class _DeviceParams:
@@ -582,10 +879,39 @@ class Compiler:
         out_scope = [oc if isinstance(oc, _ScopeCol)
                      else _ScopeCol(oc.name, oc.dtype, oc.dict_provider)
                      for oc in out_cols]
+        pre_emit = getattr(self, "_agg_pre_emit", None)
+        if self.partial_raw or not self._pre_cacheable(plan):
+            pre_emit = None
         return CompiledPlan(self.relations, self.aux_builders,
                             self.static_providers, emitter, out_scope,
                             is_agg, self._agg_notes, self.bind_checks,
-                            self._tile_merge)
+                            self._tile_merge, pre_emit=pre_emit)
+
+    def _pre_cacheable(self, plan: ast.Plan) -> bool:
+        """Is the aggregate's prefix (validity + group index) safe and
+        worth caching?  A GROUP BY (a global aggregate's index is
+        trivial) over a single relation (no join for phase B to re-run)
+        with no SQL function (a builtin lowering is deterministic; a
+        function body's determinism is unknowable)."""
+        if not isinstance(plan, ast.Aggregate) or not plan.group_exprs:
+            return False
+        if len(self.relations) != 1:
+            return False
+        udfs = getattr(self.catalog, "_functions", None) or {}
+        if udfs:
+            names = {n.lower() for n in udfs}
+
+            def any_udf(p) -> bool:
+                for e in ast.plan_exprs(p):
+                    for sub in ast.walk(e):
+                        if isinstance(sub, ast.Func) \
+                                and sub.name.lower() in names:
+                            return True
+                return any(any_udf(k) for k in p.children())
+
+            if any_udf(plan):
+                return False
+        return True
 
     # -- node emitters -----------------------------------------------------
 
@@ -928,6 +1254,10 @@ class Compiler:
 
             def run_filter(ctx) -> RelOut:
                 out = child(ctx)
+                if ctx.skip_filters:
+                    # a group-index cache hit: the cached validity
+                    # already holds this predicate
+                    return RelOut(out.cols, out.valid, runf=None)
                 p = pred(ctx.runtime(out.cols))
                 keep = p.value
                 if p.null is not None:
@@ -1837,13 +2167,11 @@ class Compiler:
             # int32: num_groups <= max_groups (65536) always fits
             return torch.where(valid, gidx, num_groups).to(torch.int32)
 
-        def run_agg(ctx) -> tuple:
-            out = child(ctx)
-            rt = ctx.runtime(out.cols)
+        def compute_pre(ctx, out, kdvals):
+            """(valid, gidx, num_groups, fast, cards, eff_cards): the
+            filtered validity and the combined group index, the cacheable
+            prefix of every grouped aggregate."""
             valid = out.valid.reshape(-1)
-            n = valid.shape[0]
-            dev = ctx.device
-            kdvals = [kr(rt) for kr in key_runs]
             if groups:
                 fast, cards, eff_cards, num_groups = shape_info(ctx, kdvals)
             else:
@@ -1853,11 +2181,68 @@ class Compiler:
                                    eff_cards, num_groups)
             else:
                 gidx, num_groups = generic_index(ctx, kdvals, out, valid)
+            return valid, gidx, num_groups, fast, cards, eff_cards
+
+        def fsum_strategy_of(ctx, n, num_groups) -> str:
+            return reduction.resolve_strategy(
+                reduction.STRATEGIES[ctx.static[strategy_si]],
+                ctx.device.type, num_groups, n, "fsum", torch.float64)
+
+        def run_pre(ctx) -> "_PreEntry":
+            """Phase A: the filtered validity, the group index, the group
+            count and the overflow flag: the group-index cache's entry.
+            The one-hot joins the entry where the matmul strategy takes it
+            (phase B attaches the one it builds, `_pre_cache_attach`): a
+            plan whose float sums all ride the grouped kernel never
+            builds one.  The child's output stays on the context, so a
+            miss's phase B does not evaluate the child a second time."""
+            out = child(ctx)
+            rt = ctx.runtime(out.cols)
+            kdvals = [kr(rt) for kr in key_runs]
+            valid, gidx, num_groups, _f, _c, _e = compute_pre(
+                ctx, out, kdvals)
+            if valid.untyped_storage().data_ptr() == \
+                    ctx.rels[0][1].untyped_storage().data_ptr():
+                # no filter: the validity IS the bound table's mask, and
+                # the entry must hold only its own tensors
+                valid = valid.clone()
+            ctx.pre_state = (out, rt, kdvals)
+            return _PreEntry(valid, gidx, num_groups, ctx.overflow, None)
+
+        def run_agg(ctx, pre: Optional["_PreEntry"] = None) -> tuple:
+            state = getattr(ctx, "pre_state", None)
+            if state is not None:       # phase B right after a miss
+                out, rt, kdvals = state
+                ctx.pre_state = None
+            else:
+                # a hit skips the filters: the cached validity replaces
+                # what they would compute
+                ctx.skip_filters = pre is not None
+                try:
+                    out = child(ctx)
+                finally:
+                    ctx.skip_filters = False
+                rt = ctx.runtime(out.cols)
+                kdvals = [kr(rt) for kr in key_runs]
+            dev = ctx.device
+            if pre is None:
+                valid, gidx, num_groups, fast, cards, eff_cards = \
+                    compute_pre(ctx, out, kdvals)
+                onehot = None
+            else:
+                valid, gidx, num_groups, onehot = \
+                    pre.valid, pre.gidx, pre.num_groups, pre.onehot
+                if pre.overflow is not None:
+                    ctx.note_overflow(pre.overflow)
+                fast, cards, eff_cards, _ng = shape_info(ctx, kdvals) \
+                    if groups else (True, [], [], 1)
+                out = RelOut(out.cols, valid.reshape(out.valid.shape),
+                             runf=None)
+            n = valid.shape[0]
             nseg = num_groups + 1
             req = reduction.STRATEGIES[ctx.static[strategy_si]]
             backend = dev.type
-            fsum_strat = reduction.resolve_strategy(
-                req, backend, num_groups, n, "fsum", torch.float64)
+            fsum_strat = fsum_strategy_of(ctx, n, num_groups)
             note = {"passes": 0, "strategies": set(), "lanes": set(),
                     "rle_fallbacks": 0}
             tok = ctx.static[code_agg_si]
@@ -2105,8 +2490,17 @@ class Compiler:
                         cols.append(
                             torch.ones(n, dtype=torch.float64, device=dev)
                             if w is valid else w.to(torch.float64))
+                oh = None
+                if fsum_strat == "matmul":
+                    # over the REAL groups only: an invalid row's one-hot
+                    # row is all-zero and contributes nothing
+                    oh = onehot if onehot is not None else \
+                        reduction.make_onehot(gidx, num_groups,
+                                              torch.float64)
+                    if pre is not None and onehot is None:
+                        _pre_cache_attach(pre, oh)
                 res = reduction.packed_sum(cols, gidx, num_groups,
-                                           fsum_strat)
+                                           fsum_strat, onehot=oh)
                 note["passes"] += 1
                 note["strategies"].add(fsum_strat)
                 for pos, (i, _) in enumerate(fsum_cols):
@@ -2231,7 +2625,28 @@ class Compiler:
                 "table": base_table_ref}
             return gvalid, pairs
 
+        self._agg_pre_emit = run_pre
         return run_agg, out_cols
+
+
+class _PreEntry:
+    """One group-index cache entry: phase A's outputs (ref
+    snappydata_tpu/engine/executor.py `run_pre`)."""
+
+    __slots__ = ("valid", "gidx", "num_groups", "overflow", "onehot")
+
+    def __init__(self, valid, gidx, num_groups, overflow, onehot):
+        self.valid = valid
+        self.gidx = gidx
+        self.num_groups = num_groups
+        self.overflow = overflow
+        self.onehot = onehot
+
+    def nbytes(self) -> int:
+        return sum(int(t.numel()) * t.element_size()
+                   for t in (self.valid, self.gidx, self.overflow,
+                             self.onehot)
+                   if isinstance(t, torch.Tensor))
 
 
 class _SlotInput:
@@ -2312,6 +2727,11 @@ class _RunCtx:
         self.static = static
         self.device = device
         self.overflow = None
+        # the group-index cache's two phases (CompiledPlan.run): a hit's
+        # phase B skips the filters, a miss hands phase A's child output
+        # to phase B
+        self.skip_filters = False
+        self.pre_state = None
         self.rels = []
         for r, (cols, valid) in zip(relations, rels):
             dvals = {}
@@ -2918,9 +3338,11 @@ class Executor:
         global_broker().register_executor(self)
 
     def clear_cache(self):
-        """Drop compiled plans and the join build-artifact cache (the
-        degradation ladder's first rung; both rebuild on next use)."""
+        """Drop compiled plans, the group-index cache and the join
+        build-artifact cache (the degradation ladder's first rung; all
+        rebuild on next use)."""
         self._plan_cache.clear()
+        clear_gidx_cache()
         _dj.clear_join_caches()
 
     def _cache_get(self, key):
@@ -2935,6 +3357,36 @@ class Executor:
             global_registry().inc("plan_cache_evictions")
         self._plan_cache[key] = value
 
+    def _compile(self, node: ast.Plan, **kw) -> CompiledPlan:
+        """Compile one device region, timed as `plan_compile`."""
+        import time
+
+        t0 = time.perf_counter()
+        try:
+            return Compiler(self.catalog, self.props, **kw).compile(node)
+        finally:
+            global_registry().record_time("plan_compile",
+                                          time.perf_counter() - t0)
+
+    def compiled_core(self, node: ast.Plan,
+                      key_str: Optional[str] = None
+                      ) -> Optional[CompiledPlan]:
+        """The CompiledPlan of a device-region node through the plan
+        cache, or None when the node has no device lowering (the caller
+        keeps the engine path).  The serving registry holds a prepared
+        handle's compiled plan through this, so fused dispatches go
+        straight to it without re-walking the plan per execute."""
+        key = (key_str if key_str is not None else _plan_key(node),
+               self.catalog.generation)
+        compiled = self._cache_get(key)
+        if compiled is None:
+            try:
+                compiled = self._compile(node)
+            except CompileError:
+                return None
+            self._cache_put(key, compiled)
+        return compiled
+
     def compiled_partial(self, node: ast.Plan) -> Optional[CompiledPlan]:
         """Compile an analyzed, tokenized partial-aggregate plan in
         partial-raw mode for the tiled scan's on-device merge.  Plan-cache
@@ -2944,8 +3396,7 @@ class Executor:
         hit = self._cache_get(key)
         if hit is None:
             try:
-                hit = Compiler(self.catalog, self.props,
-                               partial_raw=True).compile(node)
+                hit = self._compile(node, partial_raw=True)
             except CompileError:
                 hit = False
             self._cache_put(key, hit)
@@ -2970,22 +3421,26 @@ class Executor:
         except CompileError:
             return None
 
-    def execute(self, plan: ast.Plan, params: Tuple = ()) -> Result:
+    def execute(self, plan: ast.Plan, params: Tuple = (),
+                plan_key: Optional[str] = None) -> Result:
+        """Run a tokenized plan.  `plan_key` is the core's plan-cache key
+        when the caller holds it (a prepared handle), which skips the
+        plan-repr walk per execute."""
         check_current()  # cancellation point: every (sub)plan execution
         if self._depth:  # nested calls (unions, host fallback) count once
-            return self._execute_with_host_ops(plan, params)
+            return self._execute_with_host_ops(plan, params, plan_key)
         reg = global_registry()
         reg.inc("queries")
         self._depth += 1
         try:
-            result = self._execute_with_host_ops(plan, params)
+            result = self._execute_with_host_ops(plan, params, plan_key)
         finally:
             self._depth -= 1
         reg.inc("rows_returned", result.num_rows)
         return result
 
-    def _execute_with_host_ops(self, plan: ast.Plan, params: Tuple
-                               ) -> Result:
+    def _execute_with_host_ops(self, plan: ast.Plan, params: Tuple,
+                               plan_key: Optional[str] = None) -> Result:
         host_ops, node = peel_host_ops(plan)
         # executeTake early stop (ref: CachedDataFrame.executeTake:766): a
         # bare LIMIT over a scan chain decodes batches one at a time on
@@ -2995,12 +3450,13 @@ class Executor:
             taken = self._try_take(node, host_ops[0].n, params)
             if taken is not None:
                 return taken
-        result = self._execute_core(node, params)
+        result = self._execute_core(node, params, plan_key)
         for op in reversed(host_ops):
             result = self._apply_host_op(op, result, params)
         return result
 
-    def _execute_core(self, node: ast.Plan, params: Tuple) -> Result:
+    def _execute_core(self, node: ast.Plan, params: Tuple,
+                      plan_key: Optional[str] = None) -> Result:
         if isinstance(node, ast.Values):
             return hosteval.eval_values(node, params)
         if isinstance(node, ast.Union):
@@ -3013,12 +3469,13 @@ class Executor:
         fast = self._try_point_lookup(node, params)
         if fast is not None:
             return fast
-        key = (_plan_key(node), self.catalog.generation)
+        key = (plan_key if plan_key is not None else _plan_key(node),
+               self.catalog.generation)
         compiled = self._cache_get(key)
         if compiled is None:
             reg.inc("plan_cache_misses")
             try:
-                compiled = Compiler(self.catalog, self.props).compile(node)
+                compiled = self._compile(node)
             except CompileError:
                 reg.inc("host_fallbacks")
                 return self._host_fallback(node, params)
@@ -3148,12 +3605,12 @@ class Executor:
 
     def _try_point_lookup(self, node: ast.Plan, params: Tuple
                           ) -> Optional[Result]:
-        """Key queries on a row table (`col = literal` over every key
-        column, plain column projections) answer straight from the
-        primary-key index, never entering the device engine (ref:
+        """Point queries on a row table (`col = literal` conjuncts over
+        every key column or over an index's columns, plain column
+        projections) answer straight from the primary-key index or a
+        secondary index, never entering the device engine (ref:
         ExecutionEngineArbiter routing simple queries to the store's own
-        engine, docs/architecture/cluster_architecture.md:31-33).
-        Secondary indexes are not ported."""
+        engine, docs/architecture/cluster_architecture.md:31-33)."""
         proj = None
         n = node
         if isinstance(n, ast.Project):
@@ -3168,8 +3625,7 @@ class Executor:
         if not isinstance(inner, ast.Relation):
             return None
         info = self.catalog.lookup_table(inner.name)
-        if info is None or not isinstance(info.data, RowTableData) \
-                or not info.key_columns:
+        if info is None or not isinstance(info.data, RowTableData):
             return None
         pairs: Dict[str, object] = {}
 
@@ -3195,10 +3651,16 @@ class Executor:
                 isinstance(e.child if isinstance(e, ast.Alias) else e,
                            ast.Col) for e in proj.exprs):
             return None
-        if frozenset(pairs) != frozenset(info.key_columns):
-            return None
-        got = info.data.get(tuple(pairs[k] for k in info.key_columns))
-        rows = [got] if got is not None else []
+        key_set = frozenset(pairs)
+        if info.key_columns and key_set == frozenset(info.key_columns):
+            got = info.data.get(tuple(pairs[k] for k in info.key_columns))
+            rows = [got] if got is not None else []
+        else:
+            idx = info.data.index_for_columns(sorted(key_set))
+            if idx is None:
+                return None
+            rows = info.data.index_lookup(
+                idx, tuple(pairs[c] for c in info.data._indexes[idx]))
         global_registry().inc("point_lookups")
         schema = info.schema
         if proj is not None:
@@ -3277,5 +3739,8 @@ def _is_result_level(child: ast.Plan) -> bool:
 
 def _plan_key(plan: ast.Plan) -> str:
     """Structural cache key: the tokenized plan repr is stable because
-    literals are ParamLiteral positions, not values."""
+    literals are ParamLiteral positions, not values.  The walk is O(plan)
+    per call: a prepared handle computes it once and passes it back in,
+    and `plan_key_builds` counts the walks."""
+    global_registry().inc("plan_key_builds")
     return repr(plan)

@@ -71,6 +71,11 @@ class Registry:
     def counter(self, name: str) -> int:
         return self._counters.get(name, 0)
 
+    def timer(self, name: str) -> Tuple[int, float]:
+        """(count, total seconds) of one timer, (0, 0.0) if never set."""
+        with self._lock:
+            return self._timers.get(name, (0, 0.0))
+
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self._counters)

@@ -27,12 +27,13 @@ leaves the allocator's count only once nothing else (a compiled plan, a
 prefetch window, a pending `record_stream`) holds its tensors, and the
 caching allocator's reserved bytes do not fall without `empty_cache()`.
 
-The ledger keeps the reference's keys.  `matview_state_bytes` is the
-materialized views' [G] state (views/matview.py), and the degradation
-ladder's second rung evicts it (the views go stale and re-aggregate at
-their next read).  The lines of modules the port does not have yet
-(group-index cache, serving registry, mesh layouts) read 0 until those
-modules are ported.
+The ledger keeps the reference's keys.  `gidx_cache_bytes` is the
+group-index cache (engine/executor.py) and `serving_registry_bytes` the
+prepared-plan registries (serving/prepared.py); the ladder's first rung
+drops both with the plan caches.  `matview_state_bytes` is the
+materialized views' [G] state (views/matview.py), and the second rung
+evicts it (the views go stale and re-aggregate at their next read).  The
+mesh layout line reads 0 until multi-device execution is ported.
 """
 
 from __future__ import annotations
@@ -84,10 +85,21 @@ def _host_table_bytes(data) -> int:
     return total
 
 
-def _unported_cache_bytes() -> Tuple[int, int, int]:
-    """(gidx cache, serving registry, mesh layouts): the ledger lines of
-    modules not ported yet, which hold nothing."""
-    return 0, 0, 0
+def _cache_bytes() -> Tuple[int, int, int]:
+    """(gidx cache, serving registry, mesh layouts): the group-index
+    cache's device bytes and the prepared-plan registries' host bytes,
+    beside the line of a module not ported yet."""
+    from snappydata_tpu_torch.engine.executor import gidx_cache_nbytes
+    from snappydata_tpu_torch.serving import serving_registry_nbytes
+
+    return (gidx_cache_nbytes(), serving_registry_nbytes(),
+            _unported_cache_bytes())
+
+
+def _unported_cache_bytes() -> int:
+    """The mesh layout cache's line: multi-device execution is not
+    ported, so it holds nothing."""
+    return 0
 
 
 def _matview_bytes() -> int:
@@ -250,7 +262,7 @@ class ResourceBroker:
         from snappydata_tpu_torch.storage import hoststore, tier
 
         host, device, retained, join_bytes = self._walk(self._iter_tables())
-        gidx_bytes, serving_bytes, mesh_bytes = _unported_cache_bytes()
+        gidx_bytes, serving_bytes, mesh_bytes = _cache_bytes()
         view_bytes = _matview_bytes()
         retained_total = sum(retained.values())
         with self._cond:
@@ -290,7 +302,7 @@ class ResourceBroker:
             if time.monotonic() - ts <= max_age_s:
                 return h, d
         host, device, retained, join_bytes = self._walk(self._iter_tables())
-        gidx_bytes, serving_bytes, mesh_bytes = _unported_cache_bytes()
+        gidx_bytes, serving_bytes, mesh_bytes = _cache_bytes()
         view_bytes = _matview_bytes()
         h = sum(host.values()) + serving_bytes + sum(retained.values())
         d = sum(device.values()) + gidx_bytes + join_bytes + view_bytes \
@@ -447,7 +459,8 @@ class ResourceBroker:
                  requester: Optional[QueryContext] = None) -> None:
         """Graceful pressure relief, cheapest first (ref: the evict ->
         spill -> cancel order of SnappyStorageEvictor + CancelException):
-        plan caches, materialized-view states, unpinned retained epochs,
+        plan caches (with the group-index cache and the prepared-plan
+        registries), materialized-view states, unpinned retained epochs,
         the tier ladder, host spill, then cancel the hungriest admitted
         query (never the requester)."""
         reg = global_registry()
@@ -456,7 +469,16 @@ class ResourceBroker:
             return
         for ex in list(self._executors):
             try:
-                ex.clear_cache()
+                ex.clear_cache()   # plans, the group-index cache, joins
+            except Exception:
+                pass
+        # prepared-plan registries are caches too: an evicted statement
+        # re-prepares transparently on its next execute
+        from snappydata_tpu_torch.serving.prepared import _REGISTRIES
+
+        for r in list(_REGISTRIES):
+            try:
+                r.clear()
             except Exception:
                 pass
         reg.inc("governor_degrade_plan_evictions")

@@ -35,9 +35,21 @@ after the covering fsync (`_sql_statement`), the bulk paths journal their
 arrays (`_journal_then`), `checkpoint()` folds the WAL into batch files,
 and a session opened on an existing directory recovers into itself, on
 its device, views, materialized views (their checkpointed state, then
-the WAL tail past each view's watermark) and functions included.  Mesh
-execution, samples and streams are not ported and raise
+the WAL tail past each view's watermark), functions, row-level
+policies, secondary indexes, sample tables and TopKs included.  Mesh
+execution, streams, grants and EXPLAIN are not ported and raise
 NotImplementedError.
+
+Serving (serving/): `prepare(sql)` and SQL `PREPARE name AS ... /
+EXECUTE name (...) / DEALLOCATE name` hold compile-once handles whose
+concurrent executes fuse into one dispatch; `serving_sql` routes a query
+through the registry.  `CREATE INDEX` on a row table serves point
+lookups from a secondary index; `CREATE POLICY p ON t USING cond`
+filters every later read of `t` (the generation bump re-prepares held
+handles).  AQP (aqp/): `CREATE SAMPLE TABLE s ON t OPTIONS (qcs ...)`
+keeps a stratified reservoir fed by the base table's inserts; `WITH
+ERROR` and the error functions estimate over it, `approx_sql` rewrites a
+query onto it, and `create_topk` / `query_topk` keep heavy hitters.
 
 Every query runs governed (resource/): `_governed_query` estimates its
 memory (a tilable aggregate is charged one tile plus its join build
@@ -243,6 +255,64 @@ class SnappySession:
         finally:
             broker.release(ctx)
 
+    def prepare(self, sql_text: str):
+        """Compile-once prepared statement (ref: the thrift/DRDA layer's
+        prepared statements; serving/prepared.py): parse, analyze,
+        tokenize and compile happen ONCE, every `handle.execute(binds)`
+        feeds the `?` values to the compiled plan as runtime literals,
+        and concurrent executes of one handle fuse into one dispatch
+        (serving_batch_max)."""
+        from snappydata_tpu_torch.serving import registry_for
+
+        with config.device_scope(self.device):
+            return registry_for(self.catalog).prepare(self, sql_text)
+
+    def serving_sql(self, sql_text: str, params: Sequence[Any] = (),
+                    query_ctx=None) -> Result:
+        """Front-door query entry: through the prepared-statement serving
+        registry (compile-once + micro-batched dispatch), or the plain
+        sql() pipeline for statements the registry cannot hold (DDL, DML
+        and friends)."""
+        from snappydata_tpu_torch.serving import ServingError
+
+        try:
+            handle = self.prepare(sql_text)
+        except ServingError:
+            return self.sql(sql_text, params, query_ctx=query_ctx)
+        return handle.execute(tuple(params), query_ctx=query_ctx)
+
+    def _named_prepared(self) -> Dict:
+        """SQL-level PREPARE name registry, keyed (user, name) on the
+        shared catalog, so a front door can PREPARE in one request and
+        EXECUTE in the next."""
+        if not hasattr(self.catalog, "_named_prepared"):
+            self.catalog._named_prepared = {}
+        return self.catalog._named_prepared
+
+    def query_schema(self, sql_text: str) -> T.Schema:
+        """Output schema of a query without executing it (ref:
+        CachedDataFrame exposes the analyzed schema); subqueries become
+        typed placeholders, so nothing runs."""
+        with config.device_scope(self.device):
+            stmt = parse(sql_text)
+            if not isinstance(stmt, ast.Query):
+                return T.Schema([T.Field("status", T.STRING)])
+            plan = self._decorrelate(stmt.plan)
+
+            def sub_placeholder(e: ast.Expr) -> ast.Expr:
+                if isinstance(e, ast.ScalarSubquery):
+                    sub_resolved, _ = self.analyzer.analyze_plan(
+                        self._decorrelate(e.plan))
+                    dt = _output_schema(sub_resolved).fields[0].dtype
+                    return ast.Lit(None, dt)
+                if isinstance(e, (ast.InSubquery, ast.ExistsSubquery)):
+                    return ast.Lit(True, T.BOOLEAN)
+                return e
+
+            plan = ast.transform_plan_exprs(plan, sub_placeholder)
+            resolved, _ = self.analyzer.analyze_plan(plan)
+            return _output_schema(resolved)
+
     def _sql_statement(self, stmt: ast.Statement, sql_text: str,
                        params) -> Result:
         """Durable sessions journal DML and ALTER / TRUNCATE text BEFORE
@@ -300,6 +370,21 @@ class SnappySession:
                             ds.checkpoint_table(info, ds.current_wal_seq())
             elif isinstance(stmt, ast.DropTable):
                 ds.drop_table_dir(_norm(stmt.name))
+                ds.save_catalog(self.catalog)
+            elif isinstance(stmt, (ast.CreatePolicy, ast.CreateIndex)):
+                if not hasattr(self.catalog, "_aux_ddl"):
+                    self.catalog._aux_ddl = {}
+                kind = "policy" if isinstance(stmt, ast.CreatePolicy) \
+                    else "index"
+                # namespaced key: a policy and an index may share a name
+                self.catalog._aux_ddl[f"{kind}:{stmt.name.lower()}"] = \
+                    sql_text
+                ds.save_catalog(self.catalog)
+            elif isinstance(stmt, (ast.DropPolicy, ast.DropIndex)):
+                kind = "policy" if isinstance(stmt, ast.DropPolicy) \
+                    else "index"
+                getattr(self.catalog, "_aux_ddl", {}).pop(
+                    f"{kind}:{stmt.name.lower()}", None)
                 ds.save_catalog(self.catalog)
             elif isinstance(stmt, ast.CreateView):
                 if not hasattr(self.catalog, "_view_ddl"):
@@ -390,13 +475,20 @@ class SnappySession:
 
     def _execute_statement(self, stmt: ast.Statement, params) -> Result:
         if isinstance(stmt, ast.Query):
-            if stmt.with_error is not None:
-                raise NotImplementedError(
-                    "WITH ERROR (approximate queries) is not ported")
             # materialized views the query reads re-merge their [G] state
             # into the backing rows when dirty: O(G), never a base-table
             # rescan unless the view is stale
             self._sync_referenced_matviews(stmt.plan)
+            # the HAC surface: WITH ERROR and / or error functions route
+            # through stratified estimation (ref hac_contracts.md:38-82)
+            if stmt.with_error is not None or \
+                    getattr(self.catalog, "_sample_maintainers", None):
+                from snappydata_tpu_torch.aqp.error_estimation import (
+                    execute_error_query, query_has_error_surface)
+
+                if query_has_error_surface(stmt):
+                    return finalize_decimals(
+                        execute_error_query(self, stmt, params))
             return finalize_decimals(self._run_query(stmt.plan, params))
         if isinstance(stmt, ast.CreateTable):
             return self._create_table(stmt)
@@ -483,17 +575,94 @@ class SnappySession:
         if isinstance(stmt, ast.SetConf):
             self.conf.set(stmt.key, stmt.value)
             return _status()
+        if isinstance(stmt, ast.CreatePolicy):
+            info = self.catalog.describe(stmt.table)
+            for node in ast.walk(stmt.using):
+                if isinstance(node, (ast.ScalarSubquery, ast.InSubquery,
+                                     ast.ExistsSubquery)):
+                    raise AnalysisError(
+                        "subqueries in policy predicates are not supported")
+            if not hasattr(self.catalog, "_policies"):
+                self.catalog._policies = {}
+            self.catalog._policies[stmt.name.lower()] = (info.name,
+                                                         stmt.using)
+            # the bump re-prepares every held handle and re-keys cached
+            # plans: the analyzer bakes the predicate in at resolution
+            self.catalog.generation += 1
+            return _status()
+        if isinstance(stmt, ast.DropPolicy):
+            pols = getattr(self.catalog, "_policies", {})
+            if stmt.name.lower() not in pols and not stmt.if_exists:
+                raise ValueError(f"policy not found: {stmt.name}")
+            pols.pop(stmt.name.lower(), None)
+            self.catalog.generation += 1
+            return _status()
+        if isinstance(stmt, ast.CreateIndex):
+            info = self.catalog.describe(stmt.table)
+            if not isinstance(info.data, RowTableData):
+                raise ValueError(
+                    "indexes are supported on row tables (column tables "
+                    "use batch-stats skipping instead)")
+            if not hasattr(self.catalog, "_indexes"):
+                self.catalog._indexes = {}
+            if stmt.name.lower() in self.catalog._indexes:
+                if stmt.if_not_exists:
+                    return _status()
+                raise ValueError(f"index already exists: {stmt.name}")
+            for c in stmt.columns:
+                info.schema.index(c)  # validates
+            info.data.create_index(stmt.name, stmt.columns)
+            self.catalog._indexes[stmt.name.lower()] = (
+                info.name, tuple(c.lower() for c in stmt.columns))
+            return _status()
+        if isinstance(stmt, ast.DropIndex):
+            idxs = getattr(self.catalog, "_indexes", {})
+            entry = idxs.pop(stmt.name.lower(), None)
+            if entry is None:
+                if stmt.if_exists:
+                    return _status()
+                raise ValueError(f"index not found: {stmt.name}")
+            self.catalog.describe(entry[0]).data.drop_index(stmt.name)
+            return _status()
+        if isinstance(stmt, ast.PrepareStmt):
+            # registers the shared compile-once entry AND the (user, name)
+            # alias
+            self.prepare(stmt.query_sql)
+            self._named_prepared()[(self.user, stmt.name.lower())] = \
+                stmt.query_sql
+            return _status()
+        if isinstance(stmt, ast.ExecuteStmt):
+            from snappydata_tpu_torch.serving import ServingError
+
+            sql_text = self._named_prepared().get(
+                (self.user, stmt.name.lower()))
+            if sql_text is None:
+                raise ServingError(
+                    f"no prepared statement named {stmt.name!r} "
+                    f"for user {self.user!r} (PREPARE it first)")
+            return self.prepare(sql_text).execute(tuple(stmt.args))
+        if isinstance(stmt, ast.DeallocateStmt):
+            from snappydata_tpu_torch.serving import ServingError
+
+            if self._named_prepared().pop(
+                    (self.user, stmt.name.lower()), None) is None:
+                raise ServingError(
+                    f"no prepared statement named {stmt.name!r} "
+                    f"for user {self.user!r}")
+            return _status()
         raise NotImplementedError(
             f"{type(stmt).__name__} is not ported to snappydata_tpu_torch")
 
     def _run_query(self, plan: ast.Plan, user_params=()) -> Result:
         """Query entry (ref SnappySession._run_query_inner, without the
-        mesh, sample and stream hooks), with this catalog's SQL functions
+        mesh and stream hooks), with this catalog's SQL functions
         exposed to the analyzer, the lowering and the host evaluator: the
         tiled lane first (a plan that holds a subquery never tiles), then
         the correlated subqueries become joins, the uncorrelated ones run
         as queries of their own and substitute literals, then optimize,
         analyze and tokenize."""
+        if getattr(self.catalog, "_sample_maintainers", None):
+            self._refresh_samples()
         with _udf.using(self.catalog):
             tiled = self._maybe_tiled_aggregate(plan, user_params)
             if tiled is not None:
@@ -1260,11 +1429,13 @@ class SnappySession:
 
     def create_table(self, name: str, schema, provider: str = "column",
                      options: Optional[Dict[str, str]] = None,
-                     if_not_exists: bool = False):
+                     if_not_exists: bool = False,
+                     key_columns: Sequence[str] = ()):
         if not isinstance(schema, T.Schema):
             schema = T.Schema([T.Field(n, dt) for n, dt in schema])
         return self.catalog.create_table(name, schema, provider,
-                                         options or {}, if_not_exists)
+                                         options or {}, if_not_exists,
+                                         key_columns)
 
     def _journal_then(self, info, kind: str, arrays, nulls, apply_fn,
                       extra: Optional[dict] = None):
@@ -1386,6 +1557,157 @@ class SnappySession:
             raise ValueError("get() requires a row table with a primary key")
         return info.data.get(key)
 
+    # ------------------------------------------------------------------
+    # AQP: sample tables, approximate queries, TopK (aqp/)
+    # ------------------------------------------------------------------
+
+    def _create_sample_table(self, stmt: ast.CreateTable) -> Result:
+        """CREATE SAMPLE TABLE s ON base OPTIONS (qcs 'a,b',
+        reservoir_size 'n', seed 's') — a stratified reservoir over the
+        base table, stored as a column table of the base schema plus
+        snappy_sampler_weight and the hidden stratum id."""
+        from snappydata_tpu_torch.aqp.sampling import (
+            RESERVOIR_WEIGHT_COLUMN, STRATUM_ID_COLUMN)
+
+        opts = {k.lower(): str(v) for k, v in stmt.options.items()}
+        base_name = opts.get("basetable") or opts.get("base_table")
+        if not base_name:
+            raise ValueError("sample table requires OPTIONS (baseTable ...)")
+        if stmt.if_not_exists and \
+                self.catalog.lookup_table(stmt.name) is not None:
+            return _status()  # don't double-register the maintainer
+        base = self.catalog.describe(base_name)
+        schema = T.Schema(list(base.schema.fields)
+                          + [T.Field(RESERVOIR_WEIGHT_COLUMN, T.DOUBLE,
+                                     False),
+                             T.Field(STRATUM_ID_COLUMN, T.LONG, False)])
+        info = self.catalog.create_table(stmt.name, schema, "sample",
+                                         stmt.options, stmt.if_not_exists)
+        self.register_sample(info)
+        return _status()
+
+    def register_sample(self, info) -> None:
+        """(Re)wire a sample table's reservoir and base-table feed; also
+        called on recovery."""
+        from snappydata_tpu_torch.aqp.sampling import (
+            STRATUM_ID_COLUMN, SampleTableMaintainer, StratifiedReservoir)
+
+        opts = info.options
+        base = self.catalog.describe(opts.get("basetable")
+                                     or opts.get("base_table"))
+        # sample tables persisted before error estimation lack the
+        # hidden stratum-id column; refresh rebuilds the contents anyway
+        if all(f.name.lower() != STRATUM_ID_COLUMN
+               for f in info.schema.fields):
+            info.data.add_column(T.Field(STRATUM_ID_COLUMN, T.LONG, False))
+            info.schema = info.data.schema
+        qcs = [c.strip().lower() for c in opts.get("qcs", "").split(",")
+               if c.strip()]
+        reservoir = StratifiedReservoir(
+            [base.schema.index(c) for c in qcs], len(base.schema),
+            reservoir_size=int(opts.get("reservoir_size", 50)),
+            seed=int(opts.get("seed", 0)))
+        maintainer = SampleTableMaintainer(info, base, reservoir)
+        base.data.on_insert.append(maintainer.on_insert)
+        if not hasattr(self.catalog, "_sample_maintainers"):
+            self.catalog._sample_maintainers = {}
+        self.catalog._sample_maintainers[info.name] = maintainer
+        # seed with the base table's existing rows
+        with config.device_scope(self.device):
+            cols, _, _, _, n = hosteval._eval_rel(
+                ast.Relation(base.name, base.schema), (), self.executor)
+        if n:
+            reservoir.observe(cols)
+
+    def _refresh_samples(self) -> None:
+        for m in getattr(self.catalog, "_sample_maintainers", {}).values():
+            m.refresh()
+
+    def approx_sql(self, sql_text: str, params: Sequence[Any] = ()
+                   ) -> Result:
+        """Run an aggregate approximately over registered sample tables
+        (ref: AQP error-bounded rewrite, docs/aqp.md:43)."""
+        from snappydata_tpu_torch.aqp.error_estimation import (
+            execute_error_query, query_has_error_surface)
+        from snappydata_tpu_torch.aqp.rewrite import approx_rewrite
+
+        with config.device_scope(self.device):
+            stmt = parse(sql_text)
+            if not isinstance(stmt, ast.Query):
+                raise ValueError("approx_sql expects a query")
+            if query_has_error_surface(stmt):
+                return finalize_decimals(
+                    execute_error_query(self, stmt, tuple(params)))
+            rewritten = approx_rewrite(stmt.plan, self.catalog)
+            if rewritten is None:
+                return finalize_decimals(
+                    self._run_query(stmt.plan, tuple(params)))
+            self._refresh_samples()
+            return finalize_decimals(
+                self._run_query(rewritten, tuple(params)))
+
+    def create_topk(self, name: str, base_table: str, key_column: str,
+                    k: int = 50, time_column: Optional[str] = None,
+                    bucket_seconds: int = 60) -> None:
+        """Register a TopK structure fed by the base table's inserts
+        (ref: SnappyContextFunctions.createTopK :42).  With
+        `time_column`, a time-bucketed TopK that answers start / end-time
+        queries (ref TopK trait time axis, TopK.scala:23)."""
+        from snappydata_tpu_torch.aqp.sketches import (TimeDecayedTopK,
+                                                       TopKSummary)
+
+        base = self.catalog.describe(base_table)
+        ci = base.schema.index(key_column)
+        ti = base.schema.index(time_column) if time_column else None
+        topk = TimeDecayedTopK(k=k, bucket_seconds=bucket_seconds) \
+            if time_column else TopKSummary(k=k)
+        if not hasattr(self.catalog, "_topks"):
+            self.catalog._topks = {}
+            self.catalog._topk_defs = {}
+        self.catalog._topks[name.lower()] = topk
+        self.catalog._topk_defs[name.lower()] = {
+            "base_table": base.name, "key_column": key_column.lower(),
+            "k": k, "time_column": time_column.lower() if time_column
+            else None, "bucket_seconds": bucket_seconds}
+        if self.disk_store is not None:
+            self.disk_store.save_catalog(self.catalog)
+
+        def feed(arrays, nulls=None, _ci=ci, _ti=ti, _t=topk):
+            if _ti is None:
+                _t.observe(np.asarray(arrays[_ci]))
+            else:
+                _t.observe(np.asarray(arrays[_ci]),
+                           np.asarray(arrays[_ti], dtype=np.float64))
+
+        base.data.on_insert.append(feed)
+        with config.device_scope(self.device):
+            cols, _, _, _, n = hosteval._eval_rel(
+                ast.Relation(base.name, base.schema), (), self.executor)
+        if n:
+            if ti is None:
+                topk.observe(cols[ci])
+            else:
+                topk.observe(cols[ci],
+                             np.asarray(cols[ti], dtype=np.float64))
+
+    def query_topk(self, name: str, n: Optional[int] = None,
+                   start_time: Optional[float] = None,
+                   end_time: Optional[float] = None) -> Result:
+        from snappydata_tpu_torch.aqp.sketches import TimeDecayedTopK
+
+        topk = getattr(self.catalog, "_topks", {}).get(name.lower())
+        if topk is None:
+            raise ValueError(f"no such TopK: {name}")
+        if isinstance(topk, TimeDecayedTopK):
+            items = topk.top(n, start_time=start_time, end_time=end_time)
+        else:
+            items = topk.top(n)
+        return Result(
+            ["key", "estimated_count"],
+            [np.array([k for k, _ in items], dtype=object),
+             np.array([c for _, c in items], dtype=np.int64)],
+            [None, None], [T.STRING, T.LONG])
+
     def stop(self) -> None:
         """Drop the compiled-plan cache and, on a durable session, save
         the catalog (the WAL stays open: a later session on the same
@@ -1424,6 +1746,34 @@ class SnappySession:
             # table); their DDL and durable state go too, or recovery
             # replays orphans
             tname = _norm(stmt.name)
+            # policies / indexes of the dropped table must not haunt a
+            # future table of the same name
+            pols = getattr(self.catalog, "_policies", {})
+            for pname in [p for p, (t, _) in pols.items() if t == tname]:
+                pols.pop(pname)
+                getattr(self.catalog, "_aux_ddl", {}).pop(
+                    f"policy:{pname}", None)
+            idxs = getattr(self.catalog, "_indexes", {})
+            for iname in [i for i, (t, _) in idxs.items() if t == tname]:
+                idxs.pop(iname)
+                getattr(self.catalog, "_aux_ddl", {}).pop(
+                    f"index:{iname}", None)
+            # TopKs over the dropped table: deregister (a persisted stale
+            # definition would fail recovery)
+            defs = getattr(self.catalog, "_topk_defs", {})
+            for nm in [n for n, d in defs.items()
+                       if d["base_table"] == tname]:
+                defs.pop(nm)
+                getattr(self.catalog, "_topks", {}).pop(nm, None)
+            # sample maintainers of, or over, the dropped table
+            maints = getattr(self.catalog, "_sample_maintainers", {})
+            for nm in [n for n, m in maints.items()
+                       if n == tname or m.base_info.name == tname]:
+                m = maints.pop(nm)
+                try:  # unhook the base feed (else it leaks per drop)
+                    m.base_info.data.on_insert.remove(m.on_insert)
+                except (ValueError, AttributeError):
+                    pass
             mvs = getattr(self.catalog, "_matviews", {})
             for vn in [v for v, m in mvs.items() if m.base_table == tname]:
                 mv = mvs.pop(vn)
@@ -1546,9 +1896,12 @@ class SnappySession:
             _mv.fold_ingest(self.catalog, info.name, arrays, nulls)
 
     def _create_table(self, stmt: ast.CreateTable) -> Result:
+        if stmt.provider == "sample" and not stmt.stream:
+            return self._create_sample_table(stmt)
         if stmt.stream or stmt.provider not in ("column", "row"):
             raise NotImplementedError(
-                "only CREATE TABLE ... USING column | row is ported")
+                "only CREATE TABLE ... USING column | row and CREATE "
+                "SAMPLE TABLE are ported")
         if stmt.as_select is not None:
             if stmt.if_not_exists and \
                     self.catalog.lookup_table(stmt.name) is not None:
@@ -1770,6 +2123,8 @@ class SnappySession:
         NULL.  DROP COLUMN shifts ordinals in place, so it refuses with
         SQLSTATE 40001 while a snapshot pin holds the table."""
         info = self.catalog.describe(stmt.table)
+        if info.provider == "sample":
+            raise ValueError("ALTER TABLE is not supported on sample tables")
         if info.options.get("materialized_view"):
             raise ValueError(
                 f"{stmt.table} is a materialized view; its schema follows "

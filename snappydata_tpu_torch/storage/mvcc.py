@@ -515,6 +515,12 @@ def pinned_scope(catalog, table_names=()):
             continue
         if info.options.get("materialized_view"):
             continue   # pinned at first read, AFTER sync rewrites it
+        maints = getattr(catalog, "_sample_maintainers", None)
+        if maints and info.name in maints:
+            # sample tables rebuild lazily (truncate + re-insert from the
+            # reservoir) inside the statement, like a matview sync: they
+            # pin at first read, AFTER the refresh publishes
+            continue
         if hasattr(info.data, "_manifest"):
             datas.append(info.data)
     try:

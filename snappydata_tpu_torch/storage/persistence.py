@@ -4,12 +4,12 @@ Port of snappydata_tpu/storage/persistence.py.  The on-disk format is the
 reference's byte for byte (record framing, CRC, codec tags, schema JSON,
 manifests), so either package recovers a data directory the other wrote.
 Views, materialized views (their [G] state checkpoints under
-`views/<name>.state` with its WAL fence, `checkpoint_matview`) and SQL
-functions persist and recover as the reference's do.  Left out with the
-subsystems they serve: the re-registration of policies, indexes,
-deployed code, streams, grants and AQP TopKs on recovery — a data
-directory that records any of them raises NotImplementedError when it is
-recovered, never skipping it silently.
+`views/<name>.state` with its WAL fence, `checkpoint_matview`), SQL
+functions, row-level policies, secondary indexes, sample tables and
+TopKs persist and recover as the reference's do.  Left out with the
+subsystems they serve: the re-registration of deployed code, streams and
+grants on recovery — a data directory that records any of them raises
+NotImplementedError when it is recovered, never skipping it silently.
 
 The reference persists regions as oplogs/krfs in disk stores with crash
 recovery on boot, plus backup/restore CLI (SURVEY.md §5 checkpoint/resume;
@@ -664,15 +664,17 @@ class DiskStore:
                 "base_table": info.base_table,
             })
         # views persist as their DDL text, re-executed on recovery; the
-        # keys of the subsystems the port does not hold stay empty
+        # grants key stays empty until the port holds grants
         views = dict(getattr(catalog, "_view_ddl", {}))
         matviews = dict(getattr(catalog, "_matview_ddl", {}))
-        aux = dict(getattr(catalog, "_aux_ddl", {}))   # functions
+        topks = dict(getattr(catalog, "_topk_defs", {}))
+        # functions, policies and indexes
+        aux = dict(getattr(catalog, "_aux_ddl", {}))
         tmp = os.path.join(self.path, "catalog.json.tmp")
         with open(tmp, "w") as fh:
             json.dump({"version": 1, "tables": tables, "views": views,
-                       "matviews": matviews, "topks": {}, "aux_ddl": aux,
-                       "grants": []}, fh, indent=1)
+                       "matviews": matviews, "topks": topks,
+                       "aux_ddl": aux, "grants": []}, fh, indent=1)
         self._durable_replace(tmp, os.path.join(self.path, "catalog.json"))
 
     # -- materialized-view state ------------------------------------------
@@ -1341,9 +1343,10 @@ class DiskStore:
         ordered replay of the global WAL fenced per table on the
         checkpoint's wal_seq, then views, materialized views (their
         checkpointed state, then the WAL tail past each one's watermark)
-        and functions.  A directory that records policies, indexes,
-        deployed code, streams, grants or AQP TopKs raises
-        NotImplementedError: those are not ported."""
+        and functions, policies and indexes, then the sample tables'
+        maintainers and the TopKs.  A directory that records deployed
+        code, streams or grants raises NotImplementedError: those are not
+        ported."""
         from snappydata_tpu_torch import config
         from snappydata_tpu_torch.catalog import Catalog
         from snappydata_tpu_torch.engine.executor import Executor
@@ -1360,9 +1363,10 @@ class DiskStore:
         if os.path.exists(cat_path):
             with open(cat_path) as fh:
                 meta = json.load(fh)
-        unported = [k for k in ("topks", "grants") if meta.get(k)]
+        unported = ["grants"] if meta.get("grants") else []
         unported += sorted(k for k in (meta.get("aux_ddl") or {})
-                           if not k.startswith("function:"))
+                           if not k.startswith(("function:", "policy:",
+                                                "index:")))
         if unported:
             raise NotImplementedError(
                 f"{self.path}: the catalog records {', '.join(unported)}, "
@@ -1376,13 +1380,25 @@ class DiskStore:
         # the session's device scope
         with config.device_scope(session.device):
             folded: Dict[str, int] = {}
+            sample_tables = []
             for t in meta["tables"]:
                 schema = schema_from_json(t["schema"])
                 info = catalog.create_table(
                     t["name"], schema, t["provider"], t.get("options", {}),
                     key_columns=t.get("key_columns", ()))
                 folded[info.name] = self._load_table_data(info)
+                if t["provider"] == "sample":
+                    sample_tables.append(info)
             self._recover_views(catalog, session, meta, folded)
+            # AQP re-registration: the maintainers and TopKs re-seed from
+            # the recovered base tables
+            for info in sample_tables:
+                session.register_sample(info)
+            for name, d in (meta.get("topks") or {}).items():
+                session.create_topk(
+                    name, d["base_table"], d["key_column"],
+                    k=d.get("k", 50), time_column=d.get("time_column"),
+                    bucket_seconds=d.get("bucket_seconds", 60))
         return catalog
 
     def _recover_views(self, catalog, session, meta, folded) -> None:
@@ -1428,10 +1444,18 @@ class DiskStore:
                 except Exception:
                     pass  # a view over a dropped table: skipped
         catalog._view_ddl = dict(meta.get("views") or {})
+        # functions, policies and indexes re-execute their DDL.  A policy
+        # that fails is a security regression (the table would come up
+        # unfiltered): recovery refuses; a failed index only loses a fast
+        # path: warn
         for name, ddl in (meta.get("aux_ddl") or {}).items():
             try:
                 session.sql(ddl)
             except Exception as e:
+                if name.startswith("policy:"):
+                    raise RuntimeError(
+                        f"recovery could not restore row-level policy "
+                        f"{name!r} ({e}); refusing to come up without it")
                 print(f"warning: recovery skipped {name!r}: {e}",
                       file=sys.stderr)
         catalog._aux_ddl = dict(meta.get("aux_ddl") or {})

@@ -1107,11 +1107,52 @@ class RowTableData:
                 raise ValueError("cannot drop the only column")
             if idx in self._key_idx:
                 raise ValueError(f"cannot drop primary key column {name}")
+            for iname, icols in getattr(self, "_indexes", {}).items():
+                if name.lower() in icols:
+                    raise ValueError(
+                        f"column {name} is referenced by index {iname}")
             self.schema = T.Schema(tuple(
                 f for i, f in enumerate(self.schema.fields) if i != idx))
             del self._cols[idx]
             self._key_idx = [i - 1 if i > idx else i for i in self._key_idx]
             self._version += 1
+
+    def create_index(self, name: str, columns: Sequence[str]) -> None:
+        """Secondary index (ref: row-store indexes, CreateIndexTest),
+        rebuilt lazily per version: point lookups are O(1) after the
+        first access that follows a mutation."""
+        if not hasattr(self, "_indexes"):
+            self._indexes: Dict[str, tuple] = {}
+            self._index_maps: Dict[str, tuple] = {}
+        self._indexes[name.lower()] = tuple(c.lower() for c in columns)
+
+    def drop_index(self, name: str) -> None:
+        getattr(self, "_indexes", {}).pop(name.lower(), None)
+        getattr(self, "_index_maps", {}).pop(name.lower(), None)
+
+    def index_for_columns(self, columns: Sequence[str]):
+        want = {c.lower() for c in columns}
+        for name, cols in getattr(self, "_indexes", {}).items():
+            if set(cols) == want:
+                return name
+        return None
+
+    def index_lookup(self, name: str, key: tuple) -> List[tuple]:
+        """Every live row whose indexed columns equal `key`."""
+        cols = self._indexes[name.lower()]
+        cached = getattr(self, "_index_maps", {}).get(name.lower())
+        if cached is None or cached[0] != self._version:
+            idx_cols = [self.schema.index(c) for c in cols]
+            mapping: Dict[tuple, List[int]] = {}
+            with self._lock:
+                for ordinal, live in enumerate(self._live):
+                    if live:
+                        k = tuple(self._cols[i][ordinal] for i in idx_cols)
+                        mapping.setdefault(k, []).append(ordinal)
+                cached = (self._version, mapping)
+            self._index_maps[name.lower()] = cached
+        ordinals = cached[1].get(tuple(key), [])
+        return [tuple(c[o] for c in self._cols) for o in ordinals]
 
     def string_dict(self, col_idx: int) -> np.ndarray:
         """Version-cached sorted dictionary of a string column, so the

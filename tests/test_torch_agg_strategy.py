@@ -311,3 +311,150 @@ def test_count_accumulator_widens_past_int32(monkeypatch):
     ones = torch.ones(500, dtype=reduction.count_pack_dtype(500))
     out = reduction.packed_sum([ones], gidx, 2, "scatter")
     assert out.dtype == torch.int64 and int(out[0, 0]) == 500
+
+
+# ---------------------------------------------------------------------
+# the group-index (phase A) cache
+# (ports tests/test_agg_strategy.py:252)
+# ---------------------------------------------------------------------
+
+GIDX_Q = "SELECT k, count(*) FROM t GROUP BY k ORDER BY k"
+GIDX_COUNTERS = ("gidx_cache_hits", "gidx_cache_misses")
+
+
+def _gidx_pair():
+    rng = np.random.default_rng(11)
+    n = 20_000
+    k = rng.choice(np.array(["a", "b", "c", "d", "e"], dtype=object), n)
+    b = rng.random(n) < 0.5
+    v = rng.integers(0, 10_000, n).astype(np.float64)
+    i = rng.integers(-100, 100, n, dtype=np.int64)
+    nulls = rng.random(n) < 0.2
+    out = []
+    for s in (SnappySession(catalog=Catalog(), device="cpu"),
+              RefSession(catalog=RefCatalog())):
+        s.sql("CREATE TABLE t (k STRING, b BOOLEAN, v DOUBLE, i BIGINT) "
+              "USING column")
+        s.catalog.describe("t").data.insert_arrays(
+            [k, b, v, i], nulls=[None, None, nulls, None])
+        out.append(s)
+    return out
+
+
+@pytest.fixture
+def gidx_props():
+    saved = [p.gidx_cache_bytes for p in _PROPS]
+    _set("agg_reduce_strategy", "auto")
+    yield
+    for p, g in zip(_PROPS, saved):
+        p.gidx_cache_bytes = g
+
+
+def _gidx_run(sessions, q=GIDX_Q):
+    """Run `q` in both packages: (port rows, [port, ref] counter
+    deltas), asserting equal rows."""
+    rows, moved = [], []
+    for s, reg in zip(sessions, (global_registry(), ref_registry())):
+        c0 = reg.counters(GIDX_COUNTERS) if hasattr(reg, "counters") \
+            else {n: reg.counter(n) for n in GIDX_COUNTERS}
+        rows.append(s.sql(q).rows())
+        moved.append({n: reg.counter(n) - c0[n] for n in GIDX_COUNTERS})
+    assert rows[0] == rows[1], q
+    return rows[0], moved
+
+
+def test_gidx_cache_hits_and_invalidation_match_reference(props,
+                                                          gidx_props):
+    """Repeated grouped queries skip the group-index recomputation in
+    both packages; an INSERT rotates the bind identity and misses; at
+    gidx_cache_bytes = 0 the split is off; the ledger line is the
+    cache's bytes."""
+    from snappydata_tpu.engine.executor import \
+        gidx_cache_nbytes as ref_nbytes
+    from snappydata_tpu.resource import global_broker as ref_broker
+    from snappydata_tpu_torch.engine.executor import gidx_cache_nbytes
+    from snappydata_tpu_torch.resource import global_broker
+
+    sessions = _gidx_pair()
+    _rows0, first = _gidx_run(sessions)       # compile + first run: miss
+    assert first[0] == first[1]
+    moved = [dict.fromkeys(GIDX_COUNTERS, 0) for _ in sessions]
+    for _ in range(2):
+        _r, m = _gidx_run(sessions)
+        for acc, d in zip(moved, m):
+            for n in GIDX_COUNTERS:
+                acc[n] += d[n]
+    assert moved[0] == moved[1] == {"gidx_cache_hits": 2,
+                                    "gidx_cache_misses": 0}
+    assert global_broker().ledger()["gidx_cache_bytes"] == \
+        gidx_cache_nbytes() > 0
+    assert ref_broker().ledger()["gidx_cache_bytes"] == ref_nbytes() > 0
+    for s in sessions:
+        s.sql("INSERT INTO t VALUES ('a', true, 1.0, 1)")
+    rows, m = _gidx_run(sessions)
+    assert m[0] == m[1] == {"gidx_cache_hits": 0, "gidx_cache_misses": 1}
+    assert sum(r[1] for r in rows) == 20_001
+    # no budget: no two-phase split at all
+    _set("gidx_cache_bytes", 0)
+    again, m = _gidx_run(sessions)
+    assert again == rows
+    assert m[0] == m[1] == {"gidx_cache_hits": 0, "gidx_cache_misses": 0}
+    for s in sessions:
+        s.stop()
+
+
+def test_gidx_cache_misses_after_a_demotion_and_holds_no_plates(
+        props, gidx_props):
+    """A demotion drops the table's device-cache entry: the next run
+    misses in both packages and still gives the reference's rows, and
+    the port's cache holds none of the dropped entry's tensors."""
+    import gc
+
+    from snappydata_tpu.storage import tier as ref_tier
+    from snappydata_tpu_torch.engine import executor as port_exec
+    from snappydata_tpu_torch.storage import tier
+
+    port_exec.clear_gidx_cache()    # entries of earlier tests' tables
+    sessions = _gidx_pair()
+    q = "SELECT k, count(*), sum(v) FROM t WHERE i > -50 GROUP BY k " \
+        "ORDER BY k"
+    _gidx_run(sessions, q)
+    _r, m = _gidx_run(sessions, q)
+    assert m[0] == m[1] == {"gidx_cache_hits": 1, "gidx_cache_misses": 0}
+    for s, tr in zip(sessions, (tier, ref_tier)):
+        data = s.catalog.describe("t").data
+        assert tr.demote_device([("t", data)], 1 << 40) > 0
+    gc.collect()
+    # the entry's bind tokens are weak: the dropped valid mask is gone
+    assert port_exec._PRE_CACHE
+    assert all(r() is None for e in port_exec._PRE_CACHE.values()
+               for r in e["binds"])
+    _r, m = _gidx_run(sessions, q)
+    assert m[0] == m[1] == {"gidx_cache_hits": 0, "gidx_cache_misses": 1}
+    for s in sessions:
+        s.stop()
+
+
+def test_gidx_cache_keeps_the_matmul_one_hot(props, gidx_props):
+    """Under the matmul strategy the one-hot joins the cached entry once
+    phase B builds it (so a hit reuses it); the rows equal the
+    reference's and the hits and misses move alike."""
+    from snappydata_tpu_torch.engine import executor as port_exec
+
+    port_exec.clear_gidx_cache()
+    _set("agg_reduce_strategy", "matmul")
+    sessions = _gidx_pair()
+    q = "SELECT k, count(*), sum(v), avg(i) FROM t GROUP BY k ORDER BY k"
+    _gidx_run(sessions, q)
+    after_miss = port_exec.gidx_cache_nbytes()
+    _r, m = _gidx_run(sessions, q)
+    assert m[0] == m[1] == {"gidx_cache_hits": 1, "gidx_cache_misses": 0}
+    entry = next(iter(port_exec._PRE_CACHE.values()))
+    pre = entry["pre"]
+    assert pre.onehot is not None
+    n = pre.valid.numel()
+    assert after_miss == port_exec.gidx_cache_nbytes() == \
+        n * 5 + pre.onehot.numel() * 8
+    assert pre.onehot.shape == (n, pre.num_groups)
+    for s in sessions:
+        s.stop()

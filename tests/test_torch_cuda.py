@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from snappydata_tpu_torch import config
 from snappydata_tpu_torch.ops import group_reduce as gr
 from snappydata_tpu_torch.ops import kahan_reduce as kr
 from snappydata_tpu_torch.ops.kahan_reduce import (masked_kahan_sum,
@@ -1412,3 +1413,122 @@ def test_cuda_fold_under_one_query_limit(cuda_device, monkeypatch):
     finally:
         props.memory_limit_bytes, props.query_timeout_s = old
     assert out == [[(1, 11.0), (2, 2.0), (3, 30.0)]], out
+
+
+def _serving_lineitem(n_rows=2_000_000):
+    from snappydata_tpu_torch import SnappySession, config
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.utils import tpch
+
+    props = config.global_properties()
+    saved = (props.pallas_reduce, props.pallas_group_reduce)
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    s = SnappySession(catalog=Catalog())
+    s.sql(tpch.LINEITEM_DDL)
+    s.insert_arrays("lineitem", list(tpch.gen_lineitem(n_rows, 7).values()))
+    return s, tpch, props, saved
+
+
+SERVING_Q6 = ("SELECT sum(l_extendedprice * l_discount) AS revenue "
+              "FROM lineitem WHERE l_shipdate >= ? AND l_shipdate < ? "
+              "AND l_discount BETWEEN ? AND ? AND l_quantity < ?")
+SERVING_Q1 = ("SELECT l_returnflag, l_linestatus, sum(l_quantity), "
+              "sum(l_extendedprice), "
+              "sum(l_extendedprice * (1 - l_discount)), count(*) "
+              "FROM lineitem WHERE l_shipdate <= ? "
+              "GROUP BY l_returnflag, l_linestatus "
+              "ORDER BY l_returnflag, l_linestatus")
+
+
+@pytest.mark.cuda
+def test_cuda_fused_q6_batch_equals_solo_bit_for_bit(cuda_device):
+    """A fused batch of 16 Q6 binds runs the Kahan kernel once per
+    request on one bind and brings the batch home in one copy; each
+    answer equals its solo execute bit for bit (the kernel's cross-block
+    combine runs in a fixed order)."""
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    s, tpch, props, saved = _serving_lineitem()
+    try:
+        entry = s.prepare(SERVING_Q6)._entry
+        compiled = entry.compiled_for(s)
+        binds = []
+        for year in range(1993, 1997):
+            for lo in (0.02, 0.04, 0.05, 0.07):
+                binds.append(entry.lit_params + (
+                    tpch._days(f"{year}-01-01"),
+                    tpch._days(f"{year + 1}-01-01"), lo, lo + 0.02, 24))
+        reg = global_registry()
+        t0 = reg.counter("serving_bulk_transfers")
+        k0 = masked_kahan_sum.launches
+        tables, outs = compiled.execute_batched(binds, s.device)
+        launched = masked_kahan_sum.launches - k0
+        assert launched == 16, launched
+        assert reg.counter("serving_bulk_transfers") - t0 == 1
+        fused = [entry.assemble_batched(s, outs, tables, i, p).rows()
+                 for i, p in enumerate(binds)]
+        with config.device_scope(s.device):
+            solo = [s.executor.execute(entry.tokenized, p).rows()
+                    for p in binds]
+        assert fused == solo, (fused, solo)
+        assert any(r[0][0] for r in fused)
+    finally:
+        props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+@pytest.mark.cuda
+def test_cuda_batched_q1_equals_solo(cuda_device):
+    """A fused batch of Q1 with a bound ship date launches the grouped
+    kernel once per request and equals the solo executes."""
+    s, tpch, props, saved = _serving_lineitem()
+    try:
+        entry = s.prepare(SERVING_Q1)._entry
+        compiled = entry.compiled_for(s)
+        binds = [entry.lit_params + (tpch._days(d),) for d in
+                 ("1993-06-30", "1995-06-17", "1998-09-02", "1992-01-01")]
+        g0 = gr.grouped_reduce.launches
+        tables, outs = compiled.execute_batched(binds, s.device)
+        assert gr.grouped_reduce.launches - g0 == len(binds)
+        for i, p in enumerate(binds):
+            got = entry.assemble_batched(s, outs, tables, i, p).rows()
+            with config.device_scope(s.device):
+                solo = s.executor.execute(entry.tokenized, p).rows()
+            assert got == solo, i
+    finally:
+        props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+@pytest.mark.cuda
+def test_cuda_gidx_hit_launches_the_grouped_kernel_once(cuda_device):
+    """A group-index cache hit gives the miss's rows, launches only phase
+    B (the grouped kernel once), and its entry holds the card's int32
+    index and bool validity: 5 bytes a bound row."""
+    from snappydata_tpu_torch.engine import executor
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.resource import global_broker
+
+    s, tpch, props, saved = _serving_lineitem()
+    executor.clear_gidx_cache()
+    try:
+        h = s.prepare(SERVING_Q1)
+        bind = (tpch._days("1998-09-02"),)
+        reg = global_registry()
+        m0, h0 = reg.counter("gidx_cache_misses"), \
+            reg.counter("gidx_cache_hits")
+        miss = h.execute(bind).rows()
+        g0 = gr.grouped_reduce.launches
+        hit = h.execute(bind).rows()
+        assert gr.grouped_reduce.launches - g0 == 1
+        assert hit == miss
+        assert reg.counter("gidx_cache_misses") - m0 == 1
+        assert reg.counter("gidx_cache_hits") - h0 == 1
+        data = s.catalog.describe("lineitem").data
+        rows = sum(t.valid.numel() for t in [
+            executor.build_device_table(data, [0], s.device)])
+        assert executor.gidx_cache_nbytes() == 5 * rows
+        assert global_broker().ledger()["gidx_cache_bytes"] == \
+            executor.gidx_cache_nbytes()
+    finally:
+        executor.clear_gidx_cache()
+        props.pallas_reduce, props.pallas_group_reduce = saved

@@ -144,3 +144,61 @@ def test_governor_tier_and_storm_import_no_jax():
     out = _run(_GOVERNED)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+_SERVING_AQP = r"""
+import sys, tempfile, threading
+import numpy as np
+from snappydata_tpu_torch import SnappySession, aqp, parallel, serving
+from snappydata_tpu_torch.catalog import Catalog
+from snappydata_tpu_torch.engine import executor
+
+d = tempfile.mkdtemp()
+s = SnappySession(catalog=Catalog(), data_dir=d, recover=False, device="cpu")
+s.sql("CREATE TABLE t (k STRING, v DOUBLE, n BIGINT) USING column")
+rng = np.random.default_rng(1)
+s.insert_arrays("t", [np.array(["a", "b", "c"], dtype=object)[
+    rng.integers(0, 3, 3000)], rng.random(3000), np.arange(3000)])
+h = s.prepare("SELECT k, sum(v), count(*) FROM t WHERE n < ? GROUP BY k "
+              "ORDER BY k")
+out = [None] * 4
+def run(i):
+    out[i] = h.execute((1000 * (i + 1),)).rows()
+ts = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+for t in ts:
+    t.start()
+for t in ts:
+    t.join(60)
+assert all(o is not None for o in out), out
+assert h.execute((1000,)).rows() == out[0]
+assert executor.gidx_cache_nbytes() > 0
+s.sql("CREATE TABLE r (id BIGINT PRIMARY KEY, name STRING) USING row")
+s.sql("INSERT INTO r VALUES (1, 'x'), (2, 'y')")
+s.sql("CREATE INDEX r_name ON r (name)")
+s.sql("CREATE POLICY r_one ON r USING id < 2")
+assert s.sql("SELECT id FROM r WHERE name = 'x'").rows() == [(1,)]
+s.sql("CREATE SAMPLE TABLE t_s ON t OPTIONS (qcs 'k', reservoir_size '100')")
+rows = s.sql("SELECT k, sum(v) AS sv, absolute_error(sv) FROM t GROUP BY k "
+             "ORDER BY k WITH ERROR 0.5").rows()
+assert len(rows) == 3, rows
+s.create_topk("top_k", "t", "k", k=2)
+assert len(s.query_topk("top_k").rows()) == 2
+s.checkpoint()
+s.disk_store.close()
+s2 = SnappySession(data_dir=d, device="cpu")
+assert s2.sql("SELECT count(*) FROM r").rows() == [(1,)]
+assert "r_name" in s2.catalog._indexes
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_serving_indexes_policies_and_aqp_import_no_jax():
+    """Prepared statements with the micro-batcher, the group-index cache,
+    indexes, policies, sample tables, WITH ERROR, TopK and their recovery
+    run without JAX or the JAX package."""
+    out = _run(_SERVING_AQP)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout

@@ -372,15 +372,17 @@ def test_storage_format_parity(tmp_path, writer):
 
 
 def test_unported_catalog_state_raises(tmp_path):
-    """A directory recording a row-level policy cannot be recovered by the
-    port (policies are not ported), and says so instead of skipping the
-    policy.  Views, materialized views and functions recover
-    (tests/test_torch_matviews.py)."""
+    """A directory recording a grant cannot be recovered by the port
+    (grants are not ported), and says so instead of skipping the grant.
+    Views, materialized views and functions recover
+    (tests/test_torch_matviews.py), and so do policies and indexes
+    (tests/test_torch_policies_indexes.py)."""
     d = str(tmp_path)
     s = RefSession(catalog=RefCatalog(), data_dir=d, recover=False)
     s.sql("CREATE TABLE t (a INT) USING column")
     s.sql("CREATE VIEW v AS SELECT a FROM t")
     s.sql("CREATE POLICY p1 ON t USING a > 2")
+    s.sql("GRANT SELECT ON t TO u1")
     s.disk_store.close()
-    with pytest.raises(NotImplementedError, match="policy:p1"):
+    with pytest.raises(NotImplementedError, match="grants"):
         SnappySession(data_dir=d, device="cpu")
