@@ -18,7 +18,8 @@ durable lineitem, the resource governor (ledger, admission, degradation,
 cancellation), the HBM -> host -> disk tier ladder with a healed tier
 file, a seeded fault storm and the broker-kicked compactor; on the main
 session, prepared statements and the micro-batcher, the group-index
-cache, a secondary index and a row-level policy, then AQP over a sample
+cache, a secondary index and a row-level policy, then EXPLAIN [ANALYZE],
+request tracing, grants and the stats service, then AQP over a sample
 table.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
@@ -273,9 +274,30 @@ Phases, in order; any failure exits non-zero before the result lines:
    kernel) and the same avg through `approx_sql` (weighted global sums:
    the Kahan kernel), then a TopK over l_suppkey (build seconds; no
    reported count below the true count);
-24. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+24. right after phase 22, on the main session as phase 22 leaves it
+   (no new data): (a) plain `EXPLAIN` of Q1 and Q6 launches nothing;
+   `EXPLAIN ANALYZE` of each gives the plain query's row count, names
+   `grouped` (Q1) / `kahan` (Q6) in its strategies, launches that kernel
+   exactly once, puts its trace id in `tracing.ring()`, and its phase
+   seconds sum to at most the call's wall time; (b) warm Q1, Q6 and
+   phase 22's 500 prepared index lookups with `tracing_enabled` on and
+   off, 5 x --reps interleaved pairs, medians and quartiles: the
+   overhead in percent beside the reference's 3% bound (logged, not
+   checked); (c)
+   `for_user("analyst")` keeps the session's device, its Q6 raises
+   PermissionError before admission (no launch, the ledger unchanged),
+   after `GRANT SELECT ON lineitem` equals the admin's Q6 bit for bit
+   with one Kahan launch, a prepared Q6 under analyst equals the
+   admin's, and after `REVOKE` the held handle's next execute raises;
+   (d) `TableStatsService.collect_once()` and the encoding mix: each
+   table's device bytes equal `device_cache_bytes_by_table` and the
+   broker's ledger; `to_prometheus()` parses with unique family names;
+   `recent_queries()` holds the phase's queries with user and ms.  Phase
+   20 (f)'s cancelled tiled Q1 also carries its trace id, an error
+   trace in the ring;
+25. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
-   18 - 23.
+   18 - 24.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -2480,6 +2502,7 @@ SERVING_CALLS = 8             # executes per client thread
 SERVING_BANDS = ((0.02, 0.04), (0.03, 0.05), (0.05, 0.07), (0.06, 0.08))
 INDEX_ROWS = 150_000          # SF 1 customer rows in a row table
 INDEX_LOOKUPS = 500
+TRACE_PAIRS = 5               # phase 24 (b): interleaved pairs per --reps
 POLICY = "CREATE POLICY li_tax ON lineitem USING l_tax < 0.05"
 SERVING_COUNTERS = ("serving_prepared_hits", "serving_prepared_misses",
                     "serving_reprepares", "serving_passthrough",
@@ -2824,7 +2847,9 @@ def serving_path(session, tpch, arrs, args):
     if moved["point_lookups"] != 2 * len(keys) or any(lc.values()):
         fail(f"index lookups: {moved['point_lookups']} point lookups for "
              f"{2 * len(keys)}, launches {lc}")
-    session.sql("DROP TABLE cust_row")
+    # the index table and its prepared lookup stay for phase 24
+    index = {"handle": ph, "keys": keys,
+             "acctbal": cust["c_acctbal"]}
     del cust
 
     # (e) a row-level policy under the held Q6 handle
@@ -2851,7 +2876,268 @@ def serving_path(session, tpch, arrs, args):
     _launch_sum(total, _kernel_counts())
     props.serving_batch_wait_us = 200.0
     log(f"serving_path_s {time.perf_counter() - t_phase:.3f}")
-    return total, arrs, batch_out
+    return total, arrs, batch_out, index
+
+
+def _explain_field(rows, needle, key):
+    line = next((r[0] for r in rows if needle in r[0]), None)
+    if line is None:
+        fail(f"EXPLAIN ANALYZE printed no line with {needle!r}: {rows}")
+    for tok in line.replace("]", " ").replace("[", " ").split():
+        if tok.startswith(key + "="):
+            return tok.split("=", 1)[1]
+    fail(f"EXPLAIN ANALYZE line {line!r} has no {key}=")
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _prometheus_names(text):
+    """(sample names, TYPE names) of a Prometheus text exposition; fails
+    on a line that does not parse."""
+    import re
+
+    name_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+    samples, typed = [], []
+    for ln in text.splitlines():
+        if not ln:
+            continue
+        if ln.startswith("# TYPE "):
+            parts = ln.split()
+            if len(parts) != 4 or not name_re.match(parts[2]):
+                fail(f"prometheus: bad TYPE line {ln!r}")
+            typed.append(parts[2])
+            continue
+        if ln.startswith("#"):
+            continue
+        head, _, value = ln.rpartition(" ")
+        name = head.split("{", 1)[0]
+        if not name_re.match(name):
+            fail(f"prometheus: bad sample name in {ln!r}")
+        try:
+            float(value)
+        except ValueError:
+            fail(f"prometheus: bad sample value in {ln!r}")
+        samples.append(name)
+    return samples, typed
+
+
+def observability_path(session, tpch, index, args):
+    """Phase 24 on the main session as phase 22 leaves it: EXPLAIN /
+    EXPLAIN ANALYZE of Q1 and Q6, the tracing layer's cost, grants on the
+    card, the stats service and the query log.  Returns the two kernels'
+    launches."""
+    import numpy as np
+    import torch
+
+    from snappydata_tpu_torch import config, resource
+    from snappydata_tpu_torch.observability import stats_service, tracing
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.storage.device import \
+        device_cache_bytes_by_table
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    reg = global_registry()
+    total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    t_phase = time.perf_counter()
+    traced0 = props.tracing_enabled
+    props.tracing_enabled = True
+    plain = {"q1": session.sql(tpch.Q1).rows(),
+             "q6": session.sql(tpch.Q6).rows()}
+    torch.cuda.synchronize()
+
+    # (a) EXPLAIN launches nothing; EXPLAIN ANALYZE runs the query once
+    # through its kernel and names it
+    for q, kernel, lane in (("q1", "grouped_reduce", "grouped"),
+                            ("q6", "masked_kahan_sum", "kahan")):
+        sql = getattr(tpch, q.upper())
+        _reset_kernel_counts()
+        text = session.sql("EXPLAIN " + sql).rows()
+        if any(_kernel_counts().values()):
+            fail(f"plain EXPLAIN of {q} launched {_kernel_counts()}")
+        c0 = reg.counters_snapshot()
+        t0 = time.perf_counter()
+        rows = session.sql("EXPLAIN ANALYZE " + sql).rows()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lc = _kernel_counts()
+        _launch_sum(total, lc)
+        c1 = reg.counters_snapshot()
+        strategies = _explain_field(rows, "HashAggregate",
+                                    "strategy").split(",")
+        rows_out = int(_explain_field(rows, "trace_id=", "rows_out"))
+        tid = _explain_field(rows, "trace_id=", "trace_id")
+        phases_line = next(r[0] for r in rows if r[0].startswith("phases:"))
+        phases = {k: float(v[:-2]) for k, v in (
+            tok.split("=", 1) for tok in phases_line.split()[1:])}
+        log(f"explain {q} plan {json.dumps([r[0] for r in text])}")
+        log(f"explain_analyze {q} wall_s {wall:.4f} rows_out {rows_out} "
+            f"strategies {strategies} trace_id {tid} phases_ms "
+            f"{json.dumps(phases)} phase_sum_ms "
+            f"{sum(phases.values()):.3f} launches {json.dumps(lc)} "
+            f"host_fallbacks "
+            f"{c1.get('host_fallbacks', 0) - c0.get('host_fallbacks', 0)}")
+        log(f"explain_analyze {q} footer "
+            f"{json.dumps([r[0] for r in rows if '=' in r[0]][-4:])}")
+        if rows_out != len(plain[q]):
+            fail(f"EXPLAIN ANALYZE {q}: rows_out {rows_out}, the plain "
+                 f"query {len(plain[q])}")
+        if lane not in strategies:
+            fail(f"EXPLAIN ANALYZE {q} names {strategies}, not {lane}")
+        if lc[kernel] != 1:
+            fail(f"EXPLAIN ANALYZE {q} launched {kernel} {lc[kernel]} "
+                 "times, expected once")
+        if not tracing.ring().get(tid):
+            fail(f"EXPLAIN ANALYZE {q}: trace {tid} is not in the ring")
+        if sum(phases.values()) > wall * 1e3:
+            fail(f"EXPLAIN ANALYZE {q}: phases sum to "
+                 f"{sum(phases.values()):.3f} ms over {wall * 1e3:.3f} ms")
+
+    # (b) the tracing layer's cost: warm Q1 / Q6 and the prepared point
+    # lookups with tracing on and off, interleaved, TRACE_PAIRS x --reps
+    # pairs (a warm Q6's run-to-run spread is several times the span
+    # layer's cost); logged beside the reference's 3% bound (bench.py
+    # trace_tol), never a failure
+    secs = {(q, on): [] for q in ("q1", "q6", "lookup") for on in (1, 0)}
+    ph, keys = index["handle"], index["keys"]
+    names = [f"Customer#{int(k):09d}" for k in keys]
+    pairs = TRACE_PAIRS * args.reps
+    _reset_kernel_counts()
+    for _ in range(pairs):
+        for on in (1, 0):
+            props.tracing_enabled = bool(on)
+            for q in ("q1", "q6"):
+                t0 = time.perf_counter()
+                session.sql(getattr(tpch, q.upper())).rows()
+                torch.cuda.synchronize()
+                secs[(q, on)].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for name in names:
+                ph.execute((name,)).rows()
+            secs[("lookup", on)].append(time.perf_counter() - t0)
+    props.tracing_enabled = True
+    _launch_sum(total, _kernel_counts())
+    med = {k: _median(v) for k, v in secs.items()}
+    over = {q: (med[(q, 1)] / med[(q, 0)] - 1.0) * 100.0
+            for q in ("q1", "q6", "lookup")}
+    geo = (np.sqrt(med[("q1", 1)] * med[("q6", 1)])
+           / np.sqrt(med[("q1", 0)] * med[("q6", 0)]) - 1.0) * 100.0
+    quart = {f"{q}_{'on' if on else 'off'}": [
+        round(float(np.percentile(v, p)) * 1e3, 3) for p in (25, 75)]
+        for (q, on), v in secs.items()}
+    log(f"tracing_cost pairs {pairs} q1_s on/off "
+        f"{med[('q1', 1)]:.5f}/{med[('q1', 0)]:.5f} q6_s on/off "
+        f"{med[('q6', 1)]:.5f}/{med[('q6', 0)]:.5f} lookups_per_s on/off "
+        f"{len(names) / med[('lookup', 1)]:.1f}/"
+        f"{len(names) / med[('lookup', 0)]:.1f} overhead_pct "
+        f"{json.dumps({k: round(v, 2) for k, v in over.items()})} "
+        f"q1_q6_geomean_pct {geo:.2f} (reference bound 3%) "
+        f"quartiles_ms {json.dumps(quart)}")
+
+    # (c) grants: a principal without them is refused before admission;
+    # granted, its Q6 equals the admin's bit for bit; a REVOKE refuses
+    # the next execute of a held prepared handle
+    broker = resource.global_broker()
+    analyst = session.for_user("analyst")
+    if analyst.device != session.device:
+        fail(f"for_user moved the session from {session.device} to "
+             f"{analyst.device}")
+    led0 = broker.ledger()
+    adm0 = reg.counter("governor_admitted")
+    _reset_kernel_counts()
+    try:
+        analyst.sql(tpch.Q6)
+        fail("analyst's Q6 ran without a grant")
+    except PermissionError as e:
+        denied = str(e)
+    lc = _kernel_counts()
+    led1 = broker.ledger()
+    same = all(led0[k] == led1[k] for k in ("host", "device", "queries",
+                                            "inflight_bytes"))
+    log(f"grants denied {denied!r} launches {json.dumps(lc)} "
+        f"admitted {reg.counter('governor_admitted') - adm0} "
+        f"ledger_unchanged {same}")
+    if any(lc.values()) or not same \
+            or reg.counter("governor_admitted") != adm0:
+        fail(f"the denied Q6 launched {lc}, was admitted or moved the "
+             "ledger")
+    session.sql("GRANT SELECT ON lineitem TO analyst")
+    admin_q6 = session.sql(tpch.Q6).rows()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    granted = analyst.sql(tpch.Q6).rows()
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    lc = _kernel_counts()
+    _launch_sum(total, lc)
+    log(f"grants granted_q6 {granted[0][0]!r} admin_q6 {admin_q6[0][0]!r} "
+        f"equal {granted == admin_q6} s {g_s:.4f} launches "
+        f"{json.dumps(lc)}")
+    if granted != admin_q6 or lc["masked_kahan_sum"] != 1:
+        fail(f"granted Q6 {granted} vs admin {admin_q6}, launches {lc}")
+    bind = q6_bind(tpch, 1994, (0.05, 0.07))
+    want = session.prepare(SERVING_Q6).execute(bind).rows()
+    held = analyst.prepare(SERVING_Q6)
+    _reset_kernel_counts()
+    got = held.execute(bind).rows()
+    _launch_sum(total, _kernel_counts())
+    if got != want:
+        fail(f"analyst's prepared Q6 {got} vs admin's {want}")
+    session.sql("REVOKE SELECT ON lineitem FROM analyst")
+    try:
+        held.execute(bind)
+        fail("the held handle executed after REVOKE")
+    except PermissionError as e:
+        log(f"grants prepared_execute {got[0][0]!r} equal True; after "
+            f"REVOKE {e!r}")
+
+    # (d) the stats service, the Prometheus exposition, the query log
+    t0 = time.perf_counter()
+    stats = stats_service.TableStatsService(session.catalog).collect_once()
+    mix = stats_service.encoding_mix(session.catalog)
+    dev = device_cache_bytes_by_table(
+        [(i.name, i.data) for i in session.catalog.list_tables()])
+    ledger = broker.ledger()["device"]
+    stats_s = time.perf_counter() - t0
+    li_rows = session.catalog.describe("lineitem").data.snapshot() \
+        .total_rows()
+    log(f"stats collect_s {stats_s:.3f} tables {len(stats)} lineitem rows "
+        f"{stats['lineitem']['row_count']} batches "
+        f"{stats['lineitem']['batches']} device_bytes "
+        f"{json.dumps({t: m['device_resident_bytes'] for t, m in mix.items()})}")
+    if stats["lineitem"]["row_count"] != li_rows:
+        fail(f"stats lineitem rows {stats['lineitem']['row_count']} vs "
+             f"{li_rows}")
+    for t, m in mix.items():
+        if m["device_resident_bytes"] != dev.get(t, 0) \
+                or dev.get(t, 0) != ledger.get(t, 0):
+            fail(f"device bytes of {t}: stats {m['device_resident_bytes']}"
+                 f", device cache {dev.get(t, 0)}, ledger "
+                 f"{ledger.get(t, 0)}")
+    if not mix["lineitem"]["device_resident_bytes"]:
+        fail("the stats service sees no device bytes under lineitem")
+    samples, typed = _prometheus_names(reg.to_prometheus())
+    if len(typed) != len(set(typed)):
+        fail("prometheus: a TYPE name appears twice")
+    log(f"prometheus samples {len(samples)} families {len(typed)}")
+    log_rows = session.recent_queries()
+    mine = [q for q in log_rows if q["ts"] >= time.time() - (
+        time.perf_counter() - t_phase) - 1.0]
+    users = sorted({q["user"] for q in mine})
+    log(f"query_log entries {len(mine)} users {users} last "
+        f"{json.dumps(mine[-1])}")
+    if "analyst" not in users or "admin" not in users \
+            or any(q["ms"] < 0 for q in mine) \
+            or not any(q["user"] == "analyst" and q["ms"] > 0
+                       and q["sql"] == tpch.Q6 for q in mine):
+        fail(f"the query log lacks the phase's queries: {mine[-5:]}")
+    session.sql("DROP TABLE cust_row")
+    props.tracing_enabled = traced0
+    log(f"observability_path_s {time.perf_counter() - t_phase:.3f}")
+    return total
 
 
 def serving_profiles(session, tpch):
@@ -3143,7 +3429,7 @@ def durable_queries(s, tpch, want, args, what):
 
     reg = global_registry()
     cf0 = reg.counter("compressed_fallback_deltas")
-    fb0 = {k: v for k, v in reg.snapshot().items()
+    fb0 = {k: v for k, v in reg.counters_snapshot().items()
            if k.startswith("compressed_fallback_")}
     launches = {"grouped_reduce": 0, "masked_kahan_sum": 0}
     cfg = None
@@ -3170,7 +3456,7 @@ def durable_queries(s, tpch, want, args, what):
         if args.profile:
             log(f"profile durable_{what}_{name} " + json.dumps(profile_run(
                 lambda sql=sql: s.sql(sql).rows())))
-    moved = {k: v - fb0.get(k, 0) for k, v in reg.snapshot().items()
+    moved = {k: v - fb0.get(k, 0) for k, v in reg.counters_snapshot().items()
              if k.startswith("compressed_fallback_") and v != fb0.get(k, 0)}
     log(f"durable_{what} compressed_fallbacks {json.dumps(moved)}")
     return launches, reg.counter("compressed_fallback_deltas") - cf0, cfg
@@ -3454,11 +3740,11 @@ def _q1_q6(s, tpch, want, args, what, total):
 
     reg = global_registry()
     for name, sql in (("q1", tpch.Q1), ("q6", tpch.Q6)):
-        fb0 = {k: v for k, v in reg.snapshot().items()
+        fb0 = {k: v for k, v in reg.counters_snapshot().items()
                if k.startswith("compressed_fallback_")}
         rows, f_s, w_s, moved, lc, _calls, _peak, _res = \
             timed_query(s, sql, args.reps)
-        fb = {k: v - fb0.get(k, 0) for k, v in reg.snapshot().items()
+        fb = {k: v - fb0.get(k, 0) for k, v in reg.counters_snapshot().items()
               if k.startswith("compressed_fallback_")
               and v != fb0.get(k, 0)}
         log(f"governed_{what}_{name} first_s {f_s:.4f} warm_s {w_s:.4f} "
@@ -3528,6 +3814,14 @@ def _cancel_tiled(s, tpch, budget, by_timeout):
     if not isinstance(err, resource.CancelException) \
             or "XCL52" not in str(err):
         fail(f"the tiled Q1 was not cancelled: {err!r}")
+    # the error joins its request's trace, which the ring holds
+    from snappydata_tpu_torch.observability import tracing
+
+    got = tracing.ring().get(err.trace_id) if err.trace_id else []
+    if not got or got[0]["status"] != "error":
+        fail(f"the cancel's trace id {err.trace_id!r} is not an error "
+             f"trace in the ring")
+    log(f"cancel trace_id {err.trace_id} spans {got[0]['spans']}")
     ran = reg.counter("scan_tiles") - t0
     if ran >= tiles:
         fail(f"the cancelled pass ran all {tiles} tiles")
@@ -3684,7 +3978,7 @@ def governed_path(s, tpch, want, args, clean_ops):
     if reg.counter("governor_rejected") != rej0 + 1:
         fail("governor_rejected did not move")
     host, device = broker.measured_bytes()
-    deg0 = {k: v for k, v in reg.snapshot().items()
+    deg0 = {k: v for k, v in reg.counters_snapshot().items()
             if k.startswith("governor_degrade_")}
     props.memory_limit_bytes = int((host + device) * 1.05)
     try:
@@ -3693,7 +3987,7 @@ def governed_path(s, tpch, want, args, clean_ops):
         lad_s = time.perf_counter() - t0
     finally:
         props.memory_limit_bytes = 0
-    deg = {k: v - deg0.get(k, 0) for k, v in reg.snapshot().items()
+    deg = {k: v - deg0.get(k, 0) for k, v in reg.counters_snapshot().items()
            if k.startswith("governor_degrade_") and v != deg0.get(k, 0)}
     log(f"governed_e ladder measured {host + device} limit "
         f"{int((host + device) * 1.05)} s {lad_s:.3f} counters "
@@ -3701,7 +3995,7 @@ def governed_path(s, tpch, want, args, clean_ops):
     if not deg:
         fail("the ladder recorded no governor_degrade_* counter")
     _mem("e_after_ladder")
-    deg0 = {k: v for k, v in reg.snapshot().items()
+    deg0 = {k: v for k, v in reg.counters_snapshot().items()
             if k.startswith("governor_degrade_")}
     props.memory_limit_bytes = int(budget * 1.25)
     try:
@@ -3710,7 +4004,7 @@ def governed_path(s, tpch, want, args, clean_ops):
         one_s = time.perf_counter() - t0
     finally:
         props.memory_limit_bytes = 0
-    deg = {k: v - deg0.get(k, 0) for k, v in reg.snapshot().items()
+    deg = {k: v - deg0.get(k, 0) for k, v in reg.counters_snapshot().items()
            if k.startswith("governor_degrade_") and v != deg0.get(k, 0)}
     log(f"governed_e one_tile limit {int(budget * 1.25)} s {one_s:.3f} "
         f"counters {json.dumps(deg)}")
@@ -4265,7 +4559,8 @@ def main() -> int:
     # a secondary index and a row-level policy on the same session
     phase_clock.next(22)
     try:
-        s_launches, arrs, _batch = serving_path(session, tpch, arrs, args)
+        s_launches, arrs, _batch, index = serving_path(session, tpch, arrs,
+                                                       args)
     except Exception as e:  # noqa: BLE001 - report the phase, then exit
         fail(f"serving path: {type(e).__name__}: {e}")
     del arrs
@@ -4276,6 +4571,21 @@ def main() -> int:
         launches[name] += count
     if args.profile:
         serving_profiles(session, tpch)
+
+    # 24. observability and security on the same session: EXPLAIN
+    # [ANALYZE] of Q1 / Q6, the tracing layer's cost, grants, the stats
+    # service and the query log
+    phase_clock.next(24)
+    try:
+        o_launches = observability_path(session, tpch, index, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"observability path: {type(e).__name__}: {e}")
+    del index
+    log(f"observability_path_launches {json.dumps(o_launches)}")
+    for name, count in o_launches.items():
+        if count < 1:
+            fail(f"{name} did not launch on the observability path")
+        launches[name] += count
 
     # 23. AQP: a stratified sample of a 2M-row lineitem, WITH ERROR,
     # approx_sql and TopK, on a session of its own
@@ -4331,7 +4641,7 @@ def main() -> int:
     for name, count in d_launches.items():
         launches[name] += count
 
-    # 24. result lines
+    # the result lines
     phase_clock.next(None)
     src = {"masked_kahan_sum": ("snappydata_tpu_torch/csrc/kahan_reduce.cu",
                                 "snappydata_tpu/ops/pallas_reduce.py:48"),

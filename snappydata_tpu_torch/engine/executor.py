@@ -68,8 +68,10 @@ from snappydata_tpu_torch.engine.exprs import (ARRAY_DEVICE_FUNCS,
                                                CompileError, DVal,
                                                ExprBuilder, MapDicts,
                                                Runtime, StructDicts,
+                                               _compressed_notes,
                                                _is_exact_decimal, _or_null)
 from snappydata_tpu_torch.engine.result import Result
+from snappydata_tpu_torch.observability import tracing
 from snappydata_tpu_torch.observability.metrics import global_registry
 from snappydata_tpu_torch.ops import code_agg, reduction
 from snappydata_tpu_torch.ops import group_reduce as _gr
@@ -100,6 +102,12 @@ from snappydata_tpu_torch.utils import locks
 # aggregates whose argument may be a string (dictionary codes count and
 # compare exactly; sums and extremes over codes would not)
 _COUNT_AGGS = ("count", "count_distinct", "approx_count_distinct")
+
+# every name an aggregate's note can hold in "strategies" (counted as
+# agg_strategy_<name>): the packed reduction families, the two CUDA
+# kernels' lanes, the dictionary-space SUM and the run-space SUM / COUNT
+AGG_STRATEGIES = ("unroll", "scatter", "matmul", "kahan", "grouped",
+                  "dict_space", "rle_runs")
 
 
 @dataclasses.dataclass
@@ -270,8 +278,62 @@ class CompiledPlan:
         self.pre_emit = pre_emit
         # (static, batch bucket) keys of the fused dispatches run so far
         self._batched_keys: set = set()
+        # (static, phase) keys run so far: the first execution of a key
+        # is the `jit_compile` span, later ones `device_execute`
+        self._ran_keys: set = set()
+        # compressed-domain tally per (static, phase): the predicates the
+        # emitter lowered to the code / run lanes in its last execution
+        self._code_notes: Dict[tuple, dict] = {}
+
+    def _noted_call(self, static, phase: str, fn, args):
+        """Run `fn` (the emitter or phase A) with the compressed-domain
+        tally installed.  The emitter runs at every execution (there is
+        no trace step to cache), so the tally it fills is this
+        execution's, kept per (static, phase) as the reference keeps its
+        trace-time note."""
+        fresh: dict = {}
+        tok = _compressed_notes.set(fresh)
+        try:
+            return fn(*args)
+        finally:
+            _compressed_notes.reset(tok)
+            self._code_notes[(static, phase)] = fresh
+
+    def _count_compressed(self, reg, static, phases) -> None:
+        for ph in phases:
+            note = self._code_notes.get((static, ph))
+            if not note:
+                continue
+            if note.get("code_preds"):
+                reg.inc("code_domain_predicates", note["code_preds"])
+            if note.get("run_preds"):
+                reg.inc("rle_run_predicates", note["run_preds"])
+
+    def _span_name(self, key) -> str:
+        """`jit_compile` on a key's first execution on this plan (in a
+        fresh process it may include the kernels' build), then
+        `device_execute`: the reference's span names."""
+        if key in self._ran_keys:
+            return "device_execute"
+        self._ran_keys.add(key)
+        return "jit_compile"
 
     def _bind(self, params: Tuple, device: torch.device):
+        with tracing.span("bind") as sp:
+            if isinstance(sp, tracing._NoopSpan):
+                return self._bind_inner(params, device, sp)
+            # traced bind: also capture the compressed-domain fallbacks
+            # (the decode-first reroutes device.py counts by reason happen
+            # inside this bind)
+            reg = global_registry()
+            fb0 = reg.counter("compressed_fallbacks")
+            out = self._bind_inner(params, device, sp)
+            fb = reg.counter("compressed_fallbacks") - fb0
+            if fb:
+                sp.set("compressed_fallbacks", fb)
+            return out
+
+    def _bind_inner(self, params: Tuple, device: torch.device, sp):
         # one bind and its launches are the atomic unit of work: the
         # cooperative cancellation point sits right before them
         check_current()
@@ -289,6 +351,7 @@ class CompiledPlan:
                 kept = np.flatnonzero(keep)
                 reg.inc("column_batches_skipped",
                         int(dt.num_batches - len(kept)))
+                sp.add("batches_skipped", int(dt.num_batches - len(kept)))
                 b_new = batch_bucket(len(kept))
                 pad_valid = np.zeros(b_new, dtype=np.bool_)
                 pad_valid[:len(kept)] = True
@@ -297,6 +360,7 @@ class CompiledPlan:
                 take_idx = torch.from_numpy(idx).to(device)
                 pad_mask = torch.from_numpy(pad_valid).to(device)[:, None]
             reg.inc("column_batches_seen", int(dt.num_batches))
+            sp.add("batches_seen", int(dt.num_batches))
 
             def take(t):
                 return t if take_idx is None or t is None \
@@ -345,25 +409,51 @@ class CompiledPlan:
         never hit): phase A (validity + group index) comes from the
         group-index cache when this plan, static key and params ran over
         the same bound tables before, and only phase B runs."""
+        reg = global_registry()
+        static = ctx.static
         use_pre = self.pre_emit is not None \
             and (config.global_properties().gidx_cache_bytes or 0) > 0 \
             and not scan_window_active()
+        if use_pre:
+            try:
+                hash(params)
+            except TypeError:      # an unhashable literal: no caching
+                use_pre = False
         if not use_pre:
-            return self.emitter(ctx)
-        try:
-            hash(params)
-        except TypeError:      # an unhashable literal: no caching
-            return self.emitter(ctx)
-        reg = global_registry()
+            with tracing.span(self._span_name((static, "single"))):
+                outs = self._noted_call(static, "single", self.emitter,
+                                        (ctx,))
+            self._count_compressed(reg, static, ("single",))
+            return outs
         tables = [r.bound() for r in self.relations]
-        pre = _pre_cache_get(self, ctx.static, params, tables)
-        if pre is None:
+        pre = _pre_cache_get(self, static, params, tables)
+        ran_pre = pre is None
+        if ran_pre:
             reg.inc("gidx_cache_misses")
-            pre = self.pre_emit(ctx)
-            _pre_cache_put(self, ctx.static, params, tables, pre)
+            with tracing.span(self._span_name((static, "pre")),
+                              phase="pre"):
+                pre = self._noted_call(static, "pre", self.pre_emit,
+                                       (ctx,))
+            _pre_cache_put(self, static, params, tables, pre)
         else:
             reg.inc("gidx_cache_hits")
-        return self.emitter(ctx, pre)
+            tracing.annotate("gidx_cache", "hit")
+        with tracing.span(self._span_name((static, "main")), phase="main"):
+            outs = self._noted_call(static, "main", self.emitter,
+                                    (ctx, pre))
+        if ran_pre:
+            self._code_notes[(static, "child")] = ctx.child_preds
+        # the reference's phase B re-lowers phase A's child (its filters)
+        # and keys, which XLA then drops as dead code; its trace-time
+        # tally counts them all the same.  Phase B here reuses phase A's
+        # work after a miss and skips the filters on a hit, so the
+        # skipped lowerings count as the reference's do: phase A twice
+        # on a miss; on a hit, the child's filters once (phase A did not
+        # run)
+        self._count_compressed(
+            reg, static, ("pre", "pre", "main") if ran_pre
+            else ("child", "main"))
+        return outs
 
     def _count_agg_notes(self, static) -> None:
         """Per-execution metrics from the aggregate's notes: reduction
@@ -378,8 +468,13 @@ class CompiledPlan:
         reg.inc("agg_reduce_passes", note["passes"])
         for s in note["strategies"]:
             reg.inc("agg_strategy_" + s)
-        for lane in note["lanes"]:
-            reg.inc("agg_" + lane)
+        lanes = note["lanes"]
+        if "code_domain" in lanes:
+            reg.inc("agg_code_domain")
+        if "dict_space" in lanes:
+            reg.inc("agg_dict_space")
+        if "rle_runs" in lanes:
+            reg.inc("agg_rle_runs")
         if note["rle_fallbacks"]:
             tref = note.get("table")
             compressed_fallback("rle_agg", note["rle_fallbacks"],
@@ -387,13 +482,19 @@ class CompiledPlan:
 
     def execute(self, params: Tuple, device: torch.device) -> Result:
         (mask, pairs), overflow = self.run(params, device)
-        # the overflow flag is read once per execution
-        if overflow is not None and bool(overflow):
+        # the transfer span absorbs the wait on the asynchronous launches
+        # (the kernels run on torch's current stream, which the copies
+        # wait for): device_execute ~ dispatch, transfer ~ compute + copy.
+        # The overflow flag is read once per execution
+        with tracing.span("transfer"):
+            over = overflow is not None and bool(overflow)
+            host = None if over else self._to_host(mask, pairs)
+        if over:
             raise CompileError(
                 "device overflow (group-by cardinality beyond max_groups, "
                 "an exact-decimal sum at int64 risk, or a join expansion "
                 "past its bound): host path")
-        return self.assemble_device(mask, pairs)
+        return self._assemble(*host)
 
     def execute_raw(self, params: Tuple, device: torch.device):
         """Run the compiled region and return (mask, pairs, overflow)
@@ -454,17 +555,26 @@ class CompiledPlan:
                     reg.inc("serving_vmap_compiles")
                     self._batched_keys.add(key)
                 outs = []
-                for p, aux in zip(params_list, per_req_aux):
-                    ctx = _RunCtx(self.relations, rels,
-                                  [_upload(a, device) for a in aux],
-                                  _DeviceParams(p, device), static, device)
-                    mask, pairs = self.emitter(ctx)
-                    outs.append((mask, pairs, ctx.overflow))
+                with tracing.span(self._span_name((key, "vmap")),
+                                  batched=len(params_list)):
+                    for p, aux in zip(params_list, per_req_aux):
+                        ctx = _RunCtx(self.relations, rels,
+                                      [_upload(a, device) for a in aux],
+                                      _DeviceParams(p, device), static,
+                                      device)
+                        mask, pairs = self._noted_call(
+                            key, "vmap", self.emitter, (ctx,))
+                        outs.append((mask, pairs, ctx.overflow))
             finally:
                 for r in self.relations:
                     r.unbind()
+            # one fused dispatch counts its predicates once, as the
+            # reference's one vmapped program does
+            self._count_compressed(reg, key, ("vmap",))
             self._count_agg_notes(static)
-            host = _stack_home(outs, device)
+            # the whole batch comes home in ONE copy
+            with tracing.span("transfer"):
+                host = _stack_home(outs, device)
         reg.inc("serving_bulk_transfers")
         return tables, host
 
@@ -478,12 +588,19 @@ class CompiledPlan:
         except CompileError:
             return False
 
+    @staticmethod
+    def _to_host(mask, pairs):
+        """(mask, pairs) as host arrays: one copy per output array."""
+        return mask.cpu().numpy(), [
+            (v.cpu().numpy(), nl.cpu().numpy() if nl is not None else None)
+            for v, nl in pairs]
+
     def assemble_device(self, mask, pairs) -> Result:
         """Device outputs -> host Result: one host transfer per output
         array, after the whole region ran."""
-        host = [(v.cpu().numpy(), nl.cpu().numpy() if nl is not None
-                 else None) for v, nl in pairs]
-        return self._assemble(mask.cpu().numpy(), host)
+        with tracing.span("transfer"):
+            host = self._to_host(mask, pairs)
+        return self._assemble(*host)
 
     def _assemble(self, mask: np.ndarray, pairs) -> Result:
         mask = mask.reshape(-1)
@@ -2197,6 +2314,9 @@ class Compiler:
             builds one.  The child's output stays on the context, so a
             miss's phase B does not evaluate the child a second time."""
             out = child(ctx)
+            # the child's share of the compressed-domain tally, which a
+            # hit's phase B skips (CompiledPlan._run_phases)
+            ctx.child_preds = dict(_compressed_notes.get() or {})
             rt = ctx.runtime(out.cols)
             kdvals = [kr(rt) for kr in key_runs]
             valid, gidx, num_groups, _f, _c, _e = compute_pre(
@@ -2732,6 +2852,8 @@ class _RunCtx:
         # to phase B
         self.skip_filters = False
         self.pre_state = None
+        # phase A's child tally of compressed-domain lowerings
+        self.child_preds: dict = {}
         self.rels = []
         for r, (cols, valid) in zip(relations, rels):
             dvals = {}
@@ -3381,7 +3503,8 @@ class Executor:
         compiled = self._cache_get(key)
         if compiled is None:
             try:
-                compiled = self._compile(node)
+                with tracing.span("compile"):
+                    compiled = self._compile(node)
             except CompileError:
                 return None
             self._cache_put(key, compiled)
@@ -3433,7 +3556,8 @@ class Executor:
         reg.inc("queries")
         self._depth += 1
         try:
-            result = self._execute_with_host_ops(plan, params, plan_key)
+            with reg.time("query"):
+                result = self._execute_with_host_ops(plan, params, plan_key)
         finally:
             self._depth -= 1
         reg.inc("rows_returned", result.num_rows)
@@ -3474,19 +3598,24 @@ class Executor:
         compiled = self._cache_get(key)
         if compiled is None:
             reg.inc("plan_cache_misses")
+            tracing.annotate("plan_cache", "miss")
             try:
-                compiled = self._compile(node)
-            except CompileError:
+                with tracing.span("compile"):
+                    compiled = self._compile(node)
+            except CompileError as e:
                 reg.inc("host_fallbacks")
-                return self._host_fallback(node, params)
+                with tracing.span("host_fallback", reason=str(e)[:120]):
+                    return self._host_fallback(node, params)
             self._cache_put(key, compiled)
         else:
             reg.inc("plan_cache_hits")
+            tracing.annotate("plan_cache", "hit")
         try:
             return compiled.execute(params, self.device)
-        except CompileError:
+        except CompileError as e:
             reg.inc("host_fallbacks")
-            return self._host_fallback(node, params)
+            with tracing.span("host_fallback", reason=str(e)[:120]):
+                return self._host_fallback(node, params)
 
     def _try_take(self, node: ast.Plan, n: int, params: Tuple
                   ) -> Optional[Result]:
@@ -3689,9 +3818,49 @@ class Executor:
         """CodegenSparkFallback analogue (core/.../execution/
         CodegenSparkFallback.scala:33): a construct without a device
         lowering evaluates on the host via numpy."""
+        self._warn_large_host_fallback(node)
         if isinstance(node, ast.WindowProject):
             return hosteval.eval_window(node, params, self)
         return hosteval.eval_plan(node, params, self)
+
+    def _warn_large_host_fallback(self, node: ast.Plan) -> None:
+        """A host-path performance cliff must not be silent: when a
+        fallback touches a big table (`host_fallback_warn_rows`, default
+        1,000,000), say so once per plan shape."""
+        threshold = int(self.props.get("host_fallback_warn_rows",
+                                       1_000_000) or 0)
+        if threshold <= 0:
+            return
+        # dedup BEFORE the O(rows) count: the count must not tax every
+        # execution of the already-slow path it warns about
+        key = _plan_key(node)
+        seen = getattr(self, "_fallback_warned", None)
+        if seen is None:
+            seen = self._fallback_warned = set()
+        if key in seen:
+            return
+        total = 0
+
+        def rec(p):
+            nonlocal total
+            if isinstance(p, ast.Relation):
+                info = self.catalog.lookup_table(p.name)
+                if info is not None:
+                    try:
+                        total += _row_count_of(info)
+                    except Exception:
+                        pass
+            for k in p.children():
+                rec(k)
+
+        rec(node)
+        if total < threshold:
+            return
+        seen.add(key)
+        print(f"warning: query over ~{total:,} rows is running on the "
+              f"HOST path (single-threaded) — a construct in it has no "
+              f"device lowering yet; see the host_fallbacks metric",
+              file=sys.stderr)
 
     def _apply_host_op(self, op, result: Result, params) -> Result:
         if isinstance(op, ast.Limit):
@@ -3735,6 +3904,12 @@ def _is_result_level(child: ast.Plan) -> bool:
     if isinstance(child, (ast.Filter, ast.Project, ast.SubqueryAlias)):
         return _is_result_level(child.children()[0])
     return False
+
+
+def _row_count_of(info) -> int:
+    if isinstance(info.data, RowTableData):
+        return info.data.count()
+    return mvcc.snapshot_of(info.data).total_rows()
 
 
 def _plan_key(plan: ast.Plan) -> str:

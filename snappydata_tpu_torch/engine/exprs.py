@@ -33,6 +33,7 @@ at execution time over the bound plates.  PyTorch runs eagerly, so
 
 from __future__ import annotations
 
+import contextvars
 import datetime
 import dataclasses
 import functools
@@ -160,6 +161,19 @@ def _remainder(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 _ARITH = {"+": torch.add, "-": torch.sub, "*": torch.mul, "%": _remainder}
 
 
+# per-execution tally of compressed-domain lowerings: the executor
+# installs a dict here around each emitter run (CompiledPlan._noted_call)
+# and bumps the code_domain_predicates / rle_run_predicates counters by it
+_compressed_notes: contextvars.ContextVar = contextvars.ContextVar(
+    "compressed_notes", default=None)
+
+
+def _note_compressed(kind: str) -> None:
+    d = _compressed_notes.get()
+    if d is not None:
+        d[kind] = d.get(kind, 0) + 1
+
+
 def _compressed_cmp(op: str, col: DVal, lit: DVal) -> Optional[DVal]:
     """Code/run-domain lowering of `col OP scalar-literal` when the column
     is resident as a code or run plate.  Value-domain equivalence is
@@ -182,12 +196,14 @@ def _compressed_cmp(op: str, col: DVal, lit: DVal) -> Optional[DVal]:
         return None
     if col.cplate is not None:
         m = code_cmp_mask(op, col.cplate, lit.value)
+        _note_compressed("code_preds")
         return DVal(m, _or_null(col.null, lit.null), T.BOOLEAN)
     vals = col.rplate.values
     dt = promote(vals.dtype, lit.value.dtype)
     run_mask = _CMP[op](vals.to(dt), lit.value.to(dt))
     out = DVal(rle_expand_runs(run_mask, col.rplate.ends, col.cap),
                _or_null(col.null, lit.null), T.BOOLEAN)
+    _note_compressed("run_preds")
     if out.null is None:
         # the expanded mask is PROVABLY the expansion of run_mask over
         # this run partition: carry the run form for the aggregate lane

@@ -279,7 +279,7 @@ def run_storm(data_dir: str, seed: int = 1717, rounds: int = 26,
     props.tier_host_bytes = 48 * 1024
     props.tier_prefetch_depth = 2
     reg = global_registry()
-    c0 = dict(reg.snapshot())
+    c0 = reg.counters_snapshot()
     rfail.clear()
     rfail.reseed(seed)
     st = _Storm(data_dir, seed, device)
@@ -343,7 +343,7 @@ def run_storm(data_dir: str, seed: int = 1717, rounds: int = 26,
          props.scan_tile_bytes, props.device_cache_bytes,
          props.tier_device_bytes, props.tier_host_bytes,
          props.tier_prefetch_depth) = saved
-    c1 = dict(reg.snapshot())
+    c1 = reg.counters_snapshot()
 
     def delta(key: str) -> int:
         return c1.get(key, 0) - c0.get(key, 0)

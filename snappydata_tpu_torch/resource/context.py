@@ -10,10 +10,9 @@ boundaries make `cancel(<id>)`, statement timeouts and broker kills take
 effect within one tile of the signal.  One tile's launches are the atomic
 unit of work, as one generated-code batch loop is in the reference.
 
-Not ported yet, with the front doors that use them: the trace id a
-`CancelException` carries (the reference reads it from
-`observability.tracing`) and the deadline propagation of remote callers
-(`set_deadline_in`, `remaining_s`).
+A `CancelException` raised inside a traced request carries its trace id.
+Not ported yet, with the front doors that use it: the deadline
+propagation of remote callers (`set_deadline_in`, `remaining_s`).
 """
 
 from __future__ import annotations
@@ -45,12 +44,18 @@ class LowMemoryException(MemoryError):
 class CancelException(RuntimeError):
     """Query stopped cooperatively: an explicit cancel, a statement
     timeout, or a broker kill under memory pressure (ref: Derby/GemFireXD
-    SQLSTATE XCL52 'statement cancelled or timed out')."""
+    SQLSTATE XCL52 'statement cancelled or timed out').  `trace_id` (when
+    the request was traced) joins this failure to its trace in the
+    ring."""
 
     sqlstate = "XCL52"
 
     def __init__(self, msg: str):
-        super().__init__(f"[{self.sqlstate}] {msg}")
+        from snappydata_tpu_torch.observability import tracing  # cold path
+
+        self.trace_id = tracing.current_trace_id()
+        suffix = f" [trace {self.trace_id}]" if self.trace_id else ""
+        super().__init__(f"[{self.sqlstate}] {msg}{suffix}")
 
 
 class QueryContext:

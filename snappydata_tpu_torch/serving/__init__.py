@@ -32,7 +32,7 @@ def serving_snapshot(catalog=None) -> dict:
     from snappydata_tpu_torch import config
     from snappydata_tpu_torch.observability.metrics import global_registry
 
-    c = global_registry().snapshot()
+    c = global_registry().counters_snapshot()
     props = config.global_properties()
     dispatches = c.get("serving_batched_dispatches", 0)
     fused = c.get("serving_batch_requests", 0)

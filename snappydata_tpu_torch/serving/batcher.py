@@ -38,6 +38,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from snappydata_tpu_torch import config
+from snappydata_tpu_torch.observability import tracing
 from snappydata_tpu_torch.observability.metrics import global_registry
 
 
@@ -80,7 +81,7 @@ def _bind_signature(params, device) -> tuple:
 
 class _Request:
     __slots__ = ("params", "ctx", "session", "sig", "done", "result",
-                 "error")
+                 "error", "trace", "span")
 
     def __init__(self, session, params, ctx):
         self.session = session
@@ -90,6 +91,10 @@ class _Request:
         self.done = False
         self.result = None
         self.error: Optional[BaseException] = None
+        # the submitter's trace: a leader that re-executes this request
+        # records its spans there, never under the leader's own trace
+        self.trace = tracing.current()
+        self.span = tracing.current_span()
 
 
 class BatchQueue:
@@ -236,17 +241,20 @@ class MicroBatcher:
         # runs in the LEADER's thread: scope the request's OWN governor
         # context so cooperative checks see r's cancellation/deadline,
         # not the leader's — a leader timing out mid-fallback must not
-        # poison the batchmate it is re-executing (and vice versa)
+        # poison the batchmate it is re-executing (and vice versa).  Its
+        # spans go to r's own trace (none when r was untraced)
         from snappydata_tpu_torch.resource.context import query_scope
 
         try:
-            if r.ctx is not None:
-                with query_scope(r.ctx):
+            with tracing.attach_or_detach(r.trace, r.span):
+                if r.ctx is not None:
+                    with query_scope(r.ctx):
+                        r.result = r.session.executor.execute(
+                            entry.tokenized, r.params,
+                            plan_key=entry.core_key)
+                else:
                     r.result = r.session.executor.execute(
                         entry.tokenized, r.params, plan_key=entry.core_key)
-            else:
-                r.result = r.session.executor.execute(
-                    entry.tokenized, r.params, plan_key=entry.core_key)
         except BaseException as e:         # noqa: BLE001
             r.error = e
 

@@ -15,9 +15,11 @@ Registry entries are shared across principals and sessions of a catalog
 resolution, and CREATE / DROP POLICY bumps `catalog.generation`, which
 forces a re-prepare).  Entries are LRU-bounded by `serving_max_handles`
 and their host bytes ride the resource broker's unified ledger.  Every
-execute runs inside its session's device scope.  Grant checks on
-prepare and execute, the query log and request tracing come with the
-security and observability modules, which the port does not have yet.
+execute runs inside its session's device scope and its own request
+trace (kind "serving", annotated with the registry verdict and the lane
+it took), is checked against the principal's grants (at PREPARE and at
+every EXECUTE: grants can change under a held handle), and lands in the
+catalog's query log.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
 from snappydata_tpu_torch import config
+from snappydata_tpu_torch.observability import tracing
 from snappydata_tpu_torch.observability.metrics import global_registry
 from snappydata_tpu_torch.sql import ast
 
@@ -447,7 +450,10 @@ class PreparedStatement:
         """Run with the given bind values.  Admission (fair-share per
         principal), statement timeouts and CANCEL all apply per request,
         exactly as for session.sql — including inside a fused batch."""
-        with config.device_scope(self._session.device):
+        with config.device_scope(self._session.device), \
+                tracing.request_scope(self._entry.sql,
+                                      user=self._session.user,
+                                      kind="serving"):
             return self._execute_governed(params, query_ctx)
 
     def _execute_governed(self, params: Sequence = (), query_ctx=None):
@@ -480,11 +486,15 @@ class PreparedStatement:
 
         entry, sess = self._entry, self._session
         reg = global_registry()
+        t0 = time.time()
+        sess._authorize(entry.stmt)   # grants can change under a handle
         entry.revalidate(sess)
         if entry._used:
             reg.inc("serving_prepared_hits")
+            tracing.annotate("serving_registry", "hit")
         else:
             entry._used = True
+            tracing.annotate("serving_registry", "miss")
         entry.executes += 1
         if entry.passthrough is not None:
             # the full session pipeline (subqueries, windows, AQP,
@@ -509,7 +519,10 @@ class PreparedStatement:
                 result = self._dispatch(full, ctx)
         else:
             result = self._dispatch(full, ctx)
-        return finalize_decimals(result)
+        result = finalize_decimals(result)
+        sess._log_query(entry.sql, (time.time() - t0) * 1000.0,
+                        result.num_rows)
+        return result
 
     def _dispatch(self, full: Tuple, ctx):
         entry, sess = self._entry, self._session
@@ -523,11 +536,13 @@ class PreparedStatement:
                 reg = global_registry()
                 reg.inc("queries")
                 reg.inc("rows_returned", result.num_rows)
+                tracing.annotate("serving_lane", "point")
                 return result
         props = sess.conf
         if int(props.serving_batch_max or 1) > 1 and entry.batchable(sess):
             from snappydata_tpu_torch.serving.batcher import global_batcher
 
+            tracing.annotate("serving_lane", "batched")
             return global_batcher().submit(entry, sess, full, ctx)
         # straight path: the executor keeps its point-lookup / index fast
         # lane and all engine counters; the prepared core key skips the
@@ -573,6 +588,10 @@ class ServingRegistry:
                         self._entries.popitem(last=False)
                         reg.inc("serving_handle_evictions")
                     self._entries[key] = entry
+        # authorize on hit AND miss: PREPARE must deny whether or not
+        # this principal built the entry (executes re-check: grants can
+        # change under a handle)
+        session._authorize(entry.stmt)
         return PreparedStatement(session, entry)
 
     def peek(self, session, sql_text: str) -> Optional[PreparedStatement]:

@@ -36,9 +36,21 @@ arrays (`_journal_then`), `checkpoint()` folds the WAL into batch files,
 and a session opened on an existing directory recovers into itself, on
 its device, views, materialized views (their checkpointed state, then
 the WAL tail past each view's watermark), functions, row-level
-policies, secondary indexes, sample tables and TopKs included.  Mesh
-execution, streams, grants and EXPLAIN are not ported and raise
+policies, secondary indexes, sample tables, TopKs, grants and deployed
+code included.  Mesh execution and streams are not ported and raise
 NotImplementedError.
+
+Observability and security (observability/, security/): every statement
+runs under a request trace (`tracing.request_scope`, the reference's
+span names: parse, optimize, analyze, compile, bind, jit_compile /
+device_execute, transfer, host_fallback, wal_sync) that lands in the
+trace ring and the slow-query log; queries land in the catalog's query
+log (`recent_queries`).  `EXPLAIN [ANALYZE] <query>` prints the plan
+tree, and ANALYZE runs the query through the same kernels and adds the
+runtime footer.  `GRANT` / `REVOKE` keep per-table privileges that every
+statement of a non-admin principal (`for_user`) is checked against, and
+`EXEC PYTHON`, `DEPLOY` / `UNDEPLOY` / `LIST JARS | PACKAGES` are the
+code surfaces, refused to unauthenticated network principals.
 
 Serving (serving/): `prepare(sql)` and SQL `PREPARE name AS ... /
 EXECUTE name (...) / DEALLOCATE name` hold compile-once handles whose
@@ -71,6 +83,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,6 +102,7 @@ from snappydata_tpu_torch.engine.partial_agg import (NotDecomposableError,
 from snappydata_tpu_torch.engine.result import (Result, empty_result,
                                                 finalize_decimals,
                                                 to_host_domain)
+from snappydata_tpu_torch.observability import tracing
 from snappydata_tpu_torch.observability.metrics import global_registry
 from snappydata_tpu_torch.resource.context import check_current
 from snappydata_tpu_torch.sql import ast
@@ -186,34 +200,88 @@ class SnappySession:
         with config.device_scope(self.device):
             self.disk_store.checkpoint(self.catalog)
 
+    def _log_query(self, sql_text: str, ms: float, rows: int) -> None:
+        import collections
+
+        log = getattr(self.catalog, "_query_log", None)
+        if log is None:
+            log = self.catalog._query_log = collections.deque(maxlen=200)
+            self.catalog._query_seq = 0
+        self.catalog._query_seq += 1
+        # a stable id, not the deque position: a full ring shifts those
+        log.append({"id": self.catalog._query_seq, "sql": sql_text,
+                    "ms": round(ms, 2), "rows": rows,
+                    "ts": time.time(), "user": self.user})
+
+    def recent_queries(self) -> List[dict]:
+        """Ring of recent queries (sql, ms, rows, ts, user) shared by
+        every session of this catalog: the dashboard's SQL tab."""
+        return list(getattr(self.catalog, "_query_log", ()))
+
+    def for_user(self, user: str, remote: bool = True,
+                 authenticated: bool = False) -> "SnappySession":
+        """A session for `user` sharing this session's catalog, conf,
+        disk store and device: the per-request principal of a network
+        surface (ref: SnappySessionPerConnection).  `remote` marks it
+        network-derived (it gates EXEC PYTHON and DEPLOY);
+        `authenticated` means a verified credential established the
+        principal."""
+        s = SnappySession(catalog=self.catalog, conf=self.conf,
+                          device=self.device, user=user)
+        s.disk_store = self.disk_store
+        # the plan cache and the analyzer are user-independent (policies
+        # bake in at resolution): sharing them keeps compiled plans warm
+        # across per-request sessions
+        s.analyzer = self.analyzer
+        s.executor = self.executor
+        s.remote = remote
+        s.authenticated = authenticated
+        return s
+
     def sql(self, sql_text: str, params: Sequence[Any] = (),
             query_ctx=None) -> Result:
         """Run one statement.  Queries run governed; `query_ctx` (a
         context created and watched before submission) governs any other
-        statement too, so a cancel that lands before it starts stops it."""
+        statement too, so a cancel that lands before it starts stops it.
+        One trace per logical request: a nested call (tile partials,
+        matview syncs, subquery rewrites) finds the ambient trace and
+        adds spans to it."""
         # storage encodes DOUBLE at the device width and the expression
         # lowering picks float widths from the device: every statement
         # runs inside the session's device scope
-        with config.device_scope(self.device):
+        with config.device_scope(self.device), \
+                tracing.request_scope(sql_text, user=self.user,
+                                      kind="session"):
+            return self._sql_traced(sql_text, params, query_ctx)
+
+    def _sql_traced(self, sql_text: str, params: Sequence[Any] = (),
+                    query_ctx=None) -> Result:
+        with tracing.span("parse"):
             stmt = parse(sql_text)
-            if isinstance(stmt, ast.Query):
-                return self._governed_query(sql_text, stmt, tuple(params),
-                                            query_ctx)
-            if query_ctx is not None and resource.current_query() is None:
-                # estimate 0: DML has no scan estimate yet; CANCEL and
-                # query_timeout_s still apply
-                broker = resource.global_broker()
-                if not query_ctx.sql:
-                    query_ctx.sql = sql_text
-                try:
-                    broker.admit(query_ctx, 0,
-                                 float(self.conf.query_timeout_s or 0.0))
-                    with resource.query_scope(query_ctx):
-                        return self._sql_statement(stmt, sql_text,
-                                                   tuple(params))
-                finally:
-                    broker.release(query_ctx)
-            return self._sql_statement(stmt, sql_text, tuple(params))
+        if isinstance(stmt, ast.Query):
+            # the live query log (ref: SnappySQLListener feeding the SQL
+            # tab)
+            t0 = time.time()
+            result = self._governed_query(sql_text, stmt, tuple(params),
+                                          query_ctx)
+            self._log_query(sql_text, (time.time() - t0) * 1000.0,
+                            result.num_rows)
+            return result
+        if query_ctx is not None and resource.current_query() is None:
+            # estimate 0: DML has no scan estimate yet; CANCEL and
+            # query_timeout_s still apply
+            broker = resource.global_broker()
+            if not query_ctx.sql:
+                query_ctx.sql = sql_text
+            try:
+                broker.admit(query_ctx, 0,
+                             float(self.conf.query_timeout_s or 0.0))
+                with resource.query_scope(query_ctx):
+                    return self._sql_statement(stmt, sql_text,
+                                               tuple(params))
+            finally:
+                broker.release(query_ctx)
+        return self._sql_statement(stmt, sql_text, tuple(params))
 
     def _governed_query(self, sql_text: str, stmt: ast.Query, params,
                         query_ctx=None) -> Result:
@@ -222,9 +290,12 @@ class SnappySession:
         run under a QueryContext, so cancel / timeout / broker kills stop
         the scan at the next tile boundary.  Nested executions (tile
         partials, the tiled merge's scratch session, subquery rewrites)
-        inherit the outer context and skip re-admission."""
+        inherit the outer context and skip re-admission.  A principal
+        without the grants is refused before admission: it never queues,
+        charges the ledger or launches a kernel."""
         if resource.current_query() is not None:
             return self.execute_statement(stmt, params)
+        self._authorize(stmt)
         broker = resource.global_broker()
         ctx = query_ctx or resource.new_query(sql_text, self.user)
         if not ctx.sql:
@@ -329,6 +400,9 @@ class SnappySession:
             from snappydata_tpu_torch.catalog.catalog import _norm
             from snappydata_tpu_torch.reliability import current_stmt_id
 
+            # authorize BEFORE journaling: a denied statement must never
+            # reach the WAL (replay runs as admin and would apply it)
+            self._authorize(stmt)
             ddl_gate = contextlib.nullcontext()
             if isinstance(stmt, ast.AlterTable) and not stmt.add:
                 # DROP COLUMN against a pinned snapshot raises 40001: the
@@ -353,7 +427,8 @@ class SnappySession:
                     result = self.execute_statement(stmt, tuple(params))
             # the ack waits for the covering fsync OUTSIDE the mutation
             # lock, so concurrent committers coalesce into one group
-            ds.wal_sync(seq)
+            with tracing.span("wal_sync"):
+                ds.wal_sync(seq)
             return result
         result = self.execute_statement(stmt, tuple(params))
         if ds is not None:
@@ -425,6 +500,22 @@ class SnappySession:
                 getattr(self.catalog, "_aux_ddl", {}).pop(
                     f"function:{stmt.name.lower()}", None)
                 ds.save_catalog(self.catalog)
+            elif isinstance(stmt, (ast.GrantStmt, ast.RevokeStmt)):
+                ds.save_catalog(self.catalog)  # grants persist like DDL
+            elif isinstance(stmt, ast.DeployStmt):
+                # the persisted DDL points at the STORED copies, so
+                # recovery re-deploys after the original paths are gone
+                entry = self._deployed().get(stmt.name.lower())
+                if not hasattr(self.catalog, "_aux_ddl"):
+                    self.catalog._aux_ddl = {}
+                self.catalog._aux_ddl[f"deploy:{stmt.name.lower()}"] = (
+                    f"DEPLOY {stmt.kind.upper()} {stmt.name} "
+                    f"'{', '.join(entry['files'])}'")
+                ds.save_catalog(self.catalog)
+            elif isinstance(stmt, ast.UndeployStmt):
+                getattr(self.catalog, "_aux_ddl", {}).pop(
+                    f"deploy:{stmt.name.lower()}", None)
+                ds.save_catalog(self.catalog)
         return result
 
     def _snapshot_tables_for(self, stmt: ast.Statement):
@@ -474,6 +565,7 @@ class SnappySession:
                 tier.maybe_demote()
 
     def _execute_statement(self, stmt: ast.Statement, params) -> Result:
+        self._authorize(stmt)
         if isinstance(stmt, ast.Query):
             # materialized views the query reads re-merge their [G] state
             # into the backing rows when dirty: O(G), never a base-table
@@ -490,6 +582,26 @@ class SnappySession:
                     return finalize_decimals(
                         execute_error_query(self, stmt, params))
             return finalize_decimals(self._run_query(stmt.plan, params))
+        if isinstance(stmt, ast.GrantStmt):
+            if self.user != "admin":
+                raise PermissionError("only admin may GRANT")
+            if self.catalog.lookup_table(stmt.table) is None and \
+                    self.catalog.lookup_view(stmt.table) is None:
+                raise ValueError(f"table or view not found: {stmt.table}")
+            key = (stmt.grantee.lower(), _table_key(stmt.table))
+            self._grants().setdefault(key, set()).update(
+                _expand_privs(stmt.privileges))
+            return _status()
+        if isinstance(stmt, ast.RevokeStmt):
+            if self.user != "admin":
+                raise PermissionError("only admin may REVOKE")
+            grants = self._grants()
+            key = (stmt.grantee.lower(), _table_key(stmt.table))
+            if key in grants:
+                grants[key] -= _expand_privs(stmt.privileges)
+                if not grants[key]:
+                    del grants[key]
+            return _status()
         if isinstance(stmt, ast.CreateTable):
             return self._create_table(stmt)
         if isinstance(stmt, ast.DropTable):
@@ -575,6 +687,21 @@ class SnappySession:
         if isinstance(stmt, ast.SetConf):
             self.conf.set(stmt.key, stmt.value)
             return _status()
+        if isinstance(stmt, ast.ExecCode):
+            self._gate_code_surface("EXEC PYTHON")
+            return self._exec_code(stmt.code)
+        if isinstance(stmt, ast.DeployStmt):
+            # deployed artifacts are importable from EXEC PYTHON: the same
+            # code-execution surface, the same gate
+            self._gate_code_surface("DEPLOY")
+            return self._deploy(stmt)
+        if isinstance(stmt, ast.UndeployStmt):
+            self._gate_code_surface("UNDEPLOY")
+            return self._undeploy(stmt.name)
+        if isinstance(stmt, ast.ListDeployed):
+            return self._list_deployed(stmt.kind)
+        if isinstance(stmt, ast.ExplainStmt):
+            return self._explain(stmt.query, analyze=stmt.analyze)
         if isinstance(stmt, ast.CreatePolicy):
             info = self.catalog.describe(stmt.table)
             for node in ast.walk(stmt.using):
@@ -650,8 +777,7 @@ class SnappySession:
                     f"no prepared statement named {stmt.name!r} "
                     f"for user {self.user!r}")
             return _status()
-        raise NotImplementedError(
-            f"{type(stmt).__name__} is not ported to snappydata_tpu_torch")
+        raise ValueError(f"unsupported statement {type(stmt).__name__}")
 
     def _run_query(self, plan: ast.Plan, user_params=()) -> Result:
         """Query entry (ref SnappySession._run_query_inner, without the
@@ -667,15 +793,17 @@ class SnappySession:
             tiled = self._maybe_tiled_aggregate(plan, user_params)
             if tiled is not None:
                 return tiled
-            plan = self._decorrelate(plan)
-            plan = self._rewrite_subqueries(plan, user_params)
-            plan = optimize(plan, self.catalog)
-            resolved, _ = self.analyzer.analyze_plan(plan)
-            if self.conf.tokenize and self.conf.plan_caching:
-                tokenized, lit_params = tokenize_plan(resolved)
-            else:
-                tokenized, lit_params = \
-                    assign_param_positions(resolved, 0), ()
+            with tracing.span("optimize"):
+                plan = self._decorrelate(plan)
+                plan = self._rewrite_subqueries(plan, user_params)
+                plan = optimize(plan, self.catalog)
+            with tracing.span("analyze"):
+                resolved, _ = self.analyzer.analyze_plan(plan)
+                if self.conf.tokenize and self.conf.plan_caching:
+                    tokenized, lit_params = tokenize_plan(resolved)
+                else:
+                    tokenized, lit_params = \
+                        assign_param_positions(resolved, 0), ()
             return self.executor.execute(
                 tokenized, tuple(lit_params) + tuple(user_params))
 
@@ -1041,6 +1169,205 @@ class SnappySession:
     # ------------------------------------------------------------------
     # Tiled scans: table >> device memory (ref session.py:1190-1895)
     # ------------------------------------------------------------------
+
+    def _explain(self, plan: ast.Plan, analyze: bool = False) -> Result:
+        """EXPLAIN [ANALYZE]: the optimized, resolved plan tree, one node
+        per line (ref snappydata_tpu/session.py `_explain`).  ANALYZE also
+        EXECUTES the query under a (forced) request trace and annotates
+        the tree with runtime stats read off the engine's own counters
+        (batches scanned and skipped, the aggregate strategies, the
+        code-domain lanes, join verdicts, host-fallback evidence), then a
+        footer with rows out, seconds per phase from the trace's span
+        tree, and the trace id."""
+        run_stats = self._explain_execute(plan) if analyze else None
+        with _udf.using(self.catalog):
+            plan = self._decorrelate(plan)
+            optimized = optimize(plan, self.catalog)
+            resolved, _ = self.analyzer.analyze_plan(optimized)
+        lines: List[str] = []
+
+        def describe(p: ast.Plan) -> str:
+            if isinstance(p, ast.Relation):
+                info = self.catalog.lookup_table(p.name)
+                extra = ""
+                if info is not None and info.partition_by:
+                    extra = f" partition_by={','.join(info.partition_by)}"
+                return f"Scan {p.name}{extra}"
+            if isinstance(p, ast.Filter):
+                return "Filter"
+            if isinstance(p, ast.Project):
+                return ("Project [" +
+                        ", ".join(_expr_name(e) for e in p.exprs) + "]")
+            if isinstance(p, ast.WindowProject):
+                return "WindowProject (host)"
+            if isinstance(p, ast.Aggregate):
+                keys = ", ".join(_expr_name(g) for g in p.group_exprs)
+                return f"HashAggregate keys=[{keys}]"
+            if isinstance(p, ast.Join):
+                return f"Join {p.how} (sort+searchsorted)"
+            if isinstance(p, ast.Sort):
+                return "Sort (host)"
+            if isinstance(p, ast.Limit):
+                return f"Limit {p.n}"
+            if isinstance(p, ast.Distinct):
+                return "Distinct (host)"
+            if isinstance(p, ast.Union):
+                return "Union"
+            if isinstance(p, ast.SetOp):
+                return p.op.capitalize() + " (host)"
+            if isinstance(p, ast.SubqueryAlias):
+                return f"SubqueryAlias {p.alias}"
+            if isinstance(p, ast.Values):
+                return f"Values ({len(p.rows)} rows)"
+            return type(p).__name__
+
+        def count_nodes(p: ast.Plan, kinds: dict) -> None:
+            for K in (ast.Relation, ast.Aggregate, ast.Join):
+                if isinstance(p, K):
+                    kinds[K] = kinds.get(K, 0) + 1
+            for k in p.children():
+                count_nodes(k, kinds)
+
+        kinds: Dict = {}
+        if run_stats is not None:
+            count_nodes(resolved, kinds)
+
+        def annotate(p: ast.Plan) -> str:
+            """Runtime suffix: the counters are plan-wide, so a node is
+            annotated inline only when it is the plan's ONLY one of its
+            kind (the footer always carries the full numbers)."""
+            st = run_stats
+            if st is None:
+                return ""
+            if isinstance(p, ast.Relation) and kinds.get(ast.Relation) == 1:
+                info = self.catalog.lookup_table(p.name)
+                rows_in = 0
+                if info is not None:
+                    try:
+                        rows_in = _row_count(info)
+                    except Exception:
+                        rows_in = 0
+                return (f" [rows={rows_in}"
+                        f" batches_seen={st['batches_seen']}"
+                        f" skipped_stats={st['batches_skipped_stats']}"
+                        f" skipped_dict={st['batches_skipped_dict']}"
+                        f" code_domain="
+                        f"{'yes' if st['code_domain_predicates'] else 'no'}]")
+            if isinstance(p, ast.Aggregate) and \
+                    kinds.get(ast.Aggregate) == 1:
+                strat = ",".join(st["strategies"]) or "host"
+                return (f" [strategy={strat}"
+                        f" rows_out={st['rows_out']}]")
+            if isinstance(p, ast.Join) and kinds.get(ast.Join) == 1:
+                if st["join_host_fallbacks"]:
+                    return " [path=host]"
+                if st["join_device_joins"]:
+                    return " [path=device]"
+            return ""
+
+        def walk_plan(p: ast.Plan, depth: int) -> None:
+            lines.append("  " * depth + describe(p) + annotate(p))
+            for k in p.children():
+                walk_plan(k, depth + 1)
+
+        walk_plan(resolved, 0)
+        if run_stats is not None:
+            st = run_stats
+            lines.append("== runtime (EXPLAIN ANALYZE) ==")
+            lines.append(
+                f"rows_out={st['rows_out']} "
+                f"elapsed_ms={st['elapsed_s'] * 1e3:.3f} "
+                f"trace_id={st['trace_id']}")
+            lines.append(
+                f"plan_cache={st['plan_cache']} "
+                f"host_fallbacks={st['host_fallbacks']} "
+                f"batches_seen={st['batches_seen']} "
+                f"skipped_stats={st['batches_skipped_stats']} "
+                f"skipped_dict={st['batches_skipped_dict']} "
+                f"code_domain_predicates={st['code_domain_predicates']} "
+                f"rle_run_predicates={st['rle_run_predicates']}")
+            if st["compressed_fallbacks"]:
+                lines.append("compressed_fallbacks=" +
+                             ",".join(f"{k}:{v}" for k, v in
+                                      st["compressed_fallbacks"].items()))
+            if st["host_fallback_reasons"]:
+                lines.append("host_fallback_reason=" +
+                             "; ".join(st["host_fallback_reasons"]))
+            lines.append("phases: " + " ".join(
+                f"{k}={v * 1e3:.3f}ms"
+                for k, v in sorted(st["phases"].items())))
+        return Result(["plan"], [np.array(lines, dtype=object)],
+                      [None], [T.STRING])
+
+    def _explain_execute(self, plan: ast.Plan) -> dict:
+        """EXPLAIN ANALYZE's execution pass: the query runs governed under
+        a FORCED request trace (so it works with tracing_enabled=False),
+        through the same lanes and kernels as the plain query, and the
+        engine-counter deltas are captured around it."""
+        from snappydata_tpu_torch.engine.executor import AGG_STRATEGIES
+
+        reg = global_registry()
+        c0 = reg.counters_snapshot()
+        t0 = time.perf_counter()
+        with tracing.request_scope("EXPLAIN ANALYZE", user=self.user,
+                                   kind="explain", force=True) as tr:
+            result = self._governed_query("EXPLAIN ANALYZE",
+                                          ast.Query(plan), ())
+        elapsed = time.perf_counter() - t0
+        c1 = reg.counters_snapshot()
+
+        def d(key: str) -> int:
+            return c1.get(key, 0) - c0.get(key, 0)
+
+        seen_total = d("column_batches_seen")
+        skipped = d("column_batches_skipped")
+        dict_skipped = d("batches_skipped_dict")
+        # THIS request's own bind-span evidence for the batch numbers:
+        # counter deltas are process-wide, so concurrent traffic would
+        # pollute them (the other delta-sourced fields stay approximate
+        # under concurrency)
+        fallback_reasons = []
+        if tr is not None:
+            bind_seen = bind_skipped = 0
+            bound = False
+            stack = [tr.root]
+            while stack:
+                sp = stack.pop()
+                if sp.name == "host_fallback" and sp.attrs.get("reason"):
+                    fallback_reasons.append(sp.attrs["reason"])
+                if sp.name == "bind":
+                    bound = True
+                    bind_seen += sp.attrs.get("batches_seen", 0)
+                    bind_skipped += sp.attrs.get("batches_skipped", 0)
+                stack.extend(sp.children)
+            if bound:
+                seen_total, skipped = bind_seen, bind_skipped
+        return {
+            "rows_out": result.num_rows,
+            "elapsed_s": elapsed,
+            "trace_id": tr.trace_id if tr is not None else None,
+            "phases": tr.phase_seconds() if tr is not None else {},
+            "host_fallback_reasons": fallback_reasons,
+            "plan_cache": "hit" if d("plan_cache_hits") else
+                          ("miss" if d("plan_cache_misses") else "n/a"),
+            "host_fallbacks": d("host_fallbacks"),
+            "batches_seen": seen_total,
+            "batches_skipped_stats": max(0, skipped - dict_skipped),
+            "batches_skipped_dict": dict_skipped,
+            "code_domain_predicates": d("code_domain_predicates"),
+            "rle_run_predicates": d("rle_run_predicates"),
+            "join_device_joins": d("join_device_joins"),
+            "join_host_fallbacks": d("join_host_fallbacks"),
+            # every strategy the port's aggregate notes can hold, the two
+            # CUDA kernels' lanes ("kahan", "grouped") among them
+            "strategies": [s for s in AGG_STRATEGIES
+                           if d(f"agg_strategy_{s}")],
+            "compressed_fallbacks": {
+                k[len("compressed_fallback_"):]: c1.get(k, 0) - c0.get(k, 0)
+                for k in c1
+                if k.startswith("compressed_fallback_")
+                and c1.get(k, 0) - c0.get(k, 0)},
+        }
 
     def _tile_budget(self) -> int:
         """Effective byte budget for one scan tile.  conf.scan_tile_bytes:
@@ -1464,6 +1791,7 @@ class SnappySession:
             return out
 
     def insert(self, table: str, *rows) -> int:
+        self._require(table, "insert")
         info = self.catalog.describe(table)
         self._reject_matview_write(info)
         arrays, nulls = _rows_to_arrays(info.schema, rows)
@@ -1480,6 +1808,7 @@ class SnappySession:
                 info.data.insert_arrays(arrays, nulls=nulls)))
 
     def insert_arrays(self, table: str, arrays: Sequence[np.ndarray]) -> int:
+        self._require(table, "insert")
         info = self.catalog.describe(table)
         self._reject_matview_write(info)
         arrays = [np.asarray(a) for a in arrays]
@@ -1490,6 +1819,8 @@ class SnappySession:
 
     def put(self, table: str, *rows) -> int:
         """PUT INTO by rows: an upsert on the table's key columns."""
+        self._require(table, "insert")
+        self._require(table, "update")
         info = self.catalog.describe(table)
         arrays, nulls = _rows_to_arrays(info.schema, rows)
         if isinstance(info.data, RowTableData):
@@ -1497,6 +1828,8 @@ class SnappySession:
         return self.put_arrays(table, arrays)
 
     def put_arrays(self, table: str, arrays: Sequence[np.ndarray]) -> int:
+        self._require(table, "insert")
+        self._require(table, "update")
         info = self.catalog.describe(table)
         self._reject_matview_write(info)
         arrays = [np.asarray(a) for a in arrays]
@@ -1516,6 +1849,7 @@ class SnappySession:
         CDC delete path; WAL kind `delete_keys`)."""
         from snappydata_tpu_torch.storage.persistence import _key_predicate
 
+        self._require(table, "delete")
         info = self.catalog.describe(table)
         self._reject_matview_write(info)
         key_arrays = [np.asarray(a) for a in key_arrays]
@@ -1552,6 +1886,7 @@ class SnappySession:
     def get(self, table: str, key: tuple):
         """Point lookup on a row table's primary key: never enters the
         query engine (ref: ExecutionEngineArbiter fast path)."""
+        self._require(table, "select")
         info = self.catalog.describe(table)
         if not isinstance(info.data, RowTableData):
             raise ValueError("get() requires a row table with a primary key")
@@ -1635,6 +1970,7 @@ class SnappySession:
             stmt = parse(sql_text)
             if not isinstance(stmt, ast.Query):
                 raise ValueError("approx_sql expects a query")
+            self._authorize(stmt)  # the exact query's privileges
             if query_has_error_surface(stmt):
                 return finalize_decimals(
                     execute_error_query(self, stmt, tuple(params)))
@@ -1656,6 +1992,7 @@ class SnappySession:
         from snappydata_tpu_torch.aqp.sketches import (TimeDecayedTopK,
                                                        TopKSummary)
 
+        self._require(base_table, "select")
         base = self.catalog.describe(base_table)
         ci = base.schema.index(key_column)
         ti = base.schema.index(time_column) if time_column else None
@@ -1698,6 +2035,9 @@ class SnappySession:
         topk = getattr(self.catalog, "_topks", {}).get(name.lower())
         if topk is None:
             raise ValueError(f"no such TopK: {name}")
+        defs = getattr(self.catalog, "_topk_defs", {}).get(name.lower())
+        if defs is not None:
+            self._require(defs["base_table"], "select")
         if isinstance(topk, TimeDecayedTopK):
             items = topk.top(n, start_time=start_time, end_time=end_time)
         else:
@@ -1720,10 +2060,10 @@ class SnappySession:
         self.executor.clear_cache()
 
     def _gate_code_surface(self, what: str) -> None:
-        """Code-execution surfaces (CREATE FUNCTION now; EXEC PYTHON and
-        DEPLOY with the front doors) on network-derived sessions require
-        an AUTHENTICATED admin principal: an unauthenticated network
-        caller must never reach them."""
+        """Code-execution surfaces (EXEC PYTHON, DEPLOY, CREATE
+        FUNCTION) on network-derived sessions require an AUTHENTICATED
+        admin principal: an unauthenticated network caller must never
+        reach them."""
         if getattr(self, "remote", False) and not (
                 getattr(self, "authenticated", False)
                 and self.user == "admin"):
@@ -1731,6 +2071,234 @@ class SnappySession:
                 f"{what} is refused on network surfaces unless an "
                 "authenticated admin principal is established "
                 "(configure auth_tokens and pass the admin token)")
+
+    # -- DEPLOY JAR / PACKAGE (ref: DeployCommand / UnDeployCommand /
+    # ListPackageJarsCommand, core/.../execution/ddl.scala; the reference
+    # installs jars on every member's classloader, here artifacts are
+    # Python wheels / zips / modules added to the interpreter path and
+    # copied into the disk store, so they survive restarts) -------------
+
+    def _deployed(self) -> Dict[str, dict]:
+        if not hasattr(self.catalog, "_deployed"):
+            self.catalog._deployed = {}
+        return self.catalog._deployed
+
+    def _deploy(self, stmt: ast.DeployStmt) -> Result:
+        import os
+        import shutil
+
+        name = stmt.name.lower()
+        paths = [p.strip() for p in stmt.coordinates.split(",")
+                 if p.strip()]
+        if not paths:
+            raise ValueError("DEPLOY: empty artifact list")
+        resolved = []
+        for p in paths:
+            if not os.path.exists(p):
+                hint = ("" if os.sep in p else
+                        " (this build has no network egress: DEPLOY takes "
+                        "local wheel/zip/.py paths, not remote "
+                        "maven/pypi coordinates)")
+                raise ValueError(f"DEPLOY: artifact not found: {p!r}{hint}")
+            resolved.append(os.path.abspath(p))
+        stored = resolved
+        if self.disk_store is not None:
+            root = os.path.join(self.disk_store.path, "deploy", name)
+            os.makedirs(root, exist_ok=True)
+            stored = []
+            bases = [os.path.basename(p) for p in resolved]
+            for i, p in enumerate(resolved):
+                base = bases[i]
+                if bases.count(base) > 1:  # '/a/util.py, /b/util.py'
+                    base = f"{i}_{base}"   # must not overwrite each other
+                d = os.path.abspath(os.path.join(root, base))
+                if d != p:  # recovery re-deploys the stored copy itself
+                    if os.path.isdir(p):
+                        shutil.copytree(p, d, dirs_exist_ok=True)
+                    else:
+                        shutil.copy2(p, d)
+                stored.append(d)
+        deployed = self._deployed()
+        old = deployed.pop(name, None)
+        deployed[name] = {"kind": stmt.kind, "files": list(stored),
+                          "coordinates": stmt.coordinates}
+        if old is not None:
+            self._sys_path_sync()
+        for f in stored:
+            self._sys_path_add(f)
+        self.catalog.generation += 1
+        return _status()
+
+    def _undeploy(self, name: str) -> Result:
+        import os
+        import shutil
+
+        key = name.lower()
+        deployed = self._deployed()
+        if key not in deployed:
+            raise ValueError(f"nothing deployed as {name!r}")
+        deployed.pop(key)
+        self._sys_path_sync()
+        if self.disk_store is not None:
+            shutil.rmtree(
+                os.path.join(self.disk_store.path, "deploy", key),
+                ignore_errors=True)
+        self.catalog.generation += 1
+        return _status()
+
+    def _list_deployed(self, kind: str) -> Result:
+        want = "package" if kind == "packages" else "jar"
+        rows = [(n, e["coordinates"], e["kind"] == "package")
+                for n, e in sorted(self._deployed().items())
+                if e["kind"] == want]
+        return Result(
+            ["name", "coordinates", "isPackage"],
+            [np.array([r[0] for r in rows], dtype=object),
+             np.array([r[1] for r in rows], dtype=object),
+             np.array([r[2] for r in rows], dtype=bool)],
+            [None, None, None], [T.STRING, T.STRING, T.BOOLEAN])
+
+    @staticmethod
+    def _import_root(path: str) -> str:
+        """The sys.path entry that makes `path` importable: zips and
+        wheels import through zipimport directly, a module file through
+        its parent directory."""
+        import os
+
+        low = path.lower()
+        if os.path.isdir(path) or low.endswith(
+                (".whl", ".zip", ".egg", ".jar")):
+            return path
+        return os.path.dirname(path)
+
+    def _sys_path_add(self, f: str) -> None:
+        import importlib
+        import sys
+
+        root = self._import_root(f)
+        if root not in sys.path:
+            sys.path.append(root)
+        if not hasattr(self.catalog, "_deploy_roots"):
+            self.catalog._deploy_roots = set()
+        self.catalog._deploy_roots.add(root)
+        importlib.invalidate_caches()
+
+    def _sys_path_sync(self) -> None:
+        """Drop the sys.path entries no deployed artifact references any
+        more (two artifacts may share an import root)."""
+        import sys
+
+        live = {self._import_root(f)
+                for e in self._deployed().values() for f in e["files"]}
+        added = getattr(self.catalog, "_deploy_roots", set())
+        for root in added - live:
+            while root in sys.path:
+                sys.path.remove(root)
+        self.catalog._deploy_roots = added & live
+
+    def _exec_code(self, code: str) -> Result:
+        """EXEC PYTHON: a per-session interpreter namespace that persists
+        across statements (ref: RemoteInterpreterStateHolder).  It binds
+        `session` (this session) and `np`; set `result` to a Result or a
+        list of rows to return data, otherwise stdout is returned."""
+        import contextlib
+        import io
+
+        if not hasattr(self, "_interp_ns"):
+            self._interp_ns = {"session": self, "np": np}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            exec(code, self._interp_ns)  # noqa: S102 — interpreter feature
+        out = self._interp_ns.pop("result", None)
+        if isinstance(out, Result):
+            return out
+        if isinstance(out, (list, tuple)) and out:
+            rows = [r if isinstance(r, (list, tuple)) else (r,)
+                    for r in out]
+            width = len(rows[0])
+            if any(len(r) != width for r in rows):
+                raise ValueError("EXEC result rows have uneven arity")
+            cols = list(zip(*rows))
+            return Result(
+                [f"c{i}" for i in range(len(cols))],
+                [np.array(c, dtype=object) for c in cols],
+                [None] * len(cols), [T.STRING] * len(cols))
+        text = buf.getvalue()
+        return Result(["output"], [np.array([text], dtype=object)], [None],
+                      [T.STRING])
+
+    # -- authorization (GRANT / REVOKE; ref grantRevokeExternal and the
+    # LDAP-authenticated connection principal: "admin" is the superuser)
+
+    def _grants(self) -> Dict:
+        if not hasattr(self.catalog, "_grants"):
+            self.catalog._grants = {}
+        return self.catalog._grants
+
+    def _has_priv(self, table: str, priv: str) -> bool:
+        if self.user == "admin":
+            return True
+        return priv in self._grants().get((self.user, _table_key(table)),
+                                          set())
+
+    def _require(self, table: str, priv: str) -> None:
+        if not self._has_priv(table, priv):
+            raise PermissionError(
+                f"user {self.user!r} lacks {priv.upper()} on {table}")
+
+    def _authorize(self, stmt: ast.Statement) -> None:
+        """Raise PermissionError unless this principal may run `stmt`:
+        reads need SELECT on every table the plan and its subqueries
+        touch, writes their table's privilege, and DDL, SET and the code
+        surfaces are admin-only.  Row-level policies apply on top, at
+        resolution (the analyzer)."""
+        if self.user == "admin":
+            return
+        if isinstance(stmt, ast.Query):
+            for t in _referenced_tables(stmt.plan):
+                self._require(t, "select")
+            return
+        if isinstance(stmt, ast.ExplainStmt):
+            for t in _referenced_tables(stmt.query):
+                self._require(t, "select")
+            return
+        if isinstance(stmt, ast.InsertInto):
+            self._require(stmt.table, "insert")
+            if stmt.put:
+                self._require(stmt.table, "update")  # upsert updates rows
+            if stmt.overwrite:
+                self._require(stmt.table, "delete")  # overwrite truncates
+            for t in _referenced_tables(stmt.source):
+                self._require(t, "select")
+            return
+        if isinstance(stmt, ast.UpdateStmt):
+            self._require(stmt.table, "update")
+            for e in [stmt.where] + [x for _, x in stmt.assignments]:
+                if e is not None:
+                    for t in _expr_subquery_tables(e):
+                        self._require(t, "select")
+            return
+        if isinstance(stmt, ast.DeleteStmt):
+            self._require(stmt.table, "delete")
+            if stmt.where is not None:
+                for t in _expr_subquery_tables(stmt.where):
+                    self._require(t, "select")
+            return
+        if isinstance(stmt, (ast.CreateTable, ast.DropTable,
+                             ast.TruncateTable, ast.AlterTable,
+                             ast.CreatePolicy,
+                             ast.DropPolicy, ast.CreateIndex,
+                             ast.DropIndex, ast.ExecCode, ast.SetConf,
+                             ast.CreateView, ast.DropView,
+                             ast.CreateMaterializedView,
+                             ast.DropMaterializedView,
+                             ast.RefreshMaterializedView,
+                             ast.CreateFunction, ast.DropFunction,
+                             ast.DeployStmt, ast.UndeployStmt)):
+            raise PermissionError(
+                f"user {self.user!r} may not run "
+                f"{type(stmt).__name__} (DDL is admin-only)")
+        # SHOW / DESCRIBE stay open (metadata reads)
 
     def _drop_table(self, stmt: ast.DropTable) -> Result:
         pre = self.catalog.lookup_table(stmt.name)
@@ -2185,6 +2753,22 @@ def _row_count(info) -> int:
     if isinstance(info.data, RowTableData):
         return info.data.count()
     return info.data.snapshot().total_rows()
+
+
+def _expand_privs(privs) -> set:
+    out = set()
+    for p in privs:
+        if p == "all":
+            out.update({"select", "insert", "update", "delete"})
+        else:
+            out.add(p)
+    return out
+
+
+def _table_key(table: str) -> str:
+    from snappydata_tpu_torch.catalog.catalog import _norm
+
+    return _norm(table)
 
 
 def _expr_subquery_tables(e: ast.Expr):

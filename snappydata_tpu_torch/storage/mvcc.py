@@ -52,6 +52,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from snappydata_tpu_torch.observability import tracing
 from snappydata_tpu_torch.utils import locks
 
 
@@ -531,6 +532,7 @@ def pinned_scope(catalog, table_names=()):
     with _clock_lock:
         _ACTIVE_PINS.add(pin)
     _reg().inc("mvcc_pins")
+    tracing.annotate("pinned_epoch", pin.epoch)
     tok = _pin_var.set(pin)
     try:
         yield pin

@@ -5,11 +5,12 @@ reference's byte for byte (record framing, CRC, codec tags, schema JSON,
 manifests), so either package recovers a data directory the other wrote.
 Views, materialized views (their [G] state checkpoints under
 `views/<name>.state` with its WAL fence, `checkpoint_matview`), SQL
-functions, row-level policies, secondary indexes, sample tables and
-TopKs persist and recover as the reference's do.  Left out with the
-subsystems they serve: the re-registration of deployed code, streams and
-grants on recovery — a data directory that records any of them raises
-NotImplementedError when it is recovered, never skipping it silently.
+functions, row-level policies, secondary indexes, sample tables, TopKs,
+grants and deployed code (copied under `deploy/<name>/`) persist and
+recover as the reference's do.  Left out with the subsystem it serves:
+the re-registration of streams on recovery — a data directory that
+records a stream raises NotImplementedError when it is recovered, never
+skipping it silently.
 
 The reference persists regions as oplogs/krfs in disk stores with crash
 recovery on boot, plus backup/restore CLI (SURVEY.md §5 checkpoint/resume;
@@ -663,18 +664,19 @@ class DiskStore:
                 "redundancy": info.redundancy,
                 "base_table": info.base_table,
             })
-        # views persist as their DDL text, re-executed on recovery; the
-        # grants key stays empty until the port holds grants
+        # views persist as their DDL text, re-executed on recovery
         views = dict(getattr(catalog, "_view_ddl", {}))
         matviews = dict(getattr(catalog, "_matview_ddl", {}))
         topks = dict(getattr(catalog, "_topk_defs", {}))
-        # functions, policies and indexes
+        # functions, policies, indexes and deployed code
         aux = dict(getattr(catalog, "_aux_ddl", {}))
+        grants = [[user, table, sorted(privs)] for (user, table), privs
+                  in getattr(catalog, "_grants", {}).items()]
         tmp = os.path.join(self.path, "catalog.json.tmp")
         with open(tmp, "w") as fh:
             json.dump({"version": 1, "tables": tables, "views": views,
                        "matviews": matviews, "topks": topks,
-                       "aux_ddl": aux, "grants": []}, fh, indent=1)
+                       "aux_ddl": aux, "grants": grants}, fh, indent=1)
         self._durable_replace(tmp, os.path.join(self.path, "catalog.json"))
 
     # -- materialized-view state ------------------------------------------
@@ -1343,10 +1345,10 @@ class DiskStore:
         ordered replay of the global WAL fenced per table on the
         checkpoint's wal_seq, then views, materialized views (their
         checkpointed state, then the WAL tail past each one's watermark)
-        and functions, policies and indexes, then the sample tables'
-        maintainers and the TopKs.  A directory that records deployed
-        code, streams or grants raises NotImplementedError: those are not
-        ported."""
+        and functions, policies, indexes and deployed code, then the
+        grants, the sample tables' maintainers and the TopKs.  A
+        directory that records a stream raises NotImplementedError:
+        streams are not ported."""
         from snappydata_tpu_torch import config
         from snappydata_tpu_torch.catalog import Catalog
         from snappydata_tpu_torch.engine.executor import Executor
@@ -1363,10 +1365,9 @@ class DiskStore:
         if os.path.exists(cat_path):
             with open(cat_path) as fh:
                 meta = json.load(fh)
-        unported = ["grants"] if meta.get("grants") else []
-        unported += sorted(k for k in (meta.get("aux_ddl") or {})
-                           if not k.startswith(("function:", "policy:",
-                                                "index:")))
+        unported = sorted(k for k in (meta.get("aux_ddl") or {})
+                          if not k.startswith(("function:", "policy:",
+                                               "index:", "deploy:")))
         if unported:
             raise NotImplementedError(
                 f"{self.path}: the catalog records {', '.join(unported)}, "
@@ -1390,6 +1391,8 @@ class DiskStore:
                 if t["provider"] == "sample":
                     sample_tables.append(info)
             self._recover_views(catalog, session, meta, folded)
+            catalog._grants = {(u, t): set(p)
+                               for u, t, p in (meta.get("grants") or [])}
             # AQP re-registration: the maintainers and TopKs re-seed from
             # the recovered base tables
             for info in sample_tables:
@@ -1444,7 +1447,8 @@ class DiskStore:
                 except Exception:
                     pass  # a view over a dropped table: skipped
         catalog._view_ddl = dict(meta.get("views") or {})
-        # functions, policies and indexes re-execute their DDL.  A policy
+        # functions, policies, indexes and deployed code re-execute their
+        # DDL (a DEPLOY names the store's own copies).  A policy
         # that fails is a security regression (the table would come up
         # unfiltered): recovery refuses; a failed index only loses a fast
         # path: warn

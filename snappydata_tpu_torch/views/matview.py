@@ -1335,7 +1335,7 @@ def replay_fold_deleted(catalog, table: str, captured, seq: int) -> None:
 def view_snapshot(catalog) -> dict:
     """The views' observability payload (the reference's REST
     `/status/api/v1/views` and dashboard section)."""
-    c = global_registry().snapshot()
+    c = global_registry().counters_snapshot()
     views = [mv.snapshot() for mv in matviews(catalog).values()]
     return {
         "views": sorted(views, key=lambda v: v["name"]),

@@ -251,7 +251,7 @@ def test_rle_and_bitset_queries_match_reference():
             (lambda: RefSession(catalog=RefCatalog()), ref_registry(),
              lambda r: dict(r.snapshot()["counters"])),
             (lambda: SnappySession(catalog=Catalog(), device="cpu"),
-             global_registry(), lambda r: r.snapshot())):
+             global_registry(), lambda r: r.counters_snapshot())):
         s = make()
         s.sql("CREATE TABLE code_agg_rle (r DOUBLE) USING column")
         s.insert_arrays("code_agg_rle", [rvals])
@@ -299,10 +299,10 @@ def test_filter_leaving_run_space_is_a_counted_fallback():
     s.insert_arrays("t", [r])
     s.catalog.describe("t").data.force_rollover()
     reg = global_registry()
-    before = reg.snapshot()
+    before = reg.counters_snapshot()
     rows = s.sql("SELECT sum(r), count(r) FROM t "
                  "WHERE r < 9.0 OR r * 2.0 > 17.0").rows()
-    after = reg.snapshot()
+    after = reg.counters_snapshot()
     assert rows == [(float(r.sum()), r.size)]
     assert after.get("compressed_fallback_rle_agg", 0) \
         - before.get("compressed_fallback_rle_agg", 0) == 2

@@ -1532,3 +1532,90 @@ def test_cuda_gidx_hit_launches_the_grouped_kernel_once(cuda_device):
     finally:
         executor.clear_gidx_cache()
         props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+def _analyze_field(rows, needle, key):
+    line = next(r[0] for r in rows if needle in r[0])
+    for tok in line.replace("]", " ").replace("[", " ").split():
+        if tok.startswith(key + "="):
+            return tok.split("=", 1)[1]
+    raise AssertionError(f"{key}= not in {line!r}")
+
+
+@pytest.mark.cuda
+def test_cuda_explain_analyze_names_and_launches_the_kernels(cuda_device):
+    """EXPLAIN ANALYZE of Q1 and Q6 on the card: the footer's strategies
+    name "grouped" / "kahan", the ANALYZE run launches that kernel once,
+    the rows out equal the plain query's, and plain EXPLAIN launches
+    nothing."""
+    from snappydata_tpu_torch.observability import tracing
+
+    s, tpch, props, saved = _serving_lineitem()
+    try:
+        for q, kernel, lane in ((tpch.Q1, gr.grouped_reduce, "grouped"),
+                                (tpch.Q6, kr.masked_kahan_sum, "kahan")):
+            rows = s.sql(q).rows()
+            n0 = kernel.launches
+            s.sql("EXPLAIN " + q)
+            assert kernel.launches == n0
+            out = s.sql("EXPLAIN ANALYZE " + q).rows()
+            assert kernel.launches == n0 + 1
+            assert lane in _analyze_field(out, "HashAggregate",
+                                          "strategy").split(",")
+            assert int(_analyze_field(out, "trace_id=", "rows_out")) \
+                == len(rows)
+            tid = _analyze_field(out, "trace_id=", "trace_id")
+            assert tracing.ring().get(tid)
+    finally:
+        props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+@pytest.mark.cuda
+def test_cuda_traced_query_synchronizes_no_more_than_untraced(
+        cuda_device, monkeypatch):
+    """No span waits on the card: a traced Q6 calls
+    torch.cuda.synchronize no more often than an untraced one."""
+    s, tpch, props, saved = _serving_lineitem()
+    traced = props.tracing_enabled
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    try:
+        s.sql(tpch.Q6).rows()              # warm: plates bound
+        counts = {}
+        monkeypatch.setattr(torch.cuda, "synchronize", counting)
+        for on in (True, False):
+            props.tracing_enabled = on
+            calls.clear()
+            s.sql(tpch.Q6).rows()
+            counts[on] = len(calls)
+        assert counts[True] <= counts[False], counts
+    finally:
+        props.tracing_enabled = traced
+        props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+@pytest.mark.cuda
+def test_cuda_for_user_keeps_the_parent_device(cuda_device):
+    """A session derived for a principal runs on its parent's card, and
+    its granted Q6 equals the admin's bit for bit with one Kahan
+    launch; without the grant it launches nothing."""
+    s, tpch, props, saved = _serving_lineitem()
+    try:
+        u = s.for_user("analyst")
+        assert u.device == s.device == torch.device("cuda")
+        n0 = kr.masked_kahan_sum.launches
+        with pytest.raises(PermissionError):
+            u.sql(tpch.Q6)
+        assert kr.masked_kahan_sum.launches == n0
+        admin = s.sql(tpch.Q6).rows()
+        s.sql("GRANT SELECT ON lineitem TO analyst")
+        n0 = kr.masked_kahan_sum.launches
+        assert u.sql(tpch.Q6).rows() == admin
+        assert kr.masked_kahan_sum.launches == n0 + 1
+    finally:
+        props.pallas_reduce, props.pallas_group_reduce = saved

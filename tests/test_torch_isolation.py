@@ -202,3 +202,55 @@ def test_serving_indexes_policies_and_aqp_import_no_jax():
     out = _run(_SERVING_AQP)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+_OBSERVABILITY_SECURITY = r"""
+import os, sys, tempfile
+import numpy as np
+from snappydata_tpu_torch import SnappySession, security
+from snappydata_tpu_torch.catalog import Catalog
+from snappydata_tpu_torch.observability import (metric_names, metrics,
+                                               stats_service, tracing)
+from snappydata_tpu_torch.reliability import failpoints
+from snappydata_tpu_torch.security import auth
+
+d = tempfile.mkdtemp()
+s = SnappySession(catalog=Catalog(), data_dir=d, recover=False, device="cpu")
+s.sql("CREATE TABLE t (g BIGINT, v DOUBLE) USING column")
+s.insert_arrays("t", [np.arange(100) % 4, np.arange(100, dtype=float)])
+rows = s.sql("EXPLAIN ANALYZE SELECT g, sum(v) FROM t GROUP BY g").rows()
+assert any("trace_id=" in r[0] for r in rows), rows
+s.sql("GRANT SELECT ON t TO alice")
+assert s.for_user("alice").sql("SELECT count(*) FROM t").rows() == [(100,)]
+mod = os.path.join(d, "obsmod.py")
+with open(mod, "w") as fh:
+    fh.write("X = 5\n")
+s.sql(f"DEPLOY JAR obs '{mod}'")
+assert s.sql("EXEC PYTHON 'import obsmod; result = [obsmod.X]'").rows() \
+    == [(5,)]
+assert stats_service.TableStatsService(s.catalog).collect_once()["t"][
+    "row_count"] == 100
+assert metrics.global_registry().to_prometheus()
+assert tracing.ring().traces(5)
+failpoints.arm_from_spec("x.y=raise@1")
+failpoints.clear()
+assert security.make_provider(s.conf) is None
+s.checkpoint()
+s.disk_store.close()
+s2 = SnappySession(data_dir=d, device="cpu")
+assert s2.catalog._grants == {("alice", "t"): {"select"}}
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_observability_security_and_code_surfaces_import_no_jax():
+    """The metrics, tracing, stats-service and metric-name modules,
+    EXPLAIN ANALYZE, grants and their recovery, the auth providers,
+    DEPLOY / EXEC PYTHON and the failpoint spec grammar run without JAX
+    or the JAX package."""
+    out = _run(_OBSERVABILITY_SECURITY)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout

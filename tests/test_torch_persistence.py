@@ -372,11 +372,15 @@ def test_storage_format_parity(tmp_path, writer):
 
 
 def test_unported_catalog_state_raises(tmp_path):
-    """A directory recording a grant cannot be recovered by the port
-    (grants are not ported), and says so instead of skipping the grant.
-    Views, materialized views and functions recover
-    (tests/test_torch_matviews.py), and so do policies and indexes
-    (tests/test_torch_policies_indexes.py)."""
+    """A directory recording a stream table cannot be recovered by the
+    port (streams are not ported), and says so instead of skipping the
+    stream.  Views, materialized views and functions recover
+    (tests/test_torch_matviews.py), policies and indexes
+    (tests/test_torch_policies_indexes.py), grants
+    (tests/test_torch_security.py) and deployed code
+    (tests/test_torch_deploy.py)."""
+    import json
+
     d = str(tmp_path)
     s = RefSession(catalog=RefCatalog(), data_dir=d, recover=False)
     s.sql("CREATE TABLE t (a INT) USING column")
@@ -384,5 +388,15 @@ def test_unported_catalog_state_raises(tmp_path):
     s.sql("CREATE POLICY p1 ON t USING a > 2")
     s.sql("GRANT SELECT ON t TO u1")
     s.disk_store.close()
-    with pytest.raises(NotImplementedError, match="grants"):
+    # the key a stream table's DDL leaves in the catalog (the reference's
+    # `_sql_statement`, CREATE STREAM TABLE)
+    path = os.path.join(d, "catalog.json")
+    with open(path) as fh:
+        meta = json.load(fh)
+    meta["aux_ddl"]["stream:k"] = (
+        "CREATE STREAM TABLE k (id BIGINT) USING kafka_stream "
+        "OPTIONS (topic 't', brokers 'inproc://b')")
+    with open(path, "w") as fh:
+        json.dump(meta, fh)
+    with pytest.raises(NotImplementedError, match="stream:k"):
         SnappySession(data_dir=d, device="cpu")

@@ -98,13 +98,10 @@ class Kit:
         return compiled.execute_batched(params, session.device)
 
     def user_session(self, s, user):
-        """A session of `user` over the same catalog.  The reference's
-        needs a grant on txns; the port has no grants yet."""
-        if self.name == "ref":
-            s.sql(f"GRANT SELECT ON txns TO {user}")
-            return s.for_user(user)
-        return self.SnappySession(catalog=s.catalog, device="cpu",
-                                  user=user)
+        """A session of `user` over the same catalog, granted SELECT on
+        txns."""
+        s.sql(f"GRANT SELECT ON txns TO {user}")
+        return s.for_user(user)
 
     def serving_session(self):
         s = self.new()

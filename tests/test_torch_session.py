@@ -98,10 +98,10 @@ def _oracle_q6(li):
 def test_q1_q6_match_reference(lineitem, knobs):
     ref, port = _sessions(lineitem)
     reg = global_registry()
-    before = reg.snapshot()
+    before = reg.counters_snapshot()
     for q in (tpch.Q1, tpch.Q6):
         _assert_rows_equal(port.sql(q).rows(), ref.sql(q).rows())
-    after = reg.snapshot()
+    after = reg.counters_snapshot()
 
     def moved(name):
         return after.get(name, 0) - before.get(name, 0)

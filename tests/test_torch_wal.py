@@ -393,9 +393,9 @@ def test_seeded_schedule_replays(wal_knobs):
 
 def test_unknown_action_or_family_is_refused():
     with pytest.raises(ValueError, match="unknown failpoint action"):
-        fault.arm("wal.append", "drop")
+        fault.arm("wal.append", "explode")
     with pytest.raises(ValueError, match="unknown exc family"):
-        fault.arm("wal.append", "raise", exc="conn")
+        fault.arm("wal.append", "raise", exc="nope")
     assert fault.hit("wal.append") is None
 
 
