@@ -19,8 +19,9 @@ cancellation), the HBM -> host -> disk tier ladder with a healed tier
 file, a seeded fault storm and the broker-kicked compactor; on the main
 session, prepared statements and the micro-batcher, the group-index
 cache, a secondary index and a row-level policy, then EXPLAIN [ANALYZE],
-request tracing, grants and the stats service, then AQP over a sample
-table.
+request tracing, grants and the stats service, then the front doors
+(Arrow Flight, Flight SQL, REST and the client) over that session, then
+AQP over a sample table, then stream tables fed by micro-batches.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
@@ -147,8 +148,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    customer, orders, lineitem and nation against numpy with device joins
    and no host fallback, PUT INTO nation (one upsert, one insert) read
    back through `session.get`, and PUT INTO a keyed column table;
-17. the Kahan kernel under torch.profiler on phase 5's and phase 11's
-   inputs, in one child process of this script per shape
+17. the Kahan kernel under torch.profiler on phase 5's inputs and on
+   phase 11's last tile (the first, full tile is timed in phase 11 only:
+   a third child process cost about 25 s of the run), in one child
+   process of this script per shape
    (`--kahan-profile`) that loads them from a file, so that its profiler
    starts fresh, and with spin kernels at the session's start (the
    profiler drops the device records of a session's first millisecond,
@@ -170,7 +173,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    version on a warm run's inputs, answers against a numpy oracle
    (counts exact, sums rel 1e-6); ingest rows/s, first and warm seconds,
    the complex plates' bytes on the card;
-19. a durable lineitem: the first 1 / DEC_DEPTH of the rows in a session
+19. a durable lineitem: the first 1 / DURABLE_DEPTH (6,000,000 of SF 16's
+   96M) of the rows in a session
    with `data_dir` under a temporary directory (its filesystem's free
    bytes first, removed at the end): (a) CREATE and `insert_arrays` in
    1,048,576-row statements (rows/s, WAL bytes, fsyncs); (b)
@@ -236,7 +240,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    full, and DROP MATERIALIZED VIEW leaves no device bytes under the
    view, its backing table or its scratch tables; the grouped kernel on (c)'s refresh inputs and the Kahan kernel
    on (b)'s Q6 inputs against their plain versions; (f) a durable
-   session of its own over the first 2,000,000 generated rows: q1_mv,
+   session of its own over the first 1,000,000 generated rows (cut from
+   2,000,000 to keep the run's time): q1_mv,
    rev() and a plain view, a checkpoint, two inserts as the WAL tail, a
    crash-shape reopen: the state reloads, the tail alone folds, and the
    view, rev()'s Q6 and the plain view equal numpy (checkpoint and
@@ -295,9 +300,50 @@ Phases, in order; any failure exits non-zero before the result lines:
    `recent_queries()` holds the phase's queries with user and ms.  Phase
    20 (f)'s cancelled tiled Q1 also carries its trace id, an error
    trace in the ring;
-25. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+25. right after phase 24, on the main session as phase 24 leaves it (no
+   new data but (d)'s): one `SnappyFlightServer` and one `RestService`
+   over it on 127.0.0.1, port 0.  (a) Q1 and Q6 through
+   `SnappyClient.sql`, once and --reps times warm: the Arrow rows equal
+   `session.sql`'s bit for bit, one grouped (Q1) or Kahan (Q6) launch a
+   request, the wall beside the in-process warm time; (b) Flight SQL: the
+   statement Q6, GetTables lists lineitem, a prepared Q6 with five binds
+   (each equal to the in-process prepared answer, one Kahan launch each,
+   the second execute a `serving_prepared_hits` hit); (c) the streamed
+   scan `STREAM_SCAN` (LIMIT 1000): `stream_scan_early_stops` 1, its
+   chunks and the batches it decoded of the table's, rows equal
+   `session.sql`'s; (d) `do_put` of `PUT_ROWS` (1,048,576) generated
+   lineitem rows into `lineitem_put` (rows/s), then Q6 over it through
+   Flight against numpy with one Kahan launch; (e) REST: `POST /sql` Q6
+   twice (through `serving_sql`: a registry hit, a trace id, one launch
+   each), a `/jobs` Q1 polled to its end (one grouped launch),
+   `/status/api/v1/storage` device bytes beside the stats service's
+   (`/status/api/v1/scan`) and the broker's ledger, `/metrics/prometheus`
+   parsed, `/status/api/v1/traces?trace_id=` holding (a)'s Flight Q1 as a
+   client and a server trace under the id the client sent; (f) Q6 at 1,
+   4 and 16 client threads, `FRONT_DOOR_REQUESTS` (256) requests a level
+   on the same binds, first in process through the prepared handle, then
+   through Flight (prepared, the server's micro-batcher): requests/s and
+   p50 / p99 of each, every answer equal to its solo answer, one Kahan
+   launch a request;
+26. right after phase 23, on a session of its own: (a) a `memory_stream`
+   table with lineitem's columns takes the first `STREAM_ROWS`
+   (4,194,304; `reduced` from SF 16: each micro-batch appends and
+   re-binds on the host) generated rows in micro-batches of
+   `STREAM_BATCH` (131,072) on the stream's own thread: rows/s and the
+   p50 / p99 of a micro-batch's apply; Q1 and Q6 once and --reps times warm
+   through the grouped and Kahan kernels (one launch a run) against numpy
+   over the delivered rows, and Q6 over a `WINDOW (DURATION ...
+   MILLISECONDS)` whose cutoff falls midway between two micro-batches'
+   arrival stamps against numpy over the later half of the stream, a
+   warm windowed Q6 with no plan-cache miss; (b) a keyed
+   `kafka_stream` over a `FileBroker` in a temporary directory, stopped
+   after its first batches and restarted from its offset log while the
+   rest is published: every one of `KAFKA_RECORDS` ids exactly once;
+   (c) `q1_mv` over a keyless memory stream folds once per micro-batch
+   (`MV_BATCHES`, no full refresh) and equals its defining query;
+27. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
-   18 - 24.
+   18 - 26.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -321,6 +367,7 @@ KERNELS = ("kahan_reduce", "group_reduce", "code_filter_sum",
            "group_code_reduce")
 RLE_PROBE_ROWS = (1 << 16, 1 << 22)
 DEC_DEPTH = 12       # lineitem_dec holds 1 / DEC_DEPTH of lineitem's rows
+DURABLE_DEPTH = 16   # phases 19 - 20 take 1 / DURABLE_DEPTH of lineitem's rows
 
 
 def fail(msg: str) -> None:
@@ -2034,7 +2081,7 @@ CAPPED_Q1 = ("SELECT l_returnflag, l_linestatus, "
 FOLD_ROWS = (1, 1024, 131_072)
 VIEW_DELETE = "DELETE FROM lineitem WHERE l_shipdate > DATE '1998-11-01'"
 VIEW_UPDATE_KEYS = 2000       # UPDATE l_discount of orders 1 .. 2000
-DURABLE_VIEW_ROWS = 2_000_000
+DURABLE_VIEW_ROWS = 1_000_000   # phase 21 (f), cut to keep the run's time
 CHEAP_VIEW = ("CREATE VIEW cheap AS SELECT l_returnflag, l_extendedprice "
               "FROM lineitem WHERE l_discount < 0.025")
 CHEAP_READ = ("SELECT l_returnflag, sum(l_extendedprice), count(*) "
@@ -3463,7 +3510,7 @@ def durable_queries(s, tpch, want, args, what):
 
 
 def durable_path(tpch, li, args, clean_ops):
-    """Phase 19 (a) - (g) on the first 1 / DEC_DEPTH of lineitem's rows in
+    """Phase 19 (a) - (g) on the first 1 / DURABLE_DEPTH of lineitem's rows in
     a durable session under a temporary directory, then phase 20 on its
     third session; returns the two kernels' launches over 19 (e) - (g)
     and 20.  `clean_ops` is the grouped kernel's slot count on phase 4's
@@ -4092,6 +4139,591 @@ def governed_path(s, tpch, want, args, clean_ops):
     return total
 
 
+# -- phase 25: the front doors (Flight, Flight SQL, REST, the client) -------
+
+FRONT_DOOR_REQUESTS = 256     # (f): Q6 requests a client level, each way
+PUT_ROWS = 1 << 20            # (d): rows ingested through do_put
+STREAM_SCAN = ("SELECT l_orderkey, l_extendedprice FROM lineitem "
+               "WHERE l_quantity < 2 LIMIT 1000")
+
+
+def _arrow_rows(tbl):
+    """An Arrow table's rows as tuples, as `Result.rows()` gives them."""
+    cols = [c.to_pylist() for c in tbl.columns]
+    return [tuple(r) for r in zip(*cols)]
+
+
+def _http(svc, path, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://{svc.host}:{svc.port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        raw = r.read()
+    return raw if path.startswith("/metrics/prometheus") else json.loads(raw)
+
+
+def _served_once(fn, kernel):
+    """Run `fn` with the launch counters at 0: (its value, seconds, the
+    counts); fails unless `kernel` launched exactly once and the other
+    kernel not at all."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lc = _kernel_counts()
+    want = {k: int(k == kernel) for k in lc}
+    if lc != want:
+        fail(f"a served query launched {lc}, expected {want}")
+    return out, dt, lc
+
+
+def flight_clients(address, binds, n_clients):
+    """`n_clients` threads, each with its own SnappyClient, running its
+    binds of SERVING_Q6 one after the other through Flight (`prepared`:
+    the server's serving registry and micro-batcher): (answers, per-
+    request seconds, wall seconds)."""
+    import threading
+
+    from snappydata_tpu_torch.cluster.client import SnappyClient
+
+    answers, lat, errors = {}, [], []
+    barrier = threading.Barrier(n_clients)
+
+    def client(c):
+        cl = SnappyClient(address=address)
+        try:
+            cl.ping()
+            barrier.wait(timeout=120)
+            for i, b in enumerate(binds[c]):
+                t0 = time.perf_counter()
+                answers[(c, i)] = _arrow_rows(
+                    cl.sql(SERVING_Q6, params=list(b), prepared=True))
+                lat.append(time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            cl.close()
+
+    ts = [threading.Thread(target=client, args=(c,), daemon=True)
+          for c in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in ts):
+        fail(f"a Flight client of {n_clients} hung")
+    if errors:
+        fail(f"Flight clients raised: {errors[:3]}")
+    return answers, lat, wall
+
+
+def front_door_path(session, tpch, args):
+    """Phase 25 (a) - (f) on the main session as phase 24 leaves it: one
+    SnappyFlightServer and one RestService over it on 127.0.0.1, port 0.
+    Returns the two kernels' launches."""
+    import threading
+
+    import numpy as np
+    import pyarrow as pa
+    import torch
+
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.cluster import flight_server
+    from snappydata_tpu_torch.cluster.client import SnappyClient
+    from snappydata_tpu_torch.cluster.flightsql import FlightSqlClient
+    from snappydata_tpu_torch.cluster.rest import RestService
+    from snappydata_tpu_torch.observability import (TableStatsService,
+                                                    tracing)
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.resource.broker import global_broker
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    reg = global_registry()
+    total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    t_phase = time.perf_counter()
+    srv = flight_server.SnappyFlightServer(session)
+    threading.Thread(target=srv.serve, daemon=True).start()
+    srv.wait_ready()
+    address = f"127.0.0.1:{srv.port}"
+    svc = RestService(session, TableStatsService(session.catalog)).start()
+    client = SnappyClient(address=address)
+    fsql = FlightSqlClient(address)
+    try:
+        # (a) Q1 and Q6 through SnappyClient.sql, first and --reps warm,
+        # bit for bit the session's rows, one launch each
+        q1_tid = None
+        for name, q, kernel in (("q1", tpch.Q1, "grouped_reduce"),
+                                ("q6", tpch.Q6, "masked_kahan_sum")):
+            local = session.sql(q).rows()
+            direct = []
+            for _ in range(args.reps):
+                _, dt, _ = _served_once(lambda q=q: session.sql(q).rows(),
+                                        kernel)
+                direct.append(dt)
+            times = []
+            for i in range(1 + args.reps):
+                if name == "q1" and i == 1:
+                    # the client mints the request's trace id, the
+                    # server records its own trace under it: (e) reads
+                    # it back through REST
+                    with tracing.request_scope(q, kind="client") as tr:
+                        tbl, dt, lc = _served_once(
+                            lambda q=q: client.sql(q), kernel)
+                    if tr is None:
+                        fail("tracing is off: the Flight Q1 has no trace")
+                    q1_tid = tr.trace_id
+                else:
+                    tbl, dt, lc = _served_once(lambda q=q: client.sql(q),
+                                               kernel)
+                _launch_sum(total, lc)
+                times.append(dt)
+                if _arrow_rows(tbl) != local:
+                    fail(f"Flight {name}: {_arrow_rows(tbl)} != "
+                         f"session.sql's {local}")
+            warm = sorted(times[1:])[len(times[1:]) // 2]
+            dwarm = sorted(direct)[len(direct) // 2]
+            log(f"front_door flight_{name} first_s {times[0]:.4f} warm_s "
+                f"{warm:.4f} direct_warm_s {dwarm:.4f} front_door_ms "
+                f"{(warm - dwarm) * 1e3:.2f} rows {len(local)} equal True "
+                f"launches_per_run 1 {kernel}")
+
+        # (b) Flight SQL: the statement Q6, GetTables, a prepared Q6 with
+        # five binds (the second execute a serving-registry hit)
+        local6 = session.sql(tpch.Q6).rows()
+        tbl, dt, lc = _served_once(lambda: fsql.execute(tpch.Q6),
+                                   "masked_kahan_sum")
+        _launch_sum(total, lc)
+        if _arrow_rows(tbl) != local6:
+            fail(f"Flight SQL Q6 {_arrow_rows(tbl)} != {local6}")
+        tables = [v.as_py() for v in fsql.get_tables().column("table_name")]
+        if "lineitem" not in tables:
+            fail(f"Flight SQL GetTables lacks lineitem: {tables}")
+        binds = [q6_bind(tpch, y, b) for y, b in (
+            (1994, (0.05, 0.07)), (1995, (0.02, 0.04)), (1996, (0.06, 0.08)),
+            (1997, (0.03, 0.05)), (1993, (0.05, 0.07)))]
+        ps = fsql.prepare(SERVING_Q6)
+        in_process = session.prepare(SERVING_Q6)
+        times, hits = [], []
+        for b in binds:
+            h0 = reg.counter("serving_prepared_hits")
+            tbl, dt, lc = _served_once(lambda b=b: ps.execute(list(b)),
+                                       "masked_kahan_sum")
+            _launch_sum(total, lc)
+            hits.append(reg.counter("serving_prepared_hits") - h0)
+            times.append(dt)
+            want = in_process.execute(b).rows()
+            if _arrow_rows(tbl) != want:
+                fail(f"Flight SQL prepared Q6 {b}: {_arrow_rows(tbl)} != "
+                     f"{want}")
+        ps.close()
+        if hits[1] < 1:
+            fail(f"the second prepared execute moved serving_prepared_hits "
+                 f"by {hits[1]}")
+        log(f"front_door flightsql q6_s {dt:.4f} get_tables {len(tables)} "
+            f"prepared executes {len(binds)} first_s {times[0]:.4f} "
+            f"warm_s {sorted(times[1:])[2]:.4f} serving_hits {hits} "
+            f"launches_per_execute 1 masked_kahan_sum")
+
+        # (c) a streamed scan with its LIMIT early stop
+        batches = len(session.catalog.describe("lineitem").data.snapshot()
+                      .views)
+        decoded = [0]
+        real_chunks = flight_server.iter_table_chunks
+
+        def counting_chunks(sess, table):
+            for chunk in real_chunks(sess, table):
+                decoded[0] += 1
+                yield chunk
+
+        c0 = {k: reg.counter(k) for k in ("stream_scan_chunks",
+                                          "stream_scan_early_stops")}
+        flight_server.iter_table_chunks = counting_chunks
+        try:
+            t0 = time.perf_counter()
+            tbl = client.sql(STREAM_SCAN)
+            scan_s = time.perf_counter() - t0
+        finally:
+            flight_server.iter_table_chunks = real_chunks
+        moved = {k: reg.counter(k) - v for k, v in c0.items()}
+        want = session.sql(STREAM_SCAN).rows()
+        if tbl.num_rows != 1000 or _arrow_rows(tbl) != want:
+            fail(f"streamed scan: {tbl.num_rows} rows, equal to session.sql "
+                 f"{_arrow_rows(tbl) == want}")
+        if moved["stream_scan_early_stops"] != 1:
+            fail(f"streamed scan did not stop early: {moved}")
+        log(f"front_door stream_scan s {scan_s:.4f} rows {tbl.num_rows} "
+            f"stream_scan_early_stops {moved['stream_scan_early_stops']} "
+            f"stream_scan_chunks {moved['stream_scan_chunks']} "
+            f"batches_decoded {decoded[0]} of {batches}")
+
+        # (d) do_put of PUT_ROWS lineitem-shaped rows, then Q6 over them
+        put = tpch.gen_lineitem(PUT_ROWS, args.seed + 11)
+        arrow = pa.table({k: pa.array(v) for k, v in put.items()})
+        session.sql(tpch.LINEITEM_DDL.replace("TABLE lineitem",
+                                              "TABLE lineitem_put"))
+        t0 = time.perf_counter()
+        client.insert("lineitem_put", arrow)
+        put_s = time.perf_counter() - t0
+        q6_put = tpch.Q6.replace("lineitem", "lineitem_put")
+        tbl, dt, lc = _served_once(lambda: client.sql(q6_put),
+                                   "masked_kahan_sum")
+        _launch_sum(total, lc)
+        check_rows("Flight Q6 over the do_put table", _arrow_rows(tbl),
+                   oracle(put, tpch)["q6"])
+        log(f"front_door do_put rows {PUT_ROWS} s {put_s:.3f} rows_per_s "
+            f"{PUT_ROWS / put_s:.0f} q6_s {dt:.4f} equal_numpy True")
+        del put, arrow
+
+        # (e) REST: /sql through serving_sql, a /jobs Q1, the storage and
+        # scan routes, Prometheus, the trace of (a)'s Flight Q1
+        h0 = reg.counter("serving_prepared_hits")
+        for i in range(2):
+            body, dt, lc = _served_once(
+                lambda: _http(svc, "/sql", {"sql": tpch.Q6}),
+                "masked_kahan_sum")
+            _launch_sum(total, lc)
+            if [tuple(r) for r in body["rows"]] != local6:
+                fail(f"REST /sql Q6 {body['rows']} != {local6}")
+        rest_hits = reg.counter("serving_prepared_hits") - h0
+        if rest_hits < 1 or not body.get("trace_id"):
+            fail(f"REST /sql: serving hits {rest_hits}, body {body}")
+        local1 = session.sql(tpch.Q1).rows()
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        job = _http(svc, "/jobs", {"sql": tpch.Q1})["jobId"]
+        for _ in range(6000):
+            st = _http(svc, f"/jobs/{job}")
+            if st["status"] in ("FINISHED", "ERROR"):
+                break
+            time.sleep(0.005)
+        job_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        lc = _kernel_counts()
+        _launch_sum(total, lc)
+        if st["status"] != "FINISHED" or \
+                [tuple(r) for r in st["rows"]] != local1 \
+                or lc["grouped_reduce"] != 1:
+            fail(f"REST job Q1: {st.get('status')} {st.get('error')}, "
+                 f"launches {lc}")
+        import gc
+
+        gc.collect()
+        storage = _http(svc, "/status/api/v1/storage")
+        scan = _http(svc, "/status/api/v1/scan")
+        stats_dev = {t: m["device_resident_bytes"]
+                     for t, m in scan["tables"].items()}
+        ledger = global_broker().ledger()["device"]
+        for t, b in stats_dev.items():
+            if b != ledger.get(t, 0):
+                fail(f"device bytes of {t}: stats {b}, ledger "
+                     f"{ledger.get(t, 0)}")
+        # the storage route walks the broker's ledger; the stats service
+        # lists the column tables (row tables such as nation: the ledger)
+        row_dev = sum(v for t, v in ledger.items() if t not in stats_dev)
+        if storage["tier"]["device_bytes"] != sum(stats_dev.values()) \
+                + row_dev:
+            fail(f"storage route device bytes {storage['tier']} vs the "
+                 f"stats service's {sum(stats_dev.values())} and the row "
+                 f"tables' {row_dev}")
+        samples, typed = _prometheus_names(
+            _http(svc, "/metrics/prometheus").decode())
+        if len(typed) != len(set(typed)):
+            fail("prometheus: a TYPE name appears twice")
+        traces = _http(svc, f"/status/api/v1/traces?trace_id={q1_tid}")
+        kinds = sorted(t["kind"] for t in traces["traces"])
+        if "server" not in kinds or "client" not in kinds:
+            fail(f"/status/api/v1/traces under {q1_tid}: {kinds}")
+        log(f"front_door rest q6_s {dt:.4f} serving_hits {rest_hits} "
+            f"trace_id {body['trace_id']} job_q1_s {job_s:.4f} "
+            f"storage_device_bytes {storage['tier']['device_bytes']} "
+            f"stats_device_bytes {sum(stats_dev.values())} "
+            f"row_table_device_bytes {row_dev} lineitem "
+            f"{stats_dev.get('lineitem')} prometheus samples {len(samples)} "
+            f"families {len(typed)} trace {q1_tid} kinds {kinds}")
+
+        # (f) Q6 at 1 / 4 / 16 client threads, FRONT_DOOR_REQUESTS a
+        # level in process (the prepared handle) and then through Flight,
+        # on the same binds
+        q6_binds = [q6_bind(tpch, y, b) for y in range(1993, 1998)
+                    for b in SERVING_BANDS]
+        solo = {b: in_process.execute(b).rows() for b in q6_binds}
+        for n in SERVING_CLIENTS:
+            calls = FRONT_DOOR_REQUESTS // n
+            binds = [[q6_binds[(c * calls + i) % len(q6_binds)]
+                      for i in range(calls)] for c in range(n)]
+            reqs = n * calls
+            figures = {}
+            for way, run in (
+                    ("in_process",
+                     lambda: serve_clients(in_process, binds, n)),
+                    ("flight", lambda: flight_clients(address, binds, n))):
+                torch.cuda.synchronize()
+                _reset_kernel_counts()
+                answers, lat, wall = run()
+                torch.cuda.synchronize()
+                lc = _kernel_counts()
+                _launch_sum(total, lc)
+                for (c, i), rows in answers.items():
+                    if rows != solo[binds[c][i]]:
+                        fail(f"{way} Q6 with {n} clients: bind "
+                             f"{binds[c][i]} gave {rows}, solo "
+                             f"{solo[binds[c][i]]}")
+                if len(answers) != reqs or lc["masked_kahan_sum"] != reqs:
+                    fail(f"{way} Q6 with {n} clients: {len(answers)} "
+                         f"answers, launches {lc} for {reqs} requests")
+                lat_ms = np.array(lat) * 1e3
+                figures[way] = (
+                    f"{way}_requests_per_s {reqs / wall:.1f} {way}_p50_ms "
+                    f"{np.percentile(lat_ms, 50):.3f} {way}_p99_ms "
+                    f"{np.percentile(lat_ms, 99):.3f}")
+            log(f"front_door flight_clients {n} requests {reqs} "
+                f"{figures['flight']} {figures['in_process']} launches "
+                f"{json.dumps(lc)}")
+    finally:
+        fsql.close()
+        client.close()
+        svc.stop()
+        srv.shutdown()
+    session.sql("DROP TABLE IF EXISTS lineitem_put")
+    log("answers ok: Flight, Flight SQL and REST equal session.sql; the "
+        "do_put table's Q6 equals numpy")
+    log(f"front_door_path_s {time.perf_counter() - t_phase:.3f}")
+    return total
+
+
+# -- phase 26: streams ----------------------------------------------------
+
+STREAM_ROWS = 1 << 22         # rows a memory stream takes (reduced, SF 16)
+STREAM_BATCH = 1 << 17        # rows a micro-batch
+KAFKA_RECORDS = 20_000        # keyed records through a file broker
+MV_BATCHES = 8                # keyless micro-batches under q1_mv
+
+
+def _lineitem_columns(tpch):
+    return tpch.LINEITEM_DDL.split("(", 1)[1].split(") USING")[0]
+
+
+def _wait_for(what, cond, timeout=120.0, poll_s=0.002):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if cond():
+            return
+        time.sleep(poll_s)
+    fail(f"{what}: timed out after {timeout} s")
+
+
+def stream_path(tpch, li, args):
+    """Phase 26 on a session of its own: a memory stream of lineitem's
+    first STREAM_ROWS rows in micro-batches of STREAM_BATCH, Q1 / Q6 and
+    a windowed Q6 over it; a keyed kafka_stream over a file broker,
+    stopped and restarted midway; a materialized Q1 over a keyless
+    stream.  Returns the two kernels' launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snappydata_tpu_torch import SnappySession, config
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.streaming.kafka import FileBroker
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    reg = global_registry()
+    total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    t_phase = time.perf_counter()
+    s = SnappySession(catalog=Catalog())   # device: cuda
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        # (a) a memory stream of lineitem's first rows
+        s.sql(f"CREATE STREAM TABLE ls ({_lineitem_columns(tpch)}) "
+              "USING memory_stream OPTIONS (interval '0.002')")
+        q = s.catalog._streams["ls"]
+        applied = []
+        real = q.sink.process_batch
+
+        def timed(batch_id, columns):
+            t0 = time.perf_counter()
+            out = real(batch_id, columns)
+            stamp = columns["__arrival_ts"]
+            applied.append((time.perf_counter() - t0, time.perf_counter(),
+                            int(stamp[0]), len(stamp)))
+            return out
+
+        q.sink.process_batch = timed
+        src = s.stream_source("ls")
+        part = {k: v[:STREAM_ROWS] for k, v in li.items()}
+        t0 = time.perf_counter()
+        for lo in range(0, STREAM_ROWS, STREAM_BATCH):
+            src.add_batch({k: v[lo:lo + STREAM_BATCH]
+                           for k, v in part.items()})
+        n_batches = STREAM_ROWS // STREAM_BATCH
+        _wait_for("the memory stream", lambda: len(applied) >= n_batches)
+        ingest_s = applied[-1][1] - t0
+        if q.rows_processed != STREAM_ROWS or q.last_error is not None:
+            fail(f"memory stream: {q.rows_processed} rows, last error "
+                 f"{q.last_error}")
+        per = np.array([a[0] for a in applied]) * 1e3
+        log(f"stream ingest rows {STREAM_ROWS} batches {n_batches} s "
+            f"{ingest_s:.3f} rows_per_s {STREAM_ROWS / ingest_s:.0f} "
+            f"batch_p50_ms {np.percentile(per, 50):.2f} batch_p99_ms "
+            f"{np.percentile(per, 99):.2f}")
+        want = oracle(part, tpch)
+        sq1, sq6 = (tpch.Q1.replace("lineitem", "ls"),
+                    tpch.Q6.replace("lineitem", "ls"))
+        # the window's cutoff falls midway between the arrival stamps of
+        # micro-batches j - 1 and j: it holds batch j on and no earlier row
+        j = n_batches // 2
+        stamps = [a[2] for a in applied]
+        if stamps != sorted(stamps) or stamps[j] <= stamps[j - 1]:
+            fail(f"memory stream: arrival stamps not increasing: {stamps}")
+        cut_us = (stamps[j - 1] + stamps[j]) / 2
+        slack_s = (stamps[j] - stamps[j - 1]) / 2e6
+        win_lo = sum(a[3] for a in applied[:j])
+        want_win = oracle({k: v[win_lo:] for k, v in part.items()}, tpch)
+
+        def window_q6():
+            t0 = time.time()
+            dur_ms = (t0 * 1e6 - cut_us) / 1e3
+            rows = s.sql(sq6.replace(
+                "FROM ls", f"FROM ls WINDOW (DURATION {dur_ms:.3f} "
+                "MILLISECONDS)")).rows()
+            if time.time() - t0 >= slack_s:
+                fail(f"a windowed Q6 took over {slack_s:.3f} s: its cutoff "
+                     "may have passed a micro-batch's stamp")
+            return rows
+
+        for name, run, kernel, ref in (
+                ("q1", lambda: s.sql(sq1).rows(), "grouped_reduce",
+                 want["q1"]),
+                ("q6", lambda: s.sql(sq6).rows(), "masked_kahan_sum",
+                 want["q6"]),
+                ("window_q6", window_q6, "masked_kahan_sum",
+                 want_win["q6"])):
+            times = []
+            for _ in range(1 + args.reps):
+                rows, dt, lc = _served_once(run, kernel)
+                _launch_sum(total, lc)
+                times.append(dt)
+            check_rows(f"stream {name}", rows, ref)
+            log(f"stream {name} first_s {times[0]:.4f} warm_s "
+                f"{sorted(times[1:])[len(times[1:]) // 2]:.4f} "
+                f"equal_numpy True launches_per_run 1 {kernel}")
+        if want_win["q6"] == want["q6"]:
+            fail("the window's half of the stream gave the whole stream's Q6")
+        log(f"stream window rows {STREAM_ROWS - win_lo} of {STREAM_ROWS} "
+            f"batches {n_batches - j} of {n_batches} cutoff_slack_s "
+            f"{slack_s:.4f}")
+        misses = reg.counter("plan_cache_misses")
+        window_q6()
+        if reg.counter("plan_cache_misses") != misses:
+            fail("a warm windowed Q6 missed the plan cache")
+        s.sql("DROP TABLE ls")
+        del part
+
+        # (b) a keyed kafka_stream over a file broker, stopped and
+        # restarted midway: every published row once
+        bdir = os.path.join(tmp, "broker")
+        producer = FileBroker(bdir, num_partitions=4)
+        ddl = ("CREATE STREAM TABLE ks (id BIGINT, v DOUBLE) USING "
+               f"kafka_stream OPTIONS (topic 'ev', brokers 'file://{bdir}', "
+               "key_columns 'id', interval '0.005', "
+               "maxRecordsPerBatch '2000')")
+        half = KAFKA_RECORDS // 2
+        t0 = time.perf_counter()
+        producer.produce("ev", [{"id": i, "v": float(i)}
+                                for i in range(half)])
+        s.sql(ddl)
+        first = s.catalog._streams["ks"]
+        _wait_for("the kafka stream's first batches",
+                  lambda: first.rows_processed >= 2000)
+        s.catalog._streams.pop("ks").stop()
+        before_restart = s.sql("SELECT count(*) FROM ks").rows()[0][0]
+        producer.produce("ev", [{"id": i, "v": float(i)}
+                                for i in range(half, KAFKA_RECORDS)])
+        s.sql(ddl)                       # the query restarts from its log
+        _wait_for("the restarted kafka stream", lambda: s.sql(
+            "SELECT count(*) FROM ks").rows()[0][0] >= KAFKA_RECORDS,
+            poll_s=0.05)
+        kafka_s = time.perf_counter() - t0
+        cnt, dcnt, sv = s.sql("SELECT count(*), count(DISTINCT id), sum(v) "
+                              "FROM ks").rows()[0]
+        expect = float(KAFKA_RECORDS * (KAFKA_RECORDS - 1) // 2)
+        if (cnt, dcnt) != (KAFKA_RECORDS, KAFKA_RECORDS) \
+                or abs(sv - expect) > 1e-6 * expect:
+            fail(f"kafka stream after a restart: {cnt} rows, {dcnt} ids, "
+                 f"sum {sv}, expected {KAFKA_RECORDS} once each")
+        log(f"stream kafka records {KAFKA_RECORDS} stopped_at "
+            f"{before_restart} s {kafka_s:.3f} rows {cnt} distinct {dcnt} "
+            f"once_each True")
+        s.sql("DROP TABLE ks")
+
+        # (c) q1_mv over a keyless stream folds once per micro-batch and
+        # equals its full refresh
+        s.sql("CREATE STREAM TABLE lk (l_returnflag STRING, l_linestatus "
+              "STRING, l_quantity DOUBLE, l_extendedprice DOUBLE, "
+              "l_discount DOUBLE) USING memory_stream "
+              "OPTIONS (interval '0.002')")
+        mv_sql = ("SELECT l_returnflag, l_linestatus, sum(l_quantity) AS sq, "
+                  "sum(l_extendedprice) AS sp, "
+                  "sum(l_extendedprice * (1 - l_discount)) AS sd, "
+                  "count(*) AS c FROM lk GROUP BY l_returnflag, "
+                  "l_linestatus")
+        s.sql("CREATE MATERIALIZED VIEW q1_mv AS " + mv_sql)
+        lq = s.catalog._streams["lk"]
+        folds0 = reg.counter("view_delta_folds")
+        full0 = reg.counter("view_full_refreshes")
+        src = s.stream_source("lk")
+        lo0 = STREAM_ROWS
+        cols = ("l_returnflag", "l_linestatus", "l_quantity",
+                "l_extendedprice", "l_discount")
+        for i in range(MV_BATCHES):
+            lo = lo0 + i * STREAM_BATCH
+            src.add_batch({k: li[k][lo:lo + STREAM_BATCH] for k in cols})
+        _wait_for("the keyless stream",
+                  lambda: lq.rows_processed >= MV_BATCHES * STREAM_BATCH)
+        folds = reg.counter("view_delta_folds") - folds0
+        order = " ORDER BY l_returnflag, l_linestatus"
+        _reset_kernel_counts()
+        view = s.sql("SELECT * FROM q1_mv" + order).rows()
+        full = s.sql(mv_sql + order).rows()
+        torch.cuda.synchronize()
+        _launch_sum(total, _kernel_counts())
+        if folds != MV_BATCHES or reg.counter("view_full_refreshes") != full0:
+            fail(f"q1_mv over the stream: {folds} folds for {MV_BATCHES} "
+                 f"micro-batches, full refreshes "
+                 f"{reg.counter('view_full_refreshes') - full0}")
+        check_rows("q1_mv against its full refresh", view, full)
+        log(f"stream q1_mv batches {MV_BATCHES} rows "
+            f"{MV_BATCHES * STREAM_BATCH} folds {folds} full_refreshes 0 "
+            f"equal_full_refresh True")
+        s.sql("DROP MATERIALIZED VIEW q1_mv")
+        s.sql("DROP TABLE lk")
+    finally:
+        for sq in list(getattr(s.catalog, "_streams", {}).values()):
+            sq.stop()
+        s.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("answers ok: stream Q1 / Q6 and the window equal numpy; the keyed "
+        "restart lost and duplicated nothing; q1_mv equals its refresh")
+    log(f"stream_path_s {time.perf_counter() - t_phase:.3f}")
+    return total
+
+
 class PhaseClock:
     """Logs each phase's wall seconds (`phase_s <n> <s>`) when the next
     one starts, so a run's time budget reads per phase."""
@@ -4453,11 +5085,14 @@ def main() -> int:
         f"tile_launch_overlaps {tmoved['scan_tile_prefetch_overlap']}")
     if tprof is not None:
         log(f"profile tiled_q1 {json.dumps(tprof)}")
+    # phase 17 profiles the in-HBM plate and the last (shortest) tile, one
+    # child process each; the full first tile is timed here only
     kahan_shapes = [("in-HBM Q6", rec_k.calls[0])]
     for label, calls in (("first", tk_calls[:1]), ("last", tk_calls[-1:])):
         log(f"kernel masked_kahan_sum on the {label} tile "
             f"{json.dumps(kahan_phase(calls, args.reps))}")
-        kahan_shapes.append((f"{label} tile", calls[0]))
+        if label == "last":
+            kahan_shapes.append((f"{label} tile", calls[0]))
     log(f"kernel grouped_reduce on the last tile "
         f"{json.dumps(grouped_phase(tg_calls[-1:], args.reps))}")
     for name in ("masked_kahan_sum", "grouped_reduce"):
@@ -4587,6 +5222,20 @@ def main() -> int:
             fail(f"{name} did not launch on the observability path")
         launches[name] += count
 
+    # 25. the front doors on the same session: Flight, Flight SQL, REST
+    # and the client, Q1 / Q6 served, a streamed scan, do_put, 1 / 4 / 16
+    # Flight clients
+    phase_clock.next(25)
+    try:
+        f_launches = front_door_path(session, tpch, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"front-door path: {type(e).__name__}: {e}")
+    log(f"front_door_path_launches {json.dumps(f_launches)}")
+    for name, count in f_launches.items():
+        if count < 1:
+            fail(f"{name} did not launch on the front-door path")
+        launches[name] += count
+
     # 23. AQP: a stratified sample of a 2M-row lineitem, WITH ERROR,
     # approx_sql and TopK, on a session of its own
     phase_clock.next(23)
@@ -4598,6 +5247,20 @@ def main() -> int:
     for name, count in a_launches.items():
         if count < 1:
             fail(f"{name} did not launch on the AQP path")
+        launches[name] += count
+
+    # 26. streams on a session of their own: a memory stream of lineitem
+    # through both kernels and a window, a keyed Kafka restart, q1_mv
+    # over a keyless stream
+    phase_clock.next(26)
+    try:
+        st_launches = stream_path(tpch, li, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"stream path: {type(e).__name__}: {e}")
+    log(f"stream_path_launches {json.dumps(st_launches)}")
+    for name, count in st_launches.items():
+        if count < 1:
+            fail(f"{name} did not launch on the stream path")
         launches[name] += count
 
     # 17. the Kahan kernel under torch.profiler, in a child process whose
@@ -4629,10 +5292,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 19. a durable lineitem: WAL, checkpoint, crash-shape recovery and
-    # the compactor, over the first 1 / DEC_DEPTH of the rows
+    # the compactor, over the first 1 / DURABLE_DEPTH of the rows
     phase_clock.next(19)
+    n_dur = n_rows // DURABLE_DEPTH
     try:
-        d_launches = durable_path(tpch, {k: v[:n_dec] for k, v in li.items()},
+        d_launches = durable_path(tpch, {k: v[:n_dur] for k, v in li.items()},
                                   args,
                                   kres["grouped_reduce"]["config"]["ops"])
     except Exception as e:  # noqa: BLE001 - report the phase, then exit

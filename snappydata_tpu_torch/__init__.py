@@ -14,6 +14,9 @@ Layer map (mirrors snappydata_tpu):
   engine/    — plan compiler + executor, expression lowering, host eval
   ops/       — the CUDA kernels' wrappers and the packed reductions
   csrc/      — CUDA C++ sources, built with nvcc at first use
+  cluster/   — one server's front doors: Arrow Flight / Flight SQL, REST,
+               the client and its retry layer
+  streaming/ — micro-batch stream tables and the exactly-once sink
 """
 
 from snappydata_tpu_torch.session import SnappySession  # noqa: F401

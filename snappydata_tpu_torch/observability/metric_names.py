@@ -35,6 +35,8 @@ COUNTERS = {
     "agg_strategy_unroll",
     "batch_corrupt_records",
     "batches_skipped_dict",
+    "breaker_open",
+    "client_deadline_exceeded",
     "code_domain_predicates",
     "column_batches_seen",
     "column_batches_skipped",
@@ -46,6 +48,7 @@ COUNTERS = {
     "device_cache_evictions",
     "device_cache_window_skips",
     "device_upload_bytes",
+    "failover_retries",
     "fault_injected",
     "gidx_cache_hits",
     "gidx_cache_misses",
@@ -70,6 +73,8 @@ COUNTERS = {
     "join_expand_probe_rows",
     "join_host_fallbacks",
     "join_trans_cache_hits",
+    "mutation_dedup_hits",
+    "mutation_retries",
     "mvcc_cut_expand_errors",
     "mvcc_ddl_conflicts",
     "mvcc_epoch_trims",
@@ -107,6 +112,11 @@ COUNTERS = {
     "serving_vmap_compiles",
     "slow_queries",
     "stats_poll_errors",
+    "stream_apply_errors",
+    "stream_scan_chunks",
+    "stream_scan_early_stops",
+    "stream_scan_rows",
+    "stream_source_errors",
     "take_batches_decoded",
     "take_early_stops",
     "tier_crc_verifies",

@@ -4,9 +4,11 @@ per trace.
 Port of snappydata_tpu/observability/tracing.py, with the reference's
 span names, child cap, ring and slow-query log.  A trace id is minted at
 the front door a request enters (`SnappySession.sql`, a prepared
-execute, EXPLAIN ANALYZE) and rides a contextvar; the front doors that
-carry it across the wire (REST, Flight, the distributed session) are not
-ported yet.
+execute, EXPLAIN ANALYZE, REST `POST /sql` and jobs, `SnappyClient`, a
+Flight ticket or action) and rides a contextvar locally and a `trace_id`
+request-body / ticket field across the wire: a server receiving a traced
+request opens its own trace under the same id (`origin` names the
+server).  The distributed session's fan-out is not ported yet.
 
 Span tree invariants:
 

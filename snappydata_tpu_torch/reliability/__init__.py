@@ -1,9 +1,7 @@
 """End-to-end request reliability primitives: deadlines + idempotent
-mutation retry (port of snappydata_tpu/reliability/__init__.py).  In the
-port their one user so far is the WAL: statement ids ride the journal
-record headers and recovery replay re-seeds the dedup window.  The typed
-retry contract (`is_retryable`) waits for the client and Flight front
-doors it classifies for.
+mutation retry (port of snappydata_tpu/reliability/__init__.py), shared
+by the client, the Flight server and WAL recovery, plus the typed retry
+contract (`is_retryable`) the client's callers rely on.
 
 Reference: the SnappyData thrift/JDBC layer carries a per-statement
 query timeout that cancels server-side work (`queryTimeout` on
@@ -188,3 +186,53 @@ def dedup_for(catalog) -> MutationDedup:
                     config.global_properties().mutation_dedup_entries))
                 catalog._mutation_dedup = d
     return d
+
+
+# -----------------------------------------------------------------------
+# the typed retryable contract
+# -----------------------------------------------------------------------
+
+def is_retryable(exc: BaseException) -> bool:
+    """The error contract clients can rely on: True means the request
+    may be safely re-issued (connection-shaped failures; mutations are
+    covered by the dedup window), False means retrying is wrong or
+    pointless — a deadline expiry (XCL52 CancelException: the caller
+    gave up), an application error, or an auth failure."""
+    from snappydata_tpu_torch.resource.context import CancelException
+
+    if isinstance(exc, CancelException):
+        return False
+    try:
+        import pyarrow.flight as _flight
+
+        if isinstance(exc, _flight.FlightTimedOutError):
+            return False
+        if isinstance(exc, (_flight.FlightUnavailableError,)):
+            return True
+        if isinstance(exc, _flight.FlightCancelledError):
+            # a transport-level CANCELLED from the SERVER side (hard
+            # kill mid-stream: "Server never sent a data message") is a
+            # connection-shaped death, safe to re-issue — deadline
+            # cancellations never reach here raw, they convert to
+            # CancelException (XCL52, handled above) first
+            return True
+    except ImportError:          # pragma: no cover - pyarrow is baked in
+        pass
+    if isinstance(exc, (ConnectionError, TimeoutError)):
+        return True
+    # disk-tier EIO (memmap page-in / tier-file read): transient device
+    # errors are re-issuable — the tier layer already does one bounded
+    # re-read before giving up (tier_read_retries); a retry at statement
+    # scope re-drives promotion, which quarantines + rebuilds on
+    # persistent damage.  Same classification shape as the PR 9
+    # FlightCancelledError fix: a connection/device-shaped death is
+    # retryable, a semantic failure is not.
+    import errno as _errno
+
+    if isinstance(exc, OSError) \
+            and getattr(exc, "errno", None) == _errno.EIO:
+        return True
+    # the reference also retries its DistributedError (the lead already
+    # failed over internally); the port has no distributed session yet,
+    # so no error of its own carries that contract
+    return False

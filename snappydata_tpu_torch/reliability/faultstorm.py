@@ -46,16 +46,16 @@ _PREFETCH_COUNTERS = ("prefetch_worker_deaths", "prefetch_worker_restarts")
 
 
 def _typed(exc: BaseException) -> bool:
-    """A fault-domain error the storm accepts: an IO-shaped error
-    (InjectedFault, WAL poisoning, EIO), a connection- or timeout-shaped
-    one, the tier's TierQuarantinedError, or an escaped WorkerKilled.
-    (The reference also asks its `reliability.is_retryable`, which
-    classifies the client's and Flight's errors; the port has neither
-    front door yet, and these families are the ones its seams raise.)"""
+    """A fault-domain error the storm accepts: retryable per the
+    reliability contract, or one of the typed injection / quarantine
+    families (OSError covers InjectedFault, WAL poisoning and EIO)."""
+    from snappydata_tpu_torch import reliability
     from snappydata_tpu_torch.storage import tier
 
-    return isinstance(exc, (OSError, ConnectionError, TimeoutError,
-                            tier.TierQuarantinedError, rfail.WorkerKilled))
+    if reliability.is_retryable(exc):
+        return True
+    return isinstance(exc, (OSError, tier.TierQuarantinedError,
+                            rfail.WorkerKilled))
 
 
 class _Storm:

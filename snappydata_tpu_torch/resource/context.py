@@ -11,8 +11,9 @@ effect within one tile of the signal.  One tile's launches are the atomic
 unit of work, as one generated-code batch loop is in the reference.
 
 A `CancelException` raised inside a traced request carries its trace id.
-Not ported yet, with the front doors that use it: the deadline
-propagation of remote callers (`set_deadline_in`, `remaining_s`).
+A remote caller's remaining budget becomes the context's deadline
+(`set_deadline_in`): the Flight and REST front doors arm it before they
+hand the context to `sql()` / `serving_sql()`.
 """
 
 from __future__ import annotations
@@ -99,6 +100,20 @@ class QueryContext:
         # never extended here
         if self.deadline is None and timeout_s and timeout_s > 0:
             self.deadline = time.monotonic() + float(timeout_s)
+
+    def set_deadline_in(self, budget_s: float) -> None:
+        """Arm the deadline `budget_s` seconds from now: deadline
+        propagation, so the cooperative checks stop server-side work when
+        the remote caller has already given up."""
+        if budget_s and budget_s > 0:
+            self.deadline = time.monotonic() + float(budget_s)
+
+    def remaining_s(self) -> Optional[float]:
+        """Seconds left before the deadline (None = no deadline; negative
+        when already expired)."""
+        if self.deadline is None:
+            return None
+        return self.deadline - time.monotonic()
 
     def check(self) -> None:
         """Cooperative checkpoint, called at plan, batch and tile

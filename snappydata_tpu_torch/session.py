@@ -37,8 +37,15 @@ and a session opened on an existing directory recovers into itself, on
 its device, views, materialized views (their checkpointed state, then
 the WAL tail past each view's watermark), functions, row-level
 policies, secondary indexes, sample tables, TopKs, grants and deployed
-code included.  Mesh execution and streams are not ported and raise
-NotImplementedError.
+code included; stream tables re-register their feeding queries.  Mesh
+execution is not ported and raises NotImplementedError.
+
+Stream tables (`CREATE STREAM TABLE ... USING memory_stream |
+file_stream | socket_stream | kafka_stream`, streaming/) are column tables
+with a hidden `__arrival_ts` column, fed by a micro-batch query on a
+thread of its own through the exactly-once sink; `FROM t WINDOW
+(DURATION ...)` becomes an arrival-time filter whose cutoff is a
+rebindable literal, so a warm windowed query hits the plan cache.
 
 Observability and security (observability/, security/): every statement
 runs under a request trace (`tracing.request_scope`, the reference's
@@ -368,7 +375,8 @@ class SnappySession:
             stmt = parse(sql_text)
             if not isinstance(stmt, ast.Query):
                 return T.Schema([T.Field("status", T.STRING)])
-            plan = self._decorrelate(stmt.plan)
+            plan = self._rewrite_stream_windows(stmt.plan)
+            plan = self._decorrelate(plan)
 
             def sub_placeholder(e: ast.Expr) -> ast.Expr:
                 if isinstance(e, ast.ScalarSubquery):
@@ -435,6 +443,13 @@ class SnappySession:
             from snappydata_tpu_torch.catalog.catalog import _norm
 
             if isinstance(stmt, ast.CreateTable):
+                if stmt.stream:
+                    # stream feeds re-register at recovery through the
+                    # replay of their DDL
+                    if not hasattr(self.catalog, "_aux_ddl"):
+                        self.catalog._aux_ddl = {}
+                    self.catalog._aux_ddl[
+                        f"stream:{stmt.name.lower()}"] = sql_text
                 ds.save_catalog(self.catalog)
                 if stmt.as_select is not None:
                     # CTAS rows exist only in memory (they were never
@@ -445,6 +460,8 @@ class SnappySession:
                             ds.checkpoint_table(info, ds.current_wal_seq())
             elif isinstance(stmt, ast.DropTable):
                 ds.drop_table_dir(_norm(stmt.name))
+                getattr(self.catalog, "_aux_ddl", {}).pop(
+                    f"stream:{_norm(stmt.name)}", None)
                 ds.save_catalog(self.catalog)
             elif isinstance(stmt, (ast.CreatePolicy, ast.CreateIndex)):
                 if not hasattr(self.catalog, "_aux_ddl"):
@@ -677,7 +694,8 @@ class SnappySession:
                           dtype=np.int64)],
                 [None, None, None], [T.STRING, T.STRING, T.LONG])
         if isinstance(stmt, ast.DescribeTable):
-            fields = self.catalog.describe(stmt.name).schema.fields
+            fields = [f for f in self.catalog.describe(stmt.name).schema.fields
+                      if not f.name.startswith("__")]   # internal columns
             return Result(
                 ["col_name", "data_type", "nullable"],
                 [np.array([f.name for f in fields], dtype=object),
@@ -781,14 +799,15 @@ class SnappySession:
 
     def _run_query(self, plan: ast.Plan, user_params=()) -> Result:
         """Query entry (ref SnappySession._run_query_inner, without the
-        mesh and stream hooks), with this catalog's SQL functions
-        exposed to the analyzer, the lowering and the host evaluator: the
-        tiled lane first (a plan that holds a subquery never tiles), then
-        the correlated subqueries become joins, the uncorrelated ones run
-        as queries of their own and substitute literals, then optimize,
-        analyze and tokenize."""
+        mesh hook), with this catalog's SQL functions exposed to the
+        analyzer, the lowering and the host evaluator: stream windows
+        become arrival-time filters, then the tiled lane (a plan that
+        holds a subquery never tiles), then the correlated subqueries
+        become joins, the uncorrelated ones run as queries of their own
+        and substitute literals, then optimize, analyze and tokenize."""
         if getattr(self.catalog, "_sample_maintainers", None):
             self._refresh_samples()
+        plan = self._rewrite_stream_windows(plan)
         with _udf.using(self.catalog):
             tiled = self._maybe_tiled_aggregate(plan, user_params)
             if tiled is not None:
@@ -1180,6 +1199,7 @@ class SnappySession:
         footer with rows out, seconds per phase from the trace's span
         tree, and the trace id."""
         run_stats = self._explain_execute(plan) if analyze else None
+        plan = self._rewrite_stream_windows(plan)
         with _udf.using(self.catalog):
             plan = self._decorrelate(plan)
             optimized = optimize(plan, self.catalog)
@@ -1765,13 +1785,16 @@ class SnappySession:
                                          key_columns)
 
     def _journal_then(self, info, kind: str, arrays, nulls, apply_fn,
-                      extra: Optional[dict] = None):
+                      extra: Optional[dict] = None,
+                      sync_force: bool = False):
         """WAL-then-apply under the mutation lock, then ack after the
         covering group fsync (no journal without a store).  The append
         only buffers the framed record: while `apply_fn` encodes and cuts
         batches, the background flusher can already be fsyncing the
         group, and `wal_sync` releases the ack once the fsync covers this
-        record's seq."""
+        record's seq.  `sync_force` makes the ack wait for that fsync even
+        under wal_fsync_mode=interval: a network surface (Flight do_put)
+        acks durably, scoped to this record's seq."""
         with config.device_scope(self.device):
             ds = self.disk_store
             if ds is None:
@@ -1787,7 +1810,7 @@ class SnappySession:
                                     nulls=nulls, extra=extra or None)
                 with mvcc.commit_scope(seq), _mv.managed_base_write():
                     out = apply_fn()
-            ds.wal_sync(seq)
+            ds.wal_sync(seq, force=sync_force)
             return out
 
     def insert(self, table: str, *rows) -> int:
@@ -1895,6 +1918,175 @@ class SnappySession:
     # ------------------------------------------------------------------
     # AQP: sample tables, approximate queries, TopK (aqp/)
     # ------------------------------------------------------------------
+
+    def _create_stream_table(self, stmt: ast.CreateTable) -> Result:
+        """CREATE STREAM TABLE name (schema) USING file_stream|memory_stream
+        OPTIONS (directory '...', interval '...', conflation 'true',
+        key_columns '...') — a queryable table continuously fed by a
+        micro-batch source (ref: stream DDL SnappyDDLParser.scala:716 and
+        the stream sources in core/.../sql/streaming; exactly-once via the
+        sink state table)."""
+        from snappydata_tpu_torch.streaming import FileSource, MemorySource
+        from snappydata_tpu_torch.streaming.query import StreamingQuery
+
+        opts = {k.lower(): str(v) for k, v in stmt.options.items()}
+        # hidden arrival-time column powers DStream-style WINDOW queries
+        # (ref: WindowLogicalPlan); '__'-prefixed fields are invisible to
+        # SELECT * / DESCRIBE and auto-stamped on INSERT
+        schema = T.Schema([T.Field(c.name, c.dtype, c.nullable)
+                           for c in stmt.columns]
+                          + [T.Field("__arrival_ts", T.TIMESTAMP, False)])
+        # key columns: inline PRIMARY KEY or the keyColumns relation
+        # option (ref: the sink reads keyColumns off the table options,
+        # SnappySinkCallback.scala:68-80 — exactly-once replay dedup
+        # REQUIRES them)
+        keys = tuple(c.name for c in stmt.columns if c.primary_key)
+        opt_keys = opts.get("key_columns") or opts.get("keycolumns")
+        if not keys and opt_keys:
+            keys = tuple(c.strip() for c in opt_keys.split(",")
+                         if c.strip())
+        provider = stmt.provider if stmt.provider in ("file_stream",
+                                                      "memory_stream",
+                                                      "kafka_stream",
+                                                      "socket_stream") \
+            else opts.get("provider", "memory_stream")
+        if not hasattr(self.catalog, "_streams"):
+            self.catalog._streams = {}
+        tname = stmt.name.lower()
+        if tname in self.catalog._streams:
+            if stmt.if_not_exists:
+                return _status()  # keep the running query; don't leak one
+            raise ValueError(f"stream table already exists: {stmt.name}")
+        # validate options BEFORE creating storage (a failed CREATE must
+        # not leave an orphan table — review finding)
+        interval = float(opts.get("interval", "0.1"))
+        if provider == "file_stream":
+            directory = opts.get("directory")
+            if not directory:
+                raise ValueError(
+                    "file_stream requires OPTIONS (directory '...')")
+            source = FileSource(directory, schema.names())
+        elif provider == "socket_stream":
+            from snappydata_tpu_torch.streaming.query import SocketSource
+
+            host = opts.get("hostname") or opts.get("host")
+            port = opts.get("port")
+            if not host or not port:
+                raise ValueError("socket_stream requires OPTIONS "
+                                 "(hostname '...', port '...')")
+            source = SocketSource(
+                host, int(port),
+                [n for n in schema.names() if not n.startswith("__")])
+        elif provider == "kafka_stream":
+            from snappydata_tpu_torch.streaming.kafka import (KafkaSource,
+                                                        resolve_broker)
+
+            topic = opts.get("topic") or opts.get("subscribe")
+            brokers = opts.get("brokers") or opts.get(
+                "kafka.bootstrap.servers")
+            if not topic or not brokers:
+                raise ValueError("kafka_stream requires OPTIONS "
+                                 "(topic '...', brokers '...')")
+            source = KafkaSource(
+                self, f"stream_{tname}", resolve_broker(brokers), topic,
+                [n for n in schema.names() if not n.startswith("__")],
+                max_records_per_batch=int(
+                    opts.get("maxrecordsperbatch", "10000")))
+        else:
+            source = MemorySource()
+        # backing storage: a normal column table holding the stream's
+        # materialized contents (queryable like any table); if_not_exists
+        # also covers recovery, where the table was already restored
+        self.catalog.create_table(stmt.name, schema, "column", stmt.options,
+                                  if_not_exists=True, key_columns=keys)
+        query = StreamingQuery(
+            self, f"stream_{tname}", source, stmt.name,
+            conflation=opts.get("conflation", "false").lower() == "true",
+            interval_s=interval, stamp_arrivals=True)
+        self.catalog._streams[tname] = query
+        query.start()
+        return _status()
+
+    def streaming_queries(self) -> List[dict]:
+        """Progress of every registered stream (ref:
+        StreamingQueryManager.active + the structured-streaming UI)."""
+        return [q.progress() for q in
+                getattr(self.catalog, "_streams", {}).values()]
+
+    def stream_source(self, table: str):
+        """The MemorySource feeding a memory_stream table (programmatic
+        batch injection)."""
+        q = getattr(self.catalog, "_streams", {}).get(table.lower())
+        if q is None:
+            raise ValueError(f"not a stream table: {table}")
+        return q.source
+
+    def _rewrite_stream_windows(self, plan: ast.Plan) -> ast.Plan:
+        """FROM t WINDOW (DURATION d [, SLIDE s]) → arrival-time filter
+        over the stream table's hidden __arrival_ts column, evaluated at
+        EXECUTION time. The cutoff is a plain literal, so tokenization
+        turns it into a rebindable param — the cached compiled plan serves
+        every window evaluation (ref: WindowLogicalPlan/SchemaDStream)."""
+        import dataclasses as _dc
+        import time as _time
+
+        def has_window(p) -> bool:
+            if isinstance(p, ast.WindowedRelation):
+                return True
+            for k in p.children():
+                if has_window(k):
+                    return True
+            for e in ast.plan_exprs(p):
+                for x in ast.walk(e):
+                    if isinstance(x, (ast.ScalarSubquery, ast.InSubquery,
+                                      ast.ExistsSubquery)) \
+                            and has_window(x.plan):
+                        return True
+            return False
+
+        if not has_window(plan):
+            return plan  # the common case allocates nothing
+
+        def rec(p: ast.Plan) -> ast.Plan:
+            if isinstance(p, ast.WindowedRelation):
+                inner = p.child
+                nm = inner.name if isinstance(inner,
+                                              ast.UnresolvedRelation) else None
+                info = self.catalog.lookup_table(nm) if nm else None
+                if info is None:
+                    raise AnalysisError(f"table or view not found: {nm}")
+                if all(f.name != "__arrival_ts"
+                       for f in info.schema.fields):
+                    raise AnalysisError(
+                        "WINDOW (DURATION ...) applies only to STREAM "
+                        "tables")
+                start = _time.time() - p.duration_s
+                if p.slide_s:
+                    start = int(start / p.slide_s) * p.slide_s
+                cond = ast.BinOp(
+                    ">=",
+                    ast.Col("__arrival_ts",
+                            inner.alias or nm.split(".")[-1]),
+                    ast.Lit(int(start * 1e6), T.TIMESTAMP))
+                return ast.Filter(inner, cond)
+            kids = p.children()
+            if not kids:
+                return p
+            if isinstance(p, (ast.Join, ast.Union, ast.SetOp)):
+                p = _dc.replace(p, left=rec(p.left), right=rec(p.right))
+            else:
+                p = _dc.replace(p, child=rec(kids[0]))
+            return p
+
+        def sub_fn(e: ast.Expr) -> ast.Expr:
+            # windows inside subquery expressions (EXISTS/IN/scalar) must
+            # rewrite BEFORE decorrelation splices their plans into joins
+            if isinstance(e, (ast.ScalarSubquery, ast.InSubquery,
+                              ast.ExistsSubquery)):
+                return _dc.replace(e, plan=rec(e.plan))
+            return e
+
+        return ast.transform_plan_exprs(rec(plan), sub_fn)
 
     def _create_sample_table(self, stmt: ast.CreateTable) -> Result:
         """CREATE SAMPLE TABLE s ON base OPTIONS (qcs 'a,b',
@@ -2326,6 +2518,10 @@ class SnappySession:
                 idxs.pop(iname)
                 getattr(self.catalog, "_aux_ddl", {}).pop(
                     f"index:{iname}", None)
+            # stream tables: stop the feeding query
+            stream = getattr(self.catalog, "_streams", {}).pop(tname, None)
+            if stream is not None:
+                stream.stop()
             # TopKs over the dropped table: deregister (a persisted stale
             # definition would fail recovery)
             defs = getattr(self.catalog, "_topk_defs", {})
@@ -2464,12 +2660,24 @@ class SnappySession:
             _mv.fold_ingest(self.catalog, info.name, arrays, nulls)
 
     def _create_table(self, stmt: ast.CreateTable) -> Result:
+        if not stmt.name.split(".")[-1].startswith("__"):
+            # '__' column names are reserved for internal columns (hidden
+            # from SELECT * / DESCRIBE, auto-filled on INSERT): a user
+            # column there would silently disappear.  Internal scratch
+            # tables (themselves '__'-named) may use them freely
+            for c in stmt.columns:
+                if c.name.startswith("__"):
+                    raise ValueError(
+                        f"column names starting with '__' are reserved "
+                        f"({c.name!r})")
         if stmt.provider == "sample" and not stmt.stream:
             return self._create_sample_table(stmt)
-        if stmt.stream or stmt.provider not in ("column", "row"):
+        if stmt.stream:
+            return self._create_stream_table(stmt)
+        if stmt.provider not in ("column", "row"):
             raise NotImplementedError(
-                "only CREATE TABLE ... USING column | row and CREATE "
-                "SAMPLE TABLE are ported")
+                "only CREATE TABLE ... USING column | row, CREATE STREAM "
+                "TABLE and CREATE SAMPLE TABLE are ported")
         if stmt.as_select is not None:
             if stmt.if_not_exists and \
                     self.catalog.lookup_table(stmt.name) is not None:
@@ -2516,16 +2724,26 @@ class SnappySession:
                 raise ValueError("INSERT column count mismatch")
             name_to_src = {c.lower(): i for i, c in enumerate(stmt.columns)}
         else:
-            if len(src.columns) != len(schema):
+            visible = [f for f in schema.fields
+                       if not f.name.startswith("__")]
+            if len(src.columns) not in (len(schema), len(visible)):
                 raise ValueError(
                     f"INSERT arity mismatch: {len(src.columns)} vs "
-                    f"{len(schema)}")
-            name_to_src = {f.name.lower(): i
-                           for i, f in enumerate(schema.fields)}
+                    f"{len(visible)}")
+            # internal columns (a stream table's __arrival_ts) are
+            # invisible to plain INSERTs and auto-stamped below
+            base = schema.fields \
+                if len(src.columns) == len(schema) else visible
+            name_to_src = {f.name.lower(): i for i, f in enumerate(base)}
         arrays, null_masks = [], []
         n = src.num_rows
+        now_us = int(time.time() * 1e6)
         for f in schema.fields:
             i = name_to_src.get(f.name.lower())
+            if i is None and f.name == "__arrival_ts":
+                arrays.append(np.full(n, now_us, dtype=np.int64))
+                null_masks.append(np.zeros(n, dtype=np.bool_))
+                continue
             if i is None:  # unmentioned column -> all NULL
                 arrays.append(np.zeros(n, dtype=f.dtype.np_dtype)
                               if f.dtype.name != "string"

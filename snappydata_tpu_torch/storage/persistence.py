@@ -6,11 +6,11 @@ manifests), so either package recovers a data directory the other wrote.
 Views, materialized views (their [G] state checkpoints under
 `views/<name>.state` with its WAL fence, `checkpoint_matview`), SQL
 functions, row-level policies, secondary indexes, sample tables, TopKs,
-grants and deployed code (copied under `deploy/<name>/`) persist and
-recover as the reference's do.  Left out with the subsystem it serves:
-the re-registration of streams on recovery — a data directory that
-records a stream raises NotImplementedError when it is recovered, never
-skipping it silently.
+grants, deployed code (copied under `deploy/<name>/`) and stream tables
+(their feeding queries re-register through the replay of their DDL)
+persist and recover as the reference's do.  A data directory whose
+catalog records state of a kind the port does not know raises
+NotImplementedError when it is recovered, never skipping it silently.
 
 The reference persists regions as oplogs/krfs in disk stores with crash
 recovery on boot, plus backup/restore CLI (SURVEY.md §5 checkpoint/resume;
@@ -1345,10 +1345,10 @@ class DiskStore:
         ordered replay of the global WAL fenced per table on the
         checkpoint's wal_seq, then views, materialized views (their
         checkpointed state, then the WAL tail past each one's watermark)
-        and functions, policies, indexes and deployed code, then the
-        grants, the sample tables' maintainers and the TopKs.  A
-        directory that records a stream raises NotImplementedError:
-        streams are not ported."""
+        and functions, policies, indexes, deployed code and stream feeds,
+        then the grants, the sample tables' maintainers and the TopKs.  A
+        catalog that records auxiliary state of an unknown kind raises
+        NotImplementedError."""
         from snappydata_tpu_torch import config
         from snappydata_tpu_torch.catalog import Catalog
         from snappydata_tpu_torch.engine.executor import Executor
@@ -1367,7 +1367,8 @@ class DiskStore:
                 meta = json.load(fh)
         unported = sorted(k for k in (meta.get("aux_ddl") or {})
                           if not k.startswith(("function:", "policy:",
-                                               "index:", "deploy:")))
+                                               "index:", "deploy:",
+                                               "stream:")))
         if unported:
             raise NotImplementedError(
                 f"{self.path}: the catalog records {', '.join(unported)}, "

@@ -1619,3 +1619,132 @@ def test_cuda_for_user_keeps_the_parent_device(cuda_device):
         assert kr.masked_kahan_sum.launches == n0 + 1
     finally:
         props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+def _serve_flight(s):
+    import threading
+
+    from snappydata_tpu_torch.cluster.flight_server import SnappyFlightServer
+
+    srv = SnappyFlightServer(s)
+    threading.Thread(target=srv.serve, daemon=True).start()
+    srv.wait_ready()
+    return srv
+
+
+@pytest.mark.cuda
+def test_cuda_flight_and_rest_q6_launch_kahan_on_the_session_card(
+        cuda_device):
+    """Q6 served through Flight (a gRPC thread pyarrow started) and
+    through REST `POST /sql` (a ThreadingHTTPServer thread) runs on the
+    server session's card: one Kahan launch each, the answer equal to
+    the session's own; a served Q1 makes one grouped launch."""
+    import json
+    import urllib.request
+
+    from snappydata_tpu_torch.cluster.client import SnappyClient
+    from snappydata_tpu_torch.cluster.rest import RestService
+    from snappydata_tpu_torch.observability import TableStatsService
+
+    s, tpch, props, saved = _serving_lineitem()
+    srv = _serve_flight(s)
+    svc = RestService(s, TableStatsService(s.catalog)).start()
+    c = SnappyClient(address=f"127.0.0.1:{srv.port}")
+    try:
+        local6 = s.sql(tpch.Q6).rows()
+        local1 = s.sql(tpch.Q1).rows()
+        n0 = kr.masked_kahan_sum.launches
+        t = c.sql(tpch.Q6)
+        assert kr.masked_kahan_sum.launches == n0 + 1
+        assert t.column(0)[0].as_py() == local6[0][0]
+        g0 = gr.grouped_reduce.launches
+        t1 = c.sql(tpch.Q1)
+        assert gr.grouped_reduce.launches == g0 + 1
+        assert [tuple(r.values()) for r in t1.to_pylist()] == [
+            tuple(r) for r in local1]
+        n0 = kr.masked_kahan_sum.launches
+        req = urllib.request.Request(
+            f"http://{svc.host}:{svc.port}/sql",
+            data=json.dumps({"sql": tpch.Q6}).encode(),
+            headers={"Content-Type": "application/json"})
+        body = json.loads(urllib.request.urlopen(req).read())
+        assert kr.masked_kahan_sum.launches == n0 + 1
+        assert body["rows"][0][0] == local6[0][0]
+    finally:
+        c.close()
+        svc.stop()
+        srv.shutdown()
+        s.stop()
+        props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+@pytest.mark.cuda
+def test_cuda_handler_without_its_card_raises(cuda_device, monkeypatch):
+    """A server whose session names a card the machine lacks: the served
+    query raises through Flight, and neither the kernel nor its plain
+    CPU version runs."""
+    import pyarrow.flight as flight
+
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.cluster.client import SnappyClient
+    from snappydata_tpu_torch.utils import tpch
+
+    plain_calls = []
+    real_plain = kr.masked_kahan_sum_plain
+    monkeypatch.setattr(kr, "masked_kahan_sum_plain",
+                        lambda *a, **kw: plain_calls.append(1)
+                        or real_plain(*a, **kw))
+    missing = torch.device("cuda", torch.cuda.device_count())
+    s = SnappySession(catalog=Catalog(), device=missing)
+    s.sql(tpch.LINEITEM_DDL)
+    s.insert_arrays("lineitem", list(tpch.gen_lineitem(10_000, 7).values()))
+    srv = _serve_flight(s)
+    c = SnappyClient(address=f"127.0.0.1:{srv.port}")
+    try:
+        n0 = kr.masked_kahan_sum.launches
+        with pytest.raises(flight.FlightError):
+            c.sql(tpch.Q6)
+        assert kr.masked_kahan_sum.launches == n0
+        assert not plain_calls
+    finally:
+        c.close()
+        srv.shutdown()
+        s.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_stream_micro_batches_reach_both_kernels(cuda_device):
+    """A memory stream on the card: its micro-batch thread appends on the
+    session's device, and Q6 / Q1 over the stream table launch the Kahan
+    and the grouped kernels once each."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.utils import tpch
+
+    props = config.global_properties()
+    saved = (props.pallas_reduce, props.pallas_group_reduce)
+    props.pallas_reduce = props.pallas_group_reduce = True
+    s = SnappySession(catalog=Catalog())
+    try:
+        cols = tpch.gen_lineitem(200_000, 7)
+        columns = tpch.LINEITEM_DDL.split("(", 1)[1].split(") USING")[0]
+        s.sql(f"CREATE STREAM TABLE ls ({columns}) USING memory_stream "
+              "OPTIONS (interval '0.01')")
+        src = s.stream_source("ls")
+        for lo in range(0, 200_000, 50_000):
+            src.add_batch({k: v[lo:lo + 50_000] for k, v in cols.items()})
+        deadline = time.time() + 60
+        while time.time() < deadline and \
+                s.sql("SELECT count(*) FROM ls").rows()[0][0] < 200_000:
+            time.sleep(0.05)
+        n0, g0 = kr.masked_kahan_sum.launches, gr.grouped_reduce.launches
+        s.sql(tpch.Q6.replace("lineitem", "ls")).rows()
+        s.sql(tpch.Q1.replace("lineitem", "ls")).rows()
+        assert kr.masked_kahan_sum.launches == n0 + 1
+        assert gr.grouped_reduce.launches == g0 + 1
+    finally:
+        for q in s.catalog._streams.values():
+            q.stop()
+        s.stop()
+        props.pallas_reduce, props.pallas_group_reduce = saved

@@ -254,3 +254,71 @@ def test_observability_security_and_code_surfaces_import_no_jax():
     out = _run(_OBSERVABILITY_SECURITY)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+_FRONT_DOORS_STREAMS = r"""
+import json, os, sys, tempfile, threading, time, urllib.request
+import numpy as np
+from snappydata_tpu_torch import SnappySession, reliability
+from snappydata_tpu_torch.catalog import Catalog
+from snappydata_tpu_torch.cluster import SnappyClient
+from snappydata_tpu_torch.cluster import flight_server, flightsql, rest, retry
+from snappydata_tpu_torch.observability import TableStatsService
+from snappydata_tpu_torch.sql import plan_json
+from snappydata_tpu_torch.sql.parser import parse
+from snappydata_tpu_torch.streaming import kafka, query, sink
+
+s = SnappySession(catalog=Catalog(), device="cpu")
+s.sql("CREATE TABLE t (g BIGINT, v DOUBLE) USING column")
+s.insert_arrays("t", [np.arange(100) % 4, np.arange(100, dtype=float)])
+srv = flight_server.SnappyFlightServer(s)
+threading.Thread(target=srv.serve, daemon=True).start()
+srv.wait_ready()
+c = SnappyClient(address=f"127.0.0.1:{srv.port}")
+assert c.sql("SELECT sum(v) FROM t").column(0)[0].as_py() == 4950.0
+plan = plan_json.to_json(parse("SELECT g, count(*) FROM t GROUP BY g "
+                               "ORDER BY g").plan)
+assert c.plan(plan).num_rows == 4
+fs = flightsql.FlightSqlClient(f"127.0.0.1:{srv.port}")
+assert fs.execute("SELECT count(*) AS n FROM t").column(0)[0].as_py() == 100
+fs.close()
+c.close()
+srv.shutdown()
+svc = rest.RestService(s, TableStatsService(s.catalog)).start()
+req = urllib.request.Request(
+    f"http://{svc.host}:{svc.port}/sql",
+    data=json.dumps({"sql": "SELECT count(*) FROM t"}).encode(),
+    headers={"Content-Type": "application/json"})
+assert json.loads(urllib.request.urlopen(req).read())["rows"] == [[100]]
+svc.stop()
+assert reliability.is_retryable(ConnectionError())
+assert retry.ExponentialBackoff(0.1, 1.0, jitter=0.0).delay(1) == 0.2
+d = tempfile.mkdtemp()
+b = kafka.FileBroker(os.path.join(d, "b"), num_partitions=2)
+b.produce("ev", [{"id": i, "v": 1.0} for i in range(50)])
+s2 = SnappySession(catalog=Catalog(), data_dir=os.path.join(d, "s"),
+                   recover=False, device="cpu")
+s2.sql("CREATE STREAM TABLE ks (id BIGINT, v DOUBLE) USING kafka_stream "
+       f"OPTIONS (topic 'ev', brokers 'file://{d}/b', key_columns 'id', "
+       "interval '0.01')")
+deadline = time.time() + 20
+while time.time() < deadline and \
+        s2.sql("SELECT count(*) FROM ks").rows()[0][0] < 50:
+    time.sleep(0.05)
+assert s2.sql("SELECT count(*) FROM ks WINDOW (DURATION 1 MINUTES)"
+              ).rows() == [(50,)]
+s2.sql("DROP TABLE ks")
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_front_doors_plan_json_and_streams_import_no_jax():
+    """`cluster/` (Flight, Flight SQL, REST, the client and its retry
+    layer), `sql/plan_json.py` and `streaming/` run without JAX or the
+    JAX package."""
+    out = _run(_FRONT_DOORS_STREAMS)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout

@@ -372,9 +372,10 @@ def test_storage_format_parity(tmp_path, writer):
 
 
 def test_unported_catalog_state_raises(tmp_path):
-    """A directory recording a stream table cannot be recovered by the
-    port (streams are not ported), and says so instead of skipping the
-    stream.  Views, materialized views and functions recover
+    """A directory recording auxiliary catalog state of a kind the port
+    does not know cannot be recovered, and says so instead of skipping
+    it.  Stream tables re-register (tests/test_torch_streaming.py);
+    views, materialized views and functions recover
     (tests/test_torch_matviews.py), policies and indexes
     (tests/test_torch_policies_indexes.py), grants
     (tests/test_torch_security.py) and deployed code
@@ -388,15 +389,12 @@ def test_unported_catalog_state_raises(tmp_path):
     s.sql("CREATE POLICY p1 ON t USING a > 2")
     s.sql("GRANT SELECT ON t TO u1")
     s.disk_store.close()
-    # the key a stream table's DDL leaves in the catalog (the reference's
-    # `_sql_statement`, CREATE STREAM TABLE)
+    # an auxiliary key of a kind neither package writes
     path = os.path.join(d, "catalog.json")
     with open(path) as fh:
         meta = json.load(fh)
-    meta["aux_ddl"]["stream:k"] = (
-        "CREATE STREAM TABLE k (id BIGINT) USING kafka_stream "
-        "OPTIONS (topic 't', brokers 'inproc://b')")
+    meta["aux_ddl"]["unknown:k"] = "CREATE TABLE k (id BIGINT) USING column"
     with open(path, "w") as fh:
         json.dump(meta, fh)
-    with pytest.raises(NotImplementedError, match="stream:k"):
+    with pytest.raises(NotImplementedError, match="unknown:k"):
         SnappySession(data_dir=d, device="cpu")

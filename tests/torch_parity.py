@@ -3,7 +3,9 @@ one port session on the CPU, the same statements through both, rows and
 routing counters compared (parity bar: ROADMAP "Port rules")."""
 
 import contextlib
+import os
 import decimal
+import time
 
 import numpy as np
 import pytest
@@ -122,3 +124,104 @@ class Pair:
         rows, moved = self.run(q, params)
         assert moved["host_fallbacks"] == 0, f"{q} left the device"
         return rows
+
+
+# -- reference test cases run against the port -------------------------
+
+TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def port_cases(ref_file, names, edits=(), rename=None):
+    """The named test functions and fixtures of the reference test file
+    `ref_file` (under tests/), compiled against the port: the source,
+    after the `edits` (exact text, or a compiled pattern; each must
+    occur), reads every
+    `snappydata_tpu` module path as `snappydata_tpu_torch`, so each case
+    asserts the reference's own rows, errors and counters of the port.
+    Returns {name: object}, keyed by `rename[name]` where given; the
+    caller puts them in its module namespace for pytest to collect.  The
+    port's sessions default to the CPU inside `cpu_default()`."""
+    import re
+    import types
+
+    path = os.path.join(TESTS_DIR, ref_file)
+    with open(path) as fh:
+        src = fh.read()
+    for old, new in edits:
+        if isinstance(old, re.Pattern):
+            src, n = old.subn(new, src)
+            assert n, (ref_file, old.pattern)
+        else:
+            assert old in src, (ref_file, old)
+            src = src.replace(old, new)
+    src = re.sub(r"\bsnappydata_tpu\b", "snappydata_tpu_torch", src)
+    mod = types.ModuleType("ported_" + ref_file[:-3])
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    rename = rename or {}
+    return {rename.get(n, n): getattr(mod, n) for n in names}
+
+
+@contextlib.contextmanager
+def cpu_default():
+    """A port session that names no device runs on the CPU here (the
+    reference's test cases construct `SnappySession()`); an explicit
+    device is kept."""
+    import snappydata_tpu_torch.session as port_session
+
+    orig = port_session.resolve_device
+    port_session.resolve_device = \
+        lambda device=None: orig("cpu" if device is None else device)
+    try:
+        yield
+    finally:
+        port_session.resolve_device = orig
+
+
+@contextlib.contextmanager
+def ledger_guard():
+    """Both brokers' ledgers as they were: a table a test (or a module
+    fixture's server) keeps alive must not stay ledgered after it, where
+    the tier ladder's pass would walk it for later tests (ROADMAP C4)."""
+    from snappydata_tpu.resource.broker import global_broker as ref_broker
+    from snappydata_tpu_torch.resource.broker import global_broker
+
+    brokers = (ref_broker(), global_broker())
+    before = []
+    for b in brokers:
+        with b._tables_lock:
+            before.append(set(b._tables))
+    try:
+        yield
+    finally:
+        for b, keys in zip(brokers, before):
+            with b._tables_lock:
+                for k in [k for k in b._tables if k not in keys]:
+                    b._tables.pop(k, None)
+
+
+def stop_flight(srv):
+    """Shut Flight server `srv` down.  The port's server then waits
+    SHUTDOWN_GRACE_S itself (snappydata_tpu_torch/cluster/flight_server.py
+    `shutdown`); after a reference server the test waits as long, so the
+    server the next test creates keeps its listener."""
+    from snappydata_tpu_torch.cluster import flight_server
+
+    srv.shutdown()
+    if not isinstance(srv, flight_server.SnappyFlightServer):
+        time.sleep(flight_server.SHUTDOWN_GRACE_S)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def front_door_env():
+    """Module-wide: port sessions default to the CPU and both ledgers are
+    restored at teardown (set up before, and torn down after, every
+    module fixture of a front-door test module)."""
+    with cpu_default(), ledger_guard():
+        yield
+
+
+@pytest.fixture(autouse=True)
+def _ledger_per_test():
+    with ledger_guard():
+        yield
