@@ -233,9 +233,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    `q1_mv`, a materialized Q1 (keys, three sums, count): the create's
    seconds (one full refresh), the warm read's, the broker's
    `matview_state_bytes` beside `state_nbytes()`, `memory_allocated`
-   and the ledger's device bytes per table before and after; (d) inserts of 1, 1,024 and 131,072 rows, each
-   insert's seconds and its fold's share, the view against numpy after
-   each; (e) a DELETE subtracts (the view stays fresh and exact), an
+   and the ledger's device bytes per table before and after; (d) inserts
+   of 1 and 1,024 rows (the 131,072-row insert was cut to keep the run's
+   time), each insert's seconds and its fold's share, the view against
+   numpy after each; (e) a DELETE of the rows of orders 1 ..
+   `VIEW_DELETE_KEYS` subtracts (the view stays fresh and exact; a few
+   dozen rows, so its capture decodes a few batches, not every batch as
+   the 1,074,563-row DELETE of l_shipdate > 1998-11-01 did), an
    UPDATE of l_discount marks it stale and the next read refreshes in
    full, and DROP MATERIALIZED VIEW leaves no device bytes under the
    view, its backing table or its scratch tables; the grouped kernel on (c)'s refresh inputs and the Kahan kernel
@@ -341,9 +345,28 @@ Phases, in order; any failure exits non-zero before the result lines:
    rest is published: every one of `KAFKA_RECORDS` ids exactly once;
    (c) `q1_mv` over a keyless memory stream folds once per micro-batch
    (`MV_BATCHES`, no full refresh) and equals its defining query;
-27. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+27. right after phase 25, on the main session (no new data): a
+   `LocatorNode`, a `ServerNode` and a primary `LeadNode` (`lease_s` 0.5,
+   `MEMBER_LEASE_S`) in this process, each over a session of its own on
+   the main catalog.  (a) Q1 and Q6 through `SnappyClient(locator=)`,
+   once and --reps times warm: rows equal `session.sql`'s bit for bit,
+   one grouped (Q1) or Kahan (Q6) launch a request, the warm wall beside
+   phase 25's direct-address Flight time; (b) the member the client
+   talks to stops: the next Q6, its reconnect included, equal, and the
+   member it failed over to; (c) a second server and a standby lead
+   join, the primary stops: seconds until the standby is primary and its
+   `/status/api/v1/cluster` lists the live members, against `lease_s`
+   and `member_timeout_s`, then Q1 through the new primary's Flight
+   address (equal, one launch); (d) `python -m snappydata_tpu_torch
+   server --locator ...` (no --device: cuda) in a process of its own,
+   against a locator of its own, started before phase 25 so that its
+   interpreter and CUDA context come up while phase 25 runs, and
+   stopped after phase 27 whatever happened: its start seconds, a table
+   made by `sql --locator ... -e` (a CTAS), read by another `sql -e`
+   beside `status`, which lists that one server; every process stopped;
+28. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
-   18 - 26.
+   18 - 27.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -2078,8 +2101,9 @@ CAPPED_Q1 = ("SELECT l_returnflag, l_linestatus, "
              "WHERE l_shipdate <= DATE '1998-12-01' - INTERVAL '90' DAY "
              "GROUP BY l_returnflag, l_linestatus "
              "ORDER BY l_returnflag, l_linestatus")
-FOLD_ROWS = (1, 1024, 131_072)
-VIEW_DELETE = "DELETE FROM lineitem WHERE l_shipdate > DATE '1998-11-01'"
+FOLD_ROWS = (1, 1024)         # 131,072 cut to keep the run's time
+VIEW_DELETE_KEYS = 5          # DELETE the rows of orders 1 .. 5
+VIEW_DELETE = f"DELETE FROM lineitem WHERE l_orderkey <= {VIEW_DELETE_KEYS}"
 VIEW_UPDATE_KEYS = 2000       # UPDATE l_discount of orders 1 .. 2000
 DURABLE_VIEW_ROWS = 1_000_000   # phase 21 (f), cut to keep the run's time
 CHEAP_VIEW = ("CREATE VIEW cheap AS SELECT l_returnflag, l_extendedprice "
@@ -2354,7 +2378,7 @@ def views_path(session, tpch, li, post, first, args):
              f"state_nbytes {mvmod.matview_state_nbytes()}")
     check_rows("q1_mv vs numpy", rows, mv_oracle(arrs, tpch))
 
-    # (d) folds of 1, 1,024 and 131,072 inserted rows
+    # (d) folds of 1 and 1,024 inserted rows
     for i, n in enumerate(FOLD_ROWS):
         extra = tpch.gen_lineitem(n, args.seed + 20 + i)
         f0 = reg.counter("view_delta_folds")
@@ -2393,7 +2417,7 @@ def views_path(session, tpch, li, post, first, args):
     t0 = time.perf_counter()
     n_del = int(session.sql(VIEW_DELETE).rows()[0][0])
     del_s = time.perf_counter() - t0
-    keep = ~(arrs["l_shipdate"] > tpch._days("1998-11-01"))
+    keep = ~(arrs["l_orderkey"] <= VIEW_DELETE_KEYS)
     arrs = {k: v[keep] for k, v in arrs.items()}
     rows = session.sql(Q1_MV_READ).rows()
     log(f"q1_mv delete rows {n_del} s {del_s:.4f} stale {mv.stale}")
@@ -4229,7 +4253,8 @@ def flight_clients(address, binds, n_clients):
 def front_door_path(session, tpch, args):
     """Phase 25 (a) - (f) on the main session as phase 24 leaves it: one
     SnappyFlightServer and one RestService over it on 127.0.0.1, port 0.
-    Returns the two kernels' launches."""
+    Returns the two kernels' launches and (a)'s warm seconds of the Flight
+    Q1 and Q6 ({"q1": s, "q6": s})."""
     import threading
 
     import numpy as np
@@ -4251,6 +4276,7 @@ def front_door_path(session, tpch, args):
     props.pallas_group_reduce = True
     reg = global_registry()
     total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    flight_warm = {}
     t_phase = time.perf_counter()
     srv = flight_server.SnappyFlightServer(session)
     threading.Thread(target=srv.serve, daemon=True).start()
@@ -4293,6 +4319,7 @@ def front_door_path(session, tpch, args):
                          f"session.sql's {local}")
             warm = sorted(times[1:])[len(times[1:]) // 2]
             dwarm = sorted(direct)[len(direct) // 2]
+            flight_warm[name] = warm
             log(f"front_door flight_{name} first_s {times[0]:.4f} warm_s "
                 f"{warm:.4f} direct_warm_s {dwarm:.4f} front_door_ms "
                 f"{(warm - dwarm) * 1e3:.2f} rows {len(local)} equal True "
@@ -4499,7 +4526,285 @@ def front_door_path(session, tpch, args):
     log("answers ok: Flight, Flight SQL and REST equal session.sql; the "
         "do_put table's Q6 equals numpy")
     log(f"front_door_path_s {time.perf_counter() - t_phase:.3f}")
+    return total, flight_warm
+
+
+# -- phase 27: membership (locator, server and lead nodes, the CLI) --------
+
+MEMBER_LEASE_S = 0.5          # the leads' lease: renewed every lease_s / 2
+CLI_TABLE = ("CREATE TABLE cli_t USING column AS SELECT 1 AS k, 2.5 AS v "
+             "UNION ALL SELECT 2, 3.5 UNION ALL SELECT 3, 4.0")
+CLI_QUERY = "SELECT count(*) AS n, sum(v) AS s FROM cli_t"
+CLI_ROWS = ["n | s", "--+--", "3 | 10.0", "(1 rows)"]
+
+
+def _cli(root, *argv):
+    """`python -m snappydata_tpu_torch *argv` from the checkout at `root`
+    (stdout, stderr and the exit code are the caller's to read)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return [sys.executable, "-m", "snappydata_tpu_torch", *argv], env
+
+
+def _cli_run(root, *argv):
+    cmd, env = _cli(root, *argv)
+    out = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"python -m snappydata_tpu_torch {' '.join(argv)} exited "
+             f"{out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout
+
+
+class CliMember:
+    """Phase 27 (d)'s member: a LocatorNode in this process and `python
+    -m snappydata_tpu_torch server --locator ...` (no --device, so its
+    session is on cuda) in a process of its own.  main() starts it before
+    phase 25, so the process's interpreter and CUDA context come up while
+    phase 25 runs, and stops it after phase 27 whatever happened; its
+    stdout is read on a thread so the startup line can be waited for
+    with a deadline."""
+
+    def __init__(self, root, device):
+        import queue
+        import threading
+
+        from snappydata_tpu_torch.cluster import LocatorNode
+
+        self.root = root
+        self.device = device
+        self.locator = LocatorNode().start()
+        cmd, env = _cli(root, "server", "--locator", self.locator.address)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=root, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self.lines = queue.Queue()
+        self.started_s = None    # seconds from the spawn to the line
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        from snappydata_tpu_torch import config
+
+        with config.device_scope(self.device):
+            for line in self.proc.stdout:
+                if self.started_s is None:
+                    self.started_s = time.perf_counter() - self.t0
+                self.lines.put(line.rstrip("\n"))
+            self.lines.put(None)
+
+    def startup_line(self, timeout=300.0):
+        import queue
+
+        try:
+            line = self.lines.get(timeout=timeout)
+        except queue.Empty:
+            line = None
+        if line is None:
+            fail(f"the CLI server printed no startup line: "
+                 f"{self.proc.stderr.read()[-2000:]}")
+        return line
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self._reader.join(timeout=30)
+        self.proc.stdout.close()
+        self.proc.stderr.close()
+        self.locator.stop()
+
+
+def membership_path(session, tpch, flight_warm, cli, args):
+    """Phase 27 (a) - (d) on the main session as phase 25 leaves it: a
+    LocatorNode, a LeadNode and a ServerNode in this process, each over
+    a session of its own on the main catalog, then `cli`, the CliMember
+    main() started before phase 25.  Returns the two kernels' launches."""
+    from snappydata_tpu_torch import config
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    t_phase = time.perf_counter()
+    total = member_nodes(session, tpch, flight_warm, args)
+    cli_members(cli)
+    log("answers ok: Q1 / Q6 through a discovered member, after a client "
+        "failover and through the new primary lead equal session.sql; the "
+        "CLI's server answered its table and status listed it")
+    log(f"membership_path_s {time.perf_counter() - t_phase:.3f}")
     return total
+
+
+def member_nodes(session, tpch, flight_warm, args):
+    """Phase 27 (a) - (c): discovery, a client failover, a lead
+    failover.  Returns the two kernels' launches."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.cluster import (LeadNode, LocatorNode,
+                                              ServerNode, SnappyClient)
+
+    total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
+    locator = LocatorNode().start()
+    timeout_s = locator.locator.state.timeout_s
+    member = lambda: SnappySession(catalog=session.catalog)  # noqa: E731
+    nodes = []
+    client = None
+    try:
+        # (a) discovery: the server registers first, so the client that
+        # asks the locator connects to it
+        server = ServerNode(locator.address, member()).start()
+        nodes.append(server)
+        lead = LeadNode(locator.address, member(),
+                        lease_s=MEMBER_LEASE_S).start(wait_for_primary=True)
+        nodes.append(lead)
+        if not lead.is_primary:
+            fail("the lead did not become primary")
+        client = SnappyClient(locator=locator.address)
+        want = {"q1": session.sql(tpch.Q1).rows(),
+                "q6": session.sql(tpch.Q6).rows()}
+        for name, q, kernel in (("q1", tpch.Q1, "grouped_reduce"),
+                                ("q6", tpch.Q6, "masked_kahan_sum")):
+            times = []
+            for _ in range(1 + args.reps):
+                tbl, dt, lc = _served_once(lambda q=q: client.sql(q),
+                                           kernel)
+                _launch_sum(total, lc)
+                times.append(dt)
+                if _arrow_rows(tbl) != want[name]:
+                    fail(f"discovered {name}: {_arrow_rows(tbl)} != "
+                         f"session.sql's {want[name]}")
+            if client._conn_addr != server.flight_address:
+                fail(f"the client connected to {client._conn_addr}, not "
+                     f"the first registered member {server.flight_address}")
+            warm = sorted(times[1:])[len(times[1:]) // 2]
+            log(f"membership discovered_{name} first_s {times[0]:.4f} "
+                f"warm_s {warm:.4f} phase25_flight_warm_s "
+                f"{flight_warm[name]:.4f} member {server.member_id} rows "
+                f"{len(want[name])} equal True launches_per_run 1 {kernel}")
+
+        # (b) client failover: the member the client talks to stops
+        server.stop()
+        nodes.remove(server)
+        tbl, dt, lc = _served_once(lambda: client.sql(tpch.Q6),
+                                   "masked_kahan_sum")
+        _launch_sum(total, lc)
+        if _arrow_rows(tbl) != want["q6"]:
+            fail(f"Q6 after the failover: {_arrow_rows(tbl)} != "
+                 f"{want['q6']}")
+        if client._conn_addr != lead.flight_address:
+            fail(f"the client failed over to {client._conn_addr}, not the "
+                 f"live member {lead.flight_address}")
+        log(f"membership client_failover q6_s {dt:.4f} from "
+            f"{server.member_id} to {lead.member_id} ({lead.role}) equal "
+            f"True launches 1 masked_kahan_sum")
+        client.close()
+        client = None
+
+        # (c) lead failover: a second server and a standby lead join, the
+        # primary stops
+        server2 = ServerNode(locator.address, member()).start()
+        nodes.append(server2)
+        standby = LeadNode(locator.address, member(),
+                           lease_s=MEMBER_LEASE_S).start()
+        nodes.append(standby)
+        time.sleep(MEMBER_LEASE_S)
+        if standby.is_primary or not lead.is_primary:
+            fail("the standby took the lock from a live primary")
+        live = {server2.member_id, standby.member_id}
+        t0 = time.perf_counter()
+        lead.stop()
+        nodes.remove(lead)
+        stop_s = time.perf_counter() - t0
+        listed = set()
+        while time.perf_counter() - t0 < 30:
+            rest = standby.rest
+            if standby.is_primary and rest is not None:
+                body = _http(rest, "/status/api/v1/cluster")
+                listed = {m["member_id"] for m in body["members"]}
+                if listed == live:
+                    break
+            time.sleep(0.005)
+        failover_s = time.perf_counter() - t0
+        if listed != live:
+            fail(f"after the primary stopped the standby lead is primary "
+                 f"{standby.is_primary}, its cluster route lists {listed}, "
+                 f"not {live}")
+        direct = SnappyClient(address=standby.flight_address)
+        try:
+            tbl, dt, lc = _served_once(lambda: direct.sql(tpch.Q1),
+                                       "grouped_reduce")
+        finally:
+            direct.close()
+        _launch_sum(total, lc)
+        if _arrow_rows(tbl) != want["q1"]:
+            fail(f"Q1 through the new primary: {_arrow_rows(tbl)} != "
+                 f"{want['q1']}")
+        log(f"membership lead_failover s {failover_s:.4f} primary_stop_s "
+            f"{stop_s:.4f} lease_s {MEMBER_LEASE_S} member_timeout_s "
+            f"{timeout_s} new_primary {standby.member_id} cluster_members "
+            f"{sorted(listed)} q1_s {dt:.4f} equal True launches 1 "
+            f"grouped_reduce")
+    finally:
+        if client is not None:
+            client.close()
+        for node in reversed(nodes):
+            node.stop()
+        locator.stop()
+    return total
+
+
+def cli_members(cli):
+    """Phase 27 (d): the CliMember's server, a table made and read through
+    `sql --locator -e`, `status`."""
+    import re
+    import threading
+
+    from snappydata_tpu_torch import config
+
+    root, locator = cli.root, cli.locator.address
+    t0 = time.perf_counter()
+    line = cli.startup_line()
+    wait_s = time.perf_counter() - t0
+    m = re.fullmatch(r"server (server-[0-9a-f]{8}) flight at "
+                     r"(127\.0\.0\.1:\d+)", line)
+    if not m:
+        fail(f"the CLI server's startup line: {line!r}")
+    t0 = time.perf_counter()
+    created = _cli_run(root, "sql", "--locator", locator, "-e", CLI_TABLE)
+    create_s = time.perf_counter() - t0
+    both = {}
+
+    def run(key, *argv):
+        with config.device_scope(cli.device):
+            both[key] = _cli_run(root, *argv)
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=run, args=a) for a in (
+        ("query", "sql", "--locator", locator, "-e", CLI_QUERY),
+        ("status", "status", "--locator", locator))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    query_s = time.perf_counter() - t0
+    if set(both) != {"query", "status"}:
+        fail(f"the CLI's query and status did not both end: {sorted(both)}")
+    if both["query"].splitlines() != CLI_ROWS:
+        fail(f"sql -e {CLI_QUERY!r} printed {both['query']!r}")
+    status = both["status"].splitlines()
+    if status != [f"server   {m.group(1):24s} {m.group(2)}",
+                  "(1 members)"]:
+        fail(f"status printed {status}")
+    log(f"membership cli server {m.group(1)} startup_s {cli.started_s:.2f} "
+        f"startup_wait_s {wait_s:.2f} create_s {create_s:.2f} query_and_status_s {query_s:.2f} created "
+        f"{created.strip()} rows {both['query'].splitlines()[2]!r} status "
+        f"{status[0]!r}")
 
 
 # -- phase 26: streams ----------------------------------------------------
@@ -5226,14 +5531,35 @@ def main() -> int:
     # and the client, Q1 / Q6 served, a streamed scan, do_put, 1 / 4 / 16
     # Flight clients
     phase_clock.next(25)
+    # phase 27's CLI server comes up in a process of its own meanwhile
+    cli = CliMember(root, session.device)
     try:
-        f_launches = front_door_path(session, tpch, args)
-    except Exception as e:  # noqa: BLE001 - report the phase, then exit
-        fail(f"front-door path: {type(e).__name__}: {e}")
-    log(f"front_door_path_launches {json.dumps(f_launches)}")
-    for name, count in f_launches.items():
+        try:
+            f_launches, flight_warm = front_door_path(session, tpch, args)
+        except Exception as e:  # noqa: BLE001 - report the phase, then exit
+            fail(f"front-door path: {type(e).__name__}: {e}")
+        log(f"front_door_path_launches {json.dumps(f_launches)}")
+        for name, count in f_launches.items():
+            if count < 1:
+                fail(f"{name} did not launch on the front-door path")
+            launches[name] += count
+
+        # 27. membership on the same session: a locator, server and lead
+        # nodes, Q1 / Q6 through a discovered member, a client and a lead
+        # failover, then the CLI's server, `sql -e` and `status`
+        phase_clock.next(27)
+        try:
+            m_launches = membership_path(session, tpch, flight_warm, cli,
+                                         args)
+        except Exception as e:  # noqa: BLE001 - report the phase, then exit
+            fail(f"membership path: {type(e).__name__}: {e}")
+    finally:
+        cli.stop()
+    del flight_warm, cli
+    log(f"membership_path_launches {json.dumps(m_launches)}")
+    for name, count in m_launches.items():
         if count < 1:
-            fail(f"{name} did not launch on the front-door path")
+            fail(f"{name} did not launch on the membership path")
         launches[name] += count
 
     # 23. AQP: a stratified sample of a 2M-row lineitem, WITH ERROR,

@@ -14,11 +14,24 @@ Layer map (mirrors snappydata_tpu):
   engine/    — plan compiler + executor, expression lowering, host eval
   ops/       — the CUDA kernels' wrappers and the packed reductions
   csrc/      — CUDA C++ sources, built with nvcc at first use
-  cluster/   — one server's front doors: Arrow Flight / Flight SQL, REST,
-               the client and its retry layer
+  cluster/   — the locator, server and lead nodes and their front doors:
+               Arrow Flight / Flight SQL, REST, the client and its retry
+               layer
   streaming/ — micro-batch stream tables and the exactly-once sink
+  cli.py     — `python -m snappydata_tpu_torch` (nodes, SQL shell, backup)
+
+`SnappySession` is imported on first use, so the CLI's client commands
+(`sql`, `status`, `backup`, `restore`, `rebalance`) start without loading
+torch.
 """
 
-from snappydata_tpu_torch.session import SnappySession  # noqa: F401
-
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    if name == "SnappySession":
+        from snappydata_tpu_torch.session import SnappySession
+
+        globals()[name] = SnappySession
+        return SnappySession
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

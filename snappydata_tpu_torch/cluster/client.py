@@ -1,9 +1,10 @@
-"""Client: a Flight connection with deadlines, login, circuit breakers
-and at-most-once mutation retry (port of snappydata_tpu/cluster/
-client.py; the snappydata JDBC-driver analogue — jdbc:snappydata://
-host:port, jdbc/.../Constant.scala:29-33).  The port's client connects
-to a direct `address`; discovery through a locator comes with cluster
-membership and raises NotImplementedError until then."""
+"""Client: a failover-aware Flight connection with deadlines, login,
+circuit breakers and at-most-once mutation retry (port of
+snappydata_tpu/cluster/client.py; the snappydata JDBC-driver analogue —
+jdbc:snappydata://host:port with locator-based failover,
+jdbc/.../Constant.scala:29-33).  It connects to a direct `address` or
+discovers the members through a locator, and asks the locator again
+when every known member has failed."""
 
 from __future__ import annotations
 
@@ -31,9 +32,8 @@ class SnappyClient:
                  user: Optional[str] = None,
                  password: Optional[str] = None,
                  timeout_s: Optional[float] = None):
-        """Connect directly (`address`='host:port'); `locator` (discovery
-        through the locator service) needs cluster membership and raises
-        NotImplementedError.
+        """Connect directly (`address`='host:port') or discover query
+        servers through a locator ('host:port' of the locator service).
         `token` authenticates every request when the server has
         auth_tokens configured; `user`+`password` instead log in against
         the server's auth provider (BUILTIN/LDAP) for an ephemeral token —
@@ -46,11 +46,6 @@ class SnappyClient:
         cooperatively. None falls back to `client_timeout_s`; an
         ambient `reliability.deadline_scope` (the lead's scatter budget)
         overrides both with its shrinking remainder."""
-        if locator:
-            raise NotImplementedError(
-                "SnappyClient(locator=...) needs cluster membership (the "
-                "locator service), which is not ported yet; connect with "
-                "address='host:port'")
         self._token = token
         self._timeout_s = timeout_s
         self._conn_addr: Optional[str] = None   # address of _conn
@@ -63,6 +58,7 @@ class SnappyClient:
         if address:
             self._addresses.append(address)
         self._conn: Optional[flight.FlightClient] = None
+        self._locator = locator
         props = config.global_properties()
         # per-address circuit breakers: a member that failed establishment
         # breaker_failures times in a row is SKIPPED during failover while
@@ -74,6 +70,19 @@ class SnappyClient:
             props.retry_backoff_base_s, props.retry_backoff_max_s,
             jitter=props.retry_jitter,
             rng=random.Random(props.fault_seed))
+        if locator and not address:
+            self._refresh_from_locator()
+
+    def _refresh_from_locator(self) -> None:
+        from snappydata_tpu_torch.cluster.locator import LocatorClient
+
+        lc = LocatorClient(self._locator, member_id="client", role="client")
+        try:
+            members = lc.members()
+        finally:
+            lc.close()
+        self._addresses = [f"{m.host}:{m.port}" for m in members
+                           if m.port and m.role in ("server", "lead")]
 
     def _login(self, conn: flight.FlightClient) -> None:
         """Exchange user/password for a per-server ephemeral token."""
@@ -139,6 +148,15 @@ class SnappyClient:
             if conn is not None:
                 self._conn, self._conn_addr = conn, addr
                 return conn
+        if self._locator:
+            self._refresh_from_locator()
+            for addr in self._addresses:
+                if addr in skipped:
+                    continue
+                conn = self._try_establish(addr)
+                if conn is not None:
+                    self._conn, self._conn_addr = conn, addr
+                    return conn
         # last resort: open breakers never REDUCE availability — when no
         # healthy member connected, try the skipped ones anyway
         for addr in skipped:

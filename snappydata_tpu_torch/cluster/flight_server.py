@@ -23,8 +23,8 @@ served query runs on the server session's device or raises.  Results
 come off the card once per request, inside the executor's `transfer`
 span; `result_to_arrow` builds Arrow from those host arrays.  The
 bucket-moving actions (`MEMBERSHIP_ACTIONS`) serve the lead's placement
-and failover and raise NotImplementedError until cluster membership is
-ported.
+and failover and raise NotImplementedError until the distributed session
+is ported.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from snappydata_tpu_torch import types as T
 SHUTDOWN_GRACE_S = 0.05
 
 # actions of the cluster data plane (bucket placement, failover,
-# rebalance): they need the locator and the lead
+# rebalance): they need the distributed session over the data servers
 MEMBERSHIP_ACTIONS = ("repartition", "promote", "replicate",
                       "purge_replica", "purge_buckets", "demote",
                       "move_buckets")
@@ -913,13 +913,12 @@ class SnappyFlightServer(flight.FlightServerBase):
             yield flight.Result(json.dumps(stats).encode("utf-8"))
         elif name in MEMBERSHIP_ACTIONS:
             # the bucket-moving data plane serves the lead's placement,
-            # failover and rebalance: it comes with cluster membership
-            # (locator, lead, distributed session), which the port does
-            # not have yet
+            # failover and rebalance: it comes with the distributed
+            # session, which the port does not have yet
             raise NotImplementedError(
-                f"Flight action {name!r} needs cluster membership (the "
-                "locator, the lead and the distributed session), which "
-                "is not ported yet")
+                f"Flight action {name!r} needs the distributed session "
+                "(bucket placement over the data servers), which is not "
+                "ported yet")
         elif name == "export":
             # streamed table export for broadcast exchanges: THIS server
             # pushes its local shard of `table` into `dest` on every

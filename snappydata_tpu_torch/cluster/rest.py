@@ -1,8 +1,10 @@
 """REST surface: status API, metrics, job submission (port of
 snappydata_tpu/cluster/rest.py; the routes and JSON bodies are the
-reference's).  The port serves one session: the routes that need cluster
-membership (`/status/api/v1/ha`, `/rebalance`, `/redundancy/restore`)
-answer 501 until the locator and the lead are ported.  Request handlers
+reference's).  On a lead the service holds the locator's `membership`,
+whose members the cluster route and the dashboard list.  The operator
+routes `/rebalance` and `/redundancy/restore` need the lead's cluster
+view over the data servers (the distributed session) and answer 501
+until it is ported.  Request handlers
 run on `ThreadingHTTPServer`'s threads and jobs on threads of their own,
 so each enters the session's `config.device_scope` itself.
 
@@ -24,9 +26,9 @@ from typing import Dict, Optional
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch.observability.metrics import global_registry
 
-# operator routes of a cluster lead: they need membership
-MEMBERSHIP_ROUTES = ("/status/api/v1/ha", "/rebalance",
-                     "/redundancy/restore")
+# operator routes of a cluster lead: they need its cluster view over the
+# data servers (the distributed session)
+MEMBERSHIP_ROUTES = ("/rebalance", "/redundancy/restore")
 
 
 class JobRegistry:
@@ -118,12 +120,23 @@ def _j(v):
     return str(v)
 
 
+def _members(svc) -> list:
+    """The locator's view of the cluster, or [] on a service without
+    membership or while the locator does not answer."""
+    if svc.membership is None:
+        return []
+    try:
+        return svc.membership.members()
+    except (ConnectionError, OSError):
+        return []
+
+
 def _render_dashboard(svc) -> str:
     """Minimal HTML dashboard (ref: SnappyDashboardPage cluster overview +
     member grid + table stats)."""
     from html import escape as esc
 
-    members = []   # one session: no cluster membership
+    members = _members(svc)
     tables = svc.stats_service.current()
     snap = global_registry().snapshot()
     rows_m = "".join(
@@ -325,11 +338,9 @@ class RestService:
     def __init__(self, session, stats_service, membership=None,
                  host: str = "127.0.0.1", port: int = 0,
                  auth_tokens=None, auth_provider=None):
-        if membership is not None:
-            raise NotImplementedError(
-                "RestService(membership=...) needs cluster membership "
-                "(the locator and the lead), which is not ported yet")
-        """`auth_tokens`: token → user map. When configured, job submission
+        """`membership`: the lead's `LocatorClient`, whose view the cluster
+        route and the dashboard list.
+        `auth_tokens`: token → user map. When configured, job submission
         requires `Authorization: Bearer <token>` (or `X-Snappy-Token`) and
         runs as that principal; when absent, jobs run as an unauthenticated
         remote session (EXEC PYTHON refused — advisor finding: the job
@@ -339,6 +350,7 @@ class RestService:
         principals are cached so LDAP isn't bound per request."""
         self.session = session
         self.stats_service = stats_service
+        self.membership = membership
         self.auth_tokens = auth_tokens or {}
         self.auth_provider = auth_provider
         self._basic_cache = {}   # sha256(user:password) -> (user, expiry)
@@ -361,9 +373,10 @@ class RestService:
             def _membership_route(self, path) -> bool:
                 if path not in MEMBERSHIP_ROUTES:
                     return False
-                self._send({"error": f"{path} needs cluster membership "
-                                     "(the locator and the lead), which "
-                                     "is not ported yet"}, 501)
+                self._send({"error": f"{path} needs the lead's cluster "
+                                     "view (the distributed session over "
+                                     "the data servers), which is not "
+                                     "ported yet"}, 501)
                 return True
 
             def do_GET(self):
@@ -379,8 +392,18 @@ class RestService:
                 if self._membership_route(path):
                     return
                 if path == "/status/api/v1/cluster":
-                    self._send({"members": [],
+                    self._send({"members": [vars(m) for m in
+                                            _members(svc)],
                                 "tables": svc.stats_service.current()})
+                elif path == "/status/api/v1/ha":
+                    # end-to-end reliability stats: failovers, hedged
+                    # reads, mutation-retry dedup, rejoins, deadline
+                    # expiries, heartbeat health (the live bucket-
+                    # redundancy state needs the lead's cluster view)
+                    from snappydata_tpu_torch.observability.stats_service \
+                        import ha_snapshot
+
+                    self._send(ha_snapshot(svc.session.catalog, None))
                 elif path == "/status/api/v1/tables":
                     self._send(svc.stats_service.current())
                 elif path == "/status/api/v1/wal":

@@ -1565,9 +1565,11 @@ class ExprBuilder:
         def run_round(rt: Runtime) -> DVal:
             c = args[0](rt)
             v = c.value
-            if not v.is_floating_point():
-                v = v.to(float_dtype())
             if digits is not None:  # static digits
+                # a Python scalar keeps a float plate's width, as jnp's
+                # weak typing does; an integer plate meets it at float64
+                if not v.is_floating_point():
+                    v = v.to(torch.float64)
                 if digits >= 0:
                     mult = float(10 ** digits)
                     out = torch.round(v * mult) / mult
@@ -1577,6 +1579,9 @@ class ExprBuilder:
             else:
                 d = rt.params[digits_pos].to(torch.float64)
                 scale = torch.round(torch.pow(10.0, d.abs()))
+                # the float64 scale widens a float32 plate, as in jnp;
+                # torch would keep the product in float32
+                v = v.to(promote(v.dtype, scale.dtype))
                 out = torch.where(d >= 0, torch.round(v * scale) / scale,
                                   torch.round(v / scale) * scale)
             return DVal(out, c.null, c.dtype)

@@ -73,6 +73,8 @@ COUNTERS = {
     "join_expand_probe_rows",
     "join_host_fallbacks",
     "join_trans_cache_hits",
+    "member_heartbeat_failures",
+    "member_heartbeats_stopped",
     "mutation_dedup_hits",
     "mutation_retries",
     "mvcc_cut_expand_errors",
@@ -163,6 +165,7 @@ GAUGES = {
     "governor_host_bytes",
     "governor_inflight_bytes",
     "governor_queued_queries",
+    "heartbeats_stopped",
     "rows_total",
     "tables_total",
     "tier_file_bytes",

@@ -42,12 +42,14 @@ or a JSON list of spec objects.  An entry holding ``@``, ``!`` or
 environment variables and the ``faults`` property are read once, when
 this module is imported.
 
-The seams wired in the port (grep ``failpoints.hit`` / ``mangle``):
-wal.append (per record), wal.group_commit (per group, at the batched
-write), wal.fsync, wal.salvage, checkpoint.write, checkpoint.publish,
-storage.compaction, the disk tier's tier.demote, tier.write (hit and
-mangle), tier.promote and tier.memmap_read, broker.admit and
-prefetch.worker.  Arming other names is allowed.  A data-plane spec never
+The seams wired in the port (grep ``failpoints.hit`` / ``mangle``) are
+KNOWN_POINTS: wal.append (per record), wal.group_commit (per group, at
+the batched write), wal.fsync, wal.salvage, checkpoint.write,
+checkpoint.publish, storage.compaction, the disk tier's tier.demote,
+tier.write (hit and mangle), tier.promote and tier.memmap_read,
+broker.admit, prefetch.worker, the Flight front door's flight.rpc,
+flight.serve, flight.send and flight.recv, kafka.fetch and the member's
+locator.heartbeat.  Arming other names is allowed.  A data-plane spec never
 fires at ``hit()``, and a control-plane spec never at ``mangle()``.
 
 Zero cost when unarmed: ``hit()`` and ``mangle()`` check one
@@ -101,6 +103,16 @@ _EXC_FAMILIES = {
 
 ACTIONS = ("raise", "sleep", "kill_worker", "return_errno", "torn_write",
            "corrupt_bytes", "short_write", "latency", "drop")
+
+# canonical points wired into the port (module docstring) — arming other
+# names is allowed, so this is documentation the tests hold to the code
+KNOWN_POINTS = (
+    "wal.append", "wal.group_commit", "wal.fsync", "wal.salvage",
+    "checkpoint.write", "checkpoint.publish", "storage.compaction",
+    "tier.demote", "tier.write", "tier.promote", "tier.memmap_read",
+    "broker.admit", "prefetch.worker", "flight.rpc", "flight.serve",
+    "flight.send", "flight.recv", "kafka.fetch", "locator.heartbeat",
+)
 
 # data-plane actions are interpreted by mangle(); hit() passes them by
 _DATA_ACTIONS = ("corrupt_bytes", "short_write")

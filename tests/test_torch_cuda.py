@@ -1277,6 +1277,35 @@ def test_cuda_modulo_by_zero_gives_zero(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_round_rounds_in_float64(cuda_device):
+    """Fault C7 on CUDA, whose default plates are float32: round(x, d)
+    promotes the plate against its float64 scale and rounds in float64,
+    as the reference does, so 3.35 (3.3499999 as float32) gives 3.3; an
+    integer column rounds in float64 with or without digits."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    s = SnappySession(catalog=Catalog())
+    s.sql("CREATE TABLE rt (id BIGINT, x DOUBLE, k BIGINT) USING column")
+    s.sql("INSERT INTO rt VALUES (0, 3.35, 123456789), "
+          "(4, -2.35, 987654321)")
+    reg = global_registry()
+    h0 = reg.counter("host_fallbacks")
+    assert s.sql("SELECT id, round(x, 1) FROM rt ORDER BY id").rows() == \
+        [(0, 3.3), (4, -2.3)]
+    assert s.sql("SELECT count(*) FROM rt WHERE round(x, 1) = 3.4"
+                 ).rows() == [(0,)]
+    assert s.sql("SELECT round(x, 1) AS r, count(*) FROM rt "
+                 "GROUP BY round(x, 1) ORDER BY r").rows() == \
+        [(-2.3, 1), (3.3, 1)]
+    assert s.sql("SELECT round(k), round(k, 1) FROM rt ORDER BY id"
+                 ).rows() == [(123456789.0, 123456789.0),
+                              (987654321.0, 987654321.0)]
+    assert reg.counter("host_fallbacks") == h0
+
+
+@pytest.mark.cuda
 def test_cuda_udf_runs_on_card_tensors(cuda_device):
     """A SQL function's body runs on the plates' CUDA tensors inside the
     device program (no host fallback), its result cast to the float32

@@ -11,7 +11,7 @@ against the port with the reference's assertions
 reference's over one list of errors, and the reference's `SnappyClient`
 against the port's server and the port's against the reference's: the
 same Arrow tables, schemas included, mutations deduplicated, deadlines
-typed.  Bucket actions and locator discovery need membership and raise
+typed.  Bucket actions need the distributed session and raise
 NotImplementedError."""
 
 import errno
@@ -46,7 +46,7 @@ globals().update(port_cases("test_network_security.py", [
     "test_recovery_replays_statement_reading_a_view"]))
 
 # one server on 127.0.0.1 in place of the reference's locator + server
-# node (membership is not ported)
+# node (the case as the reference wrote it runs in test_torch_cluster.py)
 globals().update(port_cases("test_concurrency.py", [
     "test_concurrent_flight_clients"], edits=[
     ("""    from snappydata_tpu.cluster.node import LocatorNode, ServerNode
@@ -135,17 +135,20 @@ def test_retry_metrics_and_breaker_skip_dead_member():
         c.sql("SELECT 1")
 
 
-# -- membership is not ported -------------------------------------------------
+# -- the distributed session is not ported -----------------------------------
 
 def test_membership_surfaces_raise():
+    """The bucket actions raise until the distributed session is ported;
+    a client told of a locator that does not answer raises as the
+    reference's does."""
     from snappydata_tpu_torch import SnappySession
     from snappydata_tpu_torch.catalog import Catalog
     from snappydata_tpu_torch.cluster.client import SnappyClient
     from snappydata_tpu_torch.cluster.flight_server import (
         MEMBERSHIP_ACTIONS, SnappyFlightServer)
 
-    with pytest.raises(NotImplementedError, match="membership"):
-        SnappyClient(locator="127.0.0.1:10334")
+    with pytest.raises(ConnectionError):
+        SnappyClient(locator="127.0.0.1:1")
     s = SnappySession(catalog=Catalog(), device="cpu")
     s.sql("CREATE TABLE mb (k BIGINT) USING column")
     srv = SnappyFlightServer(s)
@@ -157,7 +160,7 @@ def test_membership_surfaces_raise():
         for name in MEMBERSHIP_ACTIONS:
             # a NotImplementedError reaches the client as Arrow's own
             with pytest.raises(pa.ArrowNotImplementedError,
-                               match="membership"):
+                               match="distributed session"):
                 c._action(name, {"table": "mb", "key": "k", "buckets": [0],
                                  "num_buckets": 4}, retry=False)
         assert c.sql("SELECT count(*) AS n FROM mb").column(0)[0].as_py() \

@@ -480,3 +480,73 @@ def test_modulo_by_zero_gives_the_references_zero(policy_name, q, want):
     rows = p.device(q)
     if want is not None:
         assert rows == want
+
+
+# --- fault C7: `round` under the float32 plate policy ------------------------
+
+def _round_pair(policy_name):
+    from torch_parity import Pair as PolicyPair
+
+    p = PolicyPair(policy_name)
+    p.sql("CREATE TABLE rt (id BIGINT, x DOUBLE) USING column")
+    p.sql("INSERT INTO rt VALUES (0, 3.35), (4, -2.35)")
+    return p
+
+
+def _bit_equal(p, q):
+    """The port's rows of q equal the reference's bit for bit, and stay on
+    the device in both packages."""
+    rows = p.device(q)
+    port, ref = p.sql(q)
+    assert port == ref, (q, port, ref)
+    return rows
+
+
+@pytest.mark.parametrize("policy_name", ["f64", "f32"])
+def test_round_projects_the_references_values(policy_name):
+    """round(x, 1) with its digits tokenized rounds in float64 as the
+    reference does: a float32 plate's 3.35 is 3.3499999..., so the f32
+    policy gives 3.3 / -2.3 where float64 plates give 3.4 / -2.4."""
+    p = _round_pair(policy_name)
+    want = {"f64": [(0, 3.4), (4, -2.4)], "f32": [(0, 3.3), (4, -2.3)]}
+    assert _bit_equal(p, "SELECT id, round(x, 1) FROM rt ORDER BY id") \
+        == want[policy_name]
+
+
+@pytest.mark.parametrize("policy_name", ["f64", "f32"])
+def test_round_in_a_filter_counts_as_the_reference(policy_name):
+    p = _round_pair(policy_name)
+    assert _bit_equal(
+        p, "SELECT count(*) FROM rt WHERE round(x, 1) = 3.4") == \
+        [(1 if policy_name == "f64" else 0,)]
+
+
+@pytest.mark.parametrize("policy_name", ["f64", "f32"])
+def test_round_group_keys_equal_the_references(policy_name):
+    p = _round_pair(policy_name)
+    p.sql("INSERT INTO rt VALUES (5, 3.3), (6, -2.3), (7, 3.44)")
+    rows = _bit_equal(p, "SELECT round(x, 1) AS r, count(*) FROM rt "
+                         "GROUP BY round(x, 1) ORDER BY r")
+    assert sum(r[1] for r in rows) == 5
+
+
+@pytest.mark.parametrize("policy_name", ["f64", "f32"])
+def test_round_over_seeded_normal_rows(policy_name):
+    """400 seeded normal rows (sd 5, 3 decimals): round(x, 2), round(x, 1)
+    and round(x, -1) bit for bit, and round of an integer column, whose
+    static (no digits) and tokenized forms both round in float64."""
+    from torch_parity import Pair as PolicyPair
+
+    rng = np.random.default_rng(16)
+    n = 400
+    p = PolicyPair(policy_name)
+    p.sql("CREATE TABLE rn (id BIGINT, x DOUBLE, k BIGINT) USING column")
+    p.insert_arrays("rn", [np.arange(n, dtype=np.int64),
+                           np.round(rng.normal(0.0, 5.0, n), 3),
+                           rng.integers(10 ** 8, 10 ** 9, n)],
+                    nulls=[None, None, None])
+    rows = _bit_equal(p, "SELECT id, round(x, 2), round(x, 1), "
+                         "round(x, -1), round(k), round(k, 1) FROM rn "
+                         "ORDER BY id")
+    assert len(rows) == n
+    assert all(r[4] == r[5] for r in rows)

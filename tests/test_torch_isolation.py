@@ -322,3 +322,50 @@ def test_front_doors_plan_json_and_streams_import_no_jax():
     out = _run(_FRONT_DOORS_STREAMS)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+_MEMBERSHIP_CLI = r"""
+import contextlib, io, runpy, sys, tempfile
+from snappydata_tpu_torch import SnappySession, cli
+from snappydata_tpu_torch.catalog import Catalog
+from snappydata_tpu_torch.cluster import (LeadNode, LocatorNode, ServerNode,
+                                          SnappyClient)
+
+loc = LocatorNode().start()
+server = ServerNode(loc.address, SnappySession(catalog=Catalog(),
+                                               device="cpu")).start()
+lead = LeadNode(loc.address, SnappySession(catalog=Catalog(), device="cpu"),
+                lease_s=0.5).start(wait_for_primary=True)
+assert lead.is_primary and lead.rest_address
+c = SnappyClient(locator=loc.address)
+c.execute("CREATE TABLE t (k BIGINT) USING column")
+c.execute("INSERT INTO t VALUES (1), (2)")
+assert c.sql("SELECT sum(k) FROM t").column(0)[0].as_py() == 3
+c.close()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert cli.main(["sql", "--locator", loc.address, "-e",
+                     "SELECT count(*) FROM t"]) == 0
+    sys.argv = ["snappydata_tpu_torch", "status", "--locator", loc.address]
+    try:
+        runpy.run_module("snappydata_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert "(2 members)" in out.getvalue(), out.getvalue()
+lead.stop()
+server.stop()
+loc.stop()
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_membership_and_cli_import_no_jax():
+    """The locator, the server and lead nodes, the client's locator
+    discovery, `cli.py` and `python -m snappydata_tpu_torch` run without
+    JAX or the JAX package."""
+    out = _run(_MEMBERSHIP_CLI)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout

@@ -9,7 +9,8 @@ test_agg_strategy.py (`/status/api/v1/scan`), test_join_engine.py,
 test_compressed_domain.py and test_ha.py (`timeout_s` on `POST /sql`),
 each run against the port with the reference's assertions
 (`torch_parity.port_cases`); then the JSON bodies of the same requests
-to a reference and a port service, and the routes that need membership
+to a reference and a port service, the membership a lead's service
+lists, and the operator routes that need the distributed session
 (501)."""
 
 import copy
@@ -88,10 +89,9 @@ globals().update(port_cases("test_join_engine.py", [
 globals().update(port_cases("test_compressed_domain.py", [
     "test_scan_snapshot_and_rest_surface"]))
 
-# the one REST case of the HA suite that needs no locator: the module's
-# cluster imports go (membership is not ported)
+# the timeout case of the HA suite; the module imports the distributed
+# session, which is not ported
 globals().update(port_cases("test_ha.py", ["test_rest_sql_timeout_s"], edits=[
-    ("from snappydata_tpu.cluster import LocatorNode, ServerNode\n", ""),
     ("""from snappydata_tpu.cluster.distributed import (DistributedError,
                                                 DistributedSession)
 """, "")]))
@@ -234,15 +234,43 @@ def test_rest_status_routes_answer_like_reference(services):
 
 
 def test_membership_routes_answer_501(services):
-    from snappydata_tpu_torch.cluster.rest import RestService
+    """`/status/api/v1/ha` answers with the reference's keys; a service
+    given the locator's membership lists its members on the cluster
+    route and the dashboard; only the operator routes, which need the
+    distributed session, answer 501."""
+    from snappydata_tpu_torch.cluster import LocatorNode
+    from snappydata_tpu_torch.cluster.locator import LocatorClient
+    from snappydata_tpu_torch.cluster.rest import (MEMBERSHIP_ROUTES,
+                                                   RestService)
+    from snappydata_tpu_torch.observability import TableStatsService
 
-    _s, svc = services["port"]
-    for path, body in (("/status/api/v1/ha", None), ("/rebalance", {}),
-                       ("/redundancy/restore", {})):
-        code, out = _http(svc, path, body)
-        assert code == 501 and "membership" in out["error"], (path, out)
-    with pytest.raises(NotImplementedError, match="membership"):
-        RestService(services["port"][0], None, membership=object())
+    got = {pkg: _http(svc, "/status/api/v1/ha") for pkg, (_s, svc)
+           in services.items()}
+    assert got["port"][0] == got["ref"][0] == 200
+    assert set(got["port"][1]) == set(got["ref"][1])
+    s, svc = services["port"]
+    assert MEMBERSHIP_ROUTES == ("/rebalance", "/redundancy/restore")
+    for path in MEMBERSHIP_ROUTES:
+        code, out = _http(svc, path, {})
+        assert code == 501 and "distributed session" in out["error"], \
+            (path, out)
+    loc = LocatorNode().start()
+    lc = LocatorClient(loc.address, "lead-rest", "lead", port=7)
+    lc.register()
+    other = RestService(s, TableStatsService(s.catalog),
+                        membership=lc).start()
+    try:
+        code, body = _http(other, "/status/api/v1/cluster")
+        assert code == 200
+        assert [(m["member_id"], m["role"], m["port"])
+                for m in body["members"]] == [("lead-rest", "lead", 7)]
+        html = urllib.request.urlopen(
+            f"http://{other.host}:{other.port}/dashboard").read().decode()
+        assert "<td>lead</td><td>lead-rest</td><td>127.0.0.1:7</td>" in html
+    finally:
+        other.stop()
+        lc.close()
+        loc.stop()
 
 
 def test_rest_handler_and_job_threads_enter_the_session_device(services):
