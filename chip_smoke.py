@@ -21,7 +21,9 @@ session, prepared statements and the micro-batcher, the group-index
 cache, a secondary index and a row-level policy, then EXPLAIN [ANALYZE],
 request tracing, grants and the stats service, then the front doors
 (Arrow Flight, Flight SQL, REST and the client) over that session, then
-AQP over a sample table, then stream tables fed by micro-batches.
+membership and the CLI, then AQP over a sample table, then stream tables
+fed by micro-batches, then a distributed session over two data-server
+processes.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
@@ -159,7 +161,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    kernel but the spins is the Kahan kernel, the device's kernel records
    and the host's CUDA runtime records each hold exactly one kernel
    launch per call, and there is no copy, memset or torch op but the
-   output's allocation; its mean device time (`device_ms`);
+   output's allocation; its mean device time (`device_ms`).  It runs
+   after phase 26, and phase 28's routed ingest runs on a thread of this
+   process beside it (its main thread waits on the child);
 18. nested orders: `gen_orders(1,000,000)` with `gen_lineitem(4,000,000,
    seed 7)` nested by l_orderkey (`tpch.gen_orders_nested`: an `info`
    STRUCT, `modes` ARRAY<STRING>, `prices` ARRAY<DOUBLE>, `qty_by_mode`
@@ -364,9 +368,32 @@ Phases, in order; any failure exits non-zero before the result lines:
    stopped after phase 27 whatever happened: its start seconds, a table
    made by `sql --locator ... -e` (a CTAS), read by another `sql -e`
    beside `status`, which lists that one server; every process stopped;
-28. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+28. right after phase 17: the distributed session.  Two `python -m
+   snappydata_tpu_torch server --locator ...` processes (no --device:
+   cuda), started before phase 25 beside phase 27's, and a
+   `DistributedSession(locator=...)` on the card in this process, made
+   at the top of phase 17: `SET pallas_reduce` / `pallas_group_reduce`
+   on each server over Flight, `tpch.LINEITEM_DDL` (partitioned on
+   l_orderkey) fanned out, and beside phase 17 on a thread the routed
+   ingest of the first 1 / `DIST_DEPTH` of lineitem (24,000,000 rows of
+   SF 16: Flight and the servers' host encoding set the rate) and its
+   numpy oracle.  Then: (a) each server's row count, summing to the
+   total; (b) Q1 and Q6 once and --reps times warm against numpy
+   (counts exact, sums rel 1e-6), the lead's merge seconds apart from
+   the fan-out, and each server's launches of the grouped (Q1) or Kahan
+   (Q6) kernel over those timed runs, at least one a run: the `kernels`
+   line of `EXPLAIN ANALYZE` over Flight, counted in the server's
+   process, gives the wrapper's count before (`DIST_PROBE`) and after
+   them (the partial fragment, its own pass left out), the server's
+   device (cuda) and its lineitem plate bytes resident there (> 0);
+   (c) `DIST_SCAN`, concatenated, its row count exact; (d) `DIST_UPDATE`
+   fanned out (its count exact), then Q6 again against numpy, its Kahan
+   launches counted the same way; (e) each server's rows and batch
+   bytes from its Flight `stats` action; no `dist_downgrades`.  Both
+   server processes are stopped whatever happened;
+29. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
-   18 - 27.
+   18 - 27 in this process (phase 28's run in the servers' processes).
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -466,16 +493,18 @@ def oracle(li, tpch):
     scode = (status == "O").astype(np.int64)
     qty, price = li["l_quantity"], li["l_extendedprice"]
     disc, tax, ship = li["l_discount"], li["l_tax"], li["l_shipdate"]
-    m = ship <= tpch._days("1998-12-01") - 90
-    g = (fcode * 2 + scode)[m]
+    # rows past Q1's cutoff count in a seventh bin that is dropped: the
+    # same sums in the same order as masking every weight column
+    g = np.where(ship <= tpch._days("1998-12-01") - 90, fcode * 2 + scode,
+                 6)
 
     def per(w):
-        return np.bincount(g, weights=w[m], minlength=6)
+        return np.bincount(g, weights=w, minlength=7)[:6]
 
-    cnt = np.bincount(g, minlength=6)
-    sums = [per(qty), per(price), per(price * (1 - disc)),
-            per(price * (1 - disc) * (1 + tax))]
-    avgs = [per(qty), per(price), per(disc)]
+    cnt = np.bincount(g, minlength=7)[:6]
+    net = price * (1 - disc)
+    sums = [per(qty), per(price), per(net), per(net * (1 + tax))]
+    avgs = [sums[0], sums[1], per(disc)]
     q1 = []
     for code in range(6):
         if cnt[code] == 0:
@@ -1823,7 +1852,8 @@ def mutated_lineitem(li, extra, tpch):
     """The generated arrays after phase 16's UPDATE, DELETE and insert, as
     the card's plates hold them: l_discount float32 (the UPDATE's
     arithmetic and compare run at the plate width), rows with l_quantity
-    >= 49 gone, the inserted rows appended."""
+    >= 49 gone, the inserted rows appended.  Only the columns the later
+    oracles read (VIEW_COLUMNS)."""
     import numpy as np
 
     disc = li["l_discount"].astype(np.float32)
@@ -1832,7 +1862,8 @@ def mutated_lineitem(li, extra, tpch):
     disc = np.where(hit, disc + np.float32(0.01), disc)
     keep = li["l_quantity"] < 49
     out = {}
-    for k, v in li.items():
+    for k in VIEW_COLUMNS:
+        v = li[k]
         col = disc if k == "l_discount" else v
         tail = extra[k].astype(np.float32) if k == "l_discount" else extra[k]
         out[k] = np.concatenate([col[keep], tail])
@@ -2034,19 +2065,13 @@ def mutation_path(session, tpch, li, orders, cust, first, args):
     if moved["host_fallbacks"] or moved["join_host_fallbacks"] \
             or moved["join_device_joins"] < 1 + args.reps:
         fail(f"Q10 left the device: {moved}")
-    # the table now holds the HTAP batches too
-    final = {k: np.concatenate([mut[k]] + [
-        b[k].astype(np.float32) if k == "l_discount" else b[k]
-        for b in htap_batches])
-        for k in ("l_orderkey", "l_returnflag", "l_extendedprice",
-                  "l_discount")}
-    check_rows("Q10 vs numpy", rows, q10_oracle(final, orders, cust, tpch))
-    log(f"q10 {json.dumps(rows[:3], default=str)}")
-    del final
-    # lineitem as the phase leaves it, for phase 21's oracles
+    # lineitem as the phase leaves it (the HTAP batches too), for Q10's
+    # oracle and phase 21's
     post = {k: np.concatenate([mut[k]] + [
         b[k].astype(np.float32) if k == "l_discount" else b[k]
         for b in htap_batches]) for k in VIEW_COLUMNS}
+    check_rows("Q10 vs numpy", rows, q10_oracle(post, orders, cust, tpch))
+    log(f"q10 {json.dumps(rows[:3], default=str)}")
 
     # PUT INTO the row table nation (one upsert, one insert), get(), and
     # PUT INTO a keyed column table
@@ -2137,10 +2162,11 @@ def view_arrays(cols):
 def _per_group(arrs, tpch, weights):
     import numpy as np
 
-    m = arrs["l_shipdate"] <= tpch._days("1998-12-01") - 90
-    g = arrs["g"][m]
-    cnt = np.bincount(g, minlength=6)
-    sums = [np.bincount(g, weights=w[m], minlength=6) for w in weights]
+    # rows past Q1's cutoff count in a seventh, dropped bin (as oracle())
+    g = np.where(arrs["l_shipdate"] <= tpch._days("1998-12-01") - 90,
+                 arrs["g"], 6)
+    cnt = np.bincount(g, minlength=7)[:6]
+    sums = [np.bincount(g, weights=w, minlength=7)[:6] for w in weights]
     return [("ANR"[c // 2], "FO"[c % 2]) + tuple(float(x[c]) for x in sums)
             + (int(cnt[c]),) for c in range(6) if cnt[c]]
 
@@ -4559,15 +4585,16 @@ def _cli_run(root, *argv):
 
 
 class CliMember:
-    """Phase 27 (d)'s member: a LocatorNode in this process and `python
-    -m snappydata_tpu_torch server --locator ...` (no --device, so its
-    session is on cuda) in a process of its own.  main() starts it before
-    phase 25, so the process's interpreter and CUDA context come up while
-    phase 25 runs, and stops it after phase 27 whatever happened; its
-    stdout is read on a thread so the startup line can be waited for
-    with a deadline."""
+    """`n` CLI data servers: a LocatorNode in this process and `n` times
+    `python -m snappydata_tpu_torch server --locator ... *extra` (no
+    --device, so each session is on cuda) in processes of their own.
+    Phase 27 (d) takes one, phase 28 two.  main() starts them before
+    phase 25, so the processes' interpreters and CUDA contexts come up
+    while phase 25 runs, and stops them after their phase whatever
+    happened; each stdout is read on a thread so a startup line can be
+    waited for with a deadline."""
 
-    def __init__(self, root, device):
+    def __init__(self, root, device, n=1, extra=()):
         import queue
         import threading
 
@@ -4576,50 +4603,65 @@ class CliMember:
         self.root = root
         self.device = device
         self.locator = LocatorNode().start()
-        cmd, env = _cli(root, "server", "--locator", self.locator.address)
+        cmd, env = _cli(root, "server", "--locator", self.locator.address,
+                        *extra)
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(cmd, cwd=root, env=env,
-                                     stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True)
-        self.lines = queue.Queue()
-        self.started_s = None    # seconds from the spawn to the line
-        self._reader = threading.Thread(target=self._read, daemon=True)
-        self._reader.start()
+        self.procs, self.queues, self.started = [], [], []
+        self._readers = []
+        for i in range(n):
+            self.procs.append(subprocess.Popen(
+                cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+            self.queues.append(queue.Queue())
+            self.started.append(None)   # seconds from the spawn to the line
+            self._readers.append(threading.Thread(target=self._read,
+                                                  args=(i,), daemon=True))
+            self._readers[-1].start()
 
-    def _read(self):
+    @property
+    def started_s(self):
+        return self.started[0]
+
+    def _read(self, i):
         from snappydata_tpu_torch import config
 
         with config.device_scope(self.device):
-            for line in self.proc.stdout:
-                if self.started_s is None:
-                    self.started_s = time.perf_counter() - self.t0
-                self.lines.put(line.rstrip("\n"))
-            self.lines.put(None)
+            for line in self.procs[i].stdout:
+                if self.started[i] is None:
+                    self.started[i] = time.perf_counter() - self.t0
+                self.queues[i].put(line.rstrip("\n"))
+            self.queues[i].put(None)
 
-    def startup_line(self, timeout=300.0):
+    def startup_line(self, timeout=300.0, i=0):
         import queue
 
         try:
-            line = self.lines.get(timeout=timeout)
+            line = self.queues[i].get(timeout=timeout)
         except queue.Empty:
             line = None
         if line is None:
             fail(f"the CLI server printed no startup line: "
-                 f"{self.proc.stderr.read()[-2000:]}")
+                 f"{self.procs[i].stderr.read()[-2000:]}")
         return line
 
     def stop(self):
-        if self.proc.poll() is None:
-            self.proc.terminate()
+        if self.locator is None:
+            return
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in self.procs:
             try:
-                self.proc.wait(timeout=30)
+                proc.wait(timeout=30)
             except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait(timeout=30)
-        self._reader.join(timeout=30)
-        self.proc.stdout.close()
-        self.proc.stderr.close()
+                proc.kill()
+                proc.wait(timeout=30)
+        for reader, proc in zip(self._readers, self.procs):
+            reader.join(timeout=30)
+            proc.stdout.close()
+            proc.stderr.close()
         self.locator.stop()
+        self.locator = None
 
 
 def membership_path(session, tpch, flight_warm, cli, args):
@@ -4805,6 +4847,250 @@ def cli_members(cli):
         f"startup_wait_s {wait_s:.2f} create_s {create_s:.2f} query_and_status_s {query_s:.2f} created "
         f"{created.strip()} rows {both['query'].splitlines()[2]!r} status "
         f"{status[0]!r}")
+
+
+# -- phase 28: the distributed session -------------------------------------
+
+DIST_SERVERS = 2              # data-server processes, both on the one card
+DIST_DEPTH = 4                # phase 28 routes 1 / DIST_DEPTH of lineitem
+DIST_SCAN = ("SELECT l_orderkey, l_quantity, l_extendedprice FROM lineitem "
+             "WHERE l_quantity >= 50 AND l_discount >= 0.1")
+DIST_UPDATE_KEYS = 240_000    # the fanned-out UPDATE takes orders 1 .. this
+DIST_UPDATE = ("UPDATE lineitem SET l_discount = 0.06 WHERE l_orderkey <= "
+               f"{DIST_UPDATE_KEYS}")
+DIST_PROBE = "SELECT count(*) AS n FROM lineitem"  # reads the counts
+
+
+def _server_kernels(ds, sql):
+    """`EXPLAIN ANALYZE sql` on each server over Flight.  Its `kernels`
+    line is counted in the server's process: the session's device, the
+    plate bytes of the query's tables resident there, and for each CUDA
+    kernel the launches of this pass and the wrapper's count so far.
+    Returns one (device, resident_bytes, {kernel: (pass, total)}) a
+    server."""
+    out = []
+    for srv in ds.servers:
+        rows = [(line,) for line in
+                srv.sql("EXPLAIN ANALYZE " + sql).column(0).to_pylist()]
+        line = next((r[0] for r in rows if r[0].startswith("kernels ")),
+                    None)
+        if line is None:
+            fail(f"EXPLAIN ANALYZE printed no kernels line: {rows}")
+        fields = dict(tok.split("=", 1) for tok in line.split()[1:])
+        device = fields.pop("device")
+        resident = int(fields.pop("resident_bytes"))
+        out.append((device, resident, {
+            k: tuple(int(x) for x in v.split("/"))
+            for k, v in fields.items()}))
+    return out
+
+
+def _timed_launches(before, after, kernel):
+    """Launches of `kernel` on each server between the `_server_kernels`
+    readings `before` and `after`, the EXPLAIN ANALYZE pass of `after`
+    left out."""
+    return [a[2][kernel][1] - a[2][kernel][0] - b[2][kernel][1]
+            for b, a in zip(before, after)]
+
+
+class DistLoad:
+    """Phase 28 (a), started at the top of phase 17: a DistributedSession
+    on the card in this process over `members`' two data servers, the
+    kernel knobs turned on in each server, then on a thread of its own
+    the routed ingest of the first 1 / DIST_DEPTH of lineitem and the
+    numpy oracle of Q1 / Q6 over those rows.  Phase 17 waits on its child
+    process and the servers encode on their own cores, so the ingest's
+    host work runs beside it; phase 28 waits for the thread."""
+
+    def __init__(self, members, li, tpch):
+        import re
+        import threading
+
+        from snappydata_tpu_torch.cluster.distributed import \
+            DistributedSession
+
+        self.waits = []
+        for i in range(len(members.procs)):
+            t0 = time.perf_counter()
+            line = members.startup_line(i=i)
+            self.waits.append(time.perf_counter() - t0)
+            if not re.fullmatch(r"server (server-[0-9a-f]{8}) flight at "
+                                r"(127\.0\.0\.1:\d+)", line):
+                fail(f"a data server's startup line: {line!r}")
+        self.ds = DistributedSession(locator=members.locator.address)
+        if len(self.ds.servers) != DIST_SERVERS or \
+                self.ds.device.type != "cuda":
+            fail(f"the lead found {self.ds.server_addresses} on "
+                 f"{self.ds.device}")
+        for srv in self.ds.servers:
+            for knob in ("pallas_reduce", "pallas_group_reduce"):
+                srv.execute(f"SET {knob} = true")
+        self.n = len(li["l_orderkey"]) // DIST_DEPTH
+        self.cols = {k: v[:self.n] for k, v in li.items()}
+        self.ds.sql(tpch.LINEITEM_DDL)
+        self.error = None
+        self._thread = threading.Thread(target=self._load, args=(tpch,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _load(self, tpch):
+        from snappydata_tpu_torch import config
+
+        try:
+            with config.device_scope(self.ds.device):
+                t0 = time.perf_counter()
+                self.ds.insert_arrays("lineitem", list(self.cols.values()))
+                self.ingest_s = time.perf_counter() - t0
+                self.want = oracle(self.cols, tpch)
+        except Exception as e:  # noqa: BLE001 - phase 28 reports it
+            self.error = e
+
+    def wait(self):
+        """Seconds phase 28 waited for the ingest and the oracle."""
+        t0 = time.perf_counter()
+        self._thread.join()
+        if self.error is not None:
+            fail(f"the routed ingest: {type(self.error).__name__}: "
+                 f"{self.error}")
+        return time.perf_counter() - t0
+
+
+def distributed_path(load, tpch, in_process_warm, members, args):
+    """Phase 28 (b) - (e) over `load` (DistLoad): Q1 / Q6 scattered and
+    merged, a filtered scan concatenated, a fanned-out UPDATE and Q6
+    again, each against numpy; every server's partials through both
+    kernels; no gather downgrade."""
+    import numpy as np
+
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    t_phase = time.perf_counter()
+    ds, cols, n = load.ds, load.cols, load.n
+    wait_s = load.wait()
+    counts = [int(srv.sql("SELECT count(*) AS n FROM lineitem")
+                  .column(0)[0].as_py()) for srv in ds.servers]
+    if sum(counts) != n or min(counts) == 0:
+        fail(f"the servers hold {counts} rows, not {n} in all")
+    log(f"distributed ingest rows {n} s {load.ingest_s:.3f} rows_per_s "
+        f"{n / load.ingest_s:.0f} (beside phase 17) phase28_wait_s "
+        f"{wait_s:.3f} per_server {counts} servers {ds.server_addresses} "
+        f"startup_s {[round(x, 2) for x in members.started]} "
+        f"startup_wait_s {[round(x, 2) for x in load.waits]}")
+    reg = global_registry()
+    down0 = reg.counters_snapshot().get("dist_downgrades", 0)
+    fan_s = [0.0]
+    fan = ds._fan
+
+    def timed_fan(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fan(*a, **kw)
+        finally:
+            fan_s[0] += time.perf_counter() - t0
+
+    ds._fan = timed_fan
+    frags = []
+    partial_exec = ds._partial_exec
+
+    def recorded(node):
+        frags.append(node)
+        return partial_exec(node)
+
+    ds._partial_exec = recorded
+    try:
+        # (b) Q1 / Q6 scattered and merged: first, warm, the merge apart
+        # from the fan-out; each server's launches of the query's kernel
+        # over these timed runs, counted in its process
+        from snappydata_tpu_torch.sql.render import render_plan
+
+        before = _server_kernels(ds, DIST_PROBE)
+        for q, kernel in (("q1", "grouped_reduce"),
+                          ("q6", "masked_kahan_sum")):
+            times, merges = [], []
+            for _ in range(1 + args.reps):
+                fan_s[0] = 0.0
+                t0 = time.perf_counter()
+                rows = ds.sql(getattr(tpch, q.upper())).rows()
+                dt = time.perf_counter() - t0
+                times.append(dt)
+                merges.append(dt - fan_s[0])
+                check_rows(f"distributed {q}", rows, load.want[q])
+            read = _server_kernels(ds, render_plan(frags[-1]))
+            timed = _timed_launches(before, read, kernel)
+            own = [a[2][kernel][0] for a in read]
+            if any(t < len(times) for t in timed) or min(own) < 1:
+                fail(f"distributed {q}: the servers launched {kernel} "
+                     f"{timed} times in {len(times)} runs ({own} a "
+                     f"fragment)")
+            if any(not a[0].startswith("cuda") or a[1] <= 0
+                   for a in read):
+                fail(f"distributed {q}: the servers' plates are on "
+                     f"{[(a[0], a[1]) for a in read]}")
+            warm = _median(times[1:])
+            log(f"distributed {q} first_s {times[0]:.4f} warm_s {warm:.4f} "
+                f"merge_s {_median(merges[1:]):.4f} fan_out_s "
+                f"{warm - _median(merges[1:]):.4f} phase4_warm_s "
+                f"{in_process_warm[q]:.4f} rows {len(rows)} oracle ok "
+                f"runs {len(times)} server_{kernel}_launches {timed} "
+                f"a_fragment {own} server_device "
+                f"{[a[0] for a in read]} server_resident_bytes "
+                f"{[a[1] for a in read]}")
+            before = read
+
+        # (c) a filtered scan, concatenated
+        t0 = time.perf_counter()
+        got = ds.sql(DIST_SCAN).num_rows
+        scan_s = time.perf_counter() - t0
+        exp = int(((cols["l_quantity"] >= 50)
+                   & (cols["l_discount"] >= 0.1)).sum())
+        if got != exp:
+            fail(f"distributed scan: {got} rows, numpy {exp}")
+        log(f"distributed scan rows {got} s {scan_s:.4f} equal True")
+
+        # (d) a fanned-out UPDATE, then Q6 again
+        hit = cols["l_orderkey"] <= DIST_UPDATE_KEYS
+        t0 = time.perf_counter()
+        upd = int(ds.sql(DIST_UPDATE).rows()[0][0])
+        upd_s = time.perf_counter() - t0
+        if upd != int(hit.sum()):
+            fail(f"distributed UPDATE touched {upd} rows, numpy "
+                 f"{int(hit.sum())}")
+        after = dict(cols)
+        after["l_discount"] = np.where(hit, 0.06, cols["l_discount"])
+        before = _server_kernels(ds, DIST_PROBE)
+        t0 = time.perf_counter()
+        rows = ds.sql(tpch.Q6).rows()
+        q6_s = time.perf_counter() - t0
+        check_rows("distributed q6 after the UPDATE", rows,
+                   q6_oracle(after, tpch))
+        timed = _timed_launches(
+            before, _server_kernels(ds, render_plan(frags[-1])),
+            "masked_kahan_sum")
+        if min(timed) < 1:
+            fail(f"Q6 after the UPDATE launched masked_kahan_sum {timed} "
+                 f"times on the servers")
+        log(f"distributed update rows {upd} s {upd_s:.3f} q6_after_s "
+            f"{q6_s:.4f} oracle ok server_masked_kahan_sum_launches "
+            f"{timed}")
+
+        # (e) each server's table through its Flight stats action (rows
+        # and the column batches' bytes; the device bytes are the kernels
+        # line's above)
+        for i, srv in enumerate(ds.servers):
+            st = srv.stats().get("lineitem", {})
+            log(f"distributed server {ds.server_addresses[i]} rows "
+                f"{st.get('row_count')} in_memory_bytes "
+                f"{st.get('in_memory_bytes')}")
+        down = reg.counters_snapshot().get("dist_downgrades", 0) - down0
+        if down or ds.last_downgrades:
+            fail(f"phase 28 downgraded to a gather: {ds.last_downgrades}")
+    finally:
+        ds.close()
+    log("answers ok: the routed rows add up; Q1 / Q6 scattered over two "
+        "server processes, a concatenated scan and Q6 after a fanned-out "
+        "UPDATE equal numpy; each server launched the grouped and Kahan "
+        "kernels on its card in every timed run; no gather downgrade")
+    log(f"distributed_path_s {time.perf_counter() - t_phase:.3f}")
 
 
 # -- phase 26: streams ----------------------------------------------------
@@ -5029,6 +5315,39 @@ def stream_path(tpch, li, args):
     return total
 
 
+def routed_strings_main(tpch, n, seed):
+    """--routed-strings: the string columns of phase 28's routed insert
+    (lineitem, `n` rows), each built as the Arrow array the insert sends
+    twice: in Arrow in one call (`_string_array`, what the port runs) and
+    by the reference's per-row `str(v)` loop.  The lead builds a server's
+    piece before sending it, so the difference adds to the ingest's
+    seconds one for one.  Fails if the two arrays differ."""
+    import pyarrow as pa
+
+    from snappydata_tpu_torch.cluster.distributed import _string_array
+
+    li = tpch.gen_lineitem(n, seed)
+    out = {"rows": n}
+    for name, vals in li.items():
+        if vals.dtype != object:
+            continue
+        t0 = time.perf_counter()
+        fast = _string_array(vals, None)
+        arrow_s = time.perf_counter() - t0
+        mask = None
+        t0 = time.perf_counter()
+        loop = pa.array([None if (mask is not None and mask[j])
+                         or v is None else str(v)
+                         for j, v in enumerate(vals)], type=pa.string())
+        loop_s = time.perf_counter() - t0
+        if not fast.equals(loop):
+            fail(f"routed strings: {name} differs from the loop's array")
+        out[name] = {"arrow_s": round(arrow_s, 3),
+                     "loop_s": round(loop_s, 3)}
+    log(f"routed_strings {json.dumps(out)}")
+    return 0
+
+
 class PhaseClock:
     """Logs each phase's wall seconds (`phase_s <n> <s>`) when the next
     one starts, so a run's time budget reads per phase."""
@@ -5062,6 +5381,9 @@ def main() -> int:
     ap.add_argument("--kahan-profile", metavar="PATH",
                     help="child mode of phase 17: profile the Kahan kernel "
                          "on the inputs saved in PATH")
+    ap.add_argument("--routed-strings", action="store_true",
+                    help="only time the string columns of phase 28's "
+                         "routed insert both ways (routed_strings_main)")
     args = ap.parse_args()
 
     import torch
@@ -5091,6 +5413,9 @@ def main() -> int:
     if "jax" in sys.modules or any(m.startswith("snappydata_tpu.")
                                    for m in sys.modules):
         fail("the port imported JAX or the JAX package")
+    if args.routed_strings:
+        return routed_strings_main(
+            tpch, int(args.sf * ROWS_PER_SF) // DIST_DEPTH, args.seed)
 
     phase_clock = PhaseClock()
     # 1. the card
@@ -5531,8 +5856,10 @@ def main() -> int:
     # and the client, Q1 / Q6 served, a streamed scan, do_put, 1 / 4 / 16
     # Flight clients
     phase_clock.next(25)
-    # phase 27's CLI server comes up in a process of its own meanwhile
+    # phase 27's CLI server and phase 28's two data servers come up in
+    # processes of their own meanwhile
     cli = CliMember(root, session.device)
+    dist = CliMember(root, session.device, n=DIST_SERVERS)
     try:
         try:
             f_launches, flight_warm = front_door_path(session, tpch, args)
@@ -5553,49 +5880,68 @@ def main() -> int:
                                          args)
         except Exception as e:  # noqa: BLE001 - report the phase, then exit
             fail(f"membership path: {type(e).__name__}: {e}")
+        cli.stop()
+        log(f"membership_path_launches {json.dumps(m_launches)}")
+        for name, count in m_launches.items():
+            if count < 1:
+                fail(f"{name} did not launch on the membership path")
+            launches[name] += count
+
+        # 23. AQP: a stratified sample of a 2M-row lineitem, WITH ERROR,
+        # approx_sql and TopK, on a session of its own
+        phase_clock.next(23)
+        try:
+            a_launches = aqp_path(tpch, args)
+        except Exception as e:  # noqa: BLE001 - report the phase, then exit
+            fail(f"AQP path: {type(e).__name__}: {e}")
+        log(f"aqp_path_launches {json.dumps(a_launches)}")
+        for name, count in a_launches.items():
+            if count < 1:
+                fail(f"{name} did not launch on the AQP path")
+            launches[name] += count
+
+        # 26. streams on a session of their own: a memory stream of
+        # lineitem through both kernels and a window, a keyed Kafka
+        # restart, q1_mv over a keyless stream
+        phase_clock.next(26)
+        try:
+            st_launches = stream_path(tpch, li, args)
+        except Exception as e:  # noqa: BLE001 - report the phase, then exit
+            fail(f"stream path: {type(e).__name__}: {e}")
+        log(f"stream_path_launches {json.dumps(st_launches)}")
+        for name, count in st_launches.items():
+            if count < 1:
+                fail(f"{name} did not launch on the stream path")
+            launches[name] += count
+
+        # 17. the Kahan kernel under torch.profiler, in a child process
+        # whose profiler starts fresh; phase 28's routed ingest runs on
+        # a thread of this process meanwhile
+        phase_clock.next(17)
+        try:
+            load = DistLoad(dist, li, tpch)
+        except Exception as e:  # noqa: BLE001 - report the phase, then exit
+            fail(f"distributed session: {type(e).__name__}: {e}")
+        for label, r in kahan_profile_child(kahan_shapes, args.reps, root):
+            log(f"kernel masked_kahan_sum profile on the {label} "
+                f"{json.dumps(r)}")
+        del kahan_shapes, rec_k
+
+        # 28. the distributed session: the lead on the card in this
+        # process scatters Q1 / Q6, a scan and an UPDATE over the two
+        # data-server processes on the same card; their kernels launch in
+        # their own processes (counted there, read over Flight, not in
+        # these counters)
+        phase_clock.next(28)
+        try:
+            distributed_path(load, tpch, warm, dist, args)
+        except Exception as e:  # noqa: BLE001 - report the phase, then exit
+            fail(f"distributed path: {type(e).__name__}: {e}")
+        del load
     finally:
         cli.stop()
-    del flight_warm, cli
-    log(f"membership_path_launches {json.dumps(m_launches)}")
-    for name, count in m_launches.items():
-        if count < 1:
-            fail(f"{name} did not launch on the membership path")
-        launches[name] += count
-
-    # 23. AQP: a stratified sample of a 2M-row lineitem, WITH ERROR,
-    # approx_sql and TopK, on a session of its own
-    phase_clock.next(23)
-    try:
-        a_launches = aqp_path(tpch, args)
-    except Exception as e:  # noqa: BLE001 - report the phase, then exit
-        fail(f"AQP path: {type(e).__name__}: {e}")
-    log(f"aqp_path_launches {json.dumps(a_launches)}")
-    for name, count in a_launches.items():
-        if count < 1:
-            fail(f"{name} did not launch on the AQP path")
-        launches[name] += count
-
-    # 26. streams on a session of their own: a memory stream of lineitem
-    # through both kernels and a window, a keyed Kafka restart, q1_mv
-    # over a keyless stream
-    phase_clock.next(26)
-    try:
-        st_launches = stream_path(tpch, li, args)
-    except Exception as e:  # noqa: BLE001 - report the phase, then exit
-        fail(f"stream path: {type(e).__name__}: {e}")
-    log(f"stream_path_launches {json.dumps(st_launches)}")
-    for name, count in st_launches.items():
-        if count < 1:
-            fail(f"{name} did not launch on the stream path")
-        launches[name] += count
-
-    # 17. the Kahan kernel under torch.profiler, in a child process whose
-    # profiler starts fresh
-    phase_clock.next(17)
-    for label, r in kahan_profile_child(kahan_shapes, args.reps, root):
-        log(f"kernel masked_kahan_sum profile on the {label} "
-            f"{json.dumps(r)}")
-    del kahan_shapes, rec_k
+        dist.stop()
+    del flight_warm, cli, dist
 
     # 18. nested orders: ARRAY / MAP / STRUCT plates on the card
     # the main session's plates are not read again: free the card first

@@ -158,13 +158,7 @@ def execute_error_query_distributed(ds, stmt: ast.Query):
     mid-estimation failover can't pair one shard's moments with another
     shard's stratum totals (review finding); exact re-runs go through
     the normal distributed query path."""
-    try:
-        from snappydata_tpu_torch.cluster.distributed import \
-            _arrow_to_result
-    except ImportError as e:
-        raise NotImplementedError(
-            "distributed error estimation needs the cluster front doors "
-            "(cluster/distributed.py), which are not ported yet") from e
+    from snappydata_tpu_torch.cluster.distributed import _arrow_to_result
 
     agg, outer_orders, limit_n, having = _unwrap_aggregate(stmt)
 

@@ -10,9 +10,10 @@ door per node (flight_server.py, flightsql.py — the thrift/DRDA
 network-server analogue, cluster/README-thrift.md), a REST
 status/metrics/jobs surface on the lead (rest.py — the jobserver +
 /status/api/v1 analogue) and the failover-aware client with its retry
-layer (client.py, retry.py).  The distributed session over the data
-servers (scatter-gather, bucket placement, the lead's `/rebalance`) is
-not ported yet.
+layer (client.py, retry.py).  `distributed.DistributedSession` is the
+lead's scatter-gather session over the data servers (bucket placement,
+exchanges, redundancy and failover, hedged reads, plan shipping); as in
+the reference it is imported from its module, not from here.
 """
 
 from snappydata_tpu_torch.cluster.locator import (  # noqa: F401

@@ -11,12 +11,13 @@ ServerImpl.scala:34).
   stats service + REST/jobs + its own Flight endpoint.
 
 Single-host: nodes share the process's catalog/storage (embedded mode).
-The lead's cluster view over the data servers (the distributed session
-behind `/rebalance` and `/redundancy/restore`) and a server's submesh
-(`mesh_devices`) come with the distributed session and multi-device
-execution; until then those routes answer 501 and `mesh_devices` raises.
-The lead's election thread enters its session's `config.device_scope`,
-since becoming primary starts the stats service on it.
+A lead that becomes primary builds its cluster view, a
+`DistributedSession` over the data servers the locator lists, on its
+session's device; the view answers `/rebalance` and
+`/redundancy/restore`.  A server's submesh (`mesh_devices`) comes with
+multi-device execution and raises until then.  The lead's election
+thread enters its session's `config.device_scope`, since becoming
+primary starts the stats service and the cluster view on it.
 """
 
 from __future__ import annotations
@@ -197,6 +198,23 @@ class LeadNode(_MemberNode):
                                     "auth_tokens") or None,
                                 auth_provider=make_provider(
                                     self.session.conf)).start()
+        # cluster view for operator actions (POST /rebalance): a
+        # DistributedSession over the data servers the locator knows, on
+        # the lead session's device.  Only "no servers yet" passes here
+        # (the locator does not answer, or lists no server): a device
+        # error or a fault of the view itself propagates
+        from snappydata_tpu_torch.cluster.distributed import (
+            DistributedError, DistributedSession)
+
+        try:
+            servers = sorted(f"{m.host}:{m.port}"
+                             for m in self.membership.members()
+                             if m.role == "server")
+            if servers:
+                self.rest.distributed = DistributedSession(
+                    server_addresses=servers, device=self.session.device)
+        except (ConnectionError, OSError, DistributedError):
+            pass  # no servers yet: /rebalance reports 409 until retried
         self.is_primary = True
 
     def _step_down(self) -> None:

@@ -1,10 +1,11 @@
 """REST surface: status API, metrics, job submission (port of
 snappydata_tpu/cluster/rest.py; the routes and JSON bodies are the
 reference's).  On a lead the service holds the locator's `membership`,
-whose members the cluster route and the dashboard list.  The operator
-routes `/rebalance` and `/redundancy/restore` need the lead's cluster
-view over the data servers (the distributed session) and answer 501
-until it is ported.  Request handlers
+whose members the cluster route and the dashboard list, and the lead's
+cluster view `distributed` (a `DistributedSession` over the data
+servers), which answers the operator routes `/rebalance`,
+`/redundancy/restore` and `/wal/flush` and fills the HA route's member
+and redundancy lines.  Request handlers
 run on `ThreadingHTTPServer`'s threads and jobs on threads of their own,
 so each enters the session's `config.device_scope` itself.
 
@@ -25,10 +26,6 @@ from typing import Dict, Optional
 
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch.observability.metrics import global_registry
-
-# operator routes of a cluster lead: they need its cluster view over the
-# data servers (the distributed session)
-MEMBERSHIP_ROUTES = ("/rebalance", "/redundancy/restore")
 
 
 class JobRegistry:
@@ -153,7 +150,7 @@ def _render_dashboard(svc) -> str:
     from snappydata_tpu_torch.observability.stats_service import (
         durability_snapshot, ha_snapshot, join_snapshot, scan_snapshot)
 
-    ha = ha_snapshot(svc.session.catalog, None)
+    ha = ha_snapshot(svc.session.catalog, svc.distributed)
     rows_ha = "".join(
         f"<tr><td>{esc(str(k))}</td><td>{esc(str(v))}</td></tr>"
         for k, v in ha.items())
@@ -351,6 +348,9 @@ class RestService:
         self.session = session
         self.stats_service = stats_service
         self.membership = membership
+        # optional DistributedSession (the lead's cluster view) — powers
+        # operator actions like POST /rebalance
+        self.distributed = None
         self.auth_tokens = auth_tokens or {}
         self.auth_provider = auth_provider
         self._basic_cache = {}   # sha256(user:password) -> (user, expiry)
@@ -370,15 +370,6 @@ class RestService:
                 self.end_headers()
                 self.wfile.write(body)
 
-            def _membership_route(self, path) -> bool:
-                if path not in MEMBERSHIP_ROUTES:
-                    return False
-                self._send({"error": f"{path} needs the lead's cluster "
-                                     "view (the distributed session over "
-                                     "the data servers), which is not "
-                                     "ported yet"}, 501)
-                return True
-
             def do_GET(self):
                 with config.device_scope(svc.session.device):
                     self._get()
@@ -389,8 +380,6 @@ class RestService:
 
             def _get(self):
                 path = self.path.split("?")[0].rstrip("/")
-                if self._membership_route(path):
-                    return
                 if path == "/status/api/v1/cluster":
                     self._send({"members": [vars(m) for m in
                                             _members(svc)],
@@ -398,12 +387,14 @@ class RestService:
                 elif path == "/status/api/v1/ha":
                     # end-to-end reliability stats: failovers, hedged
                     # reads, mutation-retry dedup, rejoins, deadline
-                    # expiries, heartbeat health (the live bucket-
-                    # redundancy state needs the lead's cluster view)
+                    # expiries, heartbeat health — plus live membership
+                    # and bucket-redundancy state when this lead holds a
+                    # cluster view
                     from snappydata_tpu_torch.observability.stats_service \
                         import ha_snapshot
 
-                    self._send(ha_snapshot(svc.session.catalog, None))
+                    self._send(ha_snapshot(svc.session.catalog,
+                                           svc.distributed))
                 elif path == "/status/api/v1/tables":
                     self._send(svc.stats_service.current())
                 elif path == "/status/api/v1/wal":
@@ -650,8 +641,6 @@ class RestService:
 
             def _post(self):
                 path = self.path.rstrip("/")
-                if self._membership_route(path):
-                    return
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
                 if path == "/jobs":
@@ -788,12 +777,14 @@ class RestService:
                     self._send({"faults": _fault_list()})
                 elif path == "/wal/flush":
                     # durability barrier: drain+fsync the WAL commit
-                    # buffer past any relaxed interval-mode ack (this
-                    # session's store; a lead flushes every member)
+                    # buffer past any relaxed interval-mode ack — on the
+                    # whole cluster when this lead has one, else locally
                     if self._admin_session("operator action") is None:
                         return
                     try:
-                        if svc.session.disk_store is not None:
+                        if svc.distributed is not None:
+                            self._send(svc.distributed.flush_wals())
+                        elif svc.session.disk_store is not None:
                             svc.session.disk_store.wal_sync(force=True)
                             self._send({"flushed_members": 1,
                                         "durable_members": 1})
@@ -801,6 +792,26 @@ class RestService:
                             self._send({"flushed_members": 0,
                                         "durable_members": 0})
                     except Exception as e:
+                        self._send({"error": str(e)}, 500)
+                elif path in ("/rebalance", "/redundancy/restore"):
+                    # SYS.REBALANCE_ALL_BUCKETS analogue + redundancy
+                    # re-restoration (operator actions; admin only when
+                    # auth is on)
+                    if self._admin_session("operator action") is None:
+                        return
+                    if svc.distributed is None:
+                        self._send({"error": "no cluster session on "
+                                             "this lead"}, 409)
+                        return
+                    try:
+                        if path == "/rebalance":
+                            self._send(svc.distributed.rebalance())
+                        else:
+                            self._send(
+                                svc.distributed.restore_redundancy())
+                    except Exception as e:
+                        # both ops are restartable: report how they
+                        # failed rather than aborting the connection
                         self._send({"error": str(e)}, 500)
                 else:
                     self._send({"error": "not found"}, 404)

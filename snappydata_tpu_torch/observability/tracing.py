@@ -8,7 +8,9 @@ execute, EXPLAIN ANALYZE, REST `POST /sql` and jobs, `SnappyClient`, a
 Flight ticket or action) and rides a contextvar locally and a `trace_id`
 request-body / ticket field across the wire: a server receiving a traced
 request opens its own trace under the same id (`origin` names the
-server).  The distributed session's fan-out is not ported yet.
+server).  A `DistributedSession.sql` is one lead trace: one `member`
+span per fan-out leg (hedge legs re-attach to it), and its
+`DistributedError`s carry the trace id.
 
 Span tree invariants:
 

@@ -232,7 +232,8 @@ def is_retryable(exc: BaseException) -> bool:
     if isinstance(exc, OSError) \
             and getattr(exc, "errno", None) == _errno.EIO:
         return True
-    # the reference also retries its DistributedError (the lead already
-    # failed over internally); the port has no distributed session yet,
-    # so no error of its own carries that contract
-    return False
+    # DistributedError carries failover context — the lead already
+    # retried internally; another round trip may still succeed
+    from snappydata_tpu_torch.cluster.distributed import DistributedError
+
+    return isinstance(exc, DistributedError)

@@ -1197,7 +1197,9 @@ class SnappySession:
         (batches scanned and skipped, the aggregate strategies, the
         code-domain lanes, join verdicts, host-fallback evidence), then a
         footer with rows out, seconds per phase from the trace's span
-        tree, and the trace id."""
+        tree, the trace id, and a `kernels` line: the session's device,
+        the plate bytes of the query's tables resident there, and each
+        CUDA kernel's launches in this pass over its wrapper's count."""
         run_stats = self._explain_execute(plan) if analyze else None
         plan = self._rewrite_stream_windows(plan)
         with _udf.using(self.catalog):
@@ -1313,11 +1315,37 @@ class SnappySession:
             if st["host_fallback_reasons"]:
                 lines.append("host_fallback_reason=" +
                              "; ".join(st["host_fallback_reasons"]))
+            lines.append(
+                f"kernels device={self.device} resident_bytes="
+                f"{self._resident_bytes(resolved)} " + " ".join(
+                    f"{k}={n}/{total}"
+                    for k, (n, total) in st["kernel_launches"].items()))
             lines.append("phases: " + " ".join(
                 f"{k}={v * 1e3:.3f}ms"
                 for k, v in sorted(st["phases"].items())))
         return Result(["plan"], [np.array(lines, dtype=object)],
                       [None], [T.STRING])
+
+    def _resident_bytes(self, plan: ast.Plan) -> int:
+        """Plate bytes of `plan`'s tables cached on this session's
+        device."""
+        from snappydata_tpu_torch.storage.device import \
+            device_cache_bytes_by_device
+
+        tables = {}
+        stack = [plan]
+        while stack:
+            p = stack.pop()
+            if isinstance(p, ast.Relation):
+                info = self.catalog.lookup_table(p.name)
+                if info is not None:
+                    tables[p.name] = info.data
+            stack.extend(p.children())
+        mine = self.device
+        return sum(n for d, n in device_cache_bytes_by_device(
+            tables.items()).items()
+            if torch.device(d).type == mine.type
+            and mine.index in (None, torch.device(d).index))
 
     def _explain_execute(self, plan: ast.Plan) -> dict:
         """EXPLAIN ANALYZE's execution pass: the query runs governed under
@@ -1328,6 +1356,7 @@ class SnappySession:
 
         reg = global_registry()
         c0 = reg.counters_snapshot()
+        k0 = _kernel_launches()
         t0 = time.perf_counter()
         with tracing.request_scope("EXPLAIN ANALYZE", user=self.user,
                                    kind="explain", force=True) as tr:
@@ -1335,6 +1364,7 @@ class SnappySession:
                                           ast.Query(plan), ())
         elapsed = time.perf_counter() - t0
         c1 = reg.counters_snapshot()
+        k1 = _kernel_launches()
 
         def d(key: str) -> int:
             return c1.get(key, 0) - c0.get(key, 0)
@@ -1382,6 +1412,9 @@ class SnappySession:
             # CUDA kernels' lanes ("kahan", "grouped") among them
             "strategies": [s for s in AGG_STRATEGIES
                            if d(f"agg_strategy_{s}")],
+            # each CUDA kernel's launches in this pass, and its wrapper's
+            # count in this process: (this query, process total)
+            "kernel_launches": {k: (k1[k] - k0[k], k1[k]) for k in k1},
             "compressed_fallbacks": {
                 k[len("compressed_fallback_"):]: c1.get(k, 0) - c0.get(k, 0)
                 for k in c1
@@ -2965,6 +2998,16 @@ class _ColsByIndex:
 class _NoneSeq:
     def __getitem__(self, i):
         return None
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """Each CUDA kernel wrapper's launch count in this process."""
+    from snappydata_tpu_torch.ops import group_reduce, kahan_reduce
+
+    return {w.__name__: w.launches for w in (
+        kahan_reduce.masked_kahan_sum, group_reduce.grouped_reduce,
+        kahan_reduce.fused_code_filter_sum,
+        group_reduce.grouped_code_reduce)}
 
 
 def _row_count(info) -> int:

@@ -592,9 +592,40 @@ def test_100k_group_with_error_completes():
 
 
 def test_distributed_estimation_waits_for_the_front_doors():
-    with pytest.raises(NotImplementedError, match="cluster"):
-        ee.execute_error_query_distributed(None, parser.parse(
-            "SELECT sum(x) FROM t WITH ERROR 0.5"))
+    """WITH ERROR over a cluster of each package (the phase aggregates fan
+    to every server, the lead merges the strata): the estimates, their
+    errors and bounds, the exact count's zero error and the exact re-run
+    of BEHAVIOR 'run_on_full_table' equal the reference's.  (The name is
+    kept from the slice before the distributed session, when the
+    estimator raised.)"""
+    from torch_parity import clusters, ledger_guard
+
+    rng = np.random.default_rng(31)
+    n = 12_000
+    k = rng.integers(0, 50_000, n).astype(np.int64)
+    g = np.array(["a", "b", "c"], dtype=object)[rng.integers(0, 3, n)]
+    v = rng.normal(50, 8, n)
+    queries = (
+        "SELECT g, avg(v) AS av, absolute_error(av) AS ae, "
+        "lower_bound(av) AS lb, upper_bound(av) AS ub FROM we_t "
+        "GROUP BY g ORDER BY g WITH ERROR 0.5 CONFIDENCE 0.95",
+        "SELECT count(*) AS c, absolute_error(c) FROM we_t WITH ERROR 0.5",
+        "SELECT g, avg(v) AS av, absolute_error(av) AS ae FROM we_t "
+        "GROUP BY g ORDER BY g WITH ERROR 0.00001 "
+        "BEHAVIOR 'run_on_full_table'")
+    with ledger_guard(), clusters(n=2) as (ref, port):
+        got = []
+        for c in (ref, port):
+            c.ds.sql("CREATE TABLE we_t (k BIGINT, g STRING, v DOUBLE) "
+                     "USING column OPTIONS (partition_by 'k')")
+            c.ds.insert_arrays("we_t", [k.copy(), g.copy(), v.copy()])
+            c.ds.sql("CREATE SAMPLE TABLE we_s ON we_t OPTIONS "
+                     "(baseTable 'we_t', qcs 'g', reservoir_size '250')")
+            got.append([_rows(c.ds.sql(q)) for q in queries])
+        for p_rows, r_rows in zip(got[1], got[0]):
+            assert_rows_equal(p_rows, r_rows, REL)
+        assert got[1][1][0][0] == n and got[1][1][0][1] == 0.0
+        assert len(got[1][0]) == 3 and all(r[2] > 0 for r in got[1][0])
 
 
 def test_sample_tables_and_topk_recover(tmp_path):

@@ -4,7 +4,8 @@ reference's (snappydata_tpu/cli.py): `status`, `backup`, `restore` and
 from member ids, ports and paths, against an in-process CPU locator and
 server of their own package; `python -m snappydata_tpu_torch` starts a
 locator and a CPU server in subprocesses with the reference's startup
-lines; a server's session runs on `--device` (cuda by default, which
+lines; `rebalance` prints the primary lead's answer as the reference's
+does; a server's session runs on `--device` (cuda by default, which
 raises without a GPU) and the multi-host flags raise until multi-device
 execution is ported."""
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from torch_parity import _ledger_per_test, front_door_env  # noqa: F401
+from torch_parity import stop_member
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,7 +48,7 @@ def clusters():
         out[name] = (cli, loc, srv)
     yield out
     for _cli, loc, srv in out.values():
-        srv.stop()
+        stop_member(srv)
         loc.stop()
 
 
@@ -143,24 +145,59 @@ def test_backup_and_restore_print_the_references_lines(clusters, capsys,
 
 
 def test_rebalance_reports_the_leads_answer(capsys):
-    """The port's lead answers `/rebalance` 501 until the distributed
-    session is ported: the command prints the JSON error and exits 1."""
-    from snappydata_tpu_torch import SnappySession, cli
-    from snappydata_tpu_torch.catalog import Catalog
-    from snappydata_tpu_torch.cluster import LeadNode, LocatorNode
+    """`rebalance --lead` prints the primary lead's answer and exits 0, as
+    the reference's does.  Each package's lead builds its cluster view
+    over two servers; a redundant table fails over from server 1, which
+    rejoins empty, so the rebalance moves half the buckets back: both
+    packages print the same JSON and leave the same rows on each
+    server."""
+    import numpy as np
 
-    loc = LocatorNode().start()
-    lead = LeadNode(loc.address, SnappySession(catalog=Catalog(),
-                                               device="cpu"),
-                    lease_s=0.5).start(wait_for_primary=True)
-    try:
-        assert lead.is_primary
-        rc = cli.main(["rebalance", "--lead", lead.rest_address])
-        out = capsys.readouterr().out
-        assert rc == 1 and "distributed session" in out, out
-    finally:
-        lead.stop()
-        loc.stop()
+    rng = np.random.default_rng(4)
+    k = rng.integers(0, 10_000, 4000).astype(np.int64)
+    v = np.round(rng.random(4000), 3)
+    printed, per_server = {}, {}
+    for pkg in ("ref", "port"):
+        Session, Catalog, LocatorNode, ServerNode, cli, kw = _pkg(pkg)
+        if pkg == "ref":
+            from snappydata_tpu.cluster import LeadNode
+        else:
+            from snappydata_tpu_torch.cluster import LeadNode
+        loc = LocatorNode().start()
+        servers = [ServerNode(loc.address, Session(catalog=Catalog(), **kw))
+                   .start() for _ in range(2)]
+        lead = LeadNode(loc.address, Session(catalog=Catalog(), **kw),
+                        lease_s=0.5).start(wait_for_primary=True)
+        try:
+            assert lead.is_primary
+            ds = lead.rest.distributed
+            assert ds is not None and len(ds.servers) == 2
+            if pkg == "port":
+                assert ds.device == lead.session.device
+            order = [s.flight_address for s in servers]
+            idx = {a: ds.server_addresses.index(a) for a in order}
+            ds.sql("CREATE TABLE rb (k BIGINT, v DOUBLE) USING column "
+                   "OPTIONS (partition_by 'k', redundancy '1')")
+            ds.insert_arrays("rb", [k.copy(), v.copy()])
+            ds.mark_server_failed(idx[order[1]])
+            ds.replace_server(idx[order[1]], order[1])
+            rc = cli.main(["rebalance", "--lead", lead.rest_address])
+            out = capsys.readouterr().out
+            assert rc == 0, out
+            printed[pkg] = out
+            per_server[pkg] = [s.session.sql(
+                "SELECT count(*), sum(k) FROM rb").rows()[0]
+                for s in servers]
+            assert ds.sql("SELECT count(*) FROM rb").rows()[0][0] == len(k)
+        finally:
+            stop_member(lead)
+            for s in servers:
+                stop_member(s)
+            loc.stop()
+    assert printed["port"] == printed["ref"]
+    assert '"moved_buckets": 64' in printed["port"], printed["port"]
+    assert [tuple(r) for r in per_server["port"]] == \
+        [tuple(r) for r in per_server["ref"]]
 
 
 def test_server_device_defaults_to_cuda():

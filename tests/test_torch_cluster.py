@@ -33,18 +33,15 @@ globals().update(port_cases("test_cluster.py", [
     "test_flight_schema_without_execution_and_paging",
     "test_query_log_and_plan_ui"]))
 
-# the module imports the distributed session, which is not ported; no
-# case below uses it
+# the single-server cases (the distributed ones run in
+# tests/test_torch_distributed_ha.py)
 globals().update(port_cases("test_ha.py", [
     "_clean_faults", "test_mutation_lost_ack_retries_transparently",
     "test_mutation_retry_pins_to_applied_server",
     "test_mutation_dedup_survives_crash_recovery",
     "test_heartbeat_survives_transient_runtime_errors",
     "test_heartbeat_gives_up_visibly_on_persistent_mismatch",
-    "test_rest_ha_endpoint_and_dashboard"], edits=[
-    ("""from snappydata_tpu.cluster.distributed import (DistributedError,
-                                                DistributedSession)
-""", "")]))
+    "test_rest_ha_endpoint_and_dashboard"]))
 # under a second on the CPU (its loop gives up after two beats)
 test_heartbeat_gives_up_visibly_on_persistent_mismatch.pytestmark = [
     m for m in test_heartbeat_gives_up_visibly_on_persistent_mismatch

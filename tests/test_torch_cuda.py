@@ -1777,3 +1777,91 @@ def test_cuda_stream_micro_batches_reach_both_kernels(cuda_device):
             q.stop()
         s.stop()
         props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+@pytest.mark.cuda
+def test_cuda_explain_analyze_counts_kernel_launches(cuda_device):
+    """EXPLAIN ANALYZE on the card: the `kernels` line names the card,
+    the lineitem plates resident on it and the launches of this pass,
+    equal to the wrappers' own counts around it."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.utils import tpch
+
+    props = config.global_properties()
+    saved = (props.pallas_reduce, props.pallas_group_reduce)
+    props.pallas_reduce = props.pallas_group_reduce = True
+    s = SnappySession(catalog=Catalog())
+    try:
+        s.sql(tpch.LINEITEM_DDL)
+        s.insert_arrays("lineitem", list(tpch.gen_lineitem(200_000,
+                                                           7).values()))
+        for q, lc in ((tpch.Q1, gr.grouped_reduce),
+                      (tpch.Q6, kr.masked_kahan_sum)):
+            n0 = lc.launches
+            rows = s.sql("EXPLAIN ANALYZE " + q).rows()
+            line = next(r[0] for r in rows if r[0].startswith("kernels "))
+            fields = dict(t.split("=", 1) for t in line.split()[1:])
+            assert fields["device"].startswith("cuda")
+            assert int(fields["resident_bytes"]) > 0
+            assert fields[lc.__name__] == f"{lc.launches - n0}/{lc.launches}"
+            assert lc.launches - n0 >= 1
+    finally:
+        s.stop()
+        props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_q1_q6_over_two_servers(cuda_device):
+    """A DistributedSession on the card (no device=) over two in-process
+    ServerNodes on the card, under the float32 plate policy: the
+    scattered Q1 / Q6 equal one session's rows within the compensated
+    kernels' bar, each server launching the grouped kernel for Q1's
+    partial and the Kahan kernel for Q6's, and the lead's merge runs on
+    its own card."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.cluster import LocatorNode, ServerNode
+    from snappydata_tpu_torch.cluster.distributed import DistributedSession
+    from snappydata_tpu_torch.utils import tpch
+
+    props = config.global_properties()
+    saved = (props.pallas_reduce, props.pallas_group_reduce)
+    props.pallas_reduce = props.pallas_group_reduce = True
+    cols = tpch.gen_lineitem(400_000, 7)
+    one = SnappySession(catalog=Catalog())
+    loc = LocatorNode().start()
+    servers = [ServerNode(loc.address, SnappySession(catalog=Catalog()))
+               .start() for _ in range(2)]
+    ds = DistributedSession(locator=loc.address)
+    try:
+        assert ds.device.type == "cuda"
+        one.sql(tpch.LINEITEM_DDL)
+        one.insert_arrays("lineitem", [np.array(a, copy=True)
+                                       for a in cols.values()])
+        ds.sql(tpch.LINEITEM_DDL)
+        ds.insert_arrays("lineitem", list(cols.values()))
+        counts = [s.session.sql("SELECT count(*) FROM lineitem").rows()[0][0]
+                  for s in servers]
+        assert sum(counts) == 400_000 and min(counts) > 0
+        for q, lc in ((tpch.Q1, gr.grouped_reduce),
+                      (tpch.Q6, kr.masked_kahan_sum)):
+            want = one.sql(q).rows()
+            n0 = lc.launches
+            got = ds.sql(q).rows()
+            assert lc.launches >= n0 + 2, (q, lc.launches - n0)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                for a, b in zip(g, w):
+                    if isinstance(b, float):
+                        assert a == pytest.approx(b, rel=1e-6)
+                    else:
+                        assert a == b
+        assert ds.last_downgrades == []
+    finally:
+        ds.close()
+        for s in servers:
+            s.stop()
+        loc.stop()
+        one.stop()
+        props.pallas_reduce, props.pallas_group_reduce = saved

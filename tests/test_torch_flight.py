@@ -11,10 +11,11 @@ against the port with the reference's assertions
 reference's over one list of errors, and the reference's `SnappyClient`
 against the port's server and the port's against the reference's: the
 same Arrow tables, schemas included, mutations deduplicated, deadlines
-typed.  Bucket actions need the distributed session and raise
-NotImplementedError."""
+typed; then the seven bucket actions of each package's server, which
+answer alike."""
 
 import errno
+import json
 import threading
 import time
 
@@ -87,8 +88,12 @@ globals().update(port_cases("test_failpoints.py", [
 
 def _errors(pkg):
     if pkg == "ref":
+        from snappydata_tpu.cluster.distributed import (
+            DistributedError, DistributedUnsupported)
         from snappydata_tpu.resource.context import CancelException
     else:
+        from snappydata_tpu_torch.cluster.distributed import (
+            DistributedError, DistributedUnsupported)
         from snappydata_tpu_torch.resource.context import CancelException
     return [
         CancelException("deadline"),
@@ -103,6 +108,8 @@ def _errors(pkg):
         OSError(errno.ENOENT, "missing"),
         ValueError("bad sql"),
         PermissionError("denied"),
+        DistributedError("member lost", ["h:1"], 2),
+        DistributedUnsupported("over the gather budget"),
     ]
 
 
@@ -114,7 +121,7 @@ def test_is_retryable_matches_reference():
     want = [ref_rel.is_retryable(e) for e in _errors("ref")]
     assert got == want
     assert got == [False, False, True, True, False, False, True, True,
-                   True, False, False, False]
+                   True, False, False, False, True, True]
 
 
 def test_retry_metrics_and_breaker_skip_dead_member():
@@ -135,40 +142,54 @@ def test_retry_metrics_and_breaker_skip_dead_member():
         c.sql("SELECT 1")
 
 
-# -- the distributed session is not ported -----------------------------------
+# -- the bucket actions -------------------------------------------------------
+
+BUCKET_ACTIONS = ("repartition", "promote", "replicate", "purge_replica",
+                  "purge_buckets", "demote", "move_buckets")
+
 
 def test_membership_surfaces_raise():
-    """The bucket actions raise until the distributed session is ported;
-    a client told of a locator that does not answer raises as the
-    reference's does."""
-    from snappydata_tpu_torch import SnappySession
-    from snappydata_tpu_torch.catalog import Catalog
+    """A client told of a locator that does not answer raises as the
+    reference's does; the seven bucket actions answer as the reference's
+    on a server of each package given the same rows and body (here with
+    no replica shadow and a peer of the same package).  (The name is
+    kept from the slice before the distributed session, when the bucket
+    actions raised.)"""
     from snappydata_tpu_torch.cluster.client import SnappyClient
-    from snappydata_tpu_torch.cluster.flight_server import (
-        MEMBERSHIP_ACTIONS, SnappyFlightServer)
 
     with pytest.raises(ConnectionError):
         SnappyClient(locator="127.0.0.1:1")
-    s = SnappySession(catalog=Catalog(), device="cpu")
-    s.sql("CREATE TABLE mb (k BIGINT) USING column")
-    srv = SnappyFlightServer(s)
-    threading.Thread(target=srv.serve, daemon=True).start()
-    srv.wait_ready()
-    c = SnappyClient(address=f"127.0.0.1:{srv.port}")
-    try:
-        assert len(MEMBERSHIP_ACTIONS) == 7
-        for name in MEMBERSHIP_ACTIONS:
-            # a NotImplementedError reaches the client as Arrow's own
-            with pytest.raises(pa.ArrowNotImplementedError,
-                               match="distributed session"):
-                c._action(name, {"table": "mb", "key": "k", "buckets": [0],
-                                 "num_buckets": 4}, retry=False)
-        assert c.sql("SELECT count(*) AS n FROM mb").column(0)[0].as_py() \
-            == 0
-    finally:
-        c.close()
-        srv.shutdown()
-        s.stop()
+    got = {}
+    for pkg in ("ref", "port"):
+        pair = [_serve(pkg) for _ in range(2)]
+        for s, _srv in pair:
+            s.sql("CREATE TABLE mb (k BIGINT, v DOUBLE) USING column")
+            s.sql("CREATE TABLE mb_dest (k BIGINT, v DOUBLE) USING column")
+            s.sql("CREATE TABLE mb__replica (k BIGINT, v DOUBLE) "
+                  "USING column")
+            s.insert_arrays("mb", [np.arange(64, dtype=np.int64),
+                                   np.arange(64) * 0.5])
+        addrs = [f"127.0.0.1:{srv.port}" for _s, srv in pair]
+        c = _client(pkg, pair[0][1].port)
+        try:
+            out = []
+            for name in BUCKET_ACTIONS:
+                body = {"table": "mb", "key": "k", "buckets": [0, 1],
+                        "num_buckets": 4, "target": addrs[1]}
+                if name == "repartition":
+                    body.update(dest="mb_dest", servers=addrs)
+                out.append((name, json.loads(json.dumps(
+                    c._action(name, body, retry=False)))))
+            out.append([s.sql("SELECT count(*), sum(v) FROM mb").rows()
+                        for s, _srv in pair])
+            got[pkg] = out
+        finally:
+            c.close()
+            for s, srv in pair:
+                stop_flight(srv)
+                s.stop()
+    assert got["port"] == got["ref"]
+    assert dict(got["port"][:-1])["repartition"]["rows"] == 64
 
 
 def test_default_session_needs_a_card():

@@ -369,3 +369,53 @@ def test_membership_and_cli_import_no_jax():
     out = _run(_MEMBERSHIP_CLI)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+_DISTRIBUTED = r"""
+import sys
+import numpy as np
+from snappydata_tpu_torch import SnappySession, reliability
+from snappydata_tpu_torch.catalog import Catalog
+from snappydata_tpu_torch.cluster import LeadNode, LocatorNode, ServerNode
+from snappydata_tpu_torch.cluster.distributed import (DistributedError,
+                                                      DistributedSession)
+from snappydata_tpu_torch.utils import tpch
+
+loc = LocatorNode().start()
+servers = [ServerNode(loc.address, SnappySession(catalog=Catalog(),
+                                                 device="cpu")).start()
+           for _ in range(2)]
+ds = DistributedSession(locator=loc.address, device="cpu")
+ds.sql(tpch.LINEITEM_DDL)
+li = tpch.gen_lineitem(4000, 3)
+ds.insert_arrays("lineitem", list(li.values()))
+assert ds.sql("SELECT count(*) FROM lineitem").rows()[0][0] == 4000
+assert len(ds.sql(tpch.Q1).rows()) == 4 and ds.sql(tpch.Q6).rows()
+ds.sql("CREATE SAMPLE TABLE ls ON lineitem OPTIONS (qcs 'l_returnflag', "
+       "reservoir_size '50')")
+assert ds.sql("SELECT count(*) AS c, absolute_error(c) FROM lineitem "
+              "WITH ERROR 0.5").rows()[0][0] == 4000
+assert reliability.is_retryable(DistributedError("x"))
+lead = LeadNode(loc.address, SnappySession(catalog=Catalog(), device="cpu"),
+                lease_s=0.5).start(wait_for_primary=True)
+assert lead.rest.distributed is not None
+assert lead.rest.distributed.rebalance()["moved_buckets"] == 0
+lead.stop()
+ds.close()
+for s in servers:
+    s.stop()
+loc.stop()
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_distributed_session_imports_no_jax():
+    """`cluster/distributed.py` (scatter-gather, the exchanges, the
+    bucket actions it drives), the lead's cluster view, the distributed
+    estimator and `is_retryable` run without JAX or the JAX package."""
+    out = _run(_DISTRIBUTED)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout

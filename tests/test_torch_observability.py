@@ -333,6 +333,34 @@ def test_explain_analyze_works_with_tracing_disabled(_restore_knobs):
     s.stop()
 
 
+def test_explain_analyze_counts_kernel_launches(_restore_knobs,
+                                               monkeypatch):
+    """The footer's `kernels` line names the session's device, the plate
+    bytes of the query's tables resident there, and for each CUDA kernel
+    its launches in this pass over the wrapper's count: on the CPU the
+    wrappers run their plain versions and count nothing."""
+    from snappydata_tpu_torch.ops import group_reduce, kahan_reduce
+
+    _restore_knobs.pallas_reduce = True
+    _restore_knobs.pallas_group_reduce = True
+    _restore_knobs.decimal_as_float64 = False
+    monkeypatch.setattr(kahan_reduce.masked_kahan_sum, "launches", 5)
+    monkeypatch.setattr(group_reduce.grouped_reduce, "launches", 3)
+    monkeypatch.setattr(kahan_reduce.fused_code_filter_sum, "launches", 0)
+    monkeypatch.setattr(group_reduce.grouped_code_reduce, "launches", 0)
+    s = _mk_session()
+    rows = s.sql("EXPLAIN ANALYZE SELECT g, sum(v) FROM t GROUP BY g").rows()
+    line = _line(rows, "kernels ")
+    assert line.split() == [
+        "kernels", "device=cpu", line.split()[2], "masked_kahan_sum=0/5",
+        "grouped_reduce=0/3", "fused_code_filter_sum=0/0",
+        "grouped_code_reduce=0/0"]
+    assert int(_field(line, "resident_bytes")) > 0
+    assert not any(r[0].startswith("kernels ") for r in
+                   s.sql("EXPLAIN SELECT sum(v) FROM t").rows())
+    s.stop()
+
+
 def test_explain_analyze_names_the_kernel_lanes(_restore_knobs):
     """With the kernel knobs on, the footer's strategies name the port's
     kernel lanes ("kahan" for a global sum, "grouped" for a grouped

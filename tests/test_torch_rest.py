@@ -10,8 +10,8 @@ test_compressed_domain.py and test_ha.py (`timeout_s` on `POST /sql`),
 each run against the port with the reference's assertions
 (`torch_parity.port_cases`); then the JSON bodies of the same requests
 to a reference and a port service, the membership a lead's service
-lists, and the operator routes that need the distributed session
-(501)."""
+lists, and the operator routes, which answer from the lead's cluster
+view (the distributed session) as the reference's do."""
 
 import copy
 import dataclasses
@@ -89,12 +89,8 @@ globals().update(port_cases("test_join_engine.py", [
 globals().update(port_cases("test_compressed_domain.py", [
     "test_scan_snapshot_and_rest_surface"]))
 
-# the timeout case of the HA suite; the module imports the distributed
-# session, which is not ported
-globals().update(port_cases("test_ha.py", ["test_rest_sql_timeout_s"], edits=[
-    ("""from snappydata_tpu.cluster.distributed import (DistributedError,
-                                                DistributedSession)
-""", "")]))
+# the timeout case of the HA suite
+globals().update(port_cases("test_ha.py", ["test_rest_sql_timeout_s"]))
 
 
 # -- both packages' services, request for request ---------------------------
@@ -236,24 +232,49 @@ def test_rest_status_routes_answer_like_reference(services):
 def test_membership_routes_answer_501(services):
     """`/status/api/v1/ha` answers with the reference's keys; a service
     given the locator's membership lists its members on the cluster
-    route and the dashboard; only the operator routes, which need the
-    distributed session, answer 501."""
+    route and the dashboard; the operator routes answer the reference's
+    409 on a service with no cluster view, and with a lead's view over
+    two servers of its package `/rebalance`, `/redundancy/restore`,
+    `/wal/flush` and the HA route's member lines answer as the
+    reference's.  (The name is kept from the slice before the
+    distributed session, when the operator routes answered 501.)"""
     from snappydata_tpu_torch.cluster import LocatorNode
     from snappydata_tpu_torch.cluster.locator import LocatorClient
-    from snappydata_tpu_torch.cluster.rest import (MEMBERSHIP_ROUTES,
-                                                   RestService)
+    from snappydata_tpu_torch.cluster.rest import RestService
     from snappydata_tpu_torch.observability import TableStatsService
+    from torch_parity import clusters
 
+    routes = ("/rebalance", "/redundancy/restore")
     got = {pkg: _http(svc, "/status/api/v1/ha") for pkg, (_s, svc)
            in services.items()}
     assert got["port"][0] == got["ref"][0] == 200
     assert set(got["port"][1]) == set(got["ref"][1])
+    for path in routes:
+        got = {pkg: _http(svc, path, {}) for pkg, (_s, svc)
+               in services.items()}
+        assert got["port"] == got["ref"] == (
+            409, {"error": "no cluster session on this lead"}), path
+    with clusters(n=2) as made:
+        got = {}
+        for pkg, c in zip(("ref", "port"), made):
+            svc = services[pkg][1]
+            c.ds.sql("CREATE TABLE rr (k BIGINT, v DOUBLE) USING column "
+                     "OPTIONS (partition_by 'k', redundancy '1')")
+            c.ds.insert_arrays("rr", [np.arange(500, dtype=np.int64),
+                                      np.ones(500)])
+            c.ds.mark_server_failed(1)
+            svc.distributed = c.ds
+            try:
+                ha = _http(svc, "/status/api/v1/ha")[1]
+                got[pkg] = [_http(svc, p, {}) for p in
+                            routes + ("/wal/flush",)] + [
+                    {k: ha[k] for k in ("members_total", "alive_members",
+                                        "degraded_buckets")}]
+            finally:
+                svc.distributed = None
+    assert got["port"] == got["ref"]
+    assert got["port"][-1]["alive_members"] == 1
     s, svc = services["port"]
-    assert MEMBERSHIP_ROUTES == ("/rebalance", "/redundancy/restore")
-    for path in MEMBERSHIP_ROUTES:
-        code, out = _http(svc, path, {})
-        assert code == 501 and "distributed session" in out["error"], \
-            (path, out)
     loc = LocatorNode().start()
     lc = LocatorClient(loc.address, "lead-rest", "lead", port=7)
     lc.register()

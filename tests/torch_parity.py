@@ -162,6 +162,14 @@ def port_cases(ref_file, names, edits=(), rename=None):
     return {rename.get(n, n): getattr(mod, n) for n in names}
 
 
+
+def unslow(obj):
+    """Take the reference's own `slow` mark off a ported case (a function
+    or a class) that runs in seconds on the port."""
+    obj.pytestmark = [m for m in getattr(obj, "pytestmark", [])
+                      if m.name != "slow"]
+    return obj
+
 @contextlib.contextmanager
 def cpu_default():
     """A port session that names no device runs on the CPU here (the
@@ -212,6 +220,18 @@ def stop_flight(srv):
         time.sleep(flight_server.SHUTDOWN_GRACE_S)
 
 
+def stop_member(node):
+    """Stop member node `node` (a server or a lead of either package).
+    A port node's Flight server waits SHUTDOWN_GRACE_S itself; after a
+    reference node the test waits as long, as `stop_flight` does."""
+    from snappydata_tpu_torch.cluster import flight_server
+
+    node.stop()
+    if node.flight is not None and not isinstance(
+            node.flight, flight_server.SnappyFlightServer):
+        time.sleep(flight_server.SHUTDOWN_GRACE_S)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def front_door_env():
     """Module-wide: port sessions default to the CPU and both ledgers are
@@ -225,3 +245,64 @@ def front_door_env():
 def _ledger_per_test():
     with ledger_guard():
         yield
+
+
+# -- clusters of either package ----------------------------------------------
+
+def _cluster_pkg(name):
+    if name == "ref":
+        from snappydata_tpu import SnappySession as Session
+        from snappydata_tpu.catalog import Catalog as Cat
+        from snappydata_tpu.cluster import LocatorNode, ServerNode
+        from snappydata_tpu.cluster import distributed
+        from snappydata_tpu.utils import tpch
+
+        def session():
+            return Session(catalog=Cat())
+    else:
+        from snappydata_tpu_torch.cluster import LocatorNode, ServerNode
+        from snappydata_tpu_torch.cluster import distributed
+        from snappydata_tpu_torch.utils import tpch
+
+        def session():
+            return SnappySession(catalog=Catalog(), device="cpu")
+    return LocatorNode, ServerNode, distributed, tpch, session
+
+
+class Cluster:
+    """A locator, `n` servers and a lead's DistributedSession of one
+    package ("ref" or "port"; the port's on the CPU)."""
+
+    def __init__(self, pkg, n=3):
+        LocatorNode, ServerNode, distributed, self.tpch, session = \
+            _cluster_pkg(pkg)
+        self.locator = LocatorNode().start()
+        self.servers = [ServerNode(self.locator.address, session()).start()
+                        for _ in range(n)]
+        kw = {} if pkg == "ref" else {"device": "cpu"}
+        self.ds = distributed.DistributedSession(
+            server_addresses=[s.flight_address for s in self.servers], **kw)
+
+    def counts(self, table):
+        """Each server's row count of `table`."""
+        return [s.session.sql(f"SELECT count(*) FROM {table}").rows()[0][0]
+                for s in self.servers]
+
+    def close(self):
+        self.ds.close()
+        for s in self.servers:
+            stop_member(s)
+        self.locator.stop()
+
+
+@contextlib.contextmanager
+def clusters(n=3):
+    """(reference cluster, port cluster) of `n` servers each."""
+    made = []
+    try:
+        for pkg in ("ref", "port"):
+            made.append(Cluster(pkg, n))
+        yield made
+    finally:
+        for c in made:
+            c.close()
