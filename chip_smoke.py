@@ -23,7 +23,9 @@ request tracing, grants and the stats service, then the front doors
 (Arrow Flight, Flight SQL, REST and the client) over that session, then
 membership and the CLI, then AQP over a sample table, then stream tables
 fed by micro-batches, then a distributed session over two data-server
-processes.
+processes; right after the join path, lineitem and orders on a 4-slot
+mesh of the one card (Q1, Q6 and Q3C through the per-slot lane, a live
+resize).
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
                           [--ptxas]
@@ -375,9 +377,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    at the top of phase 17: `SET pallas_reduce` / `pallas_group_reduce`
    on each server over Flight, `tpch.LINEITEM_DDL` (partitioned on
    l_orderkey) fanned out, and beside phase 17 on a thread the routed
-   ingest of the first 1 / `DIST_DEPTH` of lineitem (24,000,000 rows of
-   SF 16: Flight and the servers' host encoding set the rate) and its
-   numpy oracle.  Then: (a) each server's row count, summing to the
+   ingest of the first 1 / `DIST_DEPTH` of lineitem (12,000,000 rows of
+   SF 16: Flight and the servers' host encoding set the rate, and at this
+   depth the ingest ends before phase 17 does) and its numpy oracle.  Then: (a) each server's row count, summing to the
    total; (b) Q1 and Q6 once and --reps times warm against numpy
    (counts exact, sums rel 1e-6), the lead's merge seconds apart from
    the fan-out, and each server's launches of the grouped (Q1) or Kahan
@@ -391,9 +393,30 @@ Phases, in order; any failure exits non-zero before the result lines:
    launches counted the same way; (e) each server's rows and batch
    bytes from its Flight `stats` action; no `dist_downgrades`.  Both
    server processes are stopped whatever happened;
-29. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+29. right after phase 10, on the main session as phase 10 leaves
+   lineitem and orders: multi-slot execution.  `mesh_slots` at
+   `MESH_SLOTS` (4), the session's `default_mesh = data_mesh(4)`: every
+   slot on cuda:0 (printed with the card's name), the slots' blocks views
+   of the plates phases 4 and 10 bound (nothing re-uploads).  Q1 and Q6
+   once and --reps times warm against phase 4's numpy oracle (counts
+   exact, sums rel 1e-6), each run one per-slot lane run
+   (`mesh_shard_execs`) launching the grouped (Q1) or Kahan (Q6) kernel at
+   least once a slot, their warm seconds beside phase 4's (the slots share
+   one card's SMs: the lane's overhead, not scaling); Q3C with
+   `mesh_join_strategy` at `broadcast`, then at `shuffle`, once and --reps
+   times warm, each against phase 10's rows (rel 1e-6), the grouped kernel
+   at least once a slot, the strategy's counter once a run, and the
+   shuffle exchange's seconds, bytes, moved rows and cache hits; per-slot
+   resident bytes (`device_cache_bytes_by_device`) beside the
+   single-device bind's; `resize_mesh(2)`: its seconds, moved buckets and
+   entries, the host-to-device bytes during it and the per-slot bytes
+   after; Q1 again against the oracle.  Any `mesh_fallback_*`, host
+   fallback or slot off cuda:0 fails the phase; the mesh and its cache
+   entries go at its end;
+30. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
-   18 - 27 in this process (phase 28's run in the servers' processes).
+   18 - 27 and 29 in this process (phase 28's run in the servers'
+   processes).
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -1052,6 +1075,167 @@ def join_path(session, tpch, reps, profile):
     warm = sorted(times[1:])[len(times[1:]) // 2] if reps else times[0]
     return (rows, times[0], warm, moved, launches, rec.calls, peak,
             resident, prof)
+
+
+MESH_SLOTS = 4                # phase 29: shard slots on the one card
+RESIZED_SLOTS = 2             # phase 29: slots after the live resize
+MESH_COUNTERS = ("mesh_shard_execs", "mesh_psum_merges",
+                 "mesh_join_broadcast", "mesh_join_shuffle",
+                 "mesh_exchange_bytes", "mesh_exchange_rows",
+                 "mesh_exchange_cache_hits", "host_fallbacks",
+                 "device_upload_bytes")
+
+
+def _slot_bytes(per_dev):
+    """The slot entries of `device_cache_bytes_by_device`."""
+    return {k: v for k, v in sorted(per_dev.items())
+            if k.startswith("slot")}
+
+
+def mesh_run(session, sql, kernel, reps, what):
+    """One query through the session's mesh once and `reps` times warm,
+    the kernel's launches and the mesh counters read around the runs:
+    (rows, first s, warm s, launches a run, counter deltas)."""
+    import torch
+
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    reg = global_registry()
+    n0 = kernel.launches
+    c0 = reg.counters(MESH_COUNTERS)
+    times = []
+    for _ in range(1 + reps):
+        t0 = time.perf_counter()
+        rows = session.sql(sql).rows()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    runs = 1 + reps
+    launches = kernel.launches - n0
+    moved = {k: v - c0[k] for k, v in reg.counters(MESH_COUNTERS).items()}
+    if moved["mesh_shard_execs"] != runs:
+        fail(f"mesh {what}: {moved['mesh_shard_execs']} per-slot lane runs "
+             f"over {runs} queries")
+    if launches < MESH_SLOTS * runs:
+        fail(f"mesh {what}: {launches} launches of {kernel.__name__} over "
+             f"{runs} runs, expected at least {MESH_SLOTS} a run")
+    if moved["host_fallbacks"]:
+        fail(f"mesh {what} left the device")
+    warm = sorted(times[1:])[len(times[1:]) // 2] if reps else times[0]
+    log(f"mesh_{what} first_s {times[0]:.4f} warm_s {warm:.4f} "
+        f"launches_per_run {launches / runs:g} counters {json.dumps(moved)}")
+    return rows, times[0], warm, launches, moved
+
+
+def mesh_path(session, tpch, want, q3c_rows, warm, args):
+    """Phase 29: lineitem and orders as phases 4 and 10 left them on a
+    4-slot mesh of the one card.  Q1 and Q6 against phase 4's oracle, Q3C
+    under a broadcast and a shuffle join against phase 10's rows, a live
+    resize to 2 slots and Q1 again; no mesh fallback, no slot off cuda:0.
+    Returns the kernels' launches over the phase's runs."""
+    import torch
+
+    from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.engine import mesh_exec
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.ops import group_reduce as gr
+    from snappydata_tpu_torch.ops import kahan_reduce as kr
+    from snappydata_tpu_torch.parallel.mesh import data_mesh
+    from snappydata_tpu_torch.storage.device import (
+        device_cache_bytes_by_device, device_cache_bytes_by_table)
+
+    props = config.global_properties()
+    reg = global_registry()
+    tables = [(n, session.catalog.lookup_table(n).data)
+              for n in ("lineitem", "orders")]
+    props.mesh_slots = MESH_SLOTS
+    props.pallas_reduce = props.pallas_group_reduce = True
+    fb0 = {k: v for k, v in reg.counters_snapshot().items()
+           if k.startswith("mesh_fallback_")}
+    launches = {"masked_kahan_sum": 0, "grouped_reduce": 0}
+    try:
+        mesh = data_mesh(MESH_SLOTS)
+        cards = {str(sl.device) for sl in mesh.slots}
+        log(f"mesh {mesh.size} slots on {len(cards)} x "
+            f"{torch.cuda.get_device_name(0)}: "
+            f"{', '.join(str(sl) for sl in mesh.slots)}")
+        if any(sl.device != torch.device("cuda", 0) for sl in mesh.slots):
+            fail(f"a mesh slot is not on cuda:0: {mesh}")
+        single = device_cache_bytes_by_table(tables)
+        session.default_mesh = mesh
+        rows, _f, _w, n, _m = mesh_run(session, tpch.Q1, gr.grouped_reduce,
+                                       args.reps, "q1")
+        check_rows("mesh Q1 vs numpy oracle", rows, want["q1"])
+        launches["grouped_reduce"] += n
+        q1_warm = _w
+        rows, _f, _w, n, _m = mesh_run(session, tpch.Q6,
+                                       kr.masked_kahan_sum, args.reps, "q6")
+        check_rows("mesh Q6 vs numpy oracle", rows, want["q6"])
+        launches["masked_kahan_sum"] += n
+        log(f"mesh_warm_s q1 {q1_warm:.4f} q6 {_w:.4f} beside phase 4's "
+            f"in-process q1 {warm['q1']:.4f} q6 {warm['q6']:.4f} (the "
+            f"{MESH_SLOTS} slots share one card's SMs: the per-slot lane's "
+            f"overhead, not scaling)")
+        for strategy in ("broadcast", "shuffle"):
+            props.mesh_join_strategy = strategy
+            x0 = reg.timer("mesh_exchange")
+            rows, _f, _w, n, moved = mesh_run(
+                session, tpch.Q3C, gr.grouped_reduce, args.reps,
+                f"q3c_{strategy}")
+            check_rows(f"mesh Q3C ({strategy}) vs phase 10", rows, q3c_rows)
+            launches["grouped_reduce"] += n
+            if moved["mesh_join_" + strategy] != 1 + args.reps:
+                fail(f"mesh Q3C did not take the {strategy} join: {moved}")
+            if strategy == "shuffle":
+                x1 = reg.timer("mesh_exchange")
+                log(f"mesh_shuffle_exchange_s {x1[1] - x0[1]:.4f} "
+                    f"exchanges {x1[0] - x0[0]} bytes "
+                    f"{moved['mesh_exchange_bytes']} rows_moved "
+                    f"{moved['mesh_exchange_rows']} cache_hits "
+                    f"{moved['mesh_exchange_cache_hits']} layout_bytes "
+                    f"{mesh_exec.mesh_layout_cache_nbytes()}")
+        props.mesh_join_strategy = "auto"
+        before = _slot_bytes(device_cache_bytes_by_device(tables))
+        log(f"mesh_resident_bytes single_device {json.dumps(single)} "
+            f"per_slot {json.dumps(before)}")
+        u0 = reg.counter("device_upload_bytes")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resized = session.resize_mesh(RESIZED_SLOTS)
+        resize_s = time.perf_counter() - t0
+        h2d = reg.counter("device_upload_bytes") - u0
+        after = _slot_bytes(device_cache_bytes_by_device(tables))
+        log(f"mesh_resize {MESH_SLOTS}->{RESIZED_SLOTS} s {resize_s:.4f} "
+            f"{json.dumps(resized)} host_to_device_bytes {h2d} per_slot "
+            f"{json.dumps(after)}")
+        if resized["buckets_moved"] < 1 or len(after) != RESIZED_SLOTS:
+            fail(f"the resize moved nothing: {resized} {after}")
+        n0 = gr.grouped_reduce.launches
+        t0 = time.perf_counter()
+        rows = session.sql(tpch.Q1).rows()
+        torch.cuda.synchronize()
+        log(f"mesh_q1_after_resize s {time.perf_counter() - t0:.4f} "
+            f"launches {gr.grouped_reduce.launches - n0}")
+        launches["grouped_reduce"] += gr.grouped_reduce.launches - n0
+        check_rows("mesh Q1 after the resize vs numpy oracle", rows,
+                   want["q1"])
+        fell = {k: v - fb0.get(k, 0)
+                for k, v in reg.counters_snapshot().items()
+                if k.startswith("mesh_fallback_") and v != fb0.get(k, 0)}
+        if fell:
+            fail(f"the mesh lane fell back: {fell}")
+    finally:
+        session.default_mesh = None
+        session._mesh_ctx = None
+        props.mesh_join_strategy = "auto"
+        props.mesh_slots = 0
+        mesh_exec.trim_layout_caches(0)
+        for _n, data in tables:
+            for k in [k for k in list(data._device_cache)
+                      if isinstance(k[1], int)]:
+                data._device_cache.pop(k, None)
+    log("answers ok: Q1 / Q6 on 4 slots match the oracle, Q3C under both "
+        "joins matches phase 10, Q1 after the resize matches the oracle")
+    return launches
 
 
 def build_sort_ms(session, reps):
@@ -4852,7 +5036,7 @@ def cli_members(cli):
 # -- phase 28: the distributed session -------------------------------------
 
 DIST_SERVERS = 2              # data-server processes, both on the one card
-DIST_DEPTH = 4                # phase 28 routes 1 / DIST_DEPTH of lineitem
+DIST_DEPTH = 8                # phase 28 routes 1 / DIST_DEPTH of lineitem
 DIST_SCAN = ("SELECT l_orderkey, l_quantity, l_extendedprice FROM lineitem "
              "WHERE l_quantity >= 50 AND l_discount >= 0.1")
 DIST_UPDATE_KEYS = 240_000    # the fanned-out UPDATE takes orders 1 .. this
@@ -5654,6 +5838,17 @@ def main() -> int:
     check_rows("generic-key join vs numpy", gen_rows, want_generic, 5e-5)
     log(f"generic_join groups {len(gen_rows)} first_s {gen_s:.4f}")
     log("answers ok: Q3C and the generic-key join match numpy")
+
+    # 29. multi-slot execution: lineitem and orders on a 4-slot mesh of the
+    # one card, Q1 / Q6 / Q3C through the per-slot lane, a live resize
+    phase_clock.next(29)
+    try:
+        mesh_launches = mesh_path(session, tpch, want, q3c_rows, warm, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"mesh path: {type(e).__name__}: {e}")
+    log(f"mesh_path_launches {json.dumps(mesh_launches)}")
+    for name, count in mesh_launches.items():
+        launches[name] += count
 
     # 11. the tiled lane over lineitem at a tenth of Q1's decoded bind
     phase_clock.next(11)

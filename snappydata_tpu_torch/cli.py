@@ -22,8 +22,10 @@ Usage:
 `cuda` by default, which raises without a GPU (there is no silent CPU
 fallback); `cpu` runs a member without one, as tests and CPU-only hosts
 do.  The multi-host flags of `server` (`--coordinator`,
-`--num-processes`, `--process-id`, `--mesh-devices`) need multi-device
-execution and raise NotImplementedError until it is ported.
+`--num-processes`, `--process-id`) join the process to a
+torch.distributed world (parallel/multihost.py) before the session
+starts, and the server then owns its rank's local slots as its submesh;
+`--mesh-devices` names the submesh's global slot indices explicitly.
 """
 
 from __future__ import annotations
@@ -53,22 +55,29 @@ def _session(args):
 
 
 def _cmd_server(args) -> int:
-    multihost = [flag for flag, v in (
-        ("--coordinator", args.coordinator),
-        ("--num-processes", args.num_processes),
-        ("--process-id", args.process_id),
-        ("--mesh-devices", args.mesh_devices)) if v is not None]
-    if multihost:
-        raise NotImplementedError(
-            f"server {' '.join(multihost)} needs multi-device execution "
-            "(ROADMAP A7: parallel/multihost.py and parallel/mesh.py), "
-            "which is not ported yet")
+    # the multi-host world first (flags override SNAPPY_COORDINATOR /
+    # _NUM_PROCESSES / _PROCESS_ID): the slot list depends on it
+    from snappydata_tpu_torch.parallel.multihost import (
+        initialize_multihost, local_device_indices)
+
+    multihost = initialize_multihost(coordinator=args.coordinator,
+                                     num_processes=args.num_processes,
+                                     process_id=args.process_id,
+                                     device=args.device)
     from snappydata_tpu_torch.cluster import ServerNode
 
+    mesh_devices = None
+    if args.mesh_devices:
+        mesh_devices = [int(x) for x in args.mesh_devices.split(",")]
+    elif multihost:
+        # a per-host server owns exactly its rank's local slots
+        mesh_devices = local_device_indices(args.device)
     node = ServerNode(args.locator, _session(args), host=args.host,
-                      flight_port=args.port).start()
-    print(f"server {node.member_id} flight at {node.flight_address}",
-          flush=True)
+                      flight_port=args.port,
+                      mesh_devices=mesh_devices).start()
+    extra = f", submesh {mesh_devices}" if mesh_devices else ""
+    print(f"server {node.member_id} flight at {node.flight_address}"
+          + extra, flush=True)
     _wait_forever()
     return 0
 
@@ -229,11 +238,11 @@ def main(argv=None) -> int:
             rp.add_argument("--rest-port", type=int, default=5050)
         if role == "server":
             rp.add_argument("--mesh-devices", default=None,
-                            help="comma-separated GLOBAL device indices "
-                                 "this server's submesh owns (not ported)")
+                            help="comma-separated GLOBAL slot indices "
+                                 "this server's submesh owns")
             rp.add_argument("--coordinator", default=None,
-                            help="multi-host coordinator host:port (not "
-                                 "ported)")
+                            help="multi-host coordinator host:port (a "
+                                 "torch.distributed tcp:// rendezvous)")
             rp.add_argument("--num-processes", type=int, default=None)
             rp.add_argument("--process-id", type=int, default=None)
         rp.set_defaults(fn=fn)

@@ -14,8 +14,9 @@ Single-host: nodes share the process's catalog/storage (embedded mode).
 A lead that becomes primary builds its cluster view, a
 `DistributedSession` over the data servers the locator lists, on its
 session's device; the view answers `/rebalance` and
-`/redundancy/restore`.  A server's submesh (`mesh_devices`) comes with
-multi-device execution and raises until then.  The lead's election
+`/redundancy/restore`.  A server's submesh (`mesh_devices`, slots of
+parallel/mesh.py) becomes its session's `default_mesh`, so every query it
+serves runs over those slots.  The lead's election
 thread enters its session's `config.device_scope`, since becoming
 primary starts the stats service and the cluster view on it.
 """
@@ -115,9 +116,11 @@ class _MemberNode:
 class ServerNode(_MemberNode):
     """Data server: storage + Flight query/ingest endpoint.
 
-    `mesh_devices` (the local devices whose submesh the server's session
-    would run every query over) needs multi-device execution, which is
-    not ported: any non-empty value raises NotImplementedError."""
+    `mesh_devices`: indices of the LOCAL shard slots this server owns
+    (parallel/mesh.py `slots()`); the server's session runs every query
+    over that submesh, composing the cluster plane (scatter over servers)
+    with the mesh plane (per-slot partials inside each server).  Ref: one
+    long-lived embedded executor per store JVM."""
 
     role = "server"
 
@@ -125,12 +128,13 @@ class ServerNode(_MemberNode):
                  host: str = "127.0.0.1", flight_port: int = 0,
                  member_id: Optional[str] = None,
                  mesh_devices: Optional[list] = None):
-        if mesh_devices:
-            raise NotImplementedError(
-                "ServerNode(mesh_devices=...) needs multi-device execution "
-                "(ROADMAP A7: parallel/mesh.py), which is not ported yet")
         super().__init__(locator_address, session, host, flight_port,
                          member_id)
+        self.mesh_devices = list(mesh_devices) if mesh_devices else None
+        if mesh_devices:
+            from snappydata_tpu_torch.parallel.mesh import submesh
+
+            session.default_mesh = submesh(mesh_devices, session.device)
 
     def start(self) -> "ServerNode":
         port = self._start_flight()

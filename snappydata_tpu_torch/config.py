@@ -401,6 +401,12 @@ class Properties:
     # plan): entries re-use the bucketed exchange across executions of
     # an unchanged table version. Entry COUNT cap, small by design.
     mesh_shuffle_cache_entries: int = 4
+    # Shard slots of this process (parallel/mesh.py): 0 = one per visible
+    # device (one on the CPU); more slots than devices put slot i on
+    # device i % k, as the reference's tests force 8 XLA host devices.
+    # A setting of the port only (the reference's mesh is jax.devices()).
+    mesh_slots: int = dataclasses.field(
+        default_factory=lambda: _env("SNAPPY_MESH_SLOTS", 0, int))
 
     # Streaming (ref: SnappySinkCallback.scala:49-360)
     sink_state_table: str = "snappysys_internal____sink_state_table"

@@ -63,6 +63,7 @@ import torch
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch import types as T
 from snappydata_tpu_torch.engine import hosteval
+from snappydata_tpu_torch.engine import mesh_exec
 from snappydata_tpu_torch.engine.exprs import (ARRAY_DEVICE_FUNCS,
                                                STRING_VALUE_FUNCS,
                                                CompileError, DVal,
@@ -78,6 +79,8 @@ from snappydata_tpu_torch.ops import group_reduce as _gr
 from snappydata_tpu_torch.ops import join as _dj
 from snappydata_tpu_torch.ops.group_reduce import grouped_reduce
 from snappydata_tpu_torch.ops.kahan_reduce import masked_kahan_sum
+from snappydata_tpu_torch.parallel.mesh import (MeshContext, dispatch_scope,
+                                                shard_bucket)
 from snappydata_tpu_torch.resource.context import check_current
 from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.sql.analyzer import _expr_name, expr_type
@@ -284,6 +287,8 @@ class CompiledPlan:
         # compressed-domain tally per (static, phase): the predicates the
         # emitter lowered to the code / run lanes in its last execution
         self._code_notes: Dict[tuple, dict] = {}
+        # per-join distribution metadata (set by Compiler.compile)
+        self.join_meta: List[Dict] = []
 
     def _noted_call(self, static, phase: str, fn, args):
         """Run `fn` (the emitter or phase A) with the compressed-domain
@@ -352,7 +357,10 @@ class CompiledPlan:
                 reg.inc("column_batches_skipped",
                         int(dt.num_batches - len(kept)))
                 sp.add("batches_skipped", int(dt.num_batches - len(kept)))
-                b_new = batch_bucket(len(kept))
+                # under a mesh the bucket must ALSO divide by the slot
+                # count, or the kept batches could not split evenly
+                b_new = shard_bucket(len(kept), dt.mesh.num_devices) \
+                    if dt.mesh is not None else batch_bucket(len(kept))
                 pad_valid = np.zeros(b_new, dtype=np.bool_)
                 pad_valid[:len(kept)] = True
                 idx = np.zeros(b_new, dtype=np.int64)
@@ -388,11 +396,19 @@ class CompiledPlan:
 
     def run(self, params: Tuple, device: torch.device):
         """Bind + run; returns ((mask, [(value, null), ...]), overflow)
-        still on the device — `overflow` is None or a bool tensor."""
+        still on the device — `overflow` is None or a bool tensor.
+
+        Under an active mesh the plates bind on the mesh's home device and
+        this single-device program runs over them whole (the counterpart
+        of the reference's plain GSPMD jit over a sharded bind): the run
+        holds `parallel.mesh.dispatch_lock` and completes inside the hold,
+        as every multi-slot dispatch does."""
+        device = mesh_device(device)
         try:
             rels, aux, static, pvals = self._bind(params, device)
             ctx = _RunCtx(self.relations, rels, aux, pvals, static, device)
-            outs = self._run_phases(ctx, params)
+            with dispatch_scope(device):
+                outs = self._run_phases(ctx, params)
         finally:
             # the bind's DeviceTables serve this run only: a cached plan
             # must not keep a table's plates alive past a demotion or an
@@ -528,6 +544,7 @@ class CompiledPlan:
         reference cannot stack either) and CompileError on a bind-check
         failure: the caller re-executes each request on its own."""
         reg = global_registry()
+        device = mesh_device(device)
         # the plate width and the literals' dtypes follow the device
         # scope: a fused dispatch runs in its device's scope whatever
         # thread leads it
@@ -629,6 +646,13 @@ class CompiledPlan:
 
 def data_needs_mask(v, mask) -> bool:
     return int(np.prod(np.shape(v))) == mask.shape[0]
+
+
+def mesh_device(device: torch.device) -> torch.device:
+    """The device a plan binds and runs on: the active mesh's home device
+    (slot 0's) under a mesh, else `device`."""
+    ctx = MeshContext.current()
+    return ctx.home_for(device) if ctx is not None else device
 
 
 # --- group-index (phase A) cache ------------------------------------------
@@ -959,6 +983,10 @@ class Compiler:
         self.static_providers: List[Callable] = []
         self.bind_checks: List[Callable] = []
         self._agg_notes: Optional[Dict] = None
+        # per-join metadata the mesh lane reads to pick and apply a
+        # distribution strategy (broadcast-build vs shuffle-on-key) — see
+        # engine/mesh_exec.py
+        self.join_meta: List[Dict] = []
 
     def _add_static(self, provider: Callable[[], int]) -> int:
         self.static_providers.append(provider)
@@ -999,10 +1027,12 @@ class Compiler:
         pre_emit = getattr(self, "_agg_pre_emit", None)
         if self.partial_raw or not self._pre_cacheable(plan):
             pre_emit = None
-        return CompiledPlan(self.relations, self.aux_builders,
-                            self.static_providers, emitter, out_scope,
-                            is_agg, self._agg_notes, self.bind_checks,
-                            self._tile_merge, pre_emit=pre_emit)
+        compiled = CompiledPlan(self.relations, self.aux_builders,
+                                self.static_providers, emitter, out_scope,
+                                is_agg, self._agg_notes, self.bind_checks,
+                                self._tile_merge, pre_emit=pre_emit)
+        compiled.join_meta = self.join_meta
+        return compiled
 
     def _pre_cacheable(self, plan: ast.Plan) -> bool:
         """Is the aggregate's prefix (validity + group index) safe and
@@ -1433,9 +1463,12 @@ class Compiler:
         the sort; query filters on the build side apply through a pass
         mask over the sorted order instead of re-sorting.  Shapes with no
         device lowering reroute to the exact host join via reasoned
-        `join_fallback_*` counters.  The reference's mesh pieces (shuffle
-        binds, per-shard bounds, distribution metadata) have no
-        counterpart on one device."""
+        `join_fallback_*` counters.  Under the mesh lane (engine/
+        mesh_exec.py) a bind sizes each slot's expansion to the slot's own
+        bound, and a shuffle bind (both sides exchanged bucket-wise on the
+        key) sorts each slot's build slice in the emitter instead of
+        indexing the global artifact; `join_meta` records what the lane
+        needs to choose and apply a strategy."""
         props = self.props
         rel_lo = len(self.relations)
         left, lscope = self._emit_rel(plan.left)
@@ -1584,7 +1617,16 @@ class Compiler:
 
         art_aux = None
         artifact_of = None
+        shuf_si = None
         if artifact_mode:
+            # mesh shuffle-on-key: when the mesh lane's bucketed exchange
+            # re-laid both sides out bucket-aligned, each slot sorts its
+            # LOCAL build slice instead of indexing the global artifact
+            # (whose order permutation describes the pre-exchange
+            # layout).  Rides the static key, so shuffled and unshuffled
+            # executions are distinct specializations
+            shuf_si = self._add_static(
+                lambda: int(mesh_exec.shuffle_active()))
             build_rel.no_skip = True  # order indexes the FULL flat layout
             enc_sig = tuple(enc_spec)
 
@@ -1615,6 +1657,13 @@ class Compiler:
             art_tls = threading.local()
 
             def _aux_artifact(params):
+                if mesh_exec.shuffle_active():
+                    # shuffle binds sort per slot in the emitter: the
+                    # GLOBAL artifact would be replicated for nothing
+                    # (mode_provider derives the uniqueness verdict and
+                    # the bound through artifact_of directly)
+                    return (torch.zeros(1, dtype=torch.int64),
+                            torch.zeros(1, dtype=torch.int64))
                 art = artifact_of()
                 if how not in ("semi", "anti"):
                     # mode_provider is the stash's only consumer
@@ -1702,6 +1751,23 @@ class Compiler:
                 bound = _dj.probe_expand_bound(
                     art, dtp.valid, tuple(s[2] for s in psources),
                     null_extend, compute_pkeys)
+                nd = mesh_exec.bind_devices()
+                if nd > 1:
+                    # mesh lane: each slot expands only ITS slice of the
+                    # probe — size the per-slot output axis to the slot's
+                    # own bound instead of the GLOBAL bucket.  Broadcast
+                    # slots split on batch position: the top-ceil(B/D)
+                    # per-batch bound is exact-sound; a key-bucket
+                    # shuffle gets fair share with 2x skew headroom.  An
+                    # under-estimate raises the overflow flag (a loud
+                    # reroute), never a silent row loss
+                    if mesh_exec.shuffle_active():
+                        bound = min(bound, -(-bound // nd) * 2)
+                    else:
+                        bound = min(bound, _dj.probe_expand_bound_per_shard(
+                            art, dtp.valid,
+                            tuple(s[2] for s in psources), null_extend,
+                            compute_pkeys, nd, tuple(dtp.valid.shape)))
                 bucket = _dj.expand_bucket(max(1, bound))
                 _check_expand_cap(bucket + fext)
                 reg.inc("join_device_joins")
@@ -1733,6 +1799,23 @@ class Compiler:
                          for s in rscope]
         residual_run = self._builder_for(lscope + rscope).emit(residual) \
             if residual is not None else None
+
+        # distribution metadata for the mesh lane (engine/mesh_exec.py):
+        # which relations carry the probe / build sides, how their keys
+        # encode into the shared int64 domain, and the static slot the
+        # shuffle specialization rides
+        self.join_meta.append({
+            "how": how,
+            "artifact_mode": artifact_mode,
+            "probe_rel": probe_rel,
+            "build_rel": build_rel,
+            "probe_ords": tuple(s[2] for s in psources)
+            if all(s is not None for s in psources) else None,
+            "build_ords": build_ords,
+            "enc_spec": tuple(enc_spec),
+            "trans_getters": dict(trans_getters),
+            "shuf_si": shuf_si,
+        })
 
         def run_join(ctx) -> RelOut:
             lo = left(ctx)
@@ -1768,7 +1851,7 @@ class Compiler:
                 pkeys = torch.where(pnull, _dj.PROBE_NULL_SENTINEL, pkeys)
 
             pass_flat = ro.valid.reshape(-1)
-            if artifact_mode:
+            if artifact_mode and ctx.static[shuf_si] == 0:
                 skeys, order = ctx.aux[art_aux]
                 if build_filtered:
                     # the artifact sorts the FULL snapshot; query filters
@@ -1785,10 +1868,11 @@ class Compiler:
                     def locate(b, r):
                         return _dj.nth_match_dense(b, r, order)
             else:
-                # derived build (semi/anti): sort per execution — the key
-                # sentinel already excludes filtered/NULL/dead rows
-                # (ro.valid carries the build filter), so the dense range
-                # math applies
+                # derived build (semi/anti) OR a mesh shuffle bind: sort
+                # per execution — the key sentinel already excludes
+                # filtered/NULL/dead rows (ro.valid carries the build
+                # filter), so the dense range math applies; under shuffle
+                # every slot sorts only ITS bucket slice
                 rflat = [(_broadcast_to_mask(d.value, ro.valid).reshape(-1),
                           _broadcast_to_mask(d.null, ro.valid).reshape(-1)
                           if d.null is not None else None) for d in rpairs]
@@ -2928,18 +3012,24 @@ def _rle_agg_ready(data) -> int:
 
 def _row_table_device(info, used, device: torch.device) -> DeviceTable:
     """A row table presents the same stacked [1, N] plate interface as a
-    column table.  The DeviceTable is cached per (mutation version,
-    device, columns); a pinned statement binds its captured host snapshot
-    and keys the cache by the CAPTURED version."""
+    column table.  Under a mesh it is REPLICATED — every slot reads all of
+    it (the reference's replicated row tables, whose joins never shuffle)
+    — and binds on the mesh's home device.  The DeviceTable is cached per
+    (mutation version, device or mesh token, columns); a pinned statement
+    binds its captured host snapshot and keys the cache by the CAPTURED
+    version."""
     data = info.data
     cache = data.__dict__.setdefault("_device_cache", {})
+    ctx = MeshContext.current()
+    if ctx is not None:
+        device = ctx.home_for(device)
     pin = mvcc.current_pin()
     if pin is not None:
         arrays, row_masks, n, ver = pin.row_snapshot(data)
     else:
         arrays = None
         ver = data.version
-    key = (ver, str(device), tuple(used))
+    key = (ver, ctx.token if ctx is not None else str(device), tuple(used))
     hit = cache.get(key)
     if hit is not None:
         return hit
@@ -2974,11 +3064,10 @@ def _row_table_device(info, used, device: torch.device) -> DeviceTable:
     valid = np.zeros((1, cap), dtype=np.bool_)
     valid[0, :n] = True
     dt = DeviceTable(info.schema, 1, cap, _upload(valid, device), cols, dicts,
-                     {}, {}, n, nulls)
+                     {}, {}, n, nulls, mesh=ctx)
     # old versions go, unless pinned or the LIVE version (a pinned bind
     # at an older capture must not evict the entry unpinned traffic hits)
-    from snappydata_tpu_torch.storage.device import (_cache_budget,
-                                                     _entry_bytes)
+    from snappydata_tpu_torch.storage.device import _cache_budget
 
     pinned = mvcc.pinned_row_versions(data)
     live = data.version
@@ -2988,7 +3077,7 @@ def _row_table_device(info, used, device: torch.device) -> DeviceTable:
         _cache_budget.forget(cache, k)
     cache[key] = dt
     if _cache_budget.enabled():
-        _cache_budget.touch(cache, key, _entry_bytes(dt))
+        _cache_budget.touch(cache, key, dt)
     return dt
 
 

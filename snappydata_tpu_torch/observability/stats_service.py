@@ -9,9 +9,10 @@ dashboard/metrics. Here: a daemon thread snapshotting the catalog, and
 the durability, scan, encoding, join, MVCC, storage and HA snapshots the
 REST status pages read.
 
-The port has no device mesh yet: `mesh_snapshot` reports the mesh
-counters (all 0), no active mesh and no layout cache until the
-multi-device slice; its per-device resident bytes are the one card's.
+`mesh_snapshot` reports the slot mesh: the active context and its
+bucket->slot placement, the per-slot lane's counters, the exchanged
+layouts' bytes and the resident plate bytes per device, per slot for a
+mesh-bound table.
 The port keeps one failpoint registry, whose fires count as
 `fault_injected`.
 """
@@ -252,21 +253,30 @@ def join_snapshot() -> dict:
 
 
 def mesh_snapshot(catalog=None, session=None) -> dict:
-    """Mesh-execution stats for `/status/api/v1/mesh` and the
-    dashboard's Mesh section, under the reference's keys: every mesh
-    counter reads 0 and `active` is False until the port has a device
-    mesh; the per-device resident plate bytes are the one card's."""
+    """Mesh-execution stats for `/status/api/v1/mesh` and the dashboard's
+    Mesh section, under the reference's keys: the active mesh (the
+    ambient MeshContext, else the session's cached one) with its
+    bucket->slot placement, PER-SLOT resident plate bytes, the per-slot
+    lane's and the exchanges' counters, and the join distribution
+    strategy counters."""
     from snappydata_tpu_torch import config
+    from snappydata_tpu_torch.engine.mesh_exec import \
+        mesh_layout_cache_nbytes
+    from snappydata_tpu_torch.parallel.mesh import MeshContext
+
     snap = global_registry().snapshot()
     c = snap["counters"]
     props = config.global_properties()
-    # no device mesh in this package yet: nothing is active or placed
+    ctx = MeshContext.current()
+    if ctx is None and session is not None \
+            and getattr(session, "_mesh_ctx", None) is not None:
+        ctx = session._mesh_ctx
     out = {
         "mesh_shard_exec": props.get("mesh_shard_exec"),
         "mesh_join_strategy": props.get("mesh_join_strategy"),
         "mesh_broadcast_build_bytes":
             props.get("mesh_broadcast_build_bytes"),
-        "active": False,
+        "active": ctx is not None,
         "mesh_shard_execs": c.get("mesh_shard_execs", 0),
         "mesh_psum_merges": c.get("mesh_psum_merges", 0),
         "mesh_join_broadcast": c.get("mesh_join_broadcast", 0),
@@ -284,12 +294,21 @@ def mesh_snapshot(catalog=None, session=None) -> dict:
         "mesh_broadcast_bytes": c.get("mesh_broadcast_bytes", 0),
         "mesh_broadcast_cache_hits":
             c.get("mesh_broadcast_cache_hits", 0),
-        "mesh_layout_cache_nbytes": 0,
+        "mesh_layout_cache_nbytes": mesh_layout_cache_nbytes(),
         "rebalances": c.get("mesh_rebalances", 0),
         "buckets_moved": c.get("mesh_buckets_moved", 0),
         "cache_entries_moved": c.get("mesh_cache_moves", 0),
         "bytes_moved": c.get("mesh_moved_bytes", 0),
     }
+    if ctx is not None:
+        out["num_devices"] = ctx.num_devices
+        out["token"] = ctx.token
+        out["placement"] = {
+            "generation": ctx.placement.generation,
+            "num_buckets": ctx.placement.num_buckets,
+            "bucket_map": {str(k): v for k, v in
+                           ctx.placement.bucket_map().items()},
+        }
     if catalog is not None:
         from snappydata_tpu_torch.storage.device import \
             device_cache_bytes_by_device

@@ -26,7 +26,12 @@ composes:
 - **Expansion bound** (`probe_expand_bound`): bind-time upper bound on
   the expanded output size, summed over the UNFILTERED probe leaf (query
   filters only shrink validity, so the bound is sound), memoized on the
-  artifact per probe bind identity and probe key ordinals.
+  artifact per probe bind identity and probe key ordinals;
+  `probe_expand_bound_per_shard` bounds one mesh slot's share.
+
+Under a slot mesh the eager bind-time work (the build sort, the bounds'
+searchsorteds) runs inside `parallel.mesh.eager_fence()`, like every
+multi-slot dispatch; cache stores and counters stay outside it.
 
 - **One-to-many expansion** (`expand`): prefix-summed match counts map a
   `{2^k, 1.5*2^k}`-bucketed output axis back to (probe row, k-th passing
@@ -52,6 +57,7 @@ import torch
 
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch.observability.metrics import global_registry
+from snappydata_tpu_torch.parallel import mesh
 # the expanded-output axis reuses the batch axis' two-shapes-per-octave
 # bucketing ({2^k, 1.5*2^k}) — one policy for both
 from snappydata_tpu_torch.storage.device import batch_bucket as expand_bucket
@@ -191,14 +197,19 @@ def build_artifact(ident, token, compute: Callable[[], torch.Tensor]
             # id() reuse after GC: the weakref proves staleness
             _BUILD_BYTES[0] -= _BUILD_CACHE.pop(key)["nbytes"]
     reg.inc("join_build_cache_misses")
-    bkeys = compute()
-    skeys, order = torch.sort(bkeys, stable=True)
-    if skeys.shape[0] > 1:
-        dup = torch.any((skeys[1:] == skeys[:-1])
-                        & (skeys[:-1] != BUILD_NULL_SENTINEL))
-        unique = not bool(dup)
-    else:
-        unique = True
+    # the whole eager build — key materialization, sort, dup probe — reads
+    # the (possibly mesh-bound) plates and fences like any other
+    # dispatch; the cache stores and counter increments stay OUTSIDE
+    # (dispatch_lock is a leaf)
+    with mesh.eager_fence():
+        bkeys = compute()
+        skeys, order = torch.sort(bkeys, stable=True)
+        if skeys.shape[0] > 1:
+            dup = torch.any((skeys[1:] == skeys[:-1])
+                            & (skeys[:-1] != BUILD_NULL_SENTINEL))
+            unique = not bool(dup)
+        else:
+            unique = True
     reg.inc("join_build_sorts")
     entry = {"skeys": skeys, "order": order, "unique": unique,
              "nbytes": int(skeys.nbytes) + int(order.nbytes),
@@ -240,12 +251,51 @@ def probe_expand_bound(artifact: dict, probe_ident, probe_token,
         hit = artifact["bounds"].get(key)
         if hit is not None and hit[0]() is probe_ident:
             return hit[1]
-    pkeys, valid_flat = compute_pkeys()
-    counts, _lo = match_ranges_dense(artifact["skeys"], pkeys)
-    total = torch.where(valid_flat, counts, 0).sum()
-    if null_extend:
-        total = total + valid_flat.sum()
-    bound = int(total)
+    # eager searchsorteds over the probe keys: fenced like a dispatch;
+    # the memo store stays outside (leaf discipline)
+    with mesh.eager_fence():
+        pkeys, valid_flat = compute_pkeys()
+        counts, _lo = match_ranges_dense(artifact["skeys"], pkeys)
+        total = torch.where(valid_flat, counts, 0).sum()
+        if null_extend:
+            total = total + valid_flat.sum()
+        bound = int(total)
+    with _CACHE_LOCK:
+        if len(artifact["bounds"]) > 64:
+            artifact["bounds"].clear()
+        artifact["bounds"][key] = (weakref.ref(probe_ident), bound)
+    return bound
+
+
+def probe_expand_bound_per_shard(artifact: dict, probe_ident,
+                                 probe_token, null_extend: bool,
+                                 compute_pkeys: Callable[[], tuple],
+                                 num_shards: int,
+                                 batch_shape: tuple) -> int:
+    """PER-SLOT upper bound on expanded output rows for a mesh bind
+    whose probe splits on the batch axis: the sum of the ceil(B/D)
+    LARGEST per-batch expansion bounds.  Sound under ANY assignment of at
+    most that many batches to a slot — the contiguous split and whatever
+    subset a bind-time batch skip gathers onto each slot.  Sizing each
+    slot's output axis to this instead of the global bound makes join
+    expansion memory and work shrink with the mesh.  Memoized like
+    probe_expand_bound."""
+    key = (id(probe_ident), probe_token, bool(null_extend),
+           "shard", int(num_shards))
+    with _CACHE_LOCK:
+        hit = artifact["bounds"].get(key)
+        if hit is not None and hit[0]() is probe_ident:
+            return hit[1]
+    with mesh.eager_fence():
+        pkeys, valid_flat = compute_pkeys()
+        counts, _lo = match_ranges_dense(artifact["skeys"], pkeys)
+        counts = torch.where(valid_flat, counts, 0).to(torch.int64)
+        if null_extend:
+            counts = counts + valid_flat.to(torch.int64)
+        per_batch = counts.reshape(batch_shape).sum(dim=1)
+        k = max(1, -(-int(batch_shape[0]) // int(num_shards)))
+        top = torch.topk(per_batch, min(k, int(batch_shape[0])))[0]
+        bound = int(top.sum())
     with _CACHE_LOCK:
         if len(artifact["bounds"]) > 64:
             artifact["bounds"].clear()

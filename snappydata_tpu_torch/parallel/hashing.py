@@ -138,3 +138,48 @@ def bucket_of_np(values: np.ndarray, num_buckets: int) -> np.ndarray:
     """Bucket id for each key: Spark's Pmod(hash, n) (non-negative mod)."""
     h = murmur3_hash_np(values).astype(np.int64)
     return ((h % num_buckets) + num_buckets) % num_buckets
+
+
+# -- the same hash over int64 tensors, on their device ---------------------
+# The mesh lane's shuffle exchange buckets its join keys where they live.
+# Every product is split so that no int64 intermediate overflows (a 32-bit
+# value times a 16-bit half stays under 2^48); the bits equal
+# hash_int64_np's.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 of non-negative 32-bit int64 values `a`."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _rotl32_t(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def hash_int64_torch(values, seed: int = 42):
+    """Spark Murmur3_x86_32.hashLong of an int64 tensor (int64 results in
+    the signed int32 range), bit-equal to `hash_int64_np`."""
+    import torch
+
+    v = values.to(torch.int64)
+    h1 = torch.full_like(v, int(seed))
+    for word in (v & _M32, (v >> 32) & _M32):
+        k1 = _mul32(_rotl32_t(_mul32(word, 0xCC9E2D51), 15), 0x1B873593)
+        h1 = _rotl32_t(h1 ^ k1, 13)
+        h1 = (_mul32(h1, 5) + 0xE6546B64) & _M32
+    h1 = h1 ^ 8
+    h1 = h1 ^ (h1 >> 16)
+    h1 = _mul32(h1, 0x85EBCA6B)
+    h1 = h1 ^ (h1 >> 13)
+    h1 = _mul32(h1, 0xC2B2AE35)
+    h1 = h1 ^ (h1 >> 16)
+    return torch.where(h1 >= (1 << 31), h1 - (1 << 32), h1)
+
+
+def bucket_of_torch(values, num_buckets: int):
+    """`bucket_of_np` of an int64 tensor, on its device."""
+    h = hash_int64_torch(values)
+    return ((h % num_buckets) + num_buckets) % num_buckets

@@ -48,9 +48,11 @@ the batched write), wal.fsync, wal.salvage, checkpoint.write,
 checkpoint.publish, storage.compaction, the disk tier's tier.demote,
 tier.write (hit and mangle), tier.promote and tier.memmap_read,
 broker.admit, prefetch.worker, the Flight front door's flight.rpc,
-flight.serve, flight.send and flight.recv, kafka.fetch and the member's
-locator.heartbeat.  Arming other names is allowed.  A data-plane spec never
-fires at ``hit()``, and a control-plane spec never at ``mangle()``.
+flight.serve, flight.send and flight.recv, kafka.fetch, the member's
+locator.heartbeat and mesh.dispatch (at the entry of a multi-slot
+dispatch fence, before its lock).  Arming other names is allowed.  A
+data-plane spec never fires at ``hit()``, and a control-plane spec never
+at ``mangle()``.
 
 Zero cost when unarmed: ``hit()`` and ``mangle()`` check one
 module-global dict for truthiness and return before touching any lock,
@@ -112,6 +114,7 @@ KNOWN_POINTS = (
     "tier.demote", "tier.write", "tier.promote", "tier.memmap_read",
     "broker.admit", "prefetch.worker", "flight.rpc", "flight.serve",
     "flight.send", "flight.recv", "kafka.fetch", "locator.heartbeat",
+    "mesh.dispatch",
 )
 
 # data-plane actions are interpreted by mangle(); hit() passes them by

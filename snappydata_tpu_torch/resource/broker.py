@@ -32,8 +32,9 @@ group-index cache (engine/executor.py) and `serving_registry_bytes` the
 prepared-plan registries (serving/prepared.py); the ladder's first rung
 drops both with the plan caches.  `matview_state_bytes` is the
 materialized views' [G] state (views/matview.py), and the second rung
-evicts it (the views go stale and re-aggregate at their next read).  The
-mesh layout line reads 0 until multi-device execution is ported.
+evicts it (the views go stale and re-aggregate at their next read).
+`mesh_layout_cache_bytes` is the mesh lane's exchanged layouts
+(engine/mesh_exec.py), which the HBM rung trims.
 """
 
 from __future__ import annotations
@@ -87,19 +88,15 @@ def _host_table_bytes(data) -> int:
 
 def _cache_bytes() -> Tuple[int, int, int]:
     """(gidx cache, serving registry, mesh layouts): the group-index
-    cache's device bytes and the prepared-plan registries' host bytes,
-    beside the line of a module not ported yet."""
+    cache's device bytes, the prepared-plan registries' host bytes and
+    the mesh lane's exchanged layouts' device bytes."""
     from snappydata_tpu_torch.engine.executor import gidx_cache_nbytes
+    from snappydata_tpu_torch.engine.mesh_exec import \
+        mesh_layout_cache_nbytes
     from snappydata_tpu_torch.serving import serving_registry_nbytes
 
     return (gidx_cache_nbytes(), serving_registry_nbytes(),
-            _unported_cache_bytes())
-
-
-def _unported_cache_bytes() -> int:
-    """The mesh layout cache's line: multi-device execution is not
-    ported, so it holds nothing."""
-    return 0
+            mesh_layout_cache_nbytes())
 
 
 def _matview_bytes() -> int:

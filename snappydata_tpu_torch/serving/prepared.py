@@ -496,10 +496,12 @@ class PreparedStatement:
             entry._used = True
             tracing.annotate("serving_registry", "miss")
         entry.executes += 1
-        if entry.passthrough is not None:
+        if entry.passthrough is not None \
+                or getattr(sess, "default_mesh", None) is not None:
             # the full session pipeline (subqueries, windows, AQP,
-            # tiling); already inside the governor scope, so this does not
-            # re-admit
+            # tiling, and mesh-sharded sessions — a per-session property
+            # that must not be baked into the shared entry); already
+            # inside the governor scope, so this does not re-admit
             reg.inc("serving_passthrough")
             return finalize_decimals(
                 sess.execute_statement(entry.stmt, params))

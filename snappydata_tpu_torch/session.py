@@ -37,8 +37,17 @@ and a session opened on an existing directory recovers into itself, on
 its device, views, materialized views (their checkpointed state, then
 the WAL tail past each view's watermark), functions, row-level
 policies, secondary indexes, sample tables, TopKs, grants and deployed
-code included; stream tables re-register their feeding queries.  Mesh
-execution is not ported and raises NotImplementedError.
+code included; stream tables re-register their feeding queries.
+
+Multi-slot execution (parallel/mesh.py, engine/mesh_exec.py): a session
+with a `default_mesh` (or any statement under an active `MeshContext`)
+binds its tables split over the mesh's shard slots.  A tilable aggregate
+runs its partial program once per slot and merges the slots' [G]
+partials (`_maybe_mesh_aggregate`); every other query runs the
+single-device program over the whole plates on the mesh's home device.
+`resize_mesh` rebalances the bucket placement onto a new slot set and
+re-keys the resident plates instead of re-uploading them; sessions
+derived with `for_user` share the cached context and its lock.
 
 Stream tables (`CREATE STREAM TABLE ... USING memory_stream |
 file_stream | socket_stream | kafka_stream`, streaming/) are column tables
@@ -111,6 +120,7 @@ from snappydata_tpu_torch.engine.result import (Result, empty_result,
                                                 to_host_domain)
 from snappydata_tpu_torch.observability import tracing
 from snappydata_tpu_torch.observability.metrics import global_registry
+from snappydata_tpu_torch.parallel.mesh import MeshContext, no_mesh
 from snappydata_tpu_torch.resource.context import check_current
 from snappydata_tpu_torch.sql import ast
 from snappydata_tpu_torch.sql.analyzer import (Analyzer, AnalysisError,
@@ -192,12 +202,31 @@ class SnappySession:
         # itself (scratch merges, per-tile SQL)
         self._tile_merge_pool: Dict[str, list] = {}
         self._in_tile = False
+        # optional per-session slot mesh: queries run sharded over it (a
+        # data server's local slots — ServerNode(mesh_devices=...)); the
+        # MeshContext is cached (_mesh_context) and swaps under
+        # _mesh_resize_lock on a live resize_mesh() rebalance
+        self._default_mesh = None
+        self._mesh_ctx = None
+        self._mesh_resize_lock = locks.named_lock("session.mesh")
         self._device_bytes: Optional[int] = None
         # set by the tiled lane; consumed after the statement's read pin
         # is released (execute_statement)
         self._tier_enforce_pending = False
         if needs_recovery:
             self.disk_store.recover_catalog(self)
+
+    @property
+    def default_mesh(self):
+        return self._default_mesh
+
+    @default_mesh.setter
+    def default_mesh(self, mesh) -> None:
+        """The session's slot mesh, on the session's own device: a mesh
+        built on other devices (a mesh of cards given to a CPU session)
+        is rebuilt with the same slot indices there (`Mesh.on`)."""
+        self._default_mesh = mesh.on(self.device) if mesh is not None \
+            else None
 
     def checkpoint(self) -> None:
         """Persist every table and the catalog to the attached disk store
@@ -241,6 +270,11 @@ class SnappySession:
         # across per-request sessions
         s.analyzer = self.analyzer
         s.executor = self.executor
+        s.default_mesh = self.default_mesh
+        # share the cached MeshContext: a fresh token per derived session
+        # would rotate the device cache on every network request
+        s._mesh_ctx = self._mesh_ctx
+        s._mesh_resize_lock = self._mesh_resize_lock
         s.remote = remote
         s.authenticated = authenticated
         return s
@@ -798,13 +832,14 @@ class SnappySession:
         raise ValueError(f"unsupported statement {type(stmt).__name__}")
 
     def _run_query(self, plan: ast.Plan, user_params=()) -> Result:
-        """Query entry (ref SnappySession._run_query_inner, without the
-        mesh hook), with this catalog's SQL functions exposed to the
-        analyzer, the lowering and the host evaluator: stream windows
-        become arrival-time filters, then the tiled lane (a plan that
-        holds a subquery never tiles), then the correlated subqueries
-        become joins, the uncorrelated ones run as queries of their own
-        and substitute literals, then optimize, analyze and tokenize."""
+        """Query entry (ref SnappySession._run_query_inner), with this
+        catalog's SQL functions exposed to the analyzer, the lowering and
+        the host evaluator: stream windows become arrival-time filters,
+        then the tiled lane (a plan that holds a subquery never tiles),
+        then the mesh lane, then the correlated subqueries become joins,
+        the uncorrelated ones run as queries of their own and substitute
+        literals, then optimize, analyze and tokenize.  A session with a
+        `default_mesh` runs the rest under its cached MeshContext."""
         if getattr(self.catalog, "_sample_maintainers", None):
             self._refresh_samples()
         plan = self._rewrite_stream_windows(plan)
@@ -812,6 +847,9 @@ class SnappySession:
             tiled = self._maybe_tiled_aggregate(plan, user_params)
             if tiled is not None:
                 return tiled
+            meshed = self._maybe_mesh_aggregate(plan, user_params)
+            if meshed is not None:
+                return meshed
             with tracing.span("optimize"):
                 plan = self._decorrelate(plan)
                 plan = self._rewrite_subqueries(plan, user_params)
@@ -823,7 +861,7 @@ class SnappySession:
                 else:
                     tokenized, lit_params = \
                         assign_param_positions(resolved, 0), ()
-            return self.executor.execute(
+            return self._execute_partial(
                 tokenized, tuple(lit_params) + tuple(user_params))
 
     def _decorrelate(self, plan: ast.Plan) -> ast.Plan:
@@ -1634,13 +1672,22 @@ class SnappySession:
         pieces: List[Result] = []
         self._in_tile = True
         try:
-            if compiled is not None and compiled.tile_merge is not None \
+            if compiled is not None and self.default_mesh is None \
+                    and compiled.tile_merge is not None \
                     and compiled.tile_merge_ok():
                 merged = self._tiled_device_pass(
                     compiled, params, data, manifest, units, tile_units)
             if merged is None:
+                # the worker warms through the consumer's mesh context
+                # (ambient, else the session's cached one) so its cache
+                # keys carry the token the consumer's binds look up
+                mesh_ctx = MeshContext.current() or (
+                    self._mesh_context()
+                    if self.default_mesh is not None else None)
+                if mesh_ctx is not None:
+                    mesh_ctx.home_for(self.device)
                 pf = TilePrefetcher.maybe(data, manifest, units,
-                                          tile_units, self.device)
+                                          tile_units, self.device, mesh_ctx)
                 try:
                     for lo in range(0, units, tile_units):
                         # tile boundary = cancellation point: cancel,
@@ -1652,7 +1699,7 @@ class SnappySession:
                                          min(lo + tile_units, units),
                                          manifest, tile_units=tile_units):
                             if tokenized is not None:
-                                pieces.append(self.executor.execute(
+                                pieces.append(self._execute_partial(
                                     tokenized, params))
                             else:  # analysis failed: per-tile SQL path
                                 pieces.append(self.sql(partial_sql))
@@ -1802,6 +1849,218 @@ class SnappySession:
         if overflow is not None and bool(overflow):
             return None  # overflow flagged: the exact host path decides
         return compiled.assemble_device(mask, pairs)
+
+    def _execute_partial(self, tokenized, params) -> Result:
+        """Execute a tokenized plan, under the session's cached mesh
+        context when it has a `default_mesh` and no context is active: a
+        data server that owns a slot submesh runs EVERY query sharded over
+        it (ref: one embedded executor per store JVM,
+        ExecutorInitiator.scala:45-105)."""
+        if self.default_mesh is not None and MeshContext.current() is None:
+            with self._mesh_context():
+                return self.executor.execute(tokenized, params)
+        return self.executor.execute(tokenized, params)
+
+    def _mesh_context(self) -> MeshContext:
+        """The session's cached MeshContext for `default_mesh`.  Cached
+        because the device cache keys on the context's process-unique
+        token: a fresh context per statement would re-upload every plate.
+        The miss path re-checks under _mesh_resize_lock: a query thread
+        racing resize_mesh() could otherwise see the new default_mesh
+        with the old _mesh_ctx and clobber the freshly migrated context
+        with a throwaway token."""
+        ctx = self._mesh_ctx
+        if ctx is not None and ctx.mesh is self.default_mesh:
+            return ctx
+        with self._mesh_resize_lock:
+            ctx = self._mesh_ctx
+            if ctx is None or ctx.mesh is not self.default_mesh:
+                ctx = MeshContext(self.default_mesh)
+                self._mesh_ctx = ctx
+            return ctx
+
+    def resize_mesh(self, num_devices: Optional[int] = None,
+                    devices=None) -> dict:
+        """Live mesh resize — the in-process twin of the cluster layer's
+        kill -> rejoin bucket rebalance: the shard placement rebalances
+        bucket ownership onto the new slot set and every RESIDENT plate
+        re-keys onto the new context (storage/device.migrate_mesh_cache),
+        each new slot reading its block of the plates already on the
+        device, instead of invalidating the world.  Queries in flight keep
+        their bound plates and stay value-correct; new statements bind
+        under the new placement.  Returns a summary for the caller and
+        the dashboard."""
+        from snappydata_tpu_torch.parallel.mesh import data_mesh, submesh
+        from snappydata_tpu_torch.storage.device import migrate_mesh_cache
+
+        reg = global_registry()
+        with self._mesh_resize_lock:
+            old_ctx = self._mesh_ctx
+            if old_ctx is None and self.default_mesh is not None:
+                # construct directly — _mesh_context()'s miss path would
+                # re-acquire the NON-REENTRANT lock held here
+                old_ctx = MeshContext(self.default_mesh)
+            new_mesh = submesh(devices, self.device) if devices is not None \
+                else data_mesh(num_devices, self.device)
+            placement = old_ctx.placement.rebalance(new_mesh.size) \
+                if old_ctx is not None else None
+            new_ctx = MeshContext(new_mesh, placement=placement)
+            moved_entries = moved_bytes = 0
+            if old_ctx is not None:
+                for ti in self.catalog.list_tables():
+                    if hasattr(ti.data, "_device_cache"):
+                        e, b = migrate_mesh_cache(ti.data, old_ctx.token,
+                                                  new_ctx)
+                        moved_entries += e
+                        moved_bytes += b
+            self.default_mesh = new_mesh
+            self._mesh_ctx = new_ctx
+            moved_buckets = placement.moved_from_previous \
+                if placement is not None else 0
+            reg.inc("mesh_rebalances")
+            reg.inc("mesh_buckets_moved", moved_buckets)
+            reg.inc("mesh_cache_moves", moved_entries)
+            reg.inc("mesh_moved_bytes", moved_bytes)
+            return {"num_devices": new_ctx.num_devices,
+                    "buckets_moved": moved_buckets,
+                    "cache_entries_moved": moved_entries,
+                    "bytes_moved": moved_bytes,
+                    "placement_generation": new_ctx.placement.generation}
+
+    def _maybe_mesh_aggregate(self, plan: ast.Plan,
+                              user_params) -> Optional[Result]:
+        """Mesh-sharded execution of a tilable aggregate shape: the
+        compile-once PARTIAL program runs once per slot and the slots' [G]
+        partials merge (engine/mesh_exec.py), then the shared scratch
+        merge finalizes — Q1 / Q6 / Q3C scan only each slot's block of the
+        (still-encoded) plates.  Returns None to fall back to the
+        single-device program over the whole plates, counted
+        mesh_fallback_<reason> so a shape that leaves the lane is
+        diagnosable from the dashboard."""
+        if self._in_tile:
+            return None
+        ctx = MeshContext.current()
+        if ctx is None and self.default_mesh is None:
+            return None
+        if ctx is not None:
+            # an explicit context of other devices than the session's
+            # raises here: the lane would bind on the mesh's home device
+            ctx.home_for(self.device)
+        if str(self.conf.get("mesh_shard_exec", "auto") or "auto"
+               ).lower() not in ("auto", "on"):
+            return None
+        reg = global_registry()
+        if user_params:
+            # `?` binds ride the single-device lane (still on the mesh's
+            # plates): the merge decomposition renders literal SQL
+            reg.inc("mesh_fallback_params")
+            return None
+        shaped = self._tilable_agg_shape(plan)
+        if shaped is None:
+            reg.inc("mesh_fallback_shape")
+            return None
+        outer, having, node, info, exprs, build_infos = shaped
+        data = info.data
+        build_bytes = self._join_build_side_bytes(exprs, build_infos)
+        if build_bytes is None:
+            reg.inc("mesh_fallback_complex")
+            return None
+        budget = self._tile_budget()
+        if budget > 0:
+            # oversized tables keep the tiled streaming pass (mesh x
+            # tiling does not compose: a slot's memory is the memory the
+            # tile budget protects)
+            manifest = mvcc.snapshot_of(data)
+            units = scan_unit_count(data, manifest)
+            used = {c.name.lower() for e in exprs for c in ast.walk(e)
+                    if isinstance(c, ast.Col)}
+            unit_bytes = data.capacity
+            for f in info.schema.fields:
+                if f.name.lower() not in used:
+                    continue
+                cw = self._decoded_col_width(f)
+                if cw is None:
+                    reg.inc("mesh_fallback_complex")
+                    return None
+                unit_bytes += data.capacity * cw
+            if units > 1 and build_bytes < budget \
+                    and unit_bytes * units > budget - build_bytes:
+                reg.inc("mesh_fallback_budget")
+                return None
+        try:
+            partial_plan, merged_select, _, merge_having = \
+                decompose_aggregate(node, having)
+            partial_sql = render_plan(partial_plan)
+        except (NotDecomposableError, RenderError):
+            reg.inc("mesh_fallback_decompose")
+            return None
+        # outer ORDER BY must reference output columns by name / position
+        # (the tiled merge's admission)
+        out_names = [_expr_name(e).lower() for e in node.agg_exprs]
+        for op in outer:
+            if isinstance(op, ast.Sort):
+                for o in op.orders:
+                    tgt = o[0].child if isinstance(o[0], ast.Alias) else o[0]
+                    if isinstance(tgt, ast.Col) and \
+                            tgt.name.lower() in out_names:
+                        continue
+                    if isinstance(tgt, ast.Lit) and \
+                            isinstance(tgt.value, int):
+                        continue
+                    reg.inc("mesh_fallback_outer_sort")
+                    return None
+        try:
+            pplan = optimize(parse(partial_sql).plan, self.catalog)
+            resolved_p, _ = self.analyzer.analyze_plan(pplan)
+            if self.conf.tokenize and self.conf.plan_caching:
+                tokenized, lit_params = tokenize_plan(resolved_p)
+            else:
+                tokenized, lit_params = \
+                    assign_param_positions(resolved_p, 0), ()
+            params = tuple(lit_params)
+            compiled = self.executor.compiled_partial(tokenized)
+        except Exception:  # noqa: BLE001 — any analysis hiccup
+            reg.inc("mesh_fallback_compile")
+            return None
+        if compiled is None or compiled.tile_merge is None \
+                or not compiled.tile_merge_ok():
+            reg.inc("mesh_fallback_merge_space")
+            return None
+        for oc in compiled.out_scope:
+            # exact decimals ride scaled int64 on the device; the scratch
+            # merge finalizes through host DOUBLE columns and would demote
+            # the exactness contract — the single-device lane keeps the
+            # int64 sums exact end to end, so that lane serves
+            if oc.dtype is not None and oc.dtype.name == "decimal" \
+                    and np.dtype(oc.dtype.device_dtype()).kind == "i":
+                reg.inc("mesh_fallback_decimal_exact")
+                return None
+        from snappydata_tpu_torch.engine import mesh_exec
+
+        try:
+            if ctx is not None:
+                ran = mesh_exec.run_partial(compiled, params, data, ctx,
+                                            build_bytes)
+            else:
+                with self._mesh_context() as c2:
+                    ran = mesh_exec.run_partial(compiled, params, data,
+                                                c2, build_bytes)
+        except CompileError:
+            reg.inc("mesh_fallback_overflow")
+            return None
+        except Exception:  # noqa: BLE001 — the lane never breaks a query
+            reg.inc("mesh_fallback_error")
+            import traceback
+
+            traceback.print_exc()
+            return None
+        partial_res = compiled._assemble(*ran)
+        # the finalize merges a [G]-row partial table — mask any ambient
+        # mesh so it binds single-device instead of over the slots
+        with no_mesh():
+            return self._merge_partial_pieces([partial_res], node,
+                                              merged_select, merge_having,
+                                              outer)
 
     # ------------------------------------------------------------------
     # Programmatic API (ref SnappySession.createTable/insert)

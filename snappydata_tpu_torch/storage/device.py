@@ -39,12 +39,27 @@ entry's bytes are its TENSORS' bytes, each storage counted once
 (`_entry_bytes`: views and plate tuples share storages), not what the
 caching allocator reports.  `device_cache_bytes` caps the cache with LRU
 eviction (`_DeviceCacheBudget`) that never drops a pinned epoch's entries
-or a window a live prefetch pass keeps.
+or a window a live prefetch pass keeps; a storage two entries share (a
+mesh entry seeded from the single-device one) is charged once.
 
 Tiled scans bind a WINDOW of the table's scan units (column batches,
 then row-buffer chunks of `capacity` rows): `scan_window` restricts
 `build_device_table` to units [lo, hi) of a pinned manifest, and the
 host fallback reads the same units through `host_scan_units`.
+
+Under an active slot mesh (parallel/mesh.py) a bind is a MESH bind: the
+batch axis pads to `shard_bucket(B, slots)`, the plates live on the
+mesh's home device and slot i reads the contiguous block i of them (a
+view; `MeshContext.block`), encoded plates sharded as they are.  Where
+the slots span cards, each slot on another card gets a copy of its
+blocks there once, at the bind (`parallel.mesh.place_remote_blocks`).  The
+cache key carries the mesh token instead of the device, binds under a
+new token prune the stale placements, and a mesh bind on one device
+takes the single-device entry's tensors when their padding already
+divides by the slot count, so the table is never held twice.  A live
+mesh resize re-keys resident entries (`migrate_mesh_cache`) instead of
+re-uploading them, and `device_cache_bytes_by_device` reports each
+slot's blocks where they reside.
 """
 
 from __future__ import annotations
@@ -151,6 +166,9 @@ class DeviceTable:
     # column with VALUE_DICT batches — the dictionary-domain batch
     # skipper probes equality literals here at bind time
     dict_domains: Dict[int, tuple] = dataclasses.field(default_factory=dict)
+    # the MeshContext of a mesh bind (None for a single-device bind): its
+    # slots split the batch axis (a row table's mesh bind is replicated)
+    mesh: object = None
 
 
 _COMPRESSIBLE = {Encoding.VALUE_DICT: "dict", Encoding.RUN_LENGTH: "rle",
@@ -253,23 +271,37 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
                        device: torch.device,
                        code_ok: bool = True) -> DeviceTable:
     """Materialize `col_indices` of the current snapshot (or of the active
-    scan window's pinned snapshot) on `device`, with caching keyed on
-    (manifest version, device, window) so repeated queries over an
-    unchanged table upload nothing.  `code_ok=False` (device-join
-    relations, whose cached build artifacts and probe-key encodes read
-    flat decoded layouts) forces decoded plates."""
+    scan window's pinned snapshot) on `device` — on the active mesh's home
+    device under a mesh — with caching keyed on (manifest version, device
+    or mesh token, window) so repeated queries over an unchanged table
+    upload nothing.  `code_ok=False` (device-join relations, whose cached
+    build artifacts and probe-key encodes read flat decoded layouts)
+    forces decoded plates."""
+    from snappydata_tpu_torch.parallel.mesh import (MeshContext,
+                                                    round_up_to,
+                                                    shard_batches,
+                                                    shard_bucket)
+
+    ctx = MeshContext.current()
     manifest, views, row_chunks, window = _scan_units(data)
-    cache_key = (manifest.version, str(device), window)
+    if ctx is not None:
+        device = ctx.home_for(device)
+    placement = ctx.token if ctx is not None else str(device)
+    cache_key = (manifest.version, placement, window)
     cache = data._device_cache.setdefault(cache_key, {})
-    # stale versions of this device go: their plates are dead weight —
+    # stale versions of this placement go: their plates are dead weight —
     # except the versions an active snapshot pin holds (a pinned reader
     # re-binding its old epoch must not have its plates evicted by a
-    # newer version's bind).  list() snapshots are atomic under the GIL:
-    # the tile prefetcher's worker inserts window entries concurrently
+    # newer version's bind).  A mesh bind also drops the entries of other
+    # (dead) mesh tokens, as the reference prunes stale placements.
+    # list() snapshots are atomic under the GIL: the tile prefetcher's
+    # worker inserts window entries concurrently
     pinned = mvcc.pinned_versions(data)
     for k in [k for k in list(data._device_cache)
-              if k[1] == cache_key[1] and k[0] != manifest.version
-              and k[0] not in pinned]:
+              if k != cache_key and k[0] not in pinned
+              and ((k[1] == placement and k[0] != manifest.version)
+                   or (ctx is not None and isinstance(k[1], int)
+                       and k[1] != placement))]:
         data._device_cache.pop(k, None)
         _cache_budget.forget(data._device_cache, k)
     if window is not None:
@@ -288,15 +320,29 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
             _cache_budget.forget(data._device_cache, k)
 
     def place(host_array: np.ndarray) -> torch.Tensor:
-        return _dd.upload(host_array, device)
+        return shard_batches(host_array, ctx, device)
 
     schema = data.schema
     cap = data.capacity
     b_actual = len(views) + len(row_chunks)
-    b = batch_bucket(b_actual) \
-        if config.global_properties().batches_pow2_bucketing \
-        else max(1, b_actual)
+    pow2 = config.global_properties().batches_pow2_bucketing
+    b = batch_bucket(b_actual) if pow2 else max(1, b_actual)
     b = max(b, 1)
+    if ctx is not None:
+        # the batch axis is the sharded axis: pad to a SLOT-DIVISIBLE
+        # ladder size, so a resharded table keeps the single-device
+        # ladder's shapes
+        b = shard_bucket(b, ctx.num_devices) if pow2 \
+            else round_up_to(b, ctx.num_devices)
+        cache["mesh"] = ctx
+        if "valid" not in cache:
+            _share_single_device_entry(data, cache, manifest.version,
+                                       window, device, b)
+    if "valid" in cache:
+        # a partially-filled entry pins the padded batch shape: a MIGRATED
+        # entry (live mesh resize) keeps its old padding, and a column
+        # bound fresh into it must match
+        b = int(cache["valid"].shape[0])
     if "valid" not in cache:
         valid = np.zeros((b, cap), dtype=np.bool_)
         for i, v in enumerate(views):
@@ -340,6 +386,9 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
         cols_enc = [v.batch.columns[ci] for v in views]
         # only deltas that target THIS column cost it its encoded form
         any_delta = any(any(d[0] == ci for d in v.deltas) for v in views)
+        # compressed-domain eligibility is mesh-agnostic: encoded plates
+        # are [B, ...]-leading, so they shard over the slots the same way
+        # decoded plates do
         cd_mode = _compressed_mode(is_str, dec_exact, cols_enc, any_delta,
                                    bool(row_chunks), code_ok)
         key = ("ccol", ci) if cd_mode else ("col", ci)
@@ -356,13 +405,67 @@ def build_device_table(data: ColumnTableData, col_indices: Sequence[int],
         dom = cache.get(("dictdom", ci))
         if dom is not None:
             dict_domains[ci] = dom
+    if ctx is not None and ctx.spans_cards:
+        place_remote(cache, ctx, b)
     if _cache_budget.enabled():
-        _cache_budget.touch(data._device_cache, cache_key,
-                            _entry_bytes(cache), data=data)
+        _cache_budget.touch(data._device_cache, cache_key, cache, data=data)
     return DeviceTable(schema, b, cap, cache["valid"], columns, dicts,
                        stats_min, stats_max,
                        cache["nrows"], nulls,
-                       dict_domains)
+                       dict_domains, ctx)
+
+
+def place_remote(cache, ctx, b: int) -> None:
+    """Give every slot on another card than the home one a copy of its
+    block of each [b, ...] plate under `cache` (a cache entry, or an
+    exchanged relation), once (fenced like the upload inside a prefetch
+    worker)."""
+    from snappydata_tpu_torch.parallel import mesh as _mesh
+
+    fence = _mesh.dispatch_lock if _mesh._prefetch_fencing.get() \
+        else contextlib.nullcontext()
+    with fence:
+        for t in _tensor_leaves(cache):
+            if t.dim() and int(t.shape[0]) == b:
+                _mesh.place_remote_blocks(t, ctx.mesh)
+
+
+def _same_device(name: str, device: torch.device) -> bool:
+    """Whether a single-device cache key's device string names `device`
+    (`cuda` is the current card)."""
+    try:
+        d = torch.device(name)
+    except (RuntimeError, TypeError):
+        return False
+    if d.type != device.type:
+        return False
+    if d.type != "cuda":
+        return True
+    idx = d.index if d.index is not None else torch.cuda.current_device()
+    want = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return idx == want
+
+
+def _share_single_device_entry(data, cache, version, window, home,
+                               b: int) -> None:
+    """Seed a fresh mesh entry with the single-device entry's tensors of
+    the same version and window on the home device, when the mesh's slots
+    all sit there and that entry's padding is the mesh's: the slots' blocks
+    are then views of the plates already resident, and nothing uploads."""
+    ctx = cache["mesh"]
+    if any(s.device != home for s in ctx.mesh.slots):
+        return
+    for k, src in list(data._device_cache.items()):
+        if not isinstance(k[1], str) or k[0] != version or k[2] != window \
+                or not isinstance(src, dict) or "valid" not in src \
+                or not _same_device(k[1], home):
+            continue
+        if int(src["valid"].shape[0]) != b:
+            continue
+        for key, val in list(src.items()):
+            cache.setdefault(key, val)
+        return
 
 
 def _null_plate(views, ci, b, cap):
@@ -846,11 +949,30 @@ def _storage_bytes(tensors, seen=None) -> int:
     return total
 
 
+def _entry_tensors(entry) -> list:
+    """The device tensors one cache entry holds (a column table's
+    per-column dict or a row table's DeviceTable), with the copies of its
+    blocks on other cards.  list() snapshots: a prefetch worker may still
+    be filling the entry while a ledger walk measures it."""
+    from snappydata_tpu_torch.parallel.mesh import remote_blocks_of
+
+    leaves = list(_tensor_leaves(entry))
+    return leaves + [c for t in leaves for c in remote_blocks_of(t)]
+
+
 def _entry_bytes(entry) -> int:
-    """Device bytes of one cache entry (a column table's per-column dict
-    or a row table's DeviceTable).  list() snapshots: a prefetch worker
-    may still be filling the entry while a ledger walk measures it."""
-    return _storage_bytes(_tensor_leaves(entry))
+    """Device bytes of one cache entry, each storage counted once."""
+    return _storage_bytes(_entry_tensors(entry))
+
+
+def _entry_storages(entry) -> Dict[tuple, int]:
+    """{(device type, index, storage pointer): bytes} of one entry."""
+    out: Dict[tuple, int] = {}
+    for t in _entry_tensors(entry):
+        st = t.untyped_storage()
+        out[(t.device.type, t.device.index, st.data_ptr())] = \
+            int(st.nbytes())
+    return out
 
 
 class _DeviceCacheBudget:
@@ -862,9 +984,26 @@ class _DeviceCacheBudget:
     def __init__(self):
         self._lock = locks.named_lock("storage.device_cache")
         # (id(table_cache_dict), repr(cache_key)) ->
-        #   (bytes, tick, cache dict, cache key, table weakref | None)
+        #   ({storage: bytes}, tick, cache dict, cache key,
+        #    table weakref | None)
+        # the charge is the UNION of the entries' storages: a storage two
+        # entries share (a mesh entry seeded from the single-device one)
+        # is charged once, and evicting one of them frees nothing of it
         self._entries: Dict = {}
         self._tick = 0
+
+    def _total(self, table_cache=None) -> int:
+        held: Dict[tuple, int] = {}
+        for e in self._entries.values():
+            if table_cache is None or e[2] is table_cache:
+                held.update(e[0])
+        return sum(held.values())
+
+    def charged_bytes(self, table_cache=None) -> int:
+        """Bytes the budget holds charged (each storage once), for one
+        table's `_device_cache` or for all."""
+        with self._lock:
+            return self._total(table_cache)
 
     def _budget(self) -> int:
         return int(config.global_properties().device_cache_bytes or 0)
@@ -879,11 +1018,12 @@ class _DeviceCacheBudget:
         with self._lock:
             self._entries.pop((id(table_cache), repr(cache_key)), None)
 
-    def touch(self, table_cache: Dict, cache_key, nbytes: int,
+    def touch(self, table_cache: Dict, cache_key, entry,
               data=None) -> None:
         budget = self._budget()
         if budget <= 0:
             return
+        storages = _entry_storages(entry)
         from snappydata_tpu_torch.observability.metrics import \
             global_registry
         from snappydata_tpu_torch.storage import prefetch as _prefetch
@@ -895,12 +1035,12 @@ class _DeviceCacheBudget:
             # table itself is a weakref, consulted only to spare pinned
             # epochs and live prefetch windows
             self._entries[(id(table_cache), repr(cache_key))] = (
-                nbytes, self._tick, table_cache, cache_key,
+                storages, self._tick, table_cache, cache_key,
                 weakref.ref(data) if data is not None else None)
-            total = sum(e[0] for e in self._entries.values())
+            total = self._total()
             if total <= budget:
                 return
-            for key, (b, _, owner, ck, dref) in sorted(
+            for key, (_st, _, owner, ck, dref) in sorted(
                     self._entries.items(), key=lambda kv: kv[1][1]):
                 if total <= budget:
                     break
@@ -923,7 +1063,7 @@ class _DeviceCacheBudget:
                         continue
                 owner.pop(ck, None)  # device tensors released
                 self._entries.pop(key, None)
-                total -= b
+                total = self._total()
                 reg.inc("device_cache_evictions")
 
 
@@ -948,16 +1088,102 @@ def device_cache_bytes_by_table(tables) -> Dict[str, int]:
     return out
 
 
+def _entry_mesh(entry):
+    """The MeshContext a cache entry was bound under, or None."""
+    if isinstance(entry, DeviceTable):
+        return entry.mesh
+    return entry.get("mesh") if isinstance(entry, dict) else None
+
+
 def device_cache_bytes_by_device(tables) -> Dict[str, int]:
-    """Resident plate bytes per DEVICE (one card in this port; the mesh
-    slice will spread them)."""
+    """Resident plate bytes per DEVICE — per SLOT for mesh-bound entries
+    (`slot<i>:<device>`), the mesh dashboard's proof that sharded tables
+    stay encoded per slot: a sharded plate gives each slot its block's
+    bytes, a replicated one (a row table under a mesh) its whole bytes on
+    every slot.  A slot on another card than the home one counts the copy
+    of its block held there, and the home card (`<device>`) the block's
+    bytes it keeps in the whole plate.  Single-device entries count their
+    distinct storages on their device."""
+    from snappydata_tpu_torch.parallel.mesh import remote_block
+
     out: Dict[str, int] = {}
     seen: set = set()
     for _name, data in tables:
         caches = getattr(data, "_device_cache", None)
         if not caches:
             continue
-        for t in _tensor_leaves(list(caches.values())):
-            dev = str(t.device)
-            out[dev] = out.get(dev, 0) + _storage_bytes([t], seen)
+        for entry in list(caches.values()):
+            ctx = _entry_mesh(entry)
+            if ctx is None:
+                for t in _tensor_leaves(entry):
+                    dev = str(t.device)
+                    out[dev] = out.get(dev, 0) + _storage_bytes([t], seen)
+                continue
+            slots = ctx.mesh.slots
+            home = ctx.home
+            replicated = isinstance(entry, DeviceTable)
+            for t in _tensor_leaves(entry):
+                nbytes = t.numel() * t.element_size()
+                per = t.shape[0] // len(slots) if t.dim() else 0
+                for i, slot in enumerate(slots):
+                    share = nbytes if replicated \
+                        else nbytes // max(1, t.shape[0]) * per
+                    key = str(slot)
+                    if slot.device is not None and slot.device != home:
+                        # a replicated table lives on the home card only
+                        if replicated:
+                            continue
+                        copy = remote_block(t, i * per, (i + 1) * per,
+                                            slot.device)
+                        if copy is not None:
+                            out[key] = out.get(key, 0) \
+                                + copy.numel() * copy.element_size()
+                        key = str(t.device)
+                    out[key] = out.get(key, 0) + share
     return out
+
+
+def migrate_mesh_cache(data, old_token, new_ctx):
+    """Live bucket rebalance of one table's resident plates: every cache
+    entry bound under `old_token` re-keys onto `new_ctx`'s mesh, its
+    plates staying where they are — each slot of the new mesh reads its
+    block of them (a view on the home device), so no byte re-uploads from
+    the host.  Returns (entries_moved, bytes_moved): the bytes of the
+    batches whose owning slot changed.  Entries whose padded batch axis
+    the new slot count does not divide are left to rebuild at the next
+    bind."""
+    moved = bytes_moved = 0
+    nd = new_ctx.num_devices
+    for key in [k for k in list(data._device_cache)
+                if len(k) >= 2 and k[1] == old_token]:
+        entry = data._device_cache.get(key)
+        if entry is None:
+            continue
+        new_key = (key[0], new_ctx.token) + tuple(key[2:])
+        if isinstance(entry, DeviceTable):
+            # a replicated row table: every slot holds all of it
+            new_entry = dataclasses.replace(entry, mesh=new_ctx)
+        else:
+            valid = entry.get("valid")
+            old_ctx = entry.get("mesh")
+            if valid is None or old_ctx is None \
+                    or valid.shape[0] % nd != 0:
+                continue
+            new_entry = dict(entry)
+            new_entry["mesh"] = new_ctx
+            b = int(valid.shape[0])
+            nold = old_ctx.num_devices
+            owners_moved = sum(1 for j in range(b)
+                               if j * nold // b != j * nd // b)
+            for t in _tensor_leaves(entry):
+                if t.dim() and t.shape[0] == b:
+                    bytes_moved += t.numel() * t.element_size() // b \
+                        * owners_moved
+        data._device_cache[new_key] = new_entry
+        data._device_cache.pop(key, None)
+        _cache_budget.forget(data._device_cache, key)
+        if _cache_budget.enabled():
+            _cache_budget.touch(data._device_cache, new_key, new_entry,
+                                data=data)
+        moved += 1
+    return moved, bytes_moved

@@ -28,6 +28,11 @@ pass carries on with inline binds.  The `prefetch.worker` failpoint sits
 at the top of each window's build, inside that supervision
 (`kill_worker` there is the uncaught-death shape); `worker_snapshot()`
 reads the workers' health.
+
+Mesh-aware: the worker enters the consumer's captured `MeshContext`, so
+its cache keys carry the same mesh token and its plates land on the
+mesh's home device, and its uploads run inside `parallel.mesh_dispatch`
+(`mesh.prefetch_fence`) like every other multi-slot dispatch.
 """
 
 from __future__ import annotations
@@ -105,7 +110,13 @@ class TilePrefetcher:
     """
 
     def __init__(self, data, manifest, units: int, tile_units: int,
-                 depth: int, device: torch.device) -> None:
+                 depth: int, device: torch.device, mesh_ctx=None) -> None:
+        self._mesh_ctx = mesh_ctx
+        if mesh_ctx is not None:
+            device = mesh_ctx.home
+        # the device cache's placement component of this pass's keys
+        self._placement = mesh_ctx.token if mesh_ctx is not None \
+            else str(device)
         self._data = data
         self._manifest = manifest
         self._units = int(units)
@@ -134,11 +145,13 @@ class TilePrefetcher:
 
     @classmethod
     def maybe(cls, data, manifest, units: int, tile_units: int,
-              device: torch.device) -> Optional["TilePrefetcher"]:
+              device: torch.device, mesh_ctx=None
+              ) -> Optional["TilePrefetcher"]:
         depth = int(config.global_properties().tier_prefetch_depth)
         if depth <= 0 or units <= tile_units or tile_units <= 0:
             return None
-        return cls(data, manifest, units, tile_units, depth, device)
+        return cls(data, manifest, units, tile_units, depth, device,
+                   mesh_ctx)
 
     # -- consumer side ---------------------------------------------------
 
@@ -230,9 +243,9 @@ class TilePrefetcher:
         code-resident ("ccol", built with code_ok) and decoded ("col").
         A join's probe relation binds decoded on purpose; warming it with
         code_ok would cache plates the consumer never reads."""
-        dev = str(self._device)
         for key, entry in list(self._data._device_cache.items()):
-            if key[0] != self._manifest.version or key[1] != dev:
+            if key[0] != self._manifest.version \
+                    or key[1] != self._placement:
                 continue
             if key[2] is None or key[2][0] != 0:
                 continue
@@ -269,7 +282,11 @@ class TilePrefetcher:
             attempt = 0
             while True:
                 try:
-                    self._loop()
+                    if self._mesh_ctx is not None:
+                        with self._mesh_ctx:
+                            self._loop()
+                    else:
+                        self._loop()
                     return                       # clean stop
                 except BaseException:
                     reg.inc("prefetch_errors")
@@ -289,6 +306,7 @@ class TilePrefetcher:
                 _LIVE_WORKERS.discard(tid)
 
     def _loop(self) -> None:
+        from snappydata_tpu_torch.parallel import mesh
         from snappydata_tpu_torch.storage import device as device_mod
         from snappydata_tpu_torch.storage import device_decode
 
@@ -318,7 +336,8 @@ class TilePrefetcher:
                     with device_mod.scan_window(self._data, lo, hi,
                                                 self._manifest,
                                                 tile_units=self._tile_units), \
-                            device_decode.upload_scope(self._stream):
+                            device_decode.upload_scope(self._stream), \
+                            mesh.prefetch_fence():
                         for code_ok, cols in self._cols.items():
                             if cols:
                                 device_mod.build_device_table(
@@ -348,7 +367,7 @@ class TilePrefetcher:
         stream: the plates were allocated on the worker's stream, and the
         caching allocator must not reuse their memory for the worker's
         later windows until the consumer's kernels over them are done."""
-        key = (self._manifest.version, str(self._device), (lo, hi))
+        key = (self._manifest.version, self._placement, (lo, hi))
         entry = self._data._device_cache.get(key, {})
         for v in list(entry.values()):
             for t in _tensors(v):

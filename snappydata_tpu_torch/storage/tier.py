@@ -32,7 +32,8 @@ MVCC epoch, else from an attached DiskStore's checkpointed batch file
 
 `maybe_demote` enforces `tier_device_bytes` / `tier_host_bytes` after a
 statement's read pin is released (the session's `_tier_enforce_pending`).
-The reference's mesh-layout trim on the HBM rung comes with the mesh.
+The HBM rung also trims the mesh lane's exchanged layouts
+(engine/mesh_exec.py), which rebuild at their next bind.
 
 Lock order: `storage.tier` serializes demotion and promotion and is held
 ABOVE the broker registry lock, `mvcc.clock` (pin reads),
@@ -550,6 +551,14 @@ def demote_device(tables, excess_bytes: int) -> int:
         dropped += 1
     if dropped:
         reg.inc("tier_demotions_hbm", dropped)
+    # mesh exchange layouts are device-tier residents too: trim them on
+    # the same rung (they rebuild from the next bind)
+    if freed < excess_bytes:
+        from snappydata_tpu_torch.engine import mesh_exec
+
+        freed += mesh_exec.trim_layout_caches(
+            max(0, mesh_exec.mesh_layout_cache_nbytes()
+                - (excess_bytes - freed)))
     return dropped
 
 

@@ -6,8 +6,9 @@ server of their own package; `python -m snappydata_tpu_torch` starts a
 locator and a CPU server in subprocesses with the reference's startup
 lines; `rebalance` prints the primary lead's answer as the reference's
 does; a server's session runs on `--device` (cuda by default, which
-raises without a GPU) and the multi-host flags raise until multi-device
-execution is ported."""
+raises without a GPU); the multi-host flags reach `initialize_multihost`
+and a server runs every query over its slot submesh (`--mesh-devices`,
+or its rank's local slots once multi-host)."""
 
 import os
 import re
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from torch_parity import _ledger_per_test, front_door_env  # noqa: F401
-from torch_parity import stop_member
+from torch_parity import mesh_slots, stop_member
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -217,19 +218,89 @@ def test_server_device_defaults_to_cuda():
                                    ["--coordinator", "127.0.0.1:1"],
                                    ["--num-processes", "2"],
                                    ["--process-id", "0"]])
-def test_multihost_flags_raise(flags):
-    from snappydata_tpu_torch import cli
+def test_multihost_flags_raise(flags, monkeypatch, capsys):
+    """(Named for the stub it replaces: the flags no longer raise.)  Each
+    multi-host flag of `server` reaches `initialize_multihost` before the
+    session starts; a joined world hands the server its rank's local
+    slots as its submesh, and `--mesh-devices` names the submesh itself.
+    The world's backend and the local slots follow `--device`.  The
+    locator, the world and the member are stand-ins that record what the
+    CLI gives them."""
+    from snappydata_tpu_torch import cli, cluster
+    from snappydata_tpu_torch.parallel import multihost
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        cli.main(["server", "--locator", "127.0.0.1:1", "--device", "cpu"]
-                 + flags)
+    seen = {}
+
+    def fake_init(coordinator=None, num_processes=None, process_id=None,
+                  device=None):
+        seen["init"] = (coordinator, num_processes, process_id, device)
+        return coordinator is not None
+
+    def fake_local(device=None):
+        seen["local"] = device
+        return [4, 5]
+
+    class FakeNode:
+        member_id = "server-fake"
+        flight_address = "127.0.0.1:1"
+
+        def __init__(self, locator, session, host, flight_port,
+                     mesh_devices=None):
+            seen["node"] = (locator, session.device, mesh_devices)
+
+        def start(self):
+            return self
+
+    monkeypatch.setattr(multihost, "initialize_multihost", fake_init)
+    monkeypatch.setattr(multihost, "local_device_indices", fake_local)
+    monkeypatch.setattr(cluster, "ServerNode", FakeNode)
+    monkeypatch.setattr(cli, "_wait_forever", lambda: None)
+    assert cli.main(["server", "--locator", "127.0.0.1:9", "--device",
+                     "cpu"] + flags) == 0
+    out = capsys.readouterr().out
+    flag, value = flags
+    want_init = (value if flag == "--coordinator" else None,
+                 int(value) if flag == "--num-processes" else None,
+                 int(value) if flag == "--process-id" else None, "cpu")
+    assert seen["init"] == want_init
+    assert seen.get("local") == ("cpu" if flag == "--coordinator" else None)
+    mesh = {"--mesh-devices": [0], "--coordinator": [4, 5]}.get(flag)
+    assert seen["node"] == ("127.0.0.1:9", torch.device("cpu"), mesh)
+    extra = f", submesh {mesh}" if mesh else ""
+    assert out == f"server server-fake flight at 127.0.0.1:1{extra}\n"
 
 
 def test_server_node_mesh_devices_raise():
-    from snappydata_tpu_torch.cluster import ServerNode
+    """(Named for the stub it replaces: a submesh no longer raises.)
+    `ServerNode(mesh_devices=...)` makes the server's session run every
+    query over those slots: its aggregates take the per-slot lane and
+    answer what a single-device session answers."""
+    import numpy as np
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        ServerNode("127.0.0.1:1", None, mesh_devices=[0])
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.cluster import LocatorNode, ServerNode
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    with mesh_slots(4):
+        loc = LocatorNode().start()
+        session = SnappySession(catalog=Catalog(), device="cpu")
+        node = ServerNode(loc.address, session, mesh_devices=[2, 3]).start()
+        try:
+            assert node.session is session
+            assert [s.index for s in session.default_mesh.slots] == [2, 3]
+            session.sql("CREATE TABLE sm (g BIGINT, v DOUBLE) USING column")
+            session.insert_arrays("sm", [np.arange(1000) % 3,
+                                         np.arange(1000, dtype=np.float64)])
+            session.catalog.describe("sm").data.force_rollover()
+            execs = global_registry().counter("mesh_shard_execs")
+            rows = session.sql("SELECT count(*), sum(v) FROM sm").rows()
+            assert rows == [(1000, 499500.0)]
+            assert global_registry().counter("mesh_shard_execs") == \
+                execs + 1
+        finally:
+            stop_member(node)
+            loc.stop()
 
 
 def _spawn(*argv):

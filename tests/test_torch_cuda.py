@@ -1865,3 +1865,116 @@ def test_cuda_distributed_q1_q6_over_two_servers(cuda_device):
         loc.stop()
         one.stop()
         props.pallas_reduce, props.pallas_group_reduce = saved
+
+
+@pytest.mark.cuda
+def test_cuda_four_slot_mesh_launches_per_slot(cuda_device):
+    """A 4-slot mesh on cuda:0 (`mesh_slots` 4): Q1 and Q6 take
+    the per-slot partial lane, launch the grouped and the Kahan kernel
+    once per slot, and answer the single-device rows of the same session
+    under the float32 policy (counts and keys exact, same-sign sums rel
+    1e-7: the compensated kernels' bar)."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.parallel.mesh import Mesh, Slot
+    from snappydata_tpu_torch.utils import tpch
+
+    props = config.global_properties()
+    saved = (props.pallas_reduce, props.pallas_group_reduce,
+             props.mesh_slots)
+    props.pallas_reduce = props.pallas_group_reduce = True
+    props.mesh_slots = 4
+    try:
+        s = SnappySession(catalog=Catalog(), device=cuda_device)
+        tpch.load_tpch(s, sf=0.05, seed=4)
+        single = {q: s.sql(q).rows() for q in (tpch.Q1, tpch.Q6)}
+        # four slots on cuda:0 whatever the machine's cards: data_mesh
+        # would put slot i on card i % k
+        s.default_mesh = Mesh([Slot(i, torch.device("cuda", 0))
+                               for i in range(4)])
+        assert [sl.device for sl in s.default_mesh.slots] == \
+            [torch.device("cuda", 0)] * 4
+        for q, lc in ((tpch.Q1, gr.grouped_reduce),
+                      (tpch.Q6, kr.masked_kahan_sum)):
+            n0 = lc.launches
+            e0 = global_registry().counter("mesh_shard_execs")
+            got = s.sql(q).rows()
+            assert lc.launches - n0 == 4, (q, lc.launches - n0)
+            assert global_registry().counter("mesh_shard_execs") == e0 + 1
+            want = single[q]
+            assert len(got) == len(want) > 0
+            for g, w in zip(got, want):
+                for a, b in zip(g, w):
+                    if isinstance(b, float):
+                        assert a == pytest.approx(b, rel=1e-7)
+                    else:
+                        assert a == b
+        s.stop()
+    finally:
+        (props.pallas_reduce, props.pallas_group_reduce,
+         props.mesh_slots) = saved
+
+
+def test_cuda_cross_card_mesh_reads_bind_time_blocks(cuda_device):
+    """A mesh of one slot a card over every card (two or more): each slot
+    on another card than cuda:0 reads its blocks from the copies the bind
+    made there, so a warm Q1, Q6 and Q3C (broadcast, then shuffle) copy no
+    block between cards (`mesh_block_copies`); each launches its kernel
+    once a slot and answers the single-device rows (counts and keys
+    exact, same-sign sums rel 1e-7), and the per-slot ledger counts every
+    slot's block on its own card."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+    from snappydata_tpu_torch.parallel import data_mesh
+    from snappydata_tpu_torch.storage.device import \
+        device_cache_bytes_by_device
+    from snappydata_tpu_torch.utils import tpch
+
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip("needs two or more cards")
+    props = config.global_properties()
+    saved = (props.pallas_reduce, props.pallas_group_reduce,
+             props.mesh_slots, props.mesh_join_strategy)
+    props.pallas_reduce = props.pallas_group_reduce = True
+    props.mesh_slots = 0
+    reg = global_registry()
+    try:
+        s = SnappySession(catalog=Catalog(), device=cuda_device)
+        tpch.load_tpch(s, sf=0.05, seed=4)
+        runs = [(tpch.Q1, gr.grouped_reduce, None),
+                (tpch.Q6, kr.masked_kahan_sum, None),
+                (tpch.Q3C, gr.grouped_reduce, "broadcast"),
+                (tpch.Q3C, gr.grouped_reduce, "shuffle")]
+        single = {q: s.sql(q).rows() for q, _, _ in runs}
+        s.default_mesh = data_mesh()
+        assert [str(sl.device) for sl in s.default_mesh.slots] == \
+            [f"cuda:{i}" for i in range(k)]
+        for q, lc, strategy in runs:
+            if strategy is not None:
+                props.mesh_join_strategy = strategy
+            s.sql(q).rows()
+            n0, c0 = lc.launches, reg.counter("mesh_block_copies")
+            e0 = reg.counter("mesh_shard_execs")
+            got = s.sql(q).rows()
+            assert lc.launches - n0 == k, (q, strategy, lc.launches - n0)
+            assert reg.counter("mesh_shard_execs") == e0 + 1
+            assert reg.counter("mesh_block_copies") == c0, (q, strategy)
+            want = single[q]
+            assert len(got) == len(want) > 0
+            for g, w in zip(got, want):
+                for a, b in zip(g, w):
+                    if isinstance(b, float):
+                        assert a == pytest.approx(b, rel=1e-7)
+                    else:
+                        assert a == b
+        li = s.catalog.describe("lineitem").data
+        per = device_cache_bytes_by_device([("lineitem", li)])
+        for i in range(1, k):
+            assert per.get(f"slot{i}:cuda:{i}", 0) > 0, per
+        s.stop()
+    finally:
+        (props.pallas_reduce, props.pallas_group_reduce,
+         props.mesh_slots, props.mesh_join_strategy) = saved

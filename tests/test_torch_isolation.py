@@ -419,3 +419,51 @@ def test_distributed_session_imports_no_jax():
     out = _run(_DISTRIBUTED)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+_MESH = r"""
+import socket, sys
+import numpy as np
+from snappydata_tpu_torch import SnappySession, config
+from snappydata_tpu_torch.catalog import Catalog
+from snappydata_tpu_torch.engine import mesh_exec
+from snappydata_tpu_torch.parallel import (BucketMap, MeshContext,
+                                           buckets, data_mesh, mesh,
+                                           multihost, placement)
+from snappydata_tpu_torch.storage.device import device_cache_bytes_by_device
+
+config.global_properties().mesh_slots = 4
+s = SnappySession(catalog=Catalog(), device="cpu")
+s.sql("CREATE TABLE t (g STRING, k BIGINT, v DOUBLE) USING column")
+s.insert_arrays("t", [np.array(["a", "b"], dtype=object)[np.arange(4000) % 2],
+                      np.arange(4000) % 50, np.ones(4000)])
+s.sql("CREATE TABLE d (k BIGINT, w DOUBLE) USING column")
+s.insert_arrays("d", [np.arange(50), np.arange(50, dtype=float)])
+s.default_mesh = data_mesh(4)
+assert s.sql("SELECT g, count(*), sum(v) FROM t GROUP BY g ORDER BY g"
+             ).rows() == [("a", 2000, 2000.0), ("b", 2000, 2000.0)]
+config.global_properties().mesh_join_strategy = "shuffle"
+assert s.sql("SELECT g, sum(w) FROM t JOIN d ON t.k = d.k GROUP BY g "
+             "ORDER BY g").rows() == [("a", 48000.0), ("b", 50000.0)]
+assert s.resize_mesh(2)["num_devices"] == 2
+assert len([k for k in device_cache_bytes_by_device(
+    [("t", s.catalog.describe("t").data)]) if k.startswith("slot")]) == 2
+port = socket.socket(); port.bind(("127.0.0.1", 0))
+addr = "127.0.0.1:%d" % port.getsockname()[1]; port.close()
+assert multihost.initialize_multihost(addr, 1, 0)
+assert multihost.local_device_indices() == [0, 1, 2, 3]
+multihost.shutdown()
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_mesh_lane_and_multihost_import_no_jax():
+    """The slot mesh, its placement and bucket map, the per-slot partial
+    lane with a shuffle join, a live resize and a one-rank torch.distributed
+    world run without JAX or the JAX package."""
+    out = _run(_MESH)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout

@@ -33,7 +33,7 @@ from snappydata_tpu_torch.observability.metrics import (MetricsRegistry,
                                                        Timer,
                                                        global_registry)
 from snappydata_tpu_torch.utils import tpch
-from torch_parity import Pair, policy
+from torch_parity import Pair, mesh_slots, policy
 
 _KNOBS = ("tracing_enabled", "trace_ring_entries", "slow_query_ms",
           "gidx_cache_bytes", "scan_compressed_domain", "pallas_reduce",
@@ -667,7 +667,30 @@ def test_stats_snapshots_equal_the_reference():
         assert set(pa) == set(pb), fn
     ms = stats_service.mesh_snapshot(port.catalog)
     assert set(ms) == set(ref_stats.mesh_snapshot(ref.catalog))
-    assert ms["active"] is False and ms["mesh_shard_execs"] == 0
+    assert ms["active"] is False
+    assert ms["mesh_shard_execs"] == \
+        global_registry().counter("mesh_shard_execs")
+    # an active 2-slot mesh: the port reports it under the reference's
+    # keys, with the same bucket map and per-slot resident bytes
+    from snappydata_tpu.parallel import MeshContext as RefMeshContext
+    from snappydata_tpu.parallel import data_mesh as ref_data_mesh
+    from snappydata_tpu_torch.parallel import MeshContext, data_mesh
+
+    with mesh_slots(2), MeshContext(data_mesh(2)) as pctx, \
+            RefMeshContext(ref_data_mesh(2)):
+        execs = global_registry().counter("mesh_shard_execs")
+        port.sql("SELECT count(*), sum(q) FROM st WHERE q < 10")
+        ms = stats_service.mesh_snapshot(port.catalog)
+        mr = ref_stats.mesh_snapshot(ref.catalog)
+    assert set(ms) == set(mr)
+    assert ms["active"] and ms["num_devices"] == 2
+    assert ms["token"] == pctx.token
+    assert ms["mesh_shard_execs"] == execs + 1
+    assert ms["placement"]["bucket_map"] == mr["placement"]["bucket_map"]
+    slots = {k: v for k, v in ms["resident_bytes_by_device"].items()
+             if k.startswith("slot")}
+    assert sorted(slots) == ["slot0:cpu", "slot1:cpu"]
+    assert all(v > 0 for v in slots.values())
     mv_a = stats_service.mvcc_snapshot(port.catalog)["tables"]["st"]
     mv_b = ref_stats.mvcc_snapshot(ref.catalog)["tables"]["st"]
     assert mv_a["version"] == mv_b["version"]

@@ -210,10 +210,7 @@ def test_rest_status_routes_answer_like_reference(services):
                in services.items()}
         assert got["port"][0] == got["ref"][0] == 200, (path, got)
         if isinstance(got["ref"][1], dict) and path != "/jobs":
-            assert set(got["ref"][1]) <= set(got["port"][1]) | {
-                # the reference's mesh lane's own counters: the port's
-                # mesh lines read 0 until multi-device is ported
-                k for k in got["ref"][1] if path.endswith("/mesh")}, path
+            assert set(got["ref"][1]) <= set(got["port"][1]), path
     code, stg = _http(services["port"][1], "/status/api/v1/storage")
     assert stg == json.loads(json.dumps(storage_snapshot()))
     s, svc = services["port"]

@@ -171,6 +171,46 @@ def unslow(obj):
     return obj
 
 @contextlib.contextmanager
+def mesh_slots(n):
+    """The port's shard slot count (`mesh_slots`) set to `n`, on the CPU
+    for a mesh that names no device (a card may be visible): the
+    counterpart of the reference tests' 8 XLA host devices
+    (tests/conftest.py)."""
+    import torch
+
+    from snappydata_tpu_torch.parallel import mesh as port_mesh
+
+    props = config.global_properties()
+    old = props.mesh_slots
+    old_default = port_mesh._default_device
+    props.mesh_slots = n
+    port_mesh._default_device = lambda: torch.device("cpu")
+    try:
+        yield
+    finally:
+        props.mesh_slots = old
+        port_mesh._default_device = old_default
+
+
+@pytest.fixture(scope="module")
+def eight_slots():
+    """Module-wide: 8 shard slots on the CPU (a mesh test module lists it
+    in an autouse fixture of its own), with torch's CPU ops on one thread:
+    the slots run one after another, each over a block, and in the
+    parallel suite every worker's default thread pool (one thread a core)
+    oversubscribes the cores many times over for such small ops."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with mesh_slots(8):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
 def cpu_default():
     """A port session that names no device runs on the CPU here (the
     reference's test cases construct `SnappySession()`); an explicit
