@@ -25,10 +25,12 @@ membership and the CLI, then AQP over a sample table, then stream tables
 fed by micro-batches, then a distributed session over two data-server
 processes; right after the join path, lineitem and orders on a 4-slot
 mesh of the one card (Q1, Q6 and Q3C through the per-slot lane, a live
-resize).
+resize), then the TPC-DS kit's star schema at SF 10 and its eight
+reporting queries.
 
     python3 chip_smoke.py [--sf 16] [--seed 7] [--reps 3] [--profile]
-                          [--ptxas]
+                          [--ptxas] [--tpcds-sf 10] [--tpcds-only]
+    python3 chip_smoke.py --load-only [--sf 4] [--tree DIR]
 
 With --profile, each timed query also runs once under torch.profiler
 (each session opens with spin kernels that are left out of its figures,
@@ -39,10 +41,14 @@ trace kept every kernel (--trace-dir DIR keeps the traces that did not).
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel with nvcc for sm_90a, one process per source
-   (with --ptxas, also print ptxas's registers, shared memory and spills
-   of every kernel);
-3. generate lineitem at scale factor --sf (6M rows per unit) and load it;
+2. build every kernel with nvcc for sm_90a, one process per source,
+   all started together and running on through phase 3 (with --ptxas,
+   also print ptxas's registers, shared memory and spills of every
+   kernel; `build_s` once they end, before phase 4), and the native
+   string encoder with g++ (`snappydata_tpu_torch.native`), which must
+   load;
+3. generate lineitem at scale factor --sf (6M rows per unit) and load it
+   (its string columns through the native encoder; rows/s);
 4. the main path: launch counters set to 0, Q1 and Q6 through
    `session.sql` with `pallas_group_reduce` and `pallas_reduce` on, the
    counters read back — each kernel must have launched; the inputs each
@@ -413,10 +419,34 @@ Phases, in order; any failure exits non-zero before the result lines:
    after; Q1 again against the oracle.  Any `mesh_fallback_*`, host
    fallback or slot off cuda:0 fails the phase; the mesh and its cache
    entries go at its end;
-30. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
+30. right after phase 29, on the main session: the TPC-DS kit
+   (`utils/tpcds.load_tpcds` at --tpcds-sf, 10 by default: store_sales
+   28,800,000 rows, item 180,000, customer 1,000,000, customer_address
+   500,000, store 120, date_dim 1,825; `reduced` from the kit's larger
+   scale factors by the run's time limit), each table's load seconds;
+   its eight queries (q3, q42, q52, q55, q19, q6, q36, q98) through
+   `session.sql` once and --reps times warm with both kernel knobs on,
+   launch counters at 0 before each: every answer against a float64
+   numpy / pandas oracle over the generated arrays (keys and counts
+   exact, same-sign sums rel 1e-6, q36's margin within the bound its two
+   sums give, q98's ratio rel 2e-6; ties at the ORDER BY and the LIMIT
+   within those tolerances), each query's lane with the engine's reason
+   when it leaves the device (only q6, q19 and q98, which the reference's
+   CPU branch declines too, may), its launches a run and join counters,
+   no host join; the grouped kernel launched on every run of q6 and q36
+   (the queries whose GROUP BY keys are dictionary keys with at most 64
+   groups: the kernel's gate in both packages; the others group by INT
+   keys on the generic key lane) and held against its plain version on
+   the first inputs the phase handed it, the Kahan kernel likewise (q36's
+   grand total); the native encoder loaded with no plain-encoder call in
+   the whole run (`native_fallbacks` 0); the kit's tables dropped at the
+   end.  With --tpcds-only the script runs phases 1, 2 and 30 alone on a
+   session of its own and prints no result line;
+31. the kernels' JSON line, then `{"ok": true, "device": ...}` last.  Each
    kernel's `launches` counts its main-path runs of phases 4, 11, 14, 16,
-   18 - 27 and 29 in this process (phase 28's run in the servers'
-   processes).
+   18 - 27, 29 and 30 in this process (phase 28's run in the servers'
+   processes).  `phase_s <n> <s>` gives each phase's seconds and
+   `phase_total_s` their sum.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float32 operations over
@@ -506,20 +536,29 @@ def run_queries(session, tpch):
     return out
 
 
-def oracle(li, tpch):
-    """Q1 / Q6 in float64 numpy straight from the generated arrays."""
+def flag_status_code(flag, status):
+    """Q1's group as one small code a row: 2 * flag (A 0, N 1, R 2) +
+    status (F 0, O 1), from the two object columns."""
     import numpy as np
 
-    flag = li["l_returnflag"]
-    status = li["l_linestatus"]
-    fcode = (flag == "N").astype(np.int64) + 2 * (flag == "R")
-    scode = (status == "O").astype(np.int64)
+    return ((flag == "N").astype(np.int8) + 2 * (flag == "R")) * 2 \
+        + (status == "O")
+
+
+def oracle(li, tpch, code=None):
+    """Q1 / Q6 in float64 numpy straight from the generated arrays (or
+    their `view_arrays` form); `code`, when given, is the rows'
+    `flag_status_code`, so the string compares run once."""
+    import numpy as np
+
+    if code is None:
+        code = li["g"] if "g" in li else \
+            flag_status_code(li["l_returnflag"], li["l_linestatus"])
     qty, price = li["l_quantity"], li["l_extendedprice"]
     disc, tax, ship = li["l_discount"], li["l_tax"], li["l_shipdate"]
     # rows past Q1's cutoff count in a seventh bin that is dropped: the
     # same sums in the same order as masking every weight column
-    g = np.where(ship <= tpch._days("1998-12-01") - 90, fcode * 2 + scode,
-                 6)
+    g = np.where(ship <= tpch._days("1998-12-01") - 90, code, 6)
 
     def per(w):
         return np.bincount(g, weights=w, minlength=7)[:6]
@@ -1236,6 +1275,370 @@ def mesh_path(session, tpch, want, q3c_rows, warm, args):
     log("answers ok: Q1 / Q6 on 4 slots match the oracle, Q3C under both "
         "joins matches phase 10, Q1 after the resize matches the oracle")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 30: the TPC-DS kit's eight queries on the main session
+# --------------------------------------------------------------------------
+
+TPCDS_SF = 10                 # store_sales 28,800,000 rows (the kit's sizes)
+# the queries that stay on the device, in the order phase 30 runs them
+# at --tpcds-sf; q6, q19 and q98 leave it (TPCDS_HOST)
+TPCDS_DEVICE = ("q3", "q42", "q52", "q55", "q36")
+# the queries whose GROUP BY keys are all dictionary keys with at most 64
+# groups (q6: ca_state; q36: ROLLUP(i_category, i_class)'s category level):
+# the grouped kernel's gate in both packages (`fast` and MAX_GROUPS,
+# snappydata_tpu/engine/executor.py:2719); the rest group by INT keys
+# (d_year, i_brand_id, i_manufact_id) on the generic key lane
+TPCDS_GROUPED = ("q6", "q36")
+# the queries the reference declines to compile on its CPU branch too
+# (its routing equals the port's there: tests/test_torch_tpcds.py), with
+# the engine's reason; they run on the single-threaded host lane (q6's
+# GROUP BY through the host lane's device program), which took 56 - 92 s
+# a run of q19 / q6 at SF 10, so phase 30 runs them once each over the
+# kit at TPCDS_HOST_SF
+TPCDS_HOST = {"q19": "cross-dictionary string comparison",
+              "q6": "node Aggregate",
+              "q98": "node Aggregate"}
+TPCDS_HOST_SF = 1             # store_sales 2,880,000 rows
+TPCDS_TABLES = ("store_sales", "date_dim", "item", "customer",
+                "customer_address", "store")
+TPCDS_DATE0 = 2_450_000       # d_date_sk of the first generated day
+
+
+class _Capture:
+    """The session `tpcds.load_tpcds` writes through, keeping the arrays
+    it inserts (the oracle's input: nothing is generated twice)."""
+
+    def __init__(self, session):
+        self.session = session
+        self.arrays = {}
+
+    def sql(self, text):
+        return self.session.sql(text)
+
+    def insert_arrays(self, table, arrays):
+        self.arrays[table] = dict(zip(_TPCDS_COLS[table], arrays))
+        t0 = time.perf_counter()
+        out = self.session.insert_arrays(table, list(arrays))
+        log(f"tpcds_load {table} rows {len(arrays[0])} s "
+            f"{time.perf_counter() - t0:.3f}")
+        return out
+
+
+_TPCDS_COLS = {
+    "date_dim": ("d_date_sk", "d_year", "d_moy", "d_qoy", "d_dow"),
+    "item": ("i_item_sk", "i_brand_id", "i_brand", "i_category_id",
+             "i_category", "i_class_id", "i_class", "i_manufact_id",
+             "i_manager_id", "i_current_price"),
+    "customer": ("c_customer_sk", "c_current_addr_sk", "c_birth_month"),
+    "customer_address": ("ca_address_sk", "ca_gmt_offset", "ca_state"),
+    "store": ("s_store_sk", "s_gmt_offset", "s_state"),
+    "store_sales": ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+                    "ss_store_sk", "ss_quantity", "ss_ext_sales_price",
+                    "ss_sales_price", "ss_net_profit", "ss_coupon_amt",
+                    "ss_list_price")}
+
+
+def _grouped(keys, weights, how="sum"):
+    """{key tuple: (sum of each weight, ...)} over the rows of `keys`
+    (equal-length arrays; small after the queries' filters)."""
+    import pandas as pd
+
+    frame = pd.DataFrame({f"k{i}": k for i, k in enumerate(keys)}
+                         | {f"w{i}": w for i, w in enumerate(weights)})
+    g = frame.groupby([f"k{i}" for i in range(len(keys))], sort=False)
+    agg = g.sum() if how == "sum" else g.size().to_frame()
+    def plain(xs):
+        return tuple(x.item() if hasattr(x, "item") else x for x in xs)
+
+    return {plain(k if isinstance(k, tuple) else (k,)): plain(row)
+            for k, row in zip(agg.index, agg.itertuples(index=False))}
+
+
+def tpcds_oracle(t, queries):
+    """`queries` of the kit in float64 numpy / pandas over the generated
+    arrays `t` (table -> column -> array): {query: (rows in ORDER BY
+    order before the LIMIT, the tolerance of each float column)}.  Foreign
+    keys index the dimensions directly (their surrogate keys are 1 .. n,
+    d_date_sk from TPCDS_DATE0); each filter runs on numbers (string
+    predicates as masks over the small dimension tables) before a string
+    column is gathered."""
+    import numpy as np
+
+    ss, dd, it = t["store_sales"], t["date_dim"], t["item"]
+    cu, ca, st = t["customer"], t["customer_address"], t["store"]
+    di = ss["ss_sold_date_sk"] - TPCDS_DATE0
+    ii = ss["ss_item_sk"] - 1
+    year, moy = dd["d_year"][di], dd["d_moy"][di]
+    mgr = it["i_manager_id"][ii]
+    price = ss["ss_ext_sales_price"]
+    out = {}
+
+    def item_col(name, idx):
+        return it[name][ii[idx]]
+
+    def rows_of(m, keys, order):
+        idx = np.flatnonzero(m)
+        agg = _grouped([k(idx) for k in keys], [price[idx]])
+        rows = [k + (v[0],) for k, v in agg.items()]
+        rows.sort(key=order)
+        return rows, 1e-6
+
+    def yr(idx):
+        return year[idx]
+
+    def brand_id(idx):
+        return item_col("i_brand_id", idx)
+
+    def brand(idx):
+        return item_col("i_brand", idx)
+
+    if "q3" in queries:
+        m = (it["i_manufact_id"][ii] == 100) & (moy == 11)
+        out["q3"] = rows_of(m, [yr, brand_id, brand],
+                            lambda r: (r[0], -r[3], r[1]))
+    m = (mgr == 1) & (moy == 11) & (year == 2000)
+    if "q42" in queries:
+        out["q42"] = rows_of(m, [yr, lambda i: item_col("i_category_id", i),
+                                 lambda i: item_col("i_category", i)],
+                             lambda r: (-r[3], r[0], r[1], r[2]))
+    if "q52" in queries:
+        out["q52"] = rows_of(m, [yr, brand_id, brand],
+                             lambda r: (r[0], -r[3], r[1]))
+    if "q55" in queries:
+        m = (mgr == 28) & (moy == 11) & (year == 1999)
+        out["q55"] = rows_of(m, [brand_id, brand], lambda r: (-r[2], r[0]))
+    ci = ss["ss_customer_sk"] - 1
+    si = ss["ss_store_sk"] - 1
+    if "q19" in queries:
+        states, codes = np.unique(np.concatenate(
+            [ca["ca_state"], st["s_state"]]), return_inverse=True)
+        ca_code, st_code = codes[:len(ca["ca_state"])], \
+            codes[len(ca["ca_state"]):]
+        m = (mgr >= 8) & (mgr <= 40) & (moy == 11)
+        idx = np.flatnonzero(m)
+        ai = cu["c_current_addr_sk"][ci[idx]] - 1
+        m[idx] = ca_code[ai] != st_code[si[idx]]
+        out["q19"] = rows_of(m, [brand_id, brand,
+                                 lambda i: item_col("i_manufact_id", i)],
+                             lambda r: (-r[3], r[0]))
+    if "q6" in queries:
+        # items priced over 1.2x their category's average price
+        cp = it["i_current_price"]
+        _cats, cat_code = np.unique(it["i_category"], return_inverse=True)
+        avg = np.bincount(cat_code, weights=cp) / np.bincount(cat_code)
+        hot = cp > 1.2 * avg[cat_code]
+        idx = np.flatnonzero((year == 2000) & hot[ii])
+        ai = cu["c_current_addr_sk"][ci[idx]] - 1
+        cnt = _grouped([ca["ca_state"][ai]], [], how="size")
+        q6 = [(k[0], int(v[0])) for k, v in cnt.items() if v[0] >= 10]
+        q6.sort(key=lambda r: (r[1], r[0]))
+        out["q6"] = (q6, 0.0)
+    if "q36" in queries:
+        # ROLLUP(i_category, i_class) of sum(net_profit) / sum(price); the
+        # ratio's bound follows from its two sums' (net_profit is mixed
+        # sign: 1e-6 * sum(|v|); the price sum is same-sign: rel 1e-6)
+        in_state = np.isin(st["s_state"], ["CA", "TX"])
+        idx = np.flatnonzero((year == 2001) & in_state[si])
+        cat, cls = item_col("i_category", idx), item_col("i_class", idx)
+        prof, pr = ss["ss_net_profit"][idx], price[idx]
+        q36 = []
+        for keys in ([cat, cls], [cat], []):
+            if keys:
+                agg = _grouped(keys, [prof, pr, np.abs(prof)])
+            else:
+                agg = {(): (prof.sum(), pr.sum(), np.abs(prof).sum())}
+            for k, (a, b, absa) in agg.items():
+                k = tuple(k) + (None,) * (2 - len(k))
+                tol = 1e-6 * (absa + abs(a / b) * b) / b
+                q36.append(((a / b,) + k, tol))
+        q36.sort(key=lambda r: (r[0][0], r[0][1] or "", r[0][2] or ""))
+        out["q36"] = ([r for r, _t in q36], {r: t for r, t in q36})
+    if "q98" in queries:
+        # per-item revenue over its class's total, in percent
+        in_cat = np.isin(it["i_category"], ["cat#1", "cat#2", "cat#3"])
+        idx = np.flatnonzero(in_cat[ii] & (year == 1999) & (moy == 2))
+        per = _grouped([ss["ss_item_sk"][idx], item_col("i_class", idx)],
+                       [price[idx]])
+        tot = {}
+        for (_sk, c), (v,) in per.items():
+            tot[c] = tot.get(c, 0.0) + v
+        q98 = [(sk, c, v, v * 100.0 / tot[c])
+               for (sk, c), (v,) in per.items()]
+        q98.sort(key=lambda r: (r[1], r[3]))
+        out["q98"] = (q98, 2e-6)
+    return out
+
+
+def _cmp_key(a, b, tol):
+    """-1, 0 or 1: tuple `a` against `b`, floats equal within `tol`
+    relative, None first (ascending order puts NULLs first)."""
+    for x, y in zip(a, b):
+        if x is None or y is None:
+            if x is None and y is None:
+                continue
+            return -1 if x is None else 1
+        if isinstance(x, float) or isinstance(y, float):
+            if abs(x - y) <= tol * max(abs(x), abs(y)):
+                continue
+        if x != y:
+            return -1 if x < y else 1
+    return 0
+
+
+def check_tpcds(q, got, want):
+    """`got` (the query's rows, LIMIT 100) against the oracle's ordered
+    rows: the row count; each row's key columns exact and its float
+    columns within the query's tolerance of the oracle's row of that key;
+    the rows in ORDER BY order and the LIMIT's cut where the oracle puts
+    it (both up to ties within the tolerance)."""
+    rows, tol = want
+    if len(got) != min(100, len(rows)):
+        fail(f"TPC-DS {q}: {len(got)} rows, the oracle {min(100, len(rows))}")
+
+    def key(r):
+        return tuple(x for x in r if not isinstance(x, float))
+
+    by_key = {key(r): r for r in rows}
+    order = {key(r): i for i, r in enumerate(rows)}
+    for g in got:
+        g = tuple(g)
+        w = by_key.get(key(g))
+        if w is None:
+            fail(f"TPC-DS {q}: row {g} has no oracle row of its key")
+        t = tol[w] if isinstance(tol, dict) else tol
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                if a is None or abs(a - b) > t * abs(b) + 1e-9:
+                    fail(f"TPC-DS {q}: {g} against the oracle's {w} (tol {t})")
+            elif a != b:
+                fail(f"TPC-DS {q}: {g} != {w}")
+    # order: each got row's oracle position, compared with tolerance
+    pos = [order[key(tuple(g))] for g in got]
+    t = max(tol.values()) if isinstance(tol, dict) else max(tol, 1e-12)
+    for i in range(1, len(pos)):
+        if pos[i] < pos[i - 1] \
+                and _cmp_key(rows[pos[i]], rows[pos[i - 1]], t) != 0:
+            fail(f"TPC-DS {q}: rows {got[i - 1]} and {got[i]} out of order")
+    last = max(pos) if pos else -1
+    seen = set(pos)
+    for i in (i for i in range(last) if i not in seen):
+        if _cmp_key(rows[i], rows[last], t) != 0:
+            fail(f"TPC-DS {q}: the oracle's row {rows[i]} is missing")
+
+
+def tpcds_load(session, sf, seed):
+    """`tpcds.load_tpcds` at `sf` on `session`, timed per table; the
+    generated arrays (table -> column -> array)."""
+    from snappydata_tpu_torch.utils import tpcds
+
+    sizes = tpcds.table_sizes(sf)
+    log(f"tpcds sf {sf} sizes {json.dumps(sizes)}")
+    cap = _Capture(session)
+    t0 = time.perf_counter()
+    tpcds.load_tpcds(cap, sf=sf, seed=seed)
+    load_s = time.perf_counter() - t0
+    n_ss = sizes["store_sales"]
+    if len(cap.arrays["store_sales"]["ss_item_sk"]) != n_ss:
+        fail("TPC-DS: store_sales holds another row count than "
+             "table_sizes gives")
+    log(f"tpcds_load_s {load_s:.3f} sf {sf} (generation included) "
+        f"store_sales rows_per_s {n_ss / load_s:.0f}")
+    return cap.arrays
+
+
+def tpcds_runs(session, queries, want, reps, out):
+    """Each of `queries` through `session.sql` once and `reps` times warm
+    (`timed_query`: launch counters at 0 before each query), its lane,
+    launches and counters logged, checked against `want`; adds its
+    launches, counter deltas and the first inputs each kernel received
+    to `out`."""
+    from snappydata_tpu_torch.observability import tracing
+    from snappydata_tpu_torch.utils import tpcds
+
+    runs = 1 + reps
+    for q in queries:
+        rows, f_s, w_s, moved, lc, calls, peak, _res = \
+            timed_query(session, tpcds.QUERIES[q], reps)
+        reasons = set()
+        last = tracing.ring().last()
+        stack = [last.root] if last is not None else []
+        while stack:
+            sp = stack.pop()
+            if sp.name == "host_fallback" and sp.attrs.get("reason"):
+                reasons.add(sp.attrs["reason"])
+            stack.extend(sp.children)
+        lane = "device" if not moved["host_fallbacks"] else \
+            f"host ({'; '.join(sorted(reasons)) or 'no reason'})"
+        log(f"tpcds {q} rows {len(rows)} first_s {f_s:.4f}"
+            + (f" warm_s {w_s:.4f}" if reps else "")
+            + f" lane {lane} launches_per_run "
+            f"{json.dumps({k: v / runs for k, v in lc.items()})} counters "
+            f"{json.dumps(moved)} peak_device_bytes {peak}")
+        if (q in TPCDS_HOST) != bool(moved["host_fallbacks"]) or (
+                q in TPCDS_HOST and not any(TPCDS_HOST[q] in r
+                                            for r in reasons)):
+            fail(f"TPC-DS {q} took the {lane} lane; the reference's CPU "
+                 f"branch routes it to the "
+                 f"{'host' if q in TPCDS_HOST else 'device'}")
+        if q in TPCDS_GROUPED and lc["grouped_reduce"] < runs:
+            fail(f"grouped_reduce launched {lc['grouped_reduce']} times "
+                 f"over TPC-DS {q}'s {runs} runs")
+        if moved["join_host_fallbacks"]:
+            fail(f"TPC-DS {q} joined on the host: {moved}")
+        for k in out["launches"]:
+            out["launches"][k] += lc[k]
+            if k not in out["calls"] and calls[k]:
+                out["calls"][k] = (q, calls[k])
+        for k in moved:
+            out["moved"][k] = out["moved"].get(k, 0) + moved[k]
+        check_tpcds(q, rows, want[q])
+        log(f"tpcds {q} first_rows {json.dumps(rows[:3], default=str)}")
+
+
+def tpcds_path(session, args):
+    """Phase 30: load the TPC-DS kit at `args.tpcds_sf` on `session`, run
+    its device-lane queries once and --reps times warm with both kernel
+    knobs on, reload the kit at TPCDS_HOST_SF and run the host-lane ones
+    once, hold each answer against the oracle and the kernels against
+    their plain versions on the first inputs the phase handed them;
+    returns the phase's launches.  The kit's tables are dropped at the
+    end."""
+    from snappydata_tpu_torch import config, native
+
+    props = config.global_properties()
+    props.pallas_reduce = True
+    props.pallas_group_reduce = True
+    out = {"launches": {"grouped_reduce": 0, "masked_kahan_sum": 0},
+           "calls": {}, "moved": {}}
+    for sf, queries, reps in ((args.tpcds_sf, TPCDS_DEVICE, args.reps),
+                              (TPCDS_HOST_SF, tuple(TPCDS_HOST), 0)):
+        arrays = tpcds_load(session, sf, args.seed)
+        t0 = time.perf_counter()
+        want = tpcds_oracle(arrays, queries)
+        log(f"tpcds_oracle_s {time.perf_counter() - t0:.3f} sf {sf}")
+        del arrays
+        tpcds_runs(session, queries, want, reps, out)
+        for table in TPCDS_TABLES:
+            session.sql(f"DROP TABLE {table}")
+    log(f"tpcds_launches {json.dumps(out['launches'])} counters "
+        f"{json.dumps(out['moved'])}")
+    for name, phase in (("grouped_reduce", grouped_phase),
+                        ("masked_kahan_sum", kahan_phase)):
+        if name not in out["calls"]:
+            fail(f"{name} did not launch on the TPC-DS queries")
+        q, calls = out["calls"][name]
+        log(f"kernel {name} on TPC-DS {q} "
+            f"{json.dumps(phase(calls, args.reps))}")
+    fb = native.counters()["native_fallbacks"]
+    log(f"native_encoder loaded {native.native_available()} "
+        f"native_fallbacks {fb} so {native.SO}")
+    if not native.native_available() or fb:
+        fail("the native string encoder is not loaded, or ingest fell "
+             f"back to the plain encoder ({fb} calls)")
+    log("answers ok: the eight TPC-DS queries match the oracle")
+    return out["launches"]
 
 
 def build_sort_ms(session, reps):
@@ -2032,12 +2435,14 @@ class PinnedReader:
         return self.out
 
 
-def mutated_lineitem(li, extra, tpch):
+def mutated_lineitem(li, code, extra, tpch):
     """The generated arrays after phase 16's UPDATE, DELETE and insert, as
     the card's plates hold them: l_discount float32 (the UPDATE's
     arithmetic and compare run at the plate width), rows with l_quantity
     >= 49 gone, the inserted rows appended.  Only the columns the later
-    oracles read (VIEW_COLUMNS)."""
+    oracles read (VIEW_COLUMNS), in `view_arrays` form: `code` is the
+    generated rows' `flag_status_code`, so no object column is copied or
+    compared again."""
     import numpy as np
 
     disc = li["l_discount"].astype(np.float32)
@@ -2045,11 +2450,11 @@ def mutated_lineitem(li, extra, tpch):
         & (disc < np.float32(0.10))
     disc = np.where(hit, disc + np.float32(0.01), disc)
     keep = li["l_quantity"] < 49
+    more = view_arrays({k: extra[k] for k in VIEW_COLUMNS})
     out = {}
-    for k in VIEW_COLUMNS:
-        v = li[k]
-        col = disc if k == "l_discount" else v
-        tail = extra[k].astype(np.float32) if k == "l_discount" else extra[k]
+    for k in more:
+        col = disc if k == "l_discount" else code if k == "g" else li[k]
+        tail = more[k].astype(np.float32) if k == "l_discount" else more[k]
         out[k] = np.concatenate([col[keep], tail])
     return out, int(hit.sum()), int((~keep).sum())
 
@@ -2064,7 +2469,7 @@ def q10_oracle(li, orders, cust, tpch):
     row = li["l_orderkey"] - 1
     has = row < len(od)   # inserted lines may name orders that are absent
     row = np.where(has, row, 0)
-    m = has & ok[row] & (li["l_returnflag"] == "R")
+    m = has & ok[row] & (li["g"] // 2 == 2)   # l_returnflag 'R' 
     ck = orders["o_custkey"][row[m]]
     rev = (li["l_extendedprice"] * (1 - li["l_discount"].astype(
         np.float64)))[m]
@@ -2076,9 +2481,10 @@ def q10_oracle(li, orders, cust, tpch):
              names[cust["c_nationkey"][c - 1]]) for c in top if tot[c] > 0]
 
 
-def mutation_path(session, tpch, li, orders, cust, first, args):
+def mutation_path(session, tpch, li, code, orders, cust, first, args):
     """Phase 16 (a) - (h); returns the two kernels' launches over (e) and
-    lineitem's columns that phase 21 reads, as the phase leaves them."""
+    lineitem's columns that phase 21 reads (`view_arrays` form), as the
+    phase leaves them.  `code` is `li`'s `flag_status_code`."""
     import threading
 
     import numpy as np
@@ -2112,7 +2518,7 @@ def mutation_path(session, tpch, li, orders, cust, first, args):
     t0 = time.perf_counter()
     session.insert_arrays("lineitem", list(extra.values()))
     ins_s = time.perf_counter() - t0
-    mut, want_upd, want_del = mutated_lineitem(li, extra, tpch)
+    mut, want_upd, want_del = mutated_lineitem(li, code, extra, tpch)
     log(f"mutation update rows {n_upd} s {upd_s:.3f} rows_per_s "
         f"{n_upd / upd_s:.0f}; delete rows {n_del} s {del_s:.3f} "
         f"rows_per_s {n_del / del_s:.0f}; insert rows "
@@ -2251,9 +2657,11 @@ def mutation_path(session, tpch, li, orders, cust, first, args):
         fail(f"Q10 left the device: {moved}")
     # lineitem as the phase leaves it (the HTAP batches too), for Q10's
     # oracle and phase 21's
+    more = [view_arrays({k: b[k] for k in VIEW_COLUMNS})
+            for b in htap_batches]
     post = {k: np.concatenate([mut[k]] + [
         b[k].astype(np.float32) if k == "l_discount" else b[k]
-        for b in htap_batches]) for k in VIEW_COLUMNS}
+        for b in more]) for k in mut}
     check_rows("Q10 vs numpy", rows, q10_oracle(post, orders, cust, tpch))
     log(f"q10 {json.dumps(rows[:3], default=str)}")
 
@@ -2333,13 +2741,9 @@ def view_arrays(cols):
     """The numeric columns phase 21's oracles read, with Q1's group as
     one small code `g` = 2 * flag (A 0, N 1, R 2) + status (F 0, O 1):
     the string compares over ~98M object cells are done once."""
-    import numpy as np
-
-    flag, status = cols["l_returnflag"], cols["l_linestatus"]
     out = {k: v for k, v in cols.items()
            if k not in ("l_returnflag", "l_linestatus")}
-    out["g"] = ((flag == "N").astype(np.int8) + 2 * (flag == "R")) * 2 \
-        + (status == "O")
+    out["g"] = flag_status_code(cols["l_returnflag"], cols["l_linestatus"])
     return out
 
 
@@ -2473,7 +2877,7 @@ def views_path(session, tpch, li, post, first, args):
     props.pallas_reduce = True
     props.pallas_group_reduce = True
     reg = global_registry()
-    arrs = view_arrays(post)
+    arrs = post
     total = {"grouped_reduce": 0, "masked_kahan_sum": 0}
 
     def drain():
@@ -3841,7 +4245,9 @@ def durable_path(tpch, li, args, clean_ops):
             f"wal_group_commit_batches "
             f"{reg.counter('wal_group_commit_batches') - g0}")
         tail = {k: np.concatenate([extra[k], single[k]]) for k in names}
-        mut, _u, _d = mutated_lineitem(li, tail, tpch)
+        mut, _u, _d = mutated_lineitem(
+            li, flag_status_code(li["l_returnflag"], li["l_linestatus"]),
+            tail, tpch)
         want = oracle(mut, tpch)
         del mut, tail
         # (e) crash-shape reopen: s1 stays open
@@ -5534,17 +5940,53 @@ def routed_strings_main(tpch, n, seed):
 
 class PhaseClock:
     """Logs each phase's wall seconds (`phase_s <n> <s>`) when the next
-    one starts, so a run's time budget reads per phase."""
+    one starts, so a run's time budget reads per phase, and their total
+    (`phase_total_s`) when the last one ends (`next(None)`)."""
 
     def __init__(self):
         self.phase = None
         self.t0 = time.perf_counter()
+        self.total = 0.0
 
     def next(self, phase) -> None:
         now = time.perf_counter()
         if self.phase is not None:
             log(f"phase_s {self.phase} {now - self.t0:.1f}")
+            self.total += now - self.t0
+        if phase is None:
+            log(f"phase_total_s {self.total:.1f}")
         self.phase, self.t0 = phase, now
+
+
+def load_only_main(tpch, n_rows, seed, root):
+    """--load-only: phase 3's generation and timed `insert_arrays` of
+    lineitem alone, through the package under `root` (string columns
+    through its native encoder where it has one)."""
+    import importlib
+
+    from snappydata_tpu_torch import SnappySession, config
+    from snappydata_tpu_torch.catalog import Catalog
+
+    try:
+        native = importlib.import_module("snappydata_tpu_torch.native")
+        encoder = "native" if native.native_available() else "plain"
+    except ImportError:
+        native, encoder = None, "plain (no native module)"
+    t0 = time.perf_counter()
+    li = tpch.gen_lineitem(n_rows, seed)
+    gen_s = time.perf_counter() - t0
+    config.global_properties().compaction_enabled = False
+    session = SnappySession(catalog=Catalog())
+    session.sql(tpch.LINEITEM_DDL)
+    t0 = time.perf_counter()
+    session.insert_arrays("lineitem", list(li.values()))
+    load_s = time.perf_counter() - t0
+    fallbacks = native.counters()["native_fallbacks"] if native else None
+    log(f"load_only tree {root} encoder {encoder} native_fallbacks "
+        f"{fallbacks} gen_s {gen_s:.3f} rows {n_rows} load_s {load_s:.3f} "
+        f"rows_per_s {n_rows / load_s:.0f}")
+    session.stop()
+    return 0
 
 
 def main() -> int:
@@ -5565,6 +6007,20 @@ def main() -> int:
     ap.add_argument("--kahan-profile", metavar="PATH",
                     help="child mode of phase 17: profile the Kahan kernel "
                          "on the inputs saved in PATH")
+    ap.add_argument("--tpcds-sf", type=float, default=TPCDS_SF,
+                    help="phase 30's TPC-DS scale factor (store_sales "
+                         "2,880,000 rows each)")
+    ap.add_argument("--tpcds-only", action="store_true",
+                    help="run phases 1, 2 and 30 alone, on a session of "
+                         "their own, and print no result line")
+    ap.add_argument("--load-only", action="store_true",
+                    help="only generate lineitem at --sf and time its "
+                         "load (phase 3's insert) on a session of its own; "
+                         "no result line")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="import snappydata_tpu_torch from DIR instead of "
+                         "beside this script (with --load-only: another "
+                         "checkout's load, timed the same way)")
     ap.add_argument("--routed-strings", action="store_true",
                     help="only time the string columns of phase 28's "
                          "routed insert both ways (routed_strings_main)")
@@ -5578,7 +6034,8 @@ def main() -> int:
         return kahan_profile_main(args.kahan_profile, args.reps)
     if args.trace_dir:
         TRACE_DIR.append(os.path.abspath(args.trace_dir))
-    root = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.abspath(args.tree) if args.tree \
+        else os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     try:
         from snappydata_tpu_torch import SnappySession, config
@@ -5597,6 +6054,9 @@ def main() -> int:
     if "jax" in sys.modules or any(m.startswith("snappydata_tpu.")
                                    for m in sys.modules):
         fail("the port imported JAX or the JAX package")
+    if args.load_only:
+        return load_only_main(tpch, int(args.sf * ROWS_PER_SF), args.seed,
+                              root)
     if args.routed_strings:
         return routed_strings_main(
             tpch, int(args.sf * ROWS_PER_SF) // DIST_DEPTH, args.seed)
@@ -5614,20 +6074,47 @@ def main() -> int:
     log(card)
     kind = torch.cuda.get_device_name(0)
 
-    # 2. build
+    # 2. build: the nvcc processes run on while phase 3 generates and
+    # loads lineitem (nothing launches a kernel before phase 4)
     phase_clock.next(2)
-    t0 = time.perf_counter()
+    t_build = time.perf_counter()
     ptxas = ("-Xptxas", "-v") if args.ptxas else ()
-    try:
-        built = cuda_build.build(KERNELS, force=True, extra_flags=ptxas)
-    except RuntimeError as e:
-        fail(str(e))
-    log(f"build_s {time.perf_counter() - t0:.3f} ({', '.join(KERNELS)})")
-    if args.ptxas:
-        for name in built:
-            for line in built[name].splitlines():
-                if "ptxas" in line or "spill" in line:
-                    log(f"ptxas {name}: {line.strip()}")
+    pending = cuda_build.start_build(KERNELS, force=True, extra_flags=ptxas)
+
+    def build_done(after):
+        t0 = time.perf_counter()
+        try:
+            built = pending.wait()
+        except RuntimeError as e:
+            fail(str(e))
+        log(f"build_s {time.perf_counter() - t_build:.3f} "
+            f"({', '.join(KERNELS)}; waited {time.perf_counter() - t0:.3f} "
+            f"s after {after})")
+        if args.ptxas:
+            for name in built:
+                for line in built[name].splitlines():
+                    if "ptxas" in line or "spill" in line:
+                        log(f"ptxas {name}: {line.strip()}")
+
+    from snappydata_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        fail("the native string encoder did not build with g++")
+    log(f"native_build_s {time.perf_counter() - t0:.3f} ({native.SO})")
+    if args.tpcds_only:
+        build_done("the native build")
+        props = config.global_properties()
+        props.compaction_enabled = False
+        props.join_expand_max_bytes = 8 << 30   # as phase 10 leaves them
+        props.join_build_cache_bytes = 8 << 30
+        phase_clock.next(30)
+        try:
+            tpcds_path(SnappySession(catalog=Catalog()), args)
+        except Exception as e:  # noqa: BLE001 - report the phase, then exit
+            fail(f"TPC-DS path: {type(e).__name__}: {e}")
+        phase_clock.next(None)
+        return 0
 
     # 3. data
     phase_clock.next(3)
@@ -5644,7 +6131,9 @@ def main() -> int:
     t0 = time.perf_counter()
     session.insert_arrays("lineitem", list(li.values()))
     load_s = time.perf_counter() - t0
-    log(f"load_s {load_s:.3f} rows_per_s {n_rows / load_s:.0f}")
+    log(f"load_s {load_s:.3f} rows_per_s {n_rows / load_s:.0f} "
+        f"native_fallbacks {native.counters()['native_fallbacks']}")
+    build_done("the load")
 
     # 4. the main path, kernel lanes on
     phase_clock.next(4)
@@ -5693,7 +6182,10 @@ def main() -> int:
 
     # 6. the answers
     phase_clock.next(6)
-    want = oracle(li, tpch)
+    # the string compares over lineitem's two flag columns run once here;
+    # phase 16's oracles read the codes
+    li_code = flag_status_code(li["l_returnflag"], li["l_linestatus"])
+    want = oracle(li, tpch, li_code)
     for q in ("q1", "q6"):
         check_rows(f"{q} vs numpy oracle", first[q][0], want[q])
     props.pallas_reduce = False
@@ -5850,6 +6342,18 @@ def main() -> int:
     for name, count in mesh_launches.items():
         launches[name] += count
 
+    # 30. the TPC-DS kit on the same session: its star schema at SF 10,
+    # the eight reporting queries against the oracle, the kernels on the
+    # inputs they handed them, the native string encoder
+    phase_clock.next(30)
+    try:
+        ds_launches = tpcds_path(session, args)
+    except Exception as e:  # noqa: BLE001 - report the phase, then exit
+        fail(f"TPC-DS path: {type(e).__name__}: {e}")
+    log(f"tpcds_path_launches {json.dumps(ds_launches)}")
+    for name, count in ds_launches.items():
+        launches[name] += count
+
     # 11. the tiled lane over lineitem at a tenth of Q1's decoded bind
     phase_clock.next(11)
     units1, ub1, tu1, tiles_q1 = tile_plan(session, "lineitem", Q1_COLS, 1)
@@ -5990,11 +6494,11 @@ def main() -> int:
     phase_clock.next(16)
     cust = tpch.gen_customer(n_orders // 10, args.seed + 2)
     try:
-        mut_launches, post = mutation_path(session, tpch, li, orders, cust,
-                                           first, args)
+        mut_launches, post = mutation_path(session, tpch, li, li_code,
+                                           orders, cust, first, args)
     except Exception as e:  # noqa: BLE001 - report the phase, then exit
         fail(f"mutation path: {type(e).__name__}: {e}")
-    del cust
+    del cust, li_code
     log(f"mutation_path_launches {json.dumps(mut_launches)}")
     for name, count in mut_launches.items():
         launches[name] += count

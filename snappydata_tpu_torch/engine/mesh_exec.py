@@ -346,6 +346,8 @@ def run_partial(compiled, params: Tuple, probe_data, ctx,
                     for i in range(ctx.num_devices)]
             merged = merge_slot_outs(outs, tags, home)
             if home.type == "cuda":
+                # locklint: blocking-under-lock the dispatch fence must
+                # cover the slots' runs to their completion
                 torch.cuda.synchronize(home)
     finally:
         for r in compiled.relations:
@@ -523,6 +525,8 @@ def _apply_shuffle(compiled, meta, rels, tables, static, params, ctx, reg):
                 nbytes += nb
                 moved_rows += moved
             if ctx.home.type == "cuda":
+                # locklint: blocking-under-lock the exchange completes
+                # inside the fence it was dispatched under
                 torch.cuda.synchronize(ctx.home)
         reg.inc("mesh_exchange_bytes", nbytes)
         reg.inc("mesh_exchange_rows", moved_rows)

@@ -17,8 +17,9 @@ import glob
 import os
 import shutil
 import subprocess
-import threading
 from typing import Dict, Sequence
+
+from snappydata_tpu_torch.utils import locks
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -27,7 +28,7 @@ BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_lock = locks.named_lock("ops.cuda_build")
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -63,35 +64,68 @@ def _command(name: str, extra: Sequence[str] = ()):
     return [nvcc_path(), *NVCC_FLAGS, *extra, "-o", so, src]
 
 
+class Build:
+    """nvcc processes started together by `start_build`, running while the
+    caller does other work; `wait()` collects them."""
+
+    def __init__(self, procs):
+        self.procs = procs
+        self.outputs: Dict[str, str] = {}
+        self.errors = None
+
+    def wait(self) -> Dict[str, str]:
+        """nvcc's output per compiled source; raises with it when one
+        failed."""
+        if self.errors is None:
+            self.errors = []
+            for n, p in self.procs:
+                out, _ = p.communicate()
+                self.outputs[n] = out
+                if p.returncode != 0:
+                    self.errors.append(f"nvcc failed for {n}.cu:\n{out}")
+                _inflight.pop(n, None)
+        if self.errors:
+            raise RuntimeError("\n".join(self.errors))
+        return self.outputs
+
+
+# kernel name -> the Build compiling it: `load` waits for it rather than
+# starting a second nvcc into the same library
+_inflight: Dict[str, Build] = {}
+
+
+def start_build(names: Sequence[str], force: bool = False,
+                extra_flags: Sequence[str] = ()) -> Build:
+    """Start compiling every stale kernel in `names` (every one with
+    `force`), one nvcc per source, all started together, with
+    `extra_flags` after the usual ones (e.g. ("-Xptxas", "-v") for
+    register and spill counts); returns without waiting."""
+    os.makedirs(BUILD, exist_ok=True)
+    b = Build([(n, subprocess.Popen(_command(n, extra_flags),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+               for n in names if force or _stale(n)])
+    for n, _p in b.procs:
+        _inflight[n] = b
+    return b
+
+
 def build(names: Sequence[str], force: bool = False,
           extra_flags: Sequence[str] = ()) -> Dict[str, str]:
-    """Compile every stale kernel in `names` (every one with `force`),
-    one nvcc per source, all started together, with `extra_flags` after
-    the usual ones (e.g. ("-Xptxas", "-v") for register and spill counts);
-    returns nvcc's output per compiled source and raises with it when one
-    fails."""
-    os.makedirs(BUILD, exist_ok=True)
-    procs = [(n, subprocess.Popen(_command(n, extra_flags),
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True))
-             for n in names if force or _stale(n)]
-    errors = []
-    outputs = {}
-    for n, p in procs:
-        out, _ = p.communicate()
-        outputs[n] = out
-        if p.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu:\n{out}")
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return outputs
+    """`start_build`, then wait: nvcc's output per compiled source, raising
+    with it when one fails."""
+    return start_build(names, force, extra_flags).wait()
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built on first use."""
+    """The loaded library for `csrc/<name>.cu`, built on first use (or
+    when a started build of it ends)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            pending = _inflight.get(name)
+            if pending is not None:
+                pending.wait()
             if _stale(name):
                 build([name])
             lib = ctypes.CDLL(_paths(name)[1])

@@ -424,6 +424,8 @@ def dispatch_scope(device: Optional[torch.device] = None):
     with dispatch_lock:
         yield
         if device is not None and device.type == "cuda":
+            # locklint: blocking-under-lock the dispatch lock exists
+            # exactly to fence device work; the run completes inside it
             torch.cuda.synchronize(device)
 
 

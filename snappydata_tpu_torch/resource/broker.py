@@ -199,8 +199,9 @@ class ResourceBroker:
         try:
             with config.device_scope(device):
                 tier.pressure_demote(self, target_bytes)
-        # the watcher is advisory relief: a failed background pass leaves
-        # the synchronous high-watermark degrade fully in force
+        # locklint: swallowed-exception the watcher is advisory relief: a
+        # failed background pass leaves the synchronous high-watermark
+        # degrade fully in force
         except Exception:
             _pressure_log_once()
         finally:
@@ -228,6 +229,8 @@ class ResourceBroker:
         with self._tables_lock:
             dead = []
             for (owner, nm), ref in self._tables.items():
+                # locklint: callback-under-lock weakref deref, not a
+                # callback: it runs no user code and touches no locks
                 data = ref()
                 if data is None:
                     dead.append((owner, nm))
@@ -573,6 +576,10 @@ class ResourceBroker:
             or next((c for c in self._queue if c.query_id == query_id),
                     None) \
             or self._watched.get(query_id)
+
+    def lookup(self, query_id: str) -> Optional[QueryContext]:
+        with self._cond:
+            return self._lookup_locked(query_id)
 
 
 _global_broker: Optional[ResourceBroker] = None

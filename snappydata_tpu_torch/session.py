@@ -401,6 +401,9 @@ class SnappySession:
             self.catalog._named_prepared = {}
         return self.catalog._named_prepared
 
+    def table_rows(self, name: str) -> Result:
+        return self.sql(f"SELECT * FROM {name}")
+
     def query_schema(self, sql_text: str) -> T.Schema:
         """Output schema of a query without executing it (ref:
         CachedDataFrame exposes the analyzed schema); subqueries become
@@ -466,6 +469,12 @@ class SnappySession:
                 # the WAL seq IS the commit timestamp: manifests this
                 # statement publishes carry it
                 with mvcc.commit_scope(seq):
+                    # locklint: blocking-under-lock nested reads under a
+                    # DML's mutation hold run on store-less scratch
+                    # sessions (tile-merge scratch, matview folds) whose
+                    # _sql_statement never reaches wal_sync / fsync;
+                    # device waits here are the cost of journal -> apply
+                    # atomicity
                     result = self.execute_statement(stmt, tuple(params))
             # the ack waits for the covering fsync OUTSIDE the mutation
             # lock, so concurrent committers coalesce into one group
@@ -2101,6 +2110,10 @@ class SnappySession:
                 seq = ds.wal_append(info.name, kind, arrays=arrays,
                                     nulls=nulls, extra=extra or None)
                 with mvcc.commit_scope(seq), _mv.managed_base_write():
+                    # locklint: callback-under-lock journal -> apply under
+                    # one mutation hold is the WAL invariant (on-disk log
+                    # >= in-memory state); apply_fn is the statement's
+                    # own apply, not a foreign registry callback
                     out = apply_fn()
             ds.wal_sync(seq, force=sync_force)
             return out
@@ -2966,10 +2979,6 @@ class SnappySession:
             return self._create_sample_table(stmt)
         if stmt.stream:
             return self._create_stream_table(stmt)
-        if stmt.provider not in ("column", "row"):
-            raise NotImplementedError(
-                "only CREATE TABLE ... USING column | row, CREATE STREAM "
-                "TABLE and CREATE SAMPLE TABLE are ported")
         if stmt.as_select is not None:
             if stmt.if_not_exists and \
                     self.catalog.lookup_table(stmt.name) is not None:

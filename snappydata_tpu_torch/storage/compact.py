@@ -303,9 +303,9 @@ def _sweep_body(broker, device=None) -> None:
             for _nm, data in broker._iter_tables():
                 if foldable_fallbacks(data) >= max(1, min_fb):
                     run_compaction_pass(data)
-    # the sweep is advisory hygiene: a failed background pass leaves every
-    # synchronous path (and the counted fallbacks that triggered it) in
-    # force
+    # locklint: swallowed-exception the sweep is advisory hygiene: a
+    # failed background pass leaves every synchronous path (and the
+    # counted fallbacks that triggered it) in force
     except Exception:
         if not _log_once:
             _log_once = True

@@ -170,6 +170,9 @@ class DeviceTable:
     # slots split the batch axis (a row table's mesh bind is replicated)
     mesh: object = None
 
+    def column(self, idx: int):
+        return self.columns[idx]
+
 
 _COMPRESSIBLE = {Encoding.VALUE_DICT: "dict", Encoding.RUN_LENGTH: "rle",
                  Encoding.BOOLEAN_BITSET: "bitset"}
@@ -571,18 +574,24 @@ def _build_decoded_column(data, manifest, views, row_chunks, ci, f, b, cap,
             smin[len(views) + j] = float(stat_src.min())
             smax[len(views) + j] = float(stat_src.max())
     if not is_str:
+        # a rebuilt column's probe surface replaces any earlier one: the
+        # skipper must never probe a dictionary the deltas outdate
         dom = _dict_domain(views, ci, b)
         if dom is not None:
             cache[("dictdom", ci)] = dom
+        else:
+            cache.pop(("dictdom", ci), None)
     return place(stacked), smin, smax, place(null_mask) if any_null else None
 
 
 def _dict_domain(views, ci: int, b: int):
     """(sorted host dicts [b, Dp] f64, sizes [b]) of a column's
     VALUE_DICT batches — the dictionary-domain batch skipper's probe
-    surface.  Batches without a usable dictionary report size 0 = keep."""
+    surface.  Batches without a usable dictionary (other encodings, or
+    update deltas touching this column) report size 0 = always keep."""
     vd = [(i, v.batch.columns[ci]) for i, v in enumerate(views)
           if v.batch.columns[ci].encoding == Encoding.VALUE_DICT
+          and not any(d[0] == ci for d in v.deltas)
           and v.batch.columns[ci].dictionary is not None
           and len(v.batch.columns[ci].dictionary)]
     if not vd:

@@ -36,8 +36,12 @@ from snappydata_tpu_torch.observability.metrics import global_registry
 from snappydata_tpu_torch.utils import locks
 
 # bind-transfer accounting: encoded bytes that crossed to the device vs the
-# decoded bytes they stand for, and batches that stayed code-resident
+# decoded bytes they stand for, batches whose encoded form crossed
+# (batches_device_decoded) and, of those, batches that stayed code-resident
+# (batches_code_bound; the port decodes a mixed column on the host, so the
+# two move together)
 _counters: Dict[str, int] = {"bytes_encoded": 0, "bytes_decoded_equiv": 0,
+                             "batches_device_decoded": 0,
                              "batches_code_bound": 0}
 
 
@@ -126,6 +130,11 @@ def counters() -> Dict[str, int]:
     return dict(_counters)
 
 
+def reset_counters() -> None:
+    for k in _counters:
+        _counters[k] = 0
+
+
 def compressed_fallback(reason: str, n: int = 1, table=None) -> None:
     """Count a decode-first reroute (a column that did NOT bind in the
     compressed domain), itemized by reason: compressed_fallback_<reason>
@@ -193,6 +202,7 @@ def code_plates(vd_cols, b: int, cap: int, dt, device: torch.device):
         sizes[i] = d.shape[0]
         _counters["bytes_encoded"] += int(c.data.nbytes + d.nbytes)
         _counters["bytes_decoded_equiv"] += int(cap * d.dtype.itemsize)
+        _counters["batches_device_decoded"] += 1
         _counters["batches_code_bound"] += 1
     plate = CodePlate(upload(codes, device), upload(dicts, device))
     return plate, host, sizes
@@ -216,6 +226,7 @@ def rle_plates(rle_cols, b: int, cap: int, dt,
         _counters["bytes_encoded"] += int(
             c.data.nbytes + np.asarray(c.runs).nbytes)
         _counters["bytes_decoded_equiv"] += int(cap * vals.dtype.itemsize)
+        _counters["batches_device_decoded"] += 1
         _counters["batches_code_bound"] += 1
     return RlePlate(upload(vals, device), upload(ends, device))
 
@@ -229,6 +240,7 @@ def bit_plates(bit_cols, b: int, cap: int, device: torch.device) -> BitPlate:
         packed[i, :raw.shape[0]] = raw
         _counters["bytes_encoded"] += int(raw.nbytes)
         _counters["bytes_decoded_equiv"] += int(cap)
+        _counters["batches_device_decoded"] += 1
         _counters["batches_code_bound"] += 1
     return BitPlate(upload(packed, device))
 

@@ -126,9 +126,9 @@ def spill_batch(batch) -> Tuple[int, object]:
                 freed += ac.nbytes
             staged.append(offs)
         fh.flush()
-        # the spill runs on the degradation ladder under the table lock:
-        # the manifest swap is atomic against mutation, and the write is
-        # the memory relief
+        # locklint: blocking-under-lock spill runs on the degradation
+        # ladder under the table lock by design: the manifest swap must
+        # be atomic against mutation, and the write is the memory relief
         os.fsync(fh.fileno())
     if freed == 0:
         os.unlink(path)
@@ -166,6 +166,7 @@ def spill_to_budget(data, budget: int) -> int:
     from snappydata_tpu_torch.observability.metrics import global_registry
 
     spilled = 0
+    # locklint: lock=storage.column_table (only column tables spill)
     with data._lock:
         m = data._manifest
         per_view = [batch_resident_bytes(v.batch) for v in m.views]

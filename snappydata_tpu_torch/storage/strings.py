@@ -1,10 +1,11 @@
-"""String interning for column ingest.
+"""The plain version of the native string-intern encoder.
 
-Port of the vectorized pandas path of snappydata_tpu/native/__init__.py
-(`fast_encode_strings`), which that module documents as the equivalent of
-its C++ encoder: values intern into the table's append-only dictionary in
-first-appearance order, so the same inserts mint the same codes in both
-packages.
+Port of the vectorized pandas path of snappydata_tpu/native/__init__.py,
+the twin of `csrc/fastingest.cpp` (`snappydata_tpu_torch.native`): values
+intern into the table's append-only dictionary in first-appearance order,
+so the same inserts mint the same codes through either encoder and in
+both packages.  Ingest calls `native.fast_encode_strings`, which comes
+here only when the C++ encoder cannot be built.
 """
 
 from __future__ import annotations
@@ -14,18 +15,12 @@ from typing import Optional, Tuple
 import numpy as np
 
 
-def fast_encode_strings(values: np.ndarray, lookup: dict, store: list
-                        ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """One pass: intern `values` into (lookup, store) and return
-    (int32 codes, null mask | None)."""
+def encode_plain(values: np.ndarray, lookup: dict, store: list
+                 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Intern the object array `values` (missing markers already None)
+    into (lookup, store); return (int32 codes, null mask | None)."""
     import pandas as pd
 
-    values = np.ascontiguousarray(np.asarray(values, dtype=object))
-    # pandas-style missing markers (float NaN, pd.NA) are SQL NULLs
-    na = pd.isna(values)
-    if na.any():
-        values = values.copy()
-        values[na] = None
     # factorize in C, walk only the uniques in Python
     inverse, uniques = pd.factorize(values, use_na_sentinel=True)
     trans = np.empty(max(1, len(uniques)), dtype=np.int32)

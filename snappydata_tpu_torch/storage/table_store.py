@@ -41,10 +41,10 @@ import numpy as np
 
 from snappydata_tpu_torch import config
 from snappydata_tpu_torch import types as T
+from snappydata_tpu_torch.native import fast_encode_strings
 from snappydata_tpu_torch.storage import mvcc
 from snappydata_tpu_torch.storage.batch import ColumnBatch
 from snappydata_tpu_torch.storage.encoding import decode_to_numpy, decode_validity
-from snappydata_tpu_torch.storage.strings import fast_encode_strings
 from snappydata_tpu_torch.utils import locks
 
 
@@ -707,8 +707,12 @@ class ColumnTableData:
                 deltas = list(view.deltas)
                 for name, fn in assignments.items():
                     ci = self.schema.index(name)
+                    # locklint: callback-under-lock assignment evaluators
+                    # are pure host functions over the captured arrays;
+                    # they never touch storage locks or this table
+                    raw = fn(cols)
                     values, vnulls = self._to_device_domain(
-                        ci, fn(cols), cols[self.schema.fields[ci].name])
+                        ci, raw, cols[self.schema.fields[ci].name])
                     deltas.append((ci, hit.copy(), values, vnulls))
                 new_views.append(dataclasses.replace(view,
                                                      deltas=tuple(deltas)))
@@ -721,6 +725,10 @@ class ColumnTableData:
                     for name, fn in assignments.items():
                         ci = self.schema.index(name)
                         col = rb._cols[ci][:rb.count]
+                        # locklint: callback-under-lock assignment
+                        # evaluators are pure host functions over the
+                        # captured arrays (compiled by the executor);
+                        # they never touch storage locks or this table
                         raw = fn(rb_cols)
                         if raw is None:  # SQL NULL assignment
                             if rb._nulls[ci] is None:
@@ -988,6 +996,10 @@ class RowTableData:
             return None
         return tuple(c[ordinal] for c in self._cols)
 
+    def to_arrays(self) -> Tuple[List[np.ndarray], int]:
+        arrays, _nulls, n = self.to_arrays_with_nulls()
+        return arrays, n
+
     def to_arrays_with_nulls(self):
         """(arrays, null masks, count) of the live rows: rows store python
         values incl. None; numeric Nones fill as 0 with the mask set."""
@@ -1021,6 +1033,9 @@ class RowTableData:
             hit = np.asarray(predicate(cols)) & np.array(self._live)
             for name, fn in assignments.items():
                 ci = self.schema.index(name)
+                # locklint: callback-under-lock assignment evaluators are
+                # pure host functions over the captured arrays; they
+                # never touch storage locks or this table
                 vals = np.asarray(fn(cols))
                 for ordinal in np.flatnonzero(hit):
                     v = vals if vals.shape == () else vals[ordinal]

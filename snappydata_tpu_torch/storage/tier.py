@@ -225,9 +225,10 @@ def demote_batch(batch, table_name: str = "") -> Tuple[int, object]:
     with open(path, "wb") as fh:
         fh.write(wire)
         fh.flush()
-        # the framed spill runs on the degradation ladder under the
-        # table lock: the manifest swap is atomic against mutation, and
-        # the write is the memory relief
+        # locklint: blocking-under-lock the framed spill runs on the
+        # degradation ladder under the table lock by design (the
+        # manifest swap is atomic against mutation; the write is the
+        # memory relief)
         os.fsync(fh.fileno())
     if len(wire) < len(buf):
         # short write detected (the kernel's write count is the seam a
@@ -477,6 +478,7 @@ def promote_table(data) -> int:
         # resolved OUTSIDE the table lock: the broker registry walk
         # must not nest under storage.column_table
         tname = _table_name_of(data)
+        # locklint: lock=storage.column_table (only column tables tier)
         with data._lock:
             m = data._manifest
             new_views = list(m.views)
@@ -573,6 +575,7 @@ def demote_host(tables, excess_bytes: int) -> int:
             break
         if not hasattr(data, "_manifest") or not hasattr(data, "_lock"):
             continue
+        # locklint: lock=storage.column_table (only column tables tier)
         with data._lock:
             m = data._manifest
             new_views = list(m.views)

@@ -1978,3 +1978,52 @@ def test_cuda_cross_card_mesh_reads_bind_time_blocks(cuda_device):
     finally:
         (props.pallas_reduce, props.pallas_group_reduce,
          props.mesh_slots, props.mesh_join_strategy) = saved
+
+
+@pytest.mark.cuda
+def test_cuda_value_dict_skipper_sees_update_deltas(cuda_device):
+    """Fault C8 on CUDA: after an UPDATE of a VALUE_DICT column, the
+    batch skipper keeps the batches whose deltas touch the column, so the
+    25 updated rows are found; a value of untouched batches keeps its
+    count, and nothing leaves the device."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+    from snappydata_tpu_torch.observability.metrics import global_registry
+
+    s = SnappySession(catalog=Catalog())
+    s.sql("CREATE TABLE vd_t (k BIGINT, qty DOUBLE, price DOUBLE) "
+          "USING column")
+    rng = np.random.default_rng(7)
+    n = 60_000
+    qty = rng.integers(1, 51, n).astype(np.float64)
+    s.insert_arrays("vd_t", [np.arange(n, dtype=np.int64), qty,
+                             np.round(rng.uniform(900.0, 105_000.0, n), 2)])
+    s.catalog.describe("vd_t").data.force_rollover()
+    reg = global_registry()
+    h0 = reg.counter("host_fallbacks")
+    assert s.sql("SELECT count(*) FROM vd_t WHERE qty = 17.0").rows() == \
+        [(int((qty == 17.0).sum()),)]
+    s.sql("UPDATE vd_t SET qty = 999.0 WHERE k < 25")
+    assert s.sql("SELECT count(*) FROM vd_t WHERE qty = 999.0").rows() == \
+        [(25,)]
+    assert s.sql("SELECT count(*) FROM vd_t WHERE qty = 17.0").rows() == \
+        [(int((qty[25:] == 17.0).sum()),)]
+    assert reg.counter("host_fallbacks") == h0
+
+
+@pytest.mark.cuda
+def test_cuda_unknown_provider_makes_a_column_table(cuda_device):
+    """Fault C9 on CUDA: `USING parquet` and a CTAS `USING jdbc` make
+    column tables under those provider names, bound on the card."""
+    from snappydata_tpu_torch import SnappySession
+    from snappydata_tpu_torch.catalog import Catalog
+
+    s = SnappySession(catalog=Catalog())
+    s.sql("CREATE TABLE a (x INT) USING parquet")
+    s.sql("INSERT INTO a VALUES (1), (2), (3)")
+    assert s.sql("SELECT sum(x) FROM a").rows() == [(6,)]
+    assert s.catalog.describe("a").provider == "parquet"
+    s.sql("CREATE TABLE b USING jdbc AS SELECT 1 AS x")
+    assert s.sql("SELECT * FROM b").rows() == [(1,)]
+    assert s.catalog.describe("b").provider == "jdbc"
+    assert s.device.type == "cuda"

@@ -467,3 +467,34 @@ def test_mesh_lane_and_multihost_import_no_jax():
     out = _run(_MESH)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout, out.stdout
+
+
+_TAIL = r"""
+import sys
+import numpy as np
+from snappydata_tpu_torch import SnappySession, native
+from snappydata_tpu_torch.catalog import Catalog
+from snappydata_tpu_torch.utils import tpcds
+
+codes, nulls = native.fast_encode_strings(
+    np.array(["x", None, "y", "x"], dtype=object), {}, [])
+assert codes.tolist() == [0, 0, 1, 0] and nulls.tolist() == [
+    False, True, False, False]
+s = SnappySession(catalog=Catalog(), device="cpu")
+tpcds.load_tpcds(s, sf=0.001, seed=3)
+assert s.sql(tpcds.QUERIES["q36"]).rows()
+s.sql("CREATE TABLE p (x INT) USING parquet")
+assert s.catalog.describe("p").provider == "parquet"
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "snappydata_tpu" or m.startswith("snappydata_tpu."))
+print("LEAKED", leaked)
+"""
+
+
+def test_native_encoder_tpcds_and_providers_import_no_jax():
+    """The native string encoder, the TPC-DS kit and a table of another
+    provider run without JAX or the JAX package."""
+    out = _run(_TAIL)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout

@@ -369,3 +369,38 @@ def test_kernel_library_is_stale_after_a_shared_header_changes(
     assert not cuda_build._stale("k")
     os.utime(header, (300, 300))            # the header moved on
     assert cuda_build._stale("k")
+
+
+def test_load_waits_for_a_started_build(tmp_path, monkeypatch):
+    """A kernel library whose build `start_build` started loads once that
+    build ends, compiled once: `load` never starts a second compiler into
+    the same file.  g++ stands in for nvcc (a plain C entry point)."""
+    import ctypes
+    import shutil
+
+    from snappydata_tpu_torch.ops import cuda_build
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
+    monkeypatch.setattr(cuda_build, "BUILD", str(build))
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    (csrc / "k.cu").write_text('extern "C" int seven() { return 7; }\n')
+    runs = tmp_path / "runs"
+
+    def command(name, extra=()):
+        src, so = cuda_build._paths(name)
+        return ["sh", "-c", f"sleep 0.5; echo {name} >> {runs}; "
+                f"g++ -x c++ -shared -fPIC -o {so} {src}"]
+
+    monkeypatch.setattr(cuda_build, "_command", command)
+    pending = cuda_build.start_build(["k"], force=True)
+    assert cuda_build._inflight["k"] is pending
+    fn = cuda_build.entry("k", "seven", [])
+    assert fn() == 7
+    assert runs.read_text().split() == ["k"]
+    assert "k" not in cuda_build._inflight
+    assert pending.wait() == {"k": ""}
+    assert isinstance(cuda_build.load("k"), ctypes.CDLL)

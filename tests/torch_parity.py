@@ -163,6 +163,26 @@ def port_cases(ref_file, names, edits=(), rename=None):
 
 
 
+def case_names(ref_file):
+    """Every case of the reference test file `ref_file` with what pytest
+    needs to run it there: its top-level `test_*` functions, `Test*`
+    classes and fixtures, for `port_cases(ref_file, case_names(...))`."""
+    import ast
+
+    with open(os.path.join(TESTS_DIR, ref_file)) as fh:
+        tree = ast.parse(fh.read())
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
+            out.append(node.name)
+        elif isinstance(node, ast.FunctionDef) and (
+                node.name.startswith("test_")
+                or any("fixture" in ast.unparse(d)
+                       for d in node.decorator_list)):
+            out.append(node.name)
+    return out
+
+
 def unslow(obj):
     """Take the reference's own `slow` mark off a ported case (a function
     or a class) that runs in seconds on the port."""
